@@ -1,0 +1,155 @@
+"""FT-Transformer tabular model (port of shifu_tpu/models/ft_transformer.py,
+scoring path).
+
+Feature Tokenizer + Transformer: every selected column becomes a token
+(numeric: x_j * w_j + b_j; categorical: table lookup), a CLS token is
+prepended, L pre-LN transformer blocks attend over the feature axis, and
+the CLS representation feeds the `shifu_output_0` head.
+
+Each block runs fused (`ops/ft_block`: the CUDA kernel on the card, its
+plain twin on the CPU) when `fused_block_engaged` says so, else through the
+unfused module math, whose attention takes `ops/small_attention` for the
+shapes its gate admits and `ops/attention.mha` for the rest.  Both branches
+read the same parameters under the same names (`block_{i}/qkv/kernel`, ...),
+which are the names of an exported artifact.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config.schema import ModelSpec
+from ..ops.attention import mha
+from ..ops.ft_block import fused_block_engaged, fused_transformer_block
+from ..ops.initializers import xavier_uniform
+from ..ops.small_attention import (small_attention_applicable,
+                                   small_token_attention)
+from .base import Dense, ShifuDense, dtype_of
+from .embedding import (CategoricalEmbed, FieldLayout, NumericEmbed,
+                        split_features)
+
+LN_EPS = 1e-6  # flax nn.LayerNorm default (torch's is 1e-5)
+
+
+class LayerNorm(nn.Module):
+    """Counterpart of flax `nn.LayerNorm(dtype=cdt)`: params `scale` and
+    `bias` (float32); statistics in float32 with Flax's fast variance
+    E[x^2] - E[x]^2 (clipped at 0), eps 1e-6, output in `cdt`."""
+
+    def __init__(self, dim: int, compute_dtype: str = "bfloat16"):
+        super().__init__()
+        self.cdt = dtype_of(compute_dtype)
+        self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True)
+               - mean * mean).clamp(min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + LN_EPS) * self.scale)
+        return (y + self.bias).to(self.cdt)
+
+
+class TransformerBlock(nn.Module):
+    """One pre-LN block: LN -> QKV -> attention -> proj -> residual ->
+    LN -> FFN (tanh-gelu) -> residual."""
+
+    def __init__(self, spec: ModelSpec,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        d, r, cdt = spec.token_dim, spec.mlp_ratio, spec.compute_dtype
+        if d % spec.num_attention_heads != 0:
+            raise ValueError(
+                f"token_dim ({d}) must be divisible by num_attention_heads "
+                f"({spec.num_attention_heads})")
+        self.spec = spec
+        self.ln_attn = LayerNorm(d, cdt)
+        self.qkv = Dense(d, 3 * d, cdt, generator=generator)
+        self.proj = Dense(d, d, cdt, generator=generator)
+        self.ln_mlp = LayerNorm(d, cdt)
+        self.mlp_in = Dense(d, r * d, cdt, generator=generator)
+        self.mlp_out = Dense(r * d, d, cdt, generator=generator)
+
+    def fused_params(self) -> dict:
+        """The stacked-name dict the fused block takes."""
+        return {f"{mod}_{leaf}": getattr(getattr(self, mod), leaf)
+                for mod in ("ln_attn", "qkv", "proj", "ln_mlp", "mlp_in",
+                            "mlp_out")
+                for leaf in (("scale", "bias") if mod.startswith("ln")
+                             else ("kernel", "bias"))}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spec = self.spec
+        b, s, d = x.shape
+        h = spec.num_attention_heads
+        if fused_block_engaged(spec, s):
+            return fused_transformer_block(x, self.fused_params(), spec)
+
+        y = self.ln_attn(x)
+        q, k, v = (t.reshape(b, s, h, d // h).transpose(1, 2).contiguous()
+                   for t in self.qkv(y).split(d, dim=-1))
+        if small_attention_applicable(s, d // h, h):
+            attn = small_token_attention(q, k, v)
+        else:
+            attn = mha(q, k, v)
+        attn = attn.transpose(1, 2).reshape(b, s, d)
+        x = x + self.proj(attn)
+
+        y = self.mlp_in(self.ln_mlp(x))
+        y = self.mlp_out(F.gelu(y, approximate="tanh"))
+        return x + y
+
+
+class FTTransformer(nn.Module):
+    def __init__(self, spec: ModelSpec, layout: FieldLayout,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if spec.attention_impl != "local":
+            raise NotImplementedError(
+                f"attention_impl={spec.attention_impl!r} is not ported yet "
+                "(ROADMAP.md, queue A: flash in item (d), ring/ulysses in "
+                "item (f)); the port scores with 'local'")
+        if spec.pipeline_stages > 1:
+            raise NotImplementedError(
+                "pipeline_stages > 1 is not ported yet (ROADMAP.md, queue "
+                "A item (f)); export the canonical per-block artifact")
+        self.spec = spec
+        self.layout = layout
+        d, cdt = spec.token_dim, spec.compute_dtype
+        self.cdt = dtype_of(cdt)
+        if layout.num_numeric:
+            self.numeric_tokenizer = NumericEmbed(layout, d, cdt, generator)
+        if layout.num_categorical:
+            self.cat_tokenizer = CategoricalEmbed(layout, d, cdt, generator)
+        self.cls_token = nn.Parameter(xavier_uniform((1, 1, d), generator))
+        for i in range(spec.num_layers):
+            self.add_module(f"block_{i}", TransformerBlock(spec, generator))
+        self.ln_final = LayerNorm(d, cdt)
+        self.shifu_output_0 = ShifuDense(d, spec.num_heads, None,
+                                         spec.xavier_bias_init, cdt,
+                                         generator)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        numeric, ids = split_features(features, self.layout)
+        tokens = []
+        if self.layout.num_numeric:
+            tokens.append(self.numeric_tokenizer(numeric))
+        if self.layout.num_categorical:
+            tokens.append(self.cat_tokenizer(ids))
+        # numeric tokens are float32 (promotion); the concat promotes the
+        # categorical ones with them before the cast, as jnp.concatenate does
+        dt = tokens[0].dtype
+        for t in tokens[1:]:
+            dt = torch.promote_types(dt, t.dtype)
+        x = torch.cat([t.to(dt) for t in tokens], dim=1)
+        cls = self.cls_token.to(self.cdt).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x.to(self.cdt)], dim=1).contiguous()
+        for i in range(self.spec.num_layers):
+            x = getattr(self, f"block_{i}")(x)
+        cls_out = self.ln_final(x[:, 0, :])
+        return self.shifu_output_0(cls_out).float()

@@ -1,0 +1,197 @@
+"""Whole models of the port against the JAX package's: FT-Transformer (fused
+and unfused blocks) and the MLP, with the JAX model's Flax params carried
+across by `params_from_jax` and the same inputs fed to both.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from shifu_tpu.config.schema import ModelSpec as JaxModelSpec
+from shifu_tpu.data import synthetic
+from shifu_tpu.export.artifact import _flatten_params
+from shifu_tpu.models.registry import build_model as jax_build_model
+from shifu_tpu_torch.config.schema import DataSchema, ModelSpec, _from_dict
+from shifu_tpu_torch.export.artifact import params_from_jax
+from shifu_tpu_torch.models.registry import build_model
+from shifu_tpu_torch.ops import ft_block, small_attention
+
+N_NUMERIC, N_CAT, VOCAB = 5, 2, 11
+
+# f32 end to end: summation order only
+F32_TOL = 2e-5
+# bf16 compute: activations round to bf16 between ops on both sides, but
+# the frameworks' bf16 products round at different points, and the
+# unfused branch differs in kind: JAX on the CPU runs `mha` (bf16 scores),
+# the port the small-attention kernel's f32 softmax.  A few bf16 ulps of a
+# logit of order 1 (an ulp is 2^-8 in [0.5, 1)), over two blocks.
+BF16_TOL = 2e-2
+
+
+def _schema():
+    return synthetic.make_schema(num_features=N_NUMERIC + N_CAT,
+                                 num_categorical=N_CAT, vocab_size=VOCAB)
+
+
+def _rows(rng, n):
+    x = rng.normal(size=(n, N_NUMERIC + N_CAT)).astype(np.float32)
+    # ids in range, past the vocab, negative, and fractional
+    x[:, N_NUMERIC:] = rng.choice(
+        np.array([0, 3, 10, 11, 25, -2, 4.7], np.float32),
+        size=(n, N_CAT))
+    return x
+
+
+_PARAMS: dict = {}
+
+
+def _init_params(spec_kw, seed):
+    """Flax params, cached: the tree does not depend on the compute dtype
+    or on fused_block, so one init serves every variant of a width."""
+    kw = {k: v for k, v in spec_kw.items()
+          if k not in ("compute_dtype", "fused_block")}
+    key = (tuple(sorted(kw.items())), seed)
+    if key not in _PARAMS:
+        jschema = _schema()
+        jmodel = jax_build_model(
+            JaxModelSpec(**kw, fused_block="off"), jschema)
+        _PARAMS[key] = jax.jit(jmodel.init)(
+            jax.random.PRNGKey(seed),
+            jnp.zeros((2, jschema.feature_count)))["params"]
+    return _PARAMS[key]
+
+
+def _pair(spec_kw, seed=0):
+    """(jax forward, port model) sharing the Flax params."""
+    jschema = _schema()
+    jmodel = jax_build_model(JaxModelSpec(**spec_kw), jschema)
+    params = _init_params(spec_kw, seed)
+    schema = _from_dict(DataSchema, dataclasses.asdict(jschema))
+    model = build_model(ModelSpec(**spec_kw), schema, device="cpu")
+    model.load_state_dict(params_from_jax(_flatten_params(params), model))
+
+    apply = jax.jit(jmodel.apply)
+
+    def jfwd(x):
+        return np.asarray(apply({"params": params}, jnp.asarray(x)))
+    return jfwd, model
+
+
+def _ft_kw(fused_block, cdt):
+    return dict(model_type="ft_transformer", token_dim=16, num_layers=2,
+                num_attention_heads=2, mlp_ratio=2, compute_dtype=cdt,
+                fused_block=fused_block)
+
+
+@pytest.mark.parametrize("fused_block", ["on", "off"])
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_ft_transformer_matches_jax(fused_block, cdt):
+    jfwd, model = _pair(_ft_kw(fused_block, cdt))
+    x = _rows(np.random.default_rng(1), 6)
+    want = jfwd(x)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (6, 1)
+    tol = F32_TOL if cdt == "float32" else BF16_TOL
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    # on the CPU the wrappers run their plain versions, never a kernel
+    assert ft_block.fused_transformer_block.launches == 0
+    assert small_attention.small_token_attention.launches == 0
+
+
+def test_ft_fused_and_unfused_share_weights():
+    """The two branches read one parameter tree: an artifact serves either
+    way, and at f32 they agree."""
+    _, on = _pair(_ft_kw("on", "float32"))
+    _, off = _pair(_ft_kw("off", "float32"))
+    assert list(on.state_dict()) == list(off.state_dict())
+    x = torch.from_numpy(_rows(np.random.default_rng(2), 5))
+    with torch.inference_mode():
+        torch.testing.assert_close(on(x), off(x), rtol=F32_TOL,
+                                   atol=F32_TOL)
+
+
+def test_ft_unfused_takes_mha_outside_the_small_attention_envelope():
+    """Head dim 32 > 16: the unfused block uses plain `mha`, and still
+    matches JAX."""
+    kw = dict(_ft_kw("off", "float32"), token_dim=32, num_attention_heads=1)
+    jfwd, model = _pair(kw)
+    assert not small_attention.small_attention_applicable(8, 32, 1)
+    x = _rows(np.random.default_rng(3), 4)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, jfwd(x), rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("fused_block,want", [
+    ("auto", "fused_transformer_block"), ("off", "small_token_attention")])
+def test_ft_routing_ignores_jax_kill_switches(monkeypatch, fused_block, want):
+    """The JAX package's kill switches do not reach the port: with both set,
+    a block routes by fused_block and shape alone, as it does on the card,
+    and never to plain `mha` inside the kernels' envelope."""
+    from shifu_tpu_torch.models import ft_transformer
+    monkeypatch.setenv("SHIFU_TPU_NO_FT_FUSED", "1")
+    monkeypatch.setenv("SHIFU_TPU_NO_SMALL_ATTENTION", "1")
+    calls = []
+    for name in ("fused_transformer_block", "small_token_attention", "mha"):
+        fn = getattr(ft_transformer, name)
+        monkeypatch.setattr(
+            ft_transformer, name,
+            lambda *a, _n=name, _f=fn, **k: calls.append(_n) or _f(*a, **k))
+    schema = _from_dict(DataSchema, dataclasses.asdict(_schema()))
+    model = build_model(ModelSpec(**_ft_kw(fused_block, "float32")), schema,
+                        device="cpu", generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        model(torch.from_numpy(_rows(np.random.default_rng(6), 3)))
+    assert calls == [want] * 2
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("acts", [("tanh", "relu"),
+                                  ("leakyrelu", "sigmoid")])
+def test_mlp_matches_jax(cdt, acts):
+    kw = dict(model_type="mlp", hidden_nodes=(6, 4), activations=acts,
+              compute_dtype=cdt)
+    jfwd, model = _pair(kw, seed=4)
+    x = np.random.default_rng(5).normal(
+        size=(8, N_NUMERIC + N_CAT)).astype(np.float32)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x)).numpy()
+    # bf16: a product and a bias add round to bf16 per layer on both sides
+    tol = F32_TOL if cdt == "float32" else 2e-2
+    np.testing.assert_allclose(got, jfwd(x), rtol=tol, atol=tol)
+
+
+def test_params_from_jax_rejects_missing_extra_and_misshaped_keys():
+    jschema = _schema()
+    kw = dict(model_type="mlp", hidden_nodes=(6,), activations=("relu",))
+    jmodel = jax_build_model(JaxModelSpec(**kw), jschema)
+    flat = _flatten_params(jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, jschema.feature_count)))
+        ["params"])
+    schema = _from_dict(DataSchema, dataclasses.asdict(jschema))
+    model = build_model(ModelSpec(**kw), schema, device="cpu")
+    params_from_jax(flat, model)  # complete: no error
+    key = "trunk/hidden_layer0/Dense_0/kernel"
+    with pytest.raises(KeyError, match="missing"):
+        params_from_jax({k: v for k, v in flat.items() if k != key}, model)
+    with pytest.raises(KeyError, match="unexpected"):
+        params_from_jax({**flat, "extra/kernel": flat[key]}, model)
+    with pytest.raises(ValueError, match="shape"):
+        params_from_jax({**flat, key: flat[key].T}, model)
+
+
+def test_unported_configurations_raise():
+    schema = _from_dict(DataSchema, dataclasses.asdict(_schema()))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(ModelSpec(model_type="deepfm"), schema, device="cpu")
+    for kw in (dict(attention_impl="flash"), dict(attention_impl="ring"),
+               dict(pipeline_stages=2)):
+        spec = ModelSpec(**dict(_ft_kw("auto", "float32"), **kw))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(spec, schema, device="cpu")
