@@ -7,8 +7,12 @@ Compute runs in `compute_dtype` with parameters held in float32, casting
 where Flax's `nn.Dense(dtype=cdt)` casts: inputs, kernel and bias to the
 compute dtype, product and bias add in it.
 
-The int8-wire first layer (`_WireDense`) belongs to the training slice and
-is not ported yet (ROADMAP.md).
+`_WireDense` is the int8-wire first layer of a model trained on the int8
+wire: the same `kernel`/`bias`, but an int8 input goes through
+`ops/int8_matmul` with the static wire grid instead of a separate dequant.
+Dropout (`Dropout`, after each hidden layer of `MLPTrunk`) runs only in
+training mode and draws from an explicit `torch.Generator`
+(`set_dropout_generator`).
 """
 
 from __future__ import annotations
@@ -21,6 +25,10 @@ from torch import nn
 from ..config.schema import ModelSpec
 from ..ops.activations import get_activation
 from ..ops.initializers import bias_init, xavier_uniform, zeros_bias
+from ..ops.int8_matmul import int8_available, int8_matmul_dequant
+
+# the int8 wire grid: (per-column scale, per-column offset or None)
+Wire = tuple[tuple[float, ...], Optional[tuple[float, ...]]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -48,18 +56,59 @@ class Dense(nn.Module):
                 + self.bias.to(self.cdt))
 
 
+class _WireDense(Dense):
+    """A Dense that takes int8 wire features natively (port of the JAX
+    `_WireDense`): same params, names, shapes and init order as `Dense`,
+    so the state_dict is the same either way.  An int8 input runs
+    `int8_matmul_dequant` (the kernel on the card, its plain version on
+    the CPU) with the grid held as non-persistent buffers.  Only shapes
+    within the kernel's gate are built: outside it the trainer decodes the
+    wire before the model (`train/step.make_wire_decode`).  Float inputs
+    take the ordinary Dense math."""
+
+    def __init__(self, in_features: int, out_features: int, wire: Wire,
+                 compute_dtype: str = "bfloat16", bias_fn=zeros_bias,
+                 generator: Optional[torch.Generator] = None):
+        if not int8_available(in_features, out_features):
+            raise ValueError(
+                f"_WireDense: {in_features} -> {out_features} is outside the "
+                "int8 kernel's shape gate; decode the wire before the model")
+        super().__init__(in_features, out_features, compute_dtype, bias_fn,
+                         generator)
+        scale, offset = wire
+        self.register_buffer("wire_scale",
+                             torch.tensor(scale, dtype=torch.float32),
+                             persistent=False)
+        self.register_buffer(
+            "wire_offset", None if offset is None
+            else torch.tensor(offset, dtype=torch.float32), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.int8:
+            return super().forward(x)
+        return int8_matmul_dequant(x, self.kernel, self.bias, self.wire_scale,
+                                   self.wire_offset, self.cdt)
+
+
 class ShifuDense(nn.Module):
     """The reference's `nn_layer`: xavier kernel, xavier-init bias (the
     reference quirk, `xavier_bias`), activation on `x @ W + b`.  The
-    dense sits in a child named `Dense_0`, the name Flax gives it."""
+    dense sits in a child named `Dense_0`, the name Flax gives it; with a
+    `wire` grid it is a `_WireDense`."""
 
     def __init__(self, in_features: int, features: int,
                  activation: Optional[str] = None, xavier_bias: bool = True,
                  compute_dtype: str = "bfloat16",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 wire: Optional[Wire] = None):
         super().__init__()
-        self.Dense_0 = Dense(in_features, features, compute_dtype,
-                             bias_init(xavier_bias), generator)
+        if wire is None:
+            self.Dense_0 = Dense(in_features, features, compute_dtype,
+                                 bias_init(xavier_bias), generator)
+        else:
+            self.Dense_0 = _WireDense(in_features, features, wire,
+                                      compute_dtype, bias_init(xavier_bias),
+                                      generator)
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -69,26 +118,60 @@ class ShifuDense(nn.Module):
         return y
 
 
+class Dropout(nn.Module):
+    """Flax `nn.Dropout`: in training mode keep each value with
+    probability 1 - rate and scale it by 1 / (1 - rate); identity in eval
+    mode.  Draws from `generator` (set by `set_dropout_generator`; the
+    device's default generator when None).  The draws differ from
+    `jax.random`'s for the same seed."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate <= 0:
+            return x
+        keep_prob = 1.0 - self.rate
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Point every `Dropout` of `model` at `generator`."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class MLPTrunk(nn.Module):
     """The hidden stack from ModelConfig (NumHiddenLayers / NumHiddenNodes /
-    ActivationFunc), layers named `hidden_layer{i}`.  Scoring only: dropout
-    is a training-time op and belongs to the training slice."""
+    ActivationFunc), layers named `hidden_layer{i}`.  With
+    `spec.dropout_rate > 0` each hidden layer's activation is followed by
+    dropout, active only in training mode.  `wire` attaches to layer 0
+    only: the one layer that sees wire-format inputs."""
 
     def __init__(self, spec: ModelSpec, in_features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 wire: Optional[Wire] = None):
         super().__init__()
         n_in = in_features
         for i, (n, act) in enumerate(zip(spec.hidden_nodes,
                                          spec.activations)):
             self.add_module(f"hidden_layer{i}", ShifuDense(
                 n_in, n, act, spec.xavier_bias_init, spec.compute_dtype,
-                generator))
+                generator, wire=wire if i == 0 else None))
             n_in = n
         self.out_features = n_in
+        # parameterless: the state_dict keeps only the hidden layers
+        self.dropouts = nn.ModuleList(Dropout(spec.dropout_rate)
+                                      for _ in spec.hidden_nodes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.children():
-            x = layer(x)
+        for i, drop in enumerate(self.dropouts):
+            x = drop(getattr(self, f"hidden_layer{i}")(x))
         return x
 
 

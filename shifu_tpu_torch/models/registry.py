@@ -10,6 +10,7 @@ from torch import nn
 
 from ..config.schema import DataSchema, ModelSpec
 from ..device import DeviceLike, resolve_device
+from .base import Wire
 
 # model types of the JAX ladder that later slices port (ROADMAP.md)
 _NOT_PORTED = {
@@ -22,17 +23,22 @@ _NOT_PORTED = {
 
 def build_model(spec: ModelSpec, schema: DataSchema,
                 device: DeviceLike = None,
-                generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Build the scoring module for `spec` on `device` (default `cuda:0`),
-    in eval mode.  Parameters are drawn from `generator` (a fresh one
-    seeded 0 when None) on the CPU and then moved, so one seed gives the
-    same weights on every device."""
+                generator: Optional[torch.Generator] = None,
+                wire: Optional[Wire] = None, train: bool = False
+                ) -> nn.Module:
+    """Build the module for `spec` on `device` (default `cuda:0`), in eval
+    mode for scoring or in training mode (`train=True`: dropout active).
+    Parameters are drawn from `generator` (a fresh one seeded 0 when None)
+    on the CPU and then moved, so one seed gives the same weights on every
+    device.  `wire` (the int8 grid of data/pipeline.wire_params) goes to
+    the MLP's layer 0; other model types never see wire inputs and ignore
+    it, as in the JAX package."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if spec.model_type == "mlp":
         from .mlp import ShifuMLP
-        model = ShifuMLP(spec, schema.feature_count, generator)
+        model = ShifuMLP(spec, schema.feature_count, generator, wire)
     elif spec.model_type == "ft_transformer":
         from .embedding import field_layout
         from .ft_transformer import FTTransformer
@@ -43,4 +49,4 @@ def build_model(spec: ModelSpec, schema: DataSchema,
             f"{_NOT_PORTED[spec.model_type]})")
     else:
         raise KeyError(f"unknown model_type {spec.model_type!r}")
-    return model.to(dev).eval()
+    return model.to(dev).train(train)

@@ -138,4 +138,5 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_kernel_sources_listed():
-    assert set(_build.sources()) == {"ft_block", "small_attention"}
+    assert set(_build.sources()) == {"ft_block", "small_attention",
+                                     "int8_matmul"}
