@@ -10,15 +10,22 @@ stderr, and no result line is printed):
                `nvidia-smi --query-gpu=name,power.limit` on a line of its own.
 2. build    — builds the CUDA kernels from shifu_tpu_torch/csrc (one nvcc per
                source, all started together) and prints the build seconds.
+               From here to the end of phase 3 a second process runs the
+               CPU halves of the FT locksteps (phases 11-13), and the first
+               profile sets CUPTI up beside the build.
 3. kernels  — each kernel against its plain PyTorch version on the card, at
                the shapes its path gives it and at edge shapes, with the
-               tolerance stated beside each check; device times (the
-               profiler's kernel durations per call) of kernel, plain
-               version and, for attention, `scaled_dot_product_attention`
-               as a yardstick, with the median whole-call times (CUDA
-               events) beside them; the least time the card could take
-               (bound: bytes over the memory rate or operations over the
-               peak for the compute dtype).
+               tolerance stated beside each check: the fused block (#1),
+               small-token attention forward (#2) and backward (#3), the
+               int8 first layer (#4), flash attention forward (#7) and its
+               dq and dk/dv kernels (#8).  Device times (the profiler's
+               kernel durations per call) of kernel, plain version and, for
+               attention, `scaled_dot_product_attention` as a yardstick
+               (forward, and forward + backward through autograd), with
+               the median whole-call times (CUDA events) beside some; the
+               least time the card could take (bound: bytes over the
+               memory rate or operations over the peak for the compute
+               dtype).
 4. serve    — a full-width FT-Transformer artifact (token_dim 64, 3 layers,
    fused      8 heads, mlp_ratio 4, 30 features of which 6 categorical with
                vocab 1000, bf16 compute; random weights from a seeded
@@ -26,9 +33,9 @@ stderr, and no result line is printed):
                the card: single-row submits from several threads plus
                4096-row `score_batch` frames.  Every answer is checked against
                `TorchScorer(device="cpu")`; the fused-block kernel must have
-               launched num_layers x batches dispatched times.
+               launched num_layers x batches dispatched times, no other.
 5. serve    — the same artifact with fused_block="off": the small-attention
-   unfused    kernel must launch and the fused-block kernel must not.
+   unfused    forward kernel must launch, no other.
    profile  — both artifacts served once more under torch.profiler: the
                device's busy share of the wall time and its top kernels
                (Chrome traces written to chiprun_out/).
@@ -38,7 +45,7 @@ stderr, and no result line is printed):
                synthetic rows, 2 epochs through `train(job, ..., device=cuda)`
                on the resident tier: samples/s and metrics per epoch; the
                int8 kernel must have launched once per train step and eval
-               batch.
+               batch, and no other kernel.
 7. lockstep — 8 train steps of that job from one init on the card and on the
                CPU, on the same batches: per-step losses, and each
                parameter's change over the 8 steps, within stated
@@ -51,10 +58,28 @@ stderr, and no result line is printed):
 10. profile — one steady-state training epoch (epoch 1, its steps and its
                eval) under torch.profiler: busy share, top kernels, a Chrome
                trace in chiprun_out/.
-11. a JSON line {"kernels": [...]} with each kernel's launches on its path
-   (serving for the FT kernels, training for int8_matmul), its error against
-   the plain version, its times and its bound.
-12. the last line: {"ok": true, "device": {...}}.
+11. train   — the FT-Transformer rung at full width (bench.py:524-527: 30
+    FT fused  numeric features, batch 8192, 131,072 rows, bf16 wire; the
+               model of phase 4, dropout 0), 2 epochs on the resident tier:
+               kernel #1 launches 3 x (train steps + eval batches), no other
+               kernel; the 8-step card-vs-CPU lockstep at batch 1024 (FT
+               locksteps compute in f32: LOCKSTEP_FT_DTYPE); the trained
+               model served as in phase 9; a profiled epoch.
+12. train   — the same width on the serving schema (24 numeric + 6
+    FT unfused categorical, vocab 1000, float32 wire) with dropout 0.1, 1
+               epoch: #2 and #3 launch 3 x train steps, and #1 3 x eval
+               batches (dropout switches fusion off in training only); the
+               lockstep at batch 1024 with fused_block="off", dropout 0.
+13. train   — attention_impl="flash" on the 1000-column schema (bench.py:
+    FT flash  507-508: 1000 features, 50 categorical, S = 1001 tokens), batch
+               1024, 8 steps, 1 epoch: #7 launches 3 x (steps + eval
+               batches), each #8 kernel 3 x steps; the lockstep at batch 8
+               (the CPU's plain attention at S = 1001 is the limit).
+14. a JSON line {"kernels": [...]} with each kernel's launches on its
+   training path (FT fused for #1, FT unfused for #2 and #3, the headline
+   MLP for #4, FT flash for #7 and #8), its error against the plain
+   version, its times and its bound; every kernel must have launched there.
+15. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -63,6 +88,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -107,7 +134,17 @@ TRAIN_ROWS = 2_621_440
 VALID_ROWS = 262_144
 TRAIN_BATCH = 65536
 TRAIN_EPOCHS = 2
-SHIFU_ROWS = 20_000
+# the Shifu-files run exercises the entry point on the per-batch tier; cut
+# from 20,000 rows to keep the script's time (its steps run at batch 100)
+SHIFU_ROWS = 5_000
+
+# the kernels' shapes on the FT training paths: the fused block (B, S, D,
+# H, R) and small-token attention (B, H, S, D) at batch 8192 (31 tokens,
+# token_dim 64, 8 heads of 8), flash attention on the 1000-column schema at
+# batch 1024 (1001 tokens)
+FT_BLOCK_SHAPE = (8192, 31, 64, 8, 4)
+SMALL_ATTN_SHAPE = (8192, 8, 31, 8)
+FLASH_SHAPE = (1024, 8, 1001, 8)
 
 SERVE_THREADS = 8
 SERVE_ROWS_PER_THREAD = 512
@@ -122,6 +159,17 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+_LAP = [time.perf_counter()]
+
+
+def lap(label: str) -> None:
+    """Print the wall seconds since the previous lap (the script must stay
+    well inside its time limit)."""
+    now = time.perf_counter()
+    say(f"time: {label} {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
 
 
 # -- measurement helpers ---------------------------------------------------
@@ -188,6 +236,28 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return total / reps / 1e3
 
 
+def randn_on(gen, device, *shape):
+    """Normal samples drawn on `device` by a generator there, seeded from
+    the host generator `gen`: the checks' inputs at the path shapes (4 x
+    66 M values for flash) take seconds to draw on the host and copy."""
+    import torch
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+    dev_gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(*shape, generator=dev_gen, device=device)
+
+
+def warm_profiler(device) -> None:
+    """One short profile on the card: the first in a process sets
+    CUPTI up (about 9 s on the H100 machine's host), so `main` runs it while
+    nvcc builds the kernels.  Run it in the thread that profiles later:
+    Kineto reports an error when CUPTI was set up in another."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(8, device=device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        (x + 1).sum().item()
+
+
 def check_close(name: str, got, want, atol: float, rtol: float) -> float:
     err = (got.float() - want.float()).abs()
     tol = atol + rtol * want.float().abs()
@@ -248,7 +318,7 @@ def check_ft_block(device, gen) -> dict:
         spec = ModelSpec(model_type="ft_transformer", token_dim=d,
                          num_attention_heads=h, mlp_ratio=r)
         p = block_params(d, r, gen, device)
-        x = torch.randn(b, s, d, generator=gen).to(device)
+        x = randn_on(gen, device, b, s, d)
         got = ft_block.fused_transformer_block(x, p, spec)
         want = ft_block.block_math(x, p, h)
         torch.cuda.synchronize()
@@ -259,7 +329,7 @@ def check_ft_block(device, gen) -> dict:
     edge_errs = [case(*shape)[3] for shape in
                  ((1, 31, 64, 8, 4), (7, 9, 16, 2, 2), (5, 13, 24, 3, 3),
                   (64, 64, 128, 16, 8), (3, 1, 8, 1, 1))]
-    b, s, d, h, r = 4096, 31, 64, 8, 4
+    b, s, d, h, r = FT_BLOCK_SHAPE
     spec, p, x, err = case(b, s, d, h, r)
     def kernel():
         return ft_block.fused_transformer_block(x, p, spec)
@@ -267,7 +337,18 @@ def check_ft_block(device, gen) -> dict:
     def plain():
         return ft_block.block_math(x, p, h)
 
+    xg = x.clone().requires_grad_(True)
+    pg = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    dy = randn_on(gen, device, *x.shape)
+
+    def forward_backward():
+        out = ft_block.fused_transformer_block(xg, pg, spec)
+        return torch.autograd.grad(out, [xg, *pg.values()], dy)
+
     ms, plain_ms = device_ms(kernel), device_ms(plain)
+    # the backward is plain PyTorch (the recompute of JAX's VJP): its device
+    # time is that of forward + backward less the kernel's forward
+    bwd_ms = device_ms(forward_backward) - ms
     call_ms, plain_call_ms = time_ms(kernel), time_ms(plain)
     n_bytes = 2 * x.numel() * 4 + sum(t.numel() for t in p.values()) * 4
     bnd, by = bound_ms(n_bytes, ft_block_ops(b, s, d, h, r), torch.float32)
@@ -276,7 +357,8 @@ def check_ft_block(device, gen) -> dict:
         f"summation order only); edge shapes max|err| {max(edge_errs):.3e}; "
         f"device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bnd:.4f} ms ({by}); whole call (CUDA events): kernel "
-        f"{call_ms:.4f} ms, plain {plain_call_ms:.4f} ms")
+        f"{call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; backward (plain "
+        f"recompute, as in JAX) {bwd_ms:.4f} ms device time per block")
     return {"name": "ft_block", "route": "cuda",
             "source": "shifu_tpu_torch/csrc/ft_block.cu",
             "replaces": "shifu_tpu/ops/pallas_ft_block.py:163",
@@ -290,7 +372,7 @@ def check_small_attention(device, gen) -> dict:
     from shifu_tpu_torch.ops import small_attention as sa
 
     def case(b, h, s, d, dtype):
-        q, k, v = (torch.randn(b, h, s, d, generator=gen).to(device, dtype)
+        q, k, v = (randn_on(gen, device, b, h, s, d).to(dtype)
                    for _ in range(3))
         scale = d ** -0.5
         got = sa.small_token_attention(q, k, v)
@@ -308,7 +390,7 @@ def check_small_attention(device, gen) -> dict:
                  ((1, 8, 31, 8, torch.bfloat16), (9, 4, 64, 16, torch.float32),
                   (33, 3, 9, 3, torch.float32), (5, 2, 64, 16, torch.bfloat16),
                   (17, 8, 31, 8, torch.float16), (2, 1, 1, 1, torch.float32))]
-    b, h, s, d = 4096, 8, 31, 8
+    b, h, s, d = SMALL_ATTN_SHAPE
     q, k, v, scale, err = case(b, h, s, d, torch.bfloat16)
     def kernel():
         return sa.small_token_attention(q, k, v)
@@ -340,6 +422,184 @@ def check_small_attention(device, gen) -> dict:
             "replaces": "shifu_tpu/ops/pallas_small_attention.py:187",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd, "bound_by": by, "library_ms": library_ms}
+
+
+def grad_tolerance(dtype) -> tuple[float, float, str]:
+    """(atol factor on max |ref|, rtol, text) for a gradient the kernel and
+    its plain version both sum in f32 and round once to `dtype`: one ulp of
+    the element (2^-7 bf16, 2^-10 f16; 1e-4 f32), plus the f32
+    summation-order difference, which scales with the tensor's magnitude
+    and not with the element's (a gradient near 0 sums terms far larger
+    than itself): 2^-16 of the largest |ref| (f32: 1e-4 absolute)."""
+    import torch
+    if dtype == torch.float32:
+        return 0.0, F32_RTOL, f"{F32_ATOL:g}+{F32_RTOL:g}*|ref|"
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+    return 2.0 ** -16, ulp, (f"{'2^-7' if ulp > 1e-3 else '2^-10'}*|ref| + "
+                             "2^-16*max|ref|")
+
+
+def check_grad(name: str, got, want) -> float:
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{name}: returned {got.dtype} {tuple(got.shape)}, expected "
+             f"{want.dtype} {tuple(want.shape)}")
+    frac, rtol, _ = grad_tolerance(want.dtype)
+    atol = (F32_ATOL if want.dtype == torch.float32
+            else frac * float(want.float().abs().max()) + 1e-12)
+    return check_close(name, got, want, atol, rtol)
+
+
+def sdpa_times(q, k, v, g, scale) -> tuple[float, float]:
+    """(forward, forward + backward) device ms of
+    `scaled_dot_product_attention` on these inputs: the library yardstick,
+    never called by the port."""
+    import torch
+    import torch.nn.functional as F
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        return torch.autograd.grad(out, (qg, kg, vg), g)
+
+    return device_ms(fwd), device_ms(fwd_bwd)
+
+
+def check_small_attention_bwd(device, gen) -> dict:
+    import torch
+    from shifu_tpu_torch.ops import small_attention as sa
+
+    def case(b, h, s, d, dtype):
+        q, k, v, g = (randn_on(gen, device, b, h, s, d).to(dtype)
+                      for _ in range(4))
+        scale = d ** -0.5
+        got = sa.small_attention_bwd(q, k, v, g, scale)
+        want = sa.small_attention_bwd_plain(q, k, v, g, scale)
+        torch.cuda.synchronize()
+        errs = [check_grad(f"small_attention_bwd {n} B={b} H={h} S={s} "
+                           f"D={d} {dtype}", x, y)
+                for n, x, y in zip(("dq", "dk", "dv"), got, want)]
+        return q, k, v, g, scale, max(errs)
+
+    # S = 1, 33 (one lane with two rows), 64; D = 1, 3, 16; B*H = 99, 17,
+    # 3: not multiples of the 4 warps of a block
+    edge_errs = [case(*shape)[5] for shape in
+                 ((1, 8, 31, 8, torch.bfloat16), (9, 4, 64, 16, torch.float32),
+                  (33, 3, 9, 3, torch.float32), (5, 2, 64, 16, torch.bfloat16),
+                  (17, 1, 33, 8, torch.float16), (3, 1, 1, 1, torch.float32),
+                  (11, 3, 33, 16, torch.bfloat16))]
+    b, h, s, d = SMALL_ATTN_SHAPE
+    q, k, v, g, scale, err = case(b, h, s, d, torch.bfloat16)
+
+    def kernel():
+        return sa.small_attention_bwd(q, k, v, g, scale)
+
+    def plain():
+        return sa.small_attention_bwd_plain(q, k, v, g, scale)
+
+    ms, plain_ms = device_ms(kernel), device_ms(plain)
+    sdpa_fwd_ms, library_ms = sdpa_times(q, k, v, g, scale)
+    call_ms, plain_call_ms = time_ms(kernel), time_ms(plain)
+    n_bytes = 7 * q.numel() * q.element_size()
+    n_ops = 10.0 * b * h * s * s * d
+    bnd, by = bound_ms(n_bytes, n_ops, q.dtype)
+    say(f"kernels: small_attention_bwd B={b} H={h} S={s} D={d} bf16 max|err| "
+        f"{err:.3e} over dq, dk, dv (tol {grad_tolerance(q.dtype)[2]}: one "
+        f"bf16 ulp plus f32 summation order); edge shapes max|err| "
+        f"{max(edge_errs):.3e}; device time: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa forward+backward {library_ms:.4f} ms (its "
+        f"forward alone {sdpa_fwd_ms:.4f} ms), bound {bnd:.4f} ms ({by}); "
+        f"whole call (CUDA events): kernel {call_ms:.4f} ms, plain "
+        f"{plain_call_ms:.4f} ms")
+    return {"name": "small_attention_bwd", "route": "cuda",
+            "source": "shifu_tpu_torch/csrc/small_attention.cu",
+            "replaces": "shifu_tpu/ops/pallas_small_attention.py:209",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": library_ms}
+
+
+def check_flash(device, gen) -> list:
+    """Kernels #7 (flash_fwd) and #8 (flash_bwd_dq, flash_bwd_dkv) against
+    their plain versions; returns their three kernel entries."""
+    import torch
+    from shifu_tpu_torch.ops import flash_attention as fa
+
+    def case(b, h, s, d, dtype):
+        q, k, v, g = (randn_on(gen, device, b, h, s, d).to(dtype)
+                      for _ in range(4))
+        scale = d ** -0.5
+        label = f"B={b} H={h} S={s} D={d} {dtype}"
+        out, lse = fa.flash_fwd(q, k, v, scale)
+        out_p, lse_p = fa.flash_fwd_plain(q, k, v, scale)
+        dres = fa.flash_dres(out_p, g)
+        dq = fa.flash_bwd_dq(q, k, v, g, lse_p, dres, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse_p, dres, scale)
+        dq_p = fa.flash_bwd_dq_plain(q, k, v, g, lse_p, dres, scale)
+        dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, g, lse_p, dres, scale)
+        torch.cuda.synchronize()
+        atol, rtol = ((F32_ATOL, F32_RTOL) if dtype == torch.float32
+                      else (1e-6, 2.0 ** -7 if dtype == torch.bfloat16
+                            else 2.0 ** -10))
+        errs = {"fwd": max(check_close(f"flash_fwd out {label}", out, out_p,
+                                       atol, rtol),
+                           check_close(f"flash_fwd lse {label}", lse, lse_p,
+                                       F32_ATOL, F32_RTOL)),
+                "dq": check_grad(f"flash_bwd_dq {label}", dq, dq_p),
+                "dkv": max(check_grad(f"flash_bwd_dkv dk {label}", dk, dk_p),
+                           check_grad(f"flash_bwd_dkv dv {label}", dv, dv_p))}
+        return (q, k, v, g, scale, lse_p, dres), errs
+
+    edge = [case(*shape)[1] for shape in
+            ((2, 3, 1, 8, torch.float32), (3, 2, 33, 16, torch.bfloat16),
+             (1, 5, 64, 64, torch.float16), (2, 2, 1001, 8, torch.bfloat16),
+             (1, 3, 70, 128, torch.float32), (2, 1, 130, 1, torch.bfloat16),
+             (1, 2, 257, 128, torch.bfloat16), (3, 1, 45, 24, torch.float32))]
+    b, h, s, d = FLASH_SHAPE
+    (q, k, v, g, scale, lse, dres), errs = case(b, h, s, d, torch.bfloat16)
+    sdpa_fwd_ms, sdpa_grad_ms = sdpa_times(q, k, v, g, scale)
+    elt = q.element_size()
+    bh_s = b * h * s
+    pairs = float(b * h) * s * s
+    tol_text = (f"out one bf16 ulp (2^-7*|ref|+1e-6), lse {F32_ATOL:g}+"
+                f"{F32_RTOL:g}*|ref|, grads {grad_tolerance(q.dtype)[2]}")
+    specs = (
+        ("flash_fwd", "fwd", "shifu_tpu/ops/pallas_attention.py:198",
+         lambda: fa.flash_fwd(q, k, v, scale),
+         lambda: fa.flash_fwd_plain(q, k, v, scale),
+         4 * q.numel() * elt + bh_s * 4, 4.0 * pairs * d, sdpa_fwd_ms),
+        ("flash_bwd_dq", "dq", "shifu_tpu/ops/pallas_attention.py:243",
+         lambda: fa.flash_bwd_dq(q, k, v, g, lse, dres, scale),
+         lambda: fa.flash_bwd_dq_plain(q, k, v, g, lse, dres, scale),
+         5 * q.numel() * elt + 2 * bh_s * 4, 6.0 * pairs * d, sdpa_grad_ms),
+        ("flash_bwd_dkv", "dkv", "shifu_tpu/ops/pallas_attention.py:258",
+         lambda: fa.flash_bwd_dkv(q, k, v, g, lse, dres, scale),
+         lambda: fa.flash_bwd_dkv_plain(q, k, v, g, lse, dres, scale),
+         6 * q.numel() * elt + 2 * bh_s * 4, 8.0 * pairs * d, sdpa_grad_ms))
+    entries = []
+    for name, key, replaces, kernel, plain, n_bytes, n_ops, lib_ms in specs:
+        ms = device_ms(kernel, reps=5, warmup=1)
+        plain_ms = device_ms(plain, reps=3, warmup=1)
+        bnd, by = bound_ms(n_bytes, n_ops, q.dtype)
+        say(f"kernels: {name} B={b} H={h} S={s} D={d} bf16 max|err| "
+            f"{errs[key]:.3e} (tol {tol_text}); edge shapes (S 1..1001, D "
+            f"1..128, f32/bf16/f16) max|err| "
+            f"{max(e[key] for e in edge):.3e}; device time: kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}); "
+            + ("sdpa forward" if key == "fwd" else
+               "sdpa forward+backward (dq, dk, dv together)")
+            + f" {lib_ms:.4f} ms")
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"shifu_tpu_torch/csrc/{name}.cu",
+                        "replaces": replaces, "max_abs_err": errs[key],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                        "bound_by": by, "library_ms": lib_ms})
+    say(f"kernels: sdpa at B={b} H={h} S={s} D={d} bf16: forward "
+        f"{sdpa_fwd_ms:.4f} ms, forward+backward {sdpa_grad_ms:.4f} ms, so "
+        f"its backward takes about {sdpa_grad_ms - sdpa_fwd_ms:.4f} ms")
+    return entries
 
 
 INT8_TOL_TEXT = ("2^-7*(2|x@w|+|b|) + F*2^-24*(|x|@|w|) + 1e-6, f16 2^-10 "
@@ -521,8 +781,6 @@ def serve_phase(label: str, export_dir: str, schema, rng, device,
     CPU scorer; returns stats and the kernels' launch counts."""
     from shifu_tpu_torch.config.schema import ServingConfig
     from shifu_tpu_torch.export.scorer import TorchScorer
-    from shifu_tpu_torch.ops.ft_block import fused_transformer_block
-    from shifu_tpu_torch.ops.small_attention import small_token_attention
     from shifu_tpu_torch.runtime.serve import ScoringDaemon
 
     rows = make_rows(threads * rows_per_thread, schema, rng)
@@ -531,12 +789,10 @@ def serve_phase(label: str, export_dir: str, schema, rng, device,
         max_batch=max_batch), engine="torch", device=device)
     daemon.start()
     try:
-        fused_transformer_block.launches = 0
-        small_token_attention.launches = 0
+        reset_launches()
         answers, frame_out, wall = drive_daemon(daemon, rows, frames,
                                                 threads, closed_loop)
-        launches = {"ft_block": fused_transformer_block.launches,
-                    "small_attention": small_token_attention.launches}
+        launches = read_launches()
         stats = daemon.stats()
     finally:
         daemon.stop()
@@ -576,7 +832,6 @@ def profile_serve(label: str, export_dir: str, schema, rng, device,
     the device's busy share of the wall time and the kernels that take the
     most device time, and writes a Chrome trace to `out_dir`.  The
     profiler slows the host, so this run's wall time is not a result."""
-    import os
     import torch
     from torch.profiler import ProfilerActivity, profile
     from shifu_tpu_torch.config.schema import ServingConfig
@@ -650,23 +905,34 @@ def synthetic_datasets(schema, n_train: int, n_valid: int, seed: int):
     return part(0, n_train), part(n_train, n_train + n_valid)
 
 
-def reset_launches() -> None:
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from shifu_tpu_torch.ops import flash_attention as fa
     from shifu_tpu_torch.ops.ft_block import fused_transformer_block
     from shifu_tpu_torch.ops.int8_matmul import int8_matmul_dequant
-    from shifu_tpu_torch.ops.small_attention import small_token_attention
-    for fn in (fused_transformer_block, small_token_attention,
-               int8_matmul_dequant):
+    from shifu_tpu_torch.ops.small_attention import (small_attention_bwd,
+                                                     small_token_attention)
+    return {"ft_block": fused_transformer_block,
+            "small_attention": small_token_attention,
+            "small_attention_bwd": small_attention_bwd,
+            "int8_matmul": int8_matmul_dequant,
+            "flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dkv": fa.flash_bwd_dkv}
+
+
+def reset_launches() -> None:
+    for fn in launch_counters().values():
         fn.launches = 0
 
 
-def expected_int8_launches(job, n_train: int, n_valid: int,
-                           epochs_run: int) -> tuple[int, int]:
-    """(train steps, eval batches) of a run, from the job: each step and
-    each eval batch sends one int8 batch into layer 0."""
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def steps_and_evals(job, n_train: int, n_valid: int,
+                    epochs_run: int) -> tuple[int, int]:
+    """(train steps, eval batches) of a run, from the job and the rows."""
     from shifu_tpu_torch.train.loop import eval_batch_size
-    from shifu_tpu_torch.train.step import wire_fused_into_model
-    if not wire_fused_into_model(job):
-        fail("the headline job does not feed int8 into layer 0")
     steps = epochs_run * (n_train // job.data.batch_size)
     evaluated = sum(1 for e in range(epochs_run)
                     if e % job.train.eval_every_epochs == 0
@@ -676,13 +942,13 @@ def expected_int8_launches(job, n_train: int, n_valid: int,
 
 
 def run_training(label: str, job, train_ds, valid_ds, device,
-                 want_tier: str):
+                 want_tier: str, want_launches) -> tuple:
     """`train` on `device` with the launch counts set to 0 just before and
-    read just after; checks the tier, the int8 launches and the metrics."""
+    read just after; checks the tier, the metrics, and every kernel's
+    launches against `want_launches(steps, eval_batches)` (a dict by
+    kernel name; a kernel it leaves out must not launch).  Returns the
+    result and the launches."""
     import math
-    from shifu_tpu_torch.ops.ft_block import fused_transformer_block
-    from shifu_tpu_torch.ops.int8_matmul import int8_matmul_dequant
-    from shifu_tpu_torch.ops.small_attention import small_token_attention
     from shifu_tpu_torch.train.loop import train
 
     history = []
@@ -690,17 +956,18 @@ def run_training(label: str, job, train_ds, valid_ds, device,
     res = train(job, train_ds, valid_ds,
                 console=lambda ln: say(f"{label}: {ln}"),
                 epoch_callback=history.append, device=device)
-    launches = int8_matmul_dequant.launches
-    if (fused_transformer_block.launches or small_token_attention.launches):
-        fail(f"{label}: the MLP path launched an FT kernel")
+    launches = read_launches()
     if res.tier != want_tier:
         fail(f"{label}: trained on the {res.tier!r} tier, expected "
              f"{want_tier!r}")
-    steps, evals = expected_int8_launches(job, train_ds.num_rows,
-                                          valid_ds.num_rows, len(history))
-    if launches != steps + evals:
-        fail(f"{label}: int8_matmul launched {launches} times, expected "
-             f"{steps} train steps + {evals} eval batches")
+    steps, evals = steps_and_evals(job, train_ds.num_rows, valid_ds.num_rows,
+                                   len(history))
+    want = want_launches(steps, evals)
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)} ({steps} train steps, {evals} eval "
+                 f"batches); all launches {launches}")
     rows_per_epoch = (train_ds.num_rows // job.data.batch_size
                       * job.data.batch_size)
     for m in history:
@@ -712,19 +979,25 @@ def run_training(label: str, job, train_ds, valid_ds, device,
             f"train_error {m.train_error:.6f} valid_error "
             f"{m.valid_error:.6f} valid_auc {m.valid_auc:.4f}, eval "
             f"{m.valid_time:.4f} s")
-    say(f"{label}: tier {res.tier}; int8_matmul launches {launches} = "
-        f"{steps} train steps + {evals} eval batches")
+    say(f"{label}: tier {res.tier}; {steps} train steps + {evals} eval "
+        f"batches; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
     return res, launches
 
 
-def lockstep(job, train_ds, device, n_steps: int = 8) -> None:
-    """`n_steps` train steps from one init on the card and on the CPU, on
-    the same batches; per-step losses within LOCKSTEP_RTOL."""
-    import torch
-    from shifu_tpu_torch.data import pipeline as pipe
-    from shifu_tpu_torch.train.loop import init_state, to_device
-    from shifu_tpu_torch.train.step import make_train_step
+def int8_launches(job):
+    """The MLP on the int8 wire: each step and each eval batch sends one
+    int8 batch into layer 0, and no other kernel launches."""
+    from shifu_tpu_torch.train.step import wire_fused_into_model
+    if not wire_fused_into_model(job):
+        fail("the headline job does not feed int8 into layer 0")
+    return lambda steps, evals: {"int8_matmul": steps + evals}
 
+
+def lockstep_batches(job, train_ds, n_steps: int) -> list:
+    """The first `n_steps` batches of the job's epoch order, cast for the
+    wire as the training loop casts them."""
+    from shifu_tpu_torch.data import pipeline as pipe
     wcast = pipe.wire_cast_fn(job.schema, job.data, job.model.compute_dtype,
                               compact=True)
     batches = []
@@ -733,47 +1006,73 @@ def lockstep(job, train_ds, device, n_steps: int = 8) -> None:
         batches.append(wcast(b))
         if len(batches) == n_steps:
             break
-    def run(dev) -> tuple[np.ndarray, dict, dict]:
-        state = init_state(job, job.schema.feature_count, dev)
-        init = {k: v.detach().cpu().clone()
-                for k, v in state.model.state_dict().items()}
-        step = make_train_step(job)
-        out = []
-        for b in batches:
-            state, m = step(state, to_device(b, job, dev))
-            out.append(float(m["loss"]))
-        moved = {k: v.detach().cpu() - init[k]
-                 for k, v in state.model.state_dict().items()}
-        return np.asarray(out), init, moved
+    return batches
 
-    (card, card_init, card_moved), (cpu, cpu_init, cpu_moved) = (
-        run(device), run(torch.device("cpu")))
+
+def lockstep_run(job, batches, dev) -> tuple[np.ndarray, dict, dict]:
+    """Train steps over `batches` on `dev` from the job's init: (losses,
+    initial params, each param's change), as numpy on the host."""
+    from shifu_tpu_torch.train.loop import init_state, to_device
+    from shifu_tpu_torch.train.step import make_train_step
+    state = init_state(job, job.schema.feature_count, dev)
+    init = {k: v.detach().cpu().float().clone()
+            for k, v in state.model.state_dict().items()}
+    step = make_train_step(job)
+    out = []
+    for b in batches:
+        state, m = step(state, to_device(b, job, dev))
+        out.append(float(m["loss"]))
+    moved = {k: (v.detach().cpu().float() - init[k]).numpy()
+             for k, v in state.model.state_dict().items()}
+    return np.asarray(out), {k: v.numpy() for k, v in init.items()}, moved
+
+
+def lockstep(job, train_ds, device, n_steps: int = 8,
+             label: str = "lockstep", cpu_ref=None) -> None:
+    """`n_steps` train steps from one init on the card and on the CPU, on
+    the same batches; per-step losses within LOCKSTEP_RTOL and each
+    parameter's change within LOCKSTEP_MOVED_RTOL.  `cpu_ref`, when given,
+    is the CPU half already run (`lockstep_run` on the CPU, by
+    `cpu_lockstep_refs`)."""
+    import torch
+    batches = lockstep_batches(job, train_ds, n_steps)
+    t0 = time.perf_counter()
+    card, card_init, card_moved = lockstep_run(job, batches, device)
+    card_s = time.perf_counter() - t0
+    if cpu_ref is None:
+        t0 = time.perf_counter()
+        cpu_ref = lockstep_run(job, batches, torch.device("cpu"))
+        cpu_text = f"CPU {time.perf_counter() - t0:.1f} s"
+    else:
+        cpu_text = "CPU half run beside the earlier phases"
+    cpu, cpu_init, cpu_moved = cpu_ref
     rel = np.abs(card - cpu) / np.abs(cpu)
     if not np.all(np.isfinite(card)) or rel.max() > LOCKSTEP_RTOL:
-        fail(f"lockstep: card losses {card.tolist()} vs CPU {cpu.tolist()}: "
+        fail(f"{label}: card losses {card.tolist()} vs CPU {cpu.tolist()}: "
              f"max rel diff {rel.max():.3e} > {LOCKSTEP_RTOL}")
-    if any(not torch.equal(card_init[k], cpu_init[k]) for k in cpu_init):
-        fail("lockstep: the card and the CPU started from other weights")
+    if any(not np.array_equal(card_init[k], cpu_init[k]) for k in cpu_init):
+        fail(f"{label}: the card and the CPU started from other weights")
     # the losses barely move in 8 steps (Adadelta at 0.003 changes a weight
     # by ~1e-6 a step), so the backward and the update are held here: each
     # parameter's change, card against CPU, relative to the CPU's change
     moved_rel = {}
     for k, d_cpu in cpu_moved.items():
-        norm = float(d_cpu.norm())
+        norm = float(np.linalg.norm(d_cpu))
         if norm == 0.0:
-            fail(f"lockstep: {k} did not move on the CPU in {n_steps} steps")
-        moved_rel[k] = float((card_moved[k] - d_cpu).norm()) / norm
+            fail(f"{label}: {k} did not move on the CPU in {n_steps} steps")
+        moved_rel[k] = float(np.linalg.norm(card_moved[k] - d_cpu)) / norm
     worst = max(moved_rel, key=moved_rel.get)
     if not moved_rel[worst] <= LOCKSTEP_MOVED_RTOL:
-        fail(f"lockstep: parameter changes, card vs CPU: |d_card - d_cpu| / "
+        fail(f"{label}: parameter changes, card vs CPU: |d_card - d_cpu| / "
              f"|d_cpu| {moved_rel[worst]:.3e} on {worst} > "
              f"{LOCKSTEP_MOVED_RTOL:g}; per leaf {moved_rel}")
-    say(f"lockstep: {n_steps} steps at batch {job.data.batch_size}, card vs "
+    say(f"{label}: {n_steps} steps at batch {job.data.batch_size}, card vs "
         f"CPU from one init: max rel loss diff {rel.max():.3e} (tol "
-        f"{LOCKSTEP_RTOL:g}, bf16); card losses "
+        f"{LOCKSTEP_RTOL:g}, {job.model.compute_dtype}); card losses "
         f"{[round(v, 6) for v in card.tolist()]}; parameter change "
         f"|d_card - d_cpu| / |d_cpu| worst {moved_rel[worst]:.3e} on "
-        f"{worst} (tol {LOCKSTEP_MOVED_RTOL:g}), per leaf "
+        f"{worst} (tol {LOCKSTEP_MOVED_RTOL:g}); card {card_s:.1f} s, "
+        f"{cpu_text}; per leaf "
         + ", ".join(f"{k} {v:.3e}" for k, v in moved_rel.items()))
 
 
@@ -816,30 +1115,30 @@ def shifu_files_run(tmp: str, device) -> None:
     train_ds, valid_ds = pipe.load_datasets(
         job.schema, job.data, feature_dtype=f"int8c{job.data.wire_int8_clip:g}")
     _, launches = run_training("shifu", job, train_ds, valid_ds, device,
-                               want_tier="batch")
+                               want_tier="batch",
+                               want_launches=int8_launches(job))
     reset_launches()
-    from shifu_tpu_torch.ops.int8_matmul import int8_matmul_dequant
     from shifu_tpu_torch.train.loop import train
     res = train(job, console=lambda ln: None, device=device)
-    if int8_matmul_dequant.launches != launches or res.tier != "batch":
-        fail(f"shifu: train(job) from the files launched "
-             f"{int8_matmul_dequant.launches} times on the {res.tier!r} "
-             f"tier, the loaded datasets {launches} times on 'batch'")
+    if read_launches() != launches or res.tier != "batch":
+        fail(f"shifu: train(job) from the files launched {read_launches()} "
+             f"on the {res.tier!r} tier, the loaded datasets {launches} on "
+             "'batch'")
     say(f"shifu: job_config_from_shifu({SHIFU_ROWS} rows in 4 gzip parts) "
         f"-> {job.model.model_type} {job.model.hidden_nodes}, batch "
         f"{job.data.batch_size}, {job.train.optimizer.name}; train(job) "
         f"from the files on the per-batch tier launched the int8 kernel "
-        f"{launches} times")
+        f"{launches['int8_matmul']} times")
 
 
-def profile_training(job, train_ds, valid_ds, device,
+def profile_training(label: str, job, train_ds, valid_ds, device,
                      out_dir: str = "chiprun_out") -> None:
     """A steady-state training epoch under torch.profiler: the window runs
-    from the end of epoch 0 to the end of epoch 1 (its 40 steps and its
+    from the end of epoch 0 to the end of epoch 1 (its steps and its
     eval); prints the device's busy share of the window and its top
-    kernels and writes a Chrome trace to `out_dir`.  The profiler slows
-    the host, so the window's wall time is not a result."""
-    import os
+    kernels and writes a Chrome trace `<label>_trace.json` to `out_dir`.
+    The profiler slows the host, so the window's wall time is not a
+    result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from shifu_tpu_torch.train.loop import train
@@ -862,15 +1161,16 @@ def profile_training(job, train_ds, valid_ds, device,
     avgs = device_events(prof)
     busy_us = sum(t for _, t, _ in avgs)
     if busy_us <= 0:
-        fail("profile train: the profiler saw no device time")
+        fail(f"profile {label}: the profiler saw no device time")
     wall = window["wall"]
-    say(f"profile train: epoch 1 (40 steps + eval), wall {wall * 1e3:.3f} "
-        f"ms under the profiler, device busy {busy_us / 1e3:.3f} ms "
-        f"({100 * busy_us / 1e6 / wall:.2f}% of wall)")
+    steps = train_ds.num_rows // job.data.batch_size
+    say(f"profile {label}: epoch 1 ({steps} steps + eval), wall "
+        f"{wall * 1e3:.3f} ms under the profiler, device busy "
+        f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / wall:.2f}% of wall)")
     for key, t, n in sorted(avgs, key=lambda a: -a[1])[:10]:
-        say(f"profile train:   {t / 1e3:9.3f} ms  {n:6d}x  {key[:90]}")
+        say(f"profile {label}:   {t / 1e3:9.3f} ms  {n:6d}x  {key[:90]}")
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "train_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{label}_trace.json"))
 
 
 def training_phases(device, tmp: str, kernels: list) -> None:
@@ -887,19 +1187,190 @@ def training_phases(device, tmp: str, kernels: list) -> None:
         f"{job.train.optimizer.name} {job.train.optimizer.learning_rate:g}, "
         f"batch {job.data.batch_size}, wire {job.data.wire_dtype}")
     res, launches = run_training("train", job, train_ds, valid_ds, device,
-                                 want_tier="resident")
-    next(k for k in kernels if k["name"] == "int8_matmul")["launches"] = \
-        launches
-
+                                 want_tier="resident",
+                                 want_launches=int8_launches(job))
+    set_launches(kernels, launches, ("int8_matmul",))
+    lap("train")
     lockstep(job, train_ds, device)
+    lap("lockstep")
     shifu_files_run(tmp, device)
+    lap("shifu")
 
     export_dir = save_artifact(res.state.model, job.model, job.schema,
                                f"{tmp}/trained_mlp")
     served = serve_phase("trained", export_dir, job.schema,
                          np.random.default_rng(SEED), device)
     report_serve("trained", served)
-    profile_training(job, train_ds, valid_ds, device)
+    profile_training("train", job, train_ds, valid_ds, device)
+    lap("serve trained and profile train")
+
+
+# -- phases 11 to 13: training the FT-Transformer -----------------------------
+
+# the FT-Transformer rung of bench.py (:524-527, :540-543): token_dim 64, 3
+# layers, 8 heads, mlp_ratio 4, bf16, weighted_mse, Adadelta 0.003, batch
+# 8192, 16 blocks; 30 numeric features on the bf16 wire
+FT_TRAIN_ROWS = 16 * 8192
+FT_VALID_ROWS = 16_384
+FT_BATCH = 8192
+FT_EPOCHS = 2
+# flash: the 1000-column schema of bench.py:507-508 (1000 features, 50
+# categorical, vocab 1000: 1001 tokens with the CLS token) at batch 1024,
+# 8 steps and one eval batch, to spend little chip time: at this batch one
+# step's attention alone is about 0.8 TFLOP forward
+FLASH_BATCH = 1024
+FLASH_STEPS = 8
+FLASH_VALID_ROWS = 2048
+LOCKSTEP_FT_BATCH = 1024
+# the CPU's plain attention at S = 1001 is the limit of the flash lockstep
+LOCKSTEP_FLASH_BATCH = 8
+# the FT locksteps compute in f32, so that card and CPU differ in summation
+# order only.  In bf16 the unfused block rounds to bf16 some 20 times per
+# block on each device at other points, and over 8 steps that moved a
+# one-element leaf (the head bias) 2.2e-2 apart on an H100, the other
+# leaves 3e-3 to 1.3e-2: noise of the size of the faults the check is for
+# (a leaf left unmoved reads 1, one update skipped of 8 about 1/8)
+LOCKSTEP_FT_DTYPE = "float32"
+
+
+def ft_job(schema, batch: int, epochs: int, **model_kw):
+    from shifu_tpu_torch.config.schema import (DataConfig, JobConfig,
+                                               ModelSpec, OptimizerConfig,
+                                               TrainConfig)
+    return JobConfig(
+        schema=schema, data=DataConfig(batch_size=batch),
+        model=ModelSpec(model_type="ft_transformer", token_dim=64,
+                        num_layers=3, num_attention_heads=8, mlp_ratio=4,
+                        compute_dtype="bfloat16", **model_kw),
+        train=TrainConfig(epochs=epochs, loss="weighted_mse",
+                          optimizer=OptimizerConfig(name="adadelta",
+                                                    learning_rate=0.003)),
+    ).validate()
+
+
+def set_launches(kernels: list, launches: dict, names) -> None:
+    for kr in kernels:
+        if kr["name"] in names:
+            kr["launches"] = launches[kr["name"]]
+
+
+def with_batch(job, batch: int, **model_kw):
+    return job.replace(
+        data=dataclasses.replace(job.data, batch_size=batch),
+        model=dataclasses.replace(job.model, **model_kw))
+
+
+def ft_paths() -> dict:
+    """The three FT training paths, label -> (job, lockstep job, train
+    dataset, valid dataset), from SEED alone: the process that runs the
+    locksteps' CPU halves builds the same ones."""
+    from shifu_tpu_torch.data import synthetic
+    # path A, fused (the defaults): kernel #1 in every step and eval batch,
+    # its backward the plain recompute
+    fused = ft_job(synthetic.make_schema(num_features=30), FT_BATCH,
+                   FT_EPOCHS)
+    # path A, unfused: dropout switches fusion off in training only, so
+    # kernels #2 and #3 run every step and kernel #1 every eval batch; 6
+    # categorical columns with vocab 1000 take the f32 embedding scatter
+    cat_schema = synthetic.make_schema(num_features=30, num_categorical=6,
+                                       vocab_size=1000)
+    unfused = ft_job(cat_schema, FT_BATCH, 1, dropout_rate=0.1)
+    # path B, flash attention at 1001 tokens: kernels #7 and #8
+    wide = synthetic.make_schema(num_features=1000, num_categorical=50,
+                                 vocab_size=1000)
+    flash = ft_job(wide, FLASH_BATCH, 1, attention_impl="flash")
+    return {
+        "FT fused": (
+            fused, with_batch(fused, LOCKSTEP_FT_BATCH,
+                              compute_dtype=LOCKSTEP_FT_DTYPE),
+            *synthetic_datasets(fused.schema, FT_TRAIN_ROWS, FT_VALID_ROWS,
+                                SEED)),
+        "FT unfused": (
+            unfused, with_batch(unfused, LOCKSTEP_FT_BATCH, fused_block="off",
+                                dropout_rate=0.0,
+                                compute_dtype=LOCKSTEP_FT_DTYPE),
+            *synthetic_datasets(cat_schema, FT_TRAIN_ROWS, FT_VALID_ROWS,
+                                SEED + 1)),
+        "FT flash": (
+            flash, with_batch(flash, LOCKSTEP_FLASH_BATCH,
+                              compute_dtype=LOCKSTEP_FT_DTYPE),
+            *synthetic_datasets(wide, FLASH_STEPS * FLASH_BATCH,
+                                FLASH_VALID_ROWS, SEED + 2)),
+    }
+
+
+def cpu_lockstep_refs(n_steps: int = 8) -> dict:
+    """The CPU halves of the three FT locksteps, label -> `lockstep_run` on
+    the CPU.  `main` runs this in a process of its own while the kernels
+    build and the kernel checks run: on the 8-core host of the H100
+    machine these halves took 35-51 s in the script's main thread."""
+    import torch
+    return {label: lockstep_run(job, lockstep_batches(job, tr, n_steps),
+                                torch.device("cpu"))
+            for label, (_, job, tr, _) in ft_paths().items()}
+
+
+def ft_training_phases(device, tmp: str, kernels: list,
+                       cpu_refs: dict) -> None:
+    from shifu_tpu_torch.export.artifact import save_artifact
+
+    layers = 3
+    paths = ft_paths()
+    fused, fused_lock, tr, va = paths["FT fused"]
+    say(f"train FT fused: {tr.num_rows} train + {va.num_rows} valid rows, 30 "
+        f"numeric features (S=31 with CLS), token_dim 64, 3 layers, 8 heads, "
+        f"mlp_ratio 4, bf16, {fused.train.loss}, adadelta 0.003, batch "
+        f"{FT_BATCH}, {FT_EPOCHS} epochs, fused_block auto, dropout 0")
+    res, launches = run_training(
+        "train FT fused", fused, tr, va, device, want_tier="resident",
+        want_launches=lambda st, ev: {"ft_block": layers * (st + ev)})
+    set_launches(kernels, launches, ("ft_block",))
+    lap("train FT fused")
+    lockstep(fused_lock, tr, device, label="lockstep FT fused",
+             cpu_ref=cpu_refs["FT fused"])
+    lap("lockstep FT fused")
+    export_dir = save_artifact(res.state.model, fused.model, fused.schema,
+                               f"{tmp}/trained_ft")
+    # fewer rows than the serving phases: the CPU reference scores every
+    # row at full width, ~9 s for their 12,416
+    served = serve_phase("trained FT", export_dir, fused.schema,
+                         np.random.default_rng(SEED), device,
+                         rows_per_thread=128, n_frames=1)
+    report_serve("trained FT", served)
+    profile_training("train_ft", fused, tr, va, device)
+    lap("serve trained FT and profile train_ft")
+
+    unfused, unfused_lock, tr_c, va_c = paths["FT unfused"]
+    say(f"train FT unfused: the same width and rows on 24 numeric + 6 "
+        f"categorical (vocab 1000) features, float32 wire, dropout 0.1, "
+        f"fused_block auto, 1 epoch")
+    _, launches = run_training(
+        "train FT unfused", unfused, tr_c, va_c, device, want_tier="resident",
+        want_launches=lambda st, ev: {"small_attention": layers * st,
+                                      "small_attention_bwd": layers * st,
+                                      "ft_block": layers * ev})
+    set_launches(kernels, launches, ("small_attention", "small_attention_bwd"))
+    lap("train FT unfused")
+    lockstep(unfused_lock, tr_c, device, label="lockstep FT unfused",
+             cpu_ref=cpu_refs["FT unfused"])
+    lap("lockstep FT unfused")
+
+    flash, flash_lock, tr_w, va_w = paths["FT flash"]
+    say(f"train FT flash: 1000 features (50 categorical, vocab 1000), "
+        f"S=1001, the same width, attention_impl flash, batch {FLASH_BATCH}, "
+        f"{FLASH_STEPS} steps, {FLASH_VALID_ROWS} valid rows, 1 epoch (chip "
+        f"time: one step's attention is ~0.8 TFLOP forward)")
+    _, launches = run_training(
+        "train FT flash", flash, tr_w, va_w, device, want_tier="resident",
+        want_launches=lambda st, ev: {"flash_fwd": layers * (st + ev),
+                                      "flash_bwd_dq": layers * st,
+                                      "flash_bwd_dkv": layers * st})
+    set_launches(kernels, launches, ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv"))
+    lap("train FT flash")
+    lockstep(flash_lock, tr_w, device, label="lockstep FT flash",
+             cpu_ref=cpu_refs["FT flash"])
+    lap("lockstep FT flash")
 
 
 def main() -> None:
@@ -923,24 +1394,62 @@ def main() -> None:
     if smi.returncode != 0 or not smi_line:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     say(f"device: {name}, torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
+        f"{torch.version.cuda}, {torch.cuda.device_count()} visible; host: "
+        f"{len(os.sched_getaffinity(0))} CPUs, {torch.get_num_threads()} "
+        "torch threads")
     say(smi_line)
     device = torch.device("cuda:0")
 
-    # phase 2: build
-    build_s = _build.build_all()
+    # the CPU halves of the FT locksteps run in a process of their own from
+    # here to the end of the kernel checks, which read device times that
+    # the host does not move (their whole-call CUDA-event times share the
+    # host with it); the serving and training phases, bound by the host,
+    # start after it has finished
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    pending = pool.apply_async(cpu_lockstep_refs)
+
+    # phase 2: build in a thread (it waits on nvcc), while the first
+    # profile (CUPTI's set-up, seconds) runs in this one: CUPTI
+    # must be set up in the thread that profiles
+    built = {}
+
+    def build() -> None:
+        try:
+            built["s"] = _build.build_all()
+        except Exception as e:  # noqa: BLE001 — reported below
+            built["error"] = e
+
+    build_thread = threading.Thread(target=build)
+    build_thread.start()
+    warm_profiler(device)
+    build_thread.join()
+    if "error" in built:
+        fail(f"build: {built['error']}")
+    build_s = built["s"]
     for src in sorted(_build.build_logs):
         usage = [ln.strip() for ln in _build.build_logs[src].splitlines()
                  if "registers" in ln or "spill" in ln]
         say(f"build: {src}: " + " | ".join(usage))
     say(f"build: {len(_build.sources())} kernels in {build_s:.2f} s")
+    lap("device and build")
 
     # phase 3: kernels against their plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED)
-    kernels = [check_ft_block(device, gen), check_small_attention(device, gen),
-               check_int8_matmul(device, gen)]
+    kernels = []
+    for check in (check_ft_block, check_small_attention,
+                  check_small_attention_bwd, check_int8_matmul, check_flash):
+        got = check(device, gen)
+        kernels.extend(got if isinstance(got, list) else [got])
+        lap(check.__name__)
+    try:
+        cpu_refs = pending.get(timeout=900)
+    except Exception as e:  # noqa: BLE001 — reported as the phase's failure
+        fail(f"the CPU halves of the FT locksteps failed: {e!r}")
+    pool.close()
+    pool.join()
+    lap("wait for the CPU halves of the FT locksteps")
 
     # phases 4 and 5: serve the full-width artifact, fused then unfused
     schema = serving_schema()
@@ -952,35 +1461,33 @@ def main() -> None:
         fused_dir = save_artifact(model, spec, schema, f"{tmp}/fused")
         res = serve_phase("fused", fused_dir, schema, rng, device)
         report_serve("fused", res)
-        want = spec.num_layers * res["dispatched"]
-        if res["launches"]["ft_block"] != want:
-            fail(f"fused path: ft_block launched "
-                 f"{res['launches']['ft_block']} times, expected "
-                 f"num_layers x batches = {want}")
-        if res["launches"]["small_attention"] != 0:
-            fail("fused path launched the small-attention kernel")
-        kernels[0]["launches"] = res["launches"]["ft_block"]
+        want = {"ft_block": spec.num_layers * res["dispatched"]}
+        if res["launches"] != {k: want.get(k, 0) for k in res["launches"]}:
+            fail(f"fused path: launches {res['launches']}, expected "
+                 f"num_layers x batches = {want} and no other kernel")
 
         off_spec = dataclasses.replace(spec, fused_block="off")
         off_dir = save_artifact(model, off_spec, schema, f"{tmp}/unfused")
         res = serve_phase("unfused", off_dir, schema, rng, device)
         report_serve("unfused", res)
-        if res["launches"]["small_attention"] != (
-                spec.num_layers * res["dispatched"]):
-            fail(f"unfused path: small_attention launched "
-                 f"{res['launches']['small_attention']} times, expected "
-                 f"{spec.num_layers * res['dispatched']}")
-        if res["launches"]["ft_block"] != 0:
-            fail("unfused path launched the fused-block kernel")
-        kernels[1]["launches"] = res["launches"]["small_attention"]
+        want = {"small_attention": spec.num_layers * res["dispatched"]}
+        if res["launches"] != {k: want.get(k, 0) for k in res["launches"]}:
+            fail(f"unfused path: launches {res['launches']}, expected "
+                 f"num_layers x batches = {want} and no other kernel")
 
         profile_serve("fused", fused_dir, schema, rng, device)
         profile_serve("unfused", off_dir, schema, rng, device)
+        lap("serve and profile")
 
         # phases 6 to 10: train the headline MLP on the int8 wire
         training_phases(device, tmp, kernels)
+        # phases 11 to 13: train the FT-Transformer on both attention paths
+        ft_training_phases(device, tmp, kernels, cpu_refs)
 
-    # phase 11: the kernels line; phase 12: the result line
+    missing = [kr["name"] for kr in kernels if not kr.get("launches")]
+    if missing:
+        fail(f"kernels not launched on their training path: {missing}")
+    # phase 14: the kernels line; phase 15: the result line
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

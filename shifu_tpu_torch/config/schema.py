@@ -87,11 +87,11 @@ class ModelSpec:
     """Model topology; every field of the JAX `ModelSpec`, same defaults.
 
     The port reads `model_type`, the MLP fields (with `dropout_rate` and
-    `l2_scale` in training), the FT-Transformer fields, `fused_block` and
-    the dtypes.  The rest (`attention_impl` other than "local",
-    `pipeline_*`, `num_experts`, `remat`) belong to model types or modes
-    that later slices port; they are kept so that any artifact's
-    `model_spec` parses.
+    `l2_scale` in training), the FT-Transformer fields (`attention_impl`
+    "local" or "flash", `remat`), `fused_block` and the dtypes.  The rest
+    (ring and Ulysses attention, `pipeline_*`, `num_experts`) belong to
+    model types or modes that later slices port; they are kept so that any
+    artifact's `model_spec` parses.
     """
 
     model_type: str = "mlp"

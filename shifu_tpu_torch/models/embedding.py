@@ -1,6 +1,7 @@
 """Feature embeddings (port of the FT-Transformer's part of
 shifu_tpu/models/embedding.py): field layout, the numeric/categorical
-split, and the two tokenizers."""
+split, the two tokenizers, and `embedding_lookup` (the gather of
+shifu_tpu/ops/pallas_embedding.py with its XLA-path gradient)."""
 
 from __future__ import annotations
 
@@ -78,10 +79,41 @@ def split_features(features: torch.Tensor, layout: FieldLayout
     return num, ids
 
 
+class _EmbeddingLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        nc = table.shape[0]
+        ctx.save_for_backward(ids)
+        ctx.table_shape, ctx.table_dtype = tuple(table.shape), table.dtype
+        fields = torch.arange(nc, device=ids.device)
+        return table[fields[None, :], ids.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        nc, v, d = ctx.table_shape
+        flat = (torch.arange(nc, device=ids.device)[None, :] * v
+                + ids.long()).reshape(-1)
+        grad = torch.zeros((nc * v, d), dtype=torch.float32, device=g.device)
+        grad.index_add_(0, flat, g.reshape(-1, d).float())
+        return grad.reshape(nc, v, d).to(ctx.table_dtype), None
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """out[b, f, :] = table[f, ids[b, f], :] for a (Nc, V, D) table and
+    (B, Nc) ids in [0, V).  Its gradient scatter-adds the rows in f32 and
+    rounds once to the table's dtype, as JAX's `_scatter_grad` (and the
+    one-hot gradient) then `.astype` do: a plain bf16 gather would add a
+    row's updates in bf16 in its backward.  Plain PyTorch on every device;
+    the TPU lookup kernel (pallas_embedding.py `_pallas_lookup`) waits for
+    the embedding models' slice (ROADMAP.md)."""
+    return _EmbeddingLookup.apply(table, ids)
+
+
 class CategoricalEmbed(nn.Module):
     """Per-field embedding tables stacked as one `embedding` param
     (num_fields, max_vocab, dim); ids (B, Nc) -> (B, Nc, dim) in the
-    compute dtype by a plain gather."""
+    compute dtype through `embedding_lookup`."""
 
     def __init__(self, layout: FieldLayout, dim: int,
                  compute_dtype: str = "bfloat16",
@@ -99,9 +131,7 @@ class CategoricalEmbed(nn.Module):
         if self.layout.num_categorical == 0:
             return torch.zeros((ids.shape[0], 0, self.dim), dtype=self.cdt,
                                device=ids.device)
-        table = self.embedding.to(self.cdt)
-        fields = torch.arange(self.layout.num_categorical, device=ids.device)
-        return table[fields[None, :], ids.long()]
+        return embedding_lookup(self.embedding.to(self.cdt), ids)
 
 
 class NumericEmbed(nn.Module):

@@ -1,5 +1,5 @@
 """FT-Transformer tabular model (port of shifu_tpu/models/ft_transformer.py,
-scoring path).
+single device: scoring and training).
 
 Feature Tokenizer + Transformer: every selected column becomes a token
 (numeric: x_j * w_j + b_j; categorical: table lookup), a CLS token is
@@ -8,10 +8,19 @@ the CLS representation feeds the `shifu_output_0` head.
 
 Each block runs fused (`ops/ft_block`: the CUDA kernel on the card, its
 plain twin on the CPU) when `fused_block_engaged` says so, else through the
-unfused module math, whose attention takes `ops/small_attention` for the
-shapes its gate admits and `ops/attention.mha` for the rest.  Both branches
-read the same parameters under the same names (`block_{i}/qkv/kernel`, ...),
-which are the names of an exported artifact.
+unfused module math, whose attention takes `ops/flash_attention` when
+`attention_impl="flash"`, `ops/small_attention` for the shapes its gate
+admits, and `ops/attention.mha` for the rest.  As in JAX, a block with
+dropout is not fused in training, and the unfused block drops out after
+`proj` and after `mlp_out`.  Both branches read the same parameters under
+the same names (`block_{i}/qkv/kernel`, ...), which are the names of an
+exported artifact; the dropout modules hold none.
+
+`remat=True` recomputes each block's activations in the backward pass
+(`torch.utils.checkpoint`, non-reentrant), as `nn.remat` does in JAX.
+The dropout masks come from the model's own generator, which
+checkpointing does not preserve, so each block restores that generator's
+state before it runs: the recompute draws the masks of the forward.
 """
 
 from __future__ import annotations
@@ -21,14 +30,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config.schema import ModelSpec
 from ..ops.attention import mha
+from ..ops.flash_attention import flash_attention
 from ..ops.ft_block import fused_block_engaged, fused_transformer_block
 from ..ops.initializers import xavier_uniform
 from ..ops.small_attention import (small_attention_applicable,
                                    small_token_attention)
-from .base import Dense, ShifuDense, dtype_of
+from .base import Dense, Dropout, ShifuDense, dtype_of
 from .embedding import (CategoricalEmbed, FieldLayout, NumericEmbed,
                         split_features)
 
@@ -56,8 +67,8 @@ class LayerNorm(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """One pre-LN block: LN -> QKV -> attention -> proj -> residual ->
-    LN -> FFN (tanh-gelu) -> residual."""
+    """One pre-LN block: LN -> QKV -> attention -> proj -> dropout ->
+    residual -> LN -> FFN (tanh-gelu) -> dropout -> residual."""
 
     def __init__(self, spec: ModelSpec,
                  generator: Optional[torch.Generator] = None):
@@ -74,6 +85,8 @@ class TransformerBlock(nn.Module):
         self.ln_mlp = LayerNorm(d, cdt)
         self.mlp_in = Dense(d, r * d, cdt, generator=generator)
         self.mlp_out = Dense(r * d, d, cdt, generator=generator)
+        self.drop_attn = Dropout(spec.dropout_rate)
+        self.drop_mlp = Dropout(spec.dropout_rate)
 
     def fused_params(self) -> dict:
         """The stacked-name dict the fused block takes."""
@@ -87,33 +100,51 @@ class TransformerBlock(nn.Module):
         spec = self.spec
         b, s, d = x.shape
         h = spec.num_attention_heads
-        if fused_block_engaged(spec, s):
+        if fused_block_engaged(spec, s, train=self.training):
             return fused_transformer_block(x, self.fused_params(), spec)
 
         y = self.ln_attn(x)
         q, k, v = (t.reshape(b, s, h, d // h).transpose(1, 2).contiguous()
                    for t in self.qkv(y).split(d, dim=-1))
-        if small_attention_applicable(s, d // h, h):
+        if spec.attention_impl == "flash":
+            attn = flash_attention(q, k, v)
+        elif small_attention_applicable(s, d // h, h):
             attn = small_token_attention(q, k, v)
         else:
             attn = mha(q, k, v)
         attn = attn.transpose(1, 2).reshape(b, s, d)
-        x = x + self.proj(attn)
+        x = x + self.drop_attn(self.proj(attn))
 
         y = self.mlp_in(self.ln_mlp(x))
         y = self.mlp_out(F.gelu(y, approximate="tanh"))
-        return x + y
+        return x + self.drop_mlp(y)
+
+
+def _remat(block: TransformerBlock, x: torch.Tensor) -> torch.Tensor:
+    """`block(x)` under non-reentrant checkpointing, with the state of each
+    dropout generator restored before the first run and the recompute."""
+    gens = list({id(m.generator): m.generator for m in block.modules()
+                 if isinstance(m, Dropout) and m.generator is not None
+                 }.values())
+    states = [g.get_state() for g in gens]
+
+    def run(inp: torch.Tensor) -> torch.Tensor:
+        for g, st in zip(gens, states):
+            g.set_state(st)
+        return block(inp)
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 class FTTransformer(nn.Module):
     def __init__(self, spec: ModelSpec, layout: FieldLayout,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if spec.attention_impl != "local":
+        if spec.attention_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attention_impl={spec.attention_impl!r} is not ported yet "
-                "(ROADMAP.md, queue A: flash in item (d), ring/ulysses in "
-                "item (f)); the port scores with 'local'")
+                "(ROADMAP.md, queue A item (f): sequence parallelism); use "
+                "'local' or 'flash'")
         if spec.pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline_stages > 1 is not ported yet (ROADMAP.md, queue "
@@ -149,7 +180,9 @@ class FTTransformer(nn.Module):
         x = torch.cat([t.to(dt) for t in tokens], dim=1)
         cls = self.cls_token.to(self.cdt).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x.to(self.cdt)], dim=1).contiguous()
+        remat = self.spec.remat and torch.is_grad_enabled()
         for i in range(self.spec.num_layers):
-            x = getattr(self, f"block_{i}")(x)
+            block = getattr(self, f"block_{i}")
+            x = _remat(block, x) if remat else block(x)
         cls_out = self.ln_final(x[:, 0, :])
         return self.shifu_output_0(cls_out).float()

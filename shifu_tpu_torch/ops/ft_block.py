@@ -1,10 +1,17 @@
 """Fused FT-Transformer block: attention + FFN in one pass.
 
-Port of shifu_tpu/ops/pallas_ft_block.py (forward).  On a CUDA tensor
+Port of shifu_tpu/ops/pallas_ft_block.py.  On a CUDA tensor
 `fused_transformer_block` launches the hand-written kernel
 `csrc/ft_block.cu`; on a CPU tensor it runs `block_math`, the same f32 math
 in plain PyTorch.  There is no fallback from one to the other: a CUDA
 tensor the kernel cannot take raises.
+
+The backward is the JAX package's `_fused_block_bwd`: no activation is
+stored across the block; the backward pass recomputes `block_math` from
+the saved input and f32 params and differentiates it.  In JAX that
+backward is XLA (`jax.vjp` of `_block_math`), not Pallas, so here it is
+plain PyTorch on either device and no kernel of its own (a hand-written
+backward is a later performance item, ROADMAP.md).
 
 The math is `_block_math` of the JAX module, all in f32: LayerNorm with a
 two-pass variance and eps 1e-6, QKV, per-head softmax attention over the
@@ -49,13 +56,17 @@ def ft_block_applicable(seq_len: int, token_dim: int, num_heads: int,
             and 0 < mlp_ratio <= MAX_MLP_RATIO)
 
 
-def fused_block_engaged(spec, seq_len: int) -> bool:
-    """Config-level gate (ModelSpec.fused_block) at inference, the JAX
-    gate's rules with one difference: where JAX engages "auto" only on a
-    TPU, here "auto" engages wherever the block runs — on the card through
-    the kernel, on the CPU through its plain version.  The JAX gate's
-    training and sequence-parallel cases have no caller in the port yet."""
+def fused_block_engaged(spec, seq_len: int, train: bool = False) -> bool:
+    """Config-level gate (ModelSpec.fused_block), the JAX gate's rules with
+    one difference: where JAX engages "auto" only on a TPU, here "auto"
+    engages wherever the block runs — on the card through the kernel, on
+    the CPU through its plain version.  As in JAX, a block with dropout is
+    not fused in training (dropout applies between the fused stages).  The
+    JAX gate's ring/Ulysses case has no caller: the model refuses those
+    `attention_impl`s."""
     if getattr(spec, "fused_block", "off") == "off":
+        return False
+    if train and spec.dropout_rate > 0:
         return False
     return ft_block_applicable(seq_len, spec.token_dim,
                                spec.num_attention_heads, spec.mlp_ratio)
@@ -136,11 +147,35 @@ def _launch(xf: torch.Tensor, flat: list, heads: int,
     return out
 
 
+class _FusedBlock(torch.autograd.Function):
+    """Forward: the kernel on CUDA, `block_math` on the CPU.  Backward: the
+    recompute of JAX's `_fused_block_bwd` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, xf, heads, ratio, *flat):
+        ctx.save_for_backward(xf, *flat)
+        ctx.heads = heads
+        if xf.device.type == "cpu":
+            return block_math(xf, dict(zip(_PARAM_ORDER, flat)), heads)
+        return _launch(xf, list(flat), heads, ratio)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xf, *flat = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = xf.detach().requires_grad_(True)
+            pr = [t.detach().requires_grad_(True) for t in flat]
+            y = block_math(xr, dict(zip(_PARAM_ORDER, pr)), ctx.heads)
+            grads = torch.autograd.grad(y, [xr, *pr], dy)
+        return (grads[0], None, None, *grads[1:])
+
+
 def fused_transformer_block(x: torch.Tensor, p: dict,
                             spec) -> torch.Tensor:
     """One fused pre-LN transformer block over (B, S, D) tokens with the
     stacked-name param dict (`_PARAM_ORDER` keys).  Computes in f32 and
-    returns x.dtype.  CUDA tensors launch the kernel (and count in
+    returns x.dtype; differentiable in x and every param (recompute
+    backward).  CUDA tensors launch the kernel (and count in
     `fused_transformer_block.launches`); CPU tensors run `block_math`."""
     if x.dim() != 3:
         raise ValueError(f"fused_transformer_block expects (B, S, D); got "
@@ -164,18 +199,15 @@ def fused_transformer_block(x: torch.Tensor, p: dict,
                              f"{t.device}, x on {x.device}")
         flat.append(t.float())
     xf = x.float()
-    if x.device.type == "cpu":
-        out = block_math(xf, dict(zip(_PARAM_ORDER, flat)), heads)
-    elif x.device.type == "cuda":
+    if x.device.type == "cuda":
         for name, t in zip(("x", *_PARAM_ORDER), (xf, *flat)):
             if not t.is_contiguous():
                 raise ValueError(f"fused_transformer_block: {name} must be "
                                  "contiguous")
-        out = _launch(xf, flat, heads, ratio)
-    else:
+    elif x.device.type != "cpu":
         raise ValueError(f"fused_transformer_block: unsupported device "
                          f"{x.device}")
-    return out.to(x.dtype)
+    return _FusedBlock.apply(xf, heads, ratio, *flat).to(x.dtype)
 
 
 fused_transformer_block.launches = 0

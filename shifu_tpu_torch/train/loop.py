@@ -75,14 +75,15 @@ def init_state(job: JobConfig, num_features: int,
     """Build the model in training mode and its optimizer.  Weights are
     drawn from a `torch.Generator` seeded with `train.seed` (other numbers
     than the JAX package's init from the same seed).  When int8 features
-    reach the model natively its layer 0 carries the wire grid.  Only the
-    MLP trains yet: the FT-Transformer's kernels have no backward in the
-    port (ROADMAP.md queue A item (b))."""
-    if job.model.model_type != "mlp":
+    reach the model natively its layer 0 carries the wire grid.  The MLP
+    and the FT-Transformer train; the other model types wait for later
+    slices (ROADMAP.md queue A items (c) and (e))."""
+    if job.model.model_type not in ("mlp", "ft_transformer"):
         raise NotImplementedError(
             f"training model_type {job.model.model_type!r} is not ported "
-            "yet (ROADMAP.md queue A: item (b) for ft_transformer, (c) and "
-            "(e) for the others); the port trains the MLP")
+            "yet (ROADMAP.md queue A: item (c) for wide_deep and deepfm, "
+            "(e) for multitask and moe_mlp); the port trains the MLP and "
+            "the FT-Transformer")
     if num_features != job.schema.feature_count:
         raise ValueError(f"dataset has {num_features} features, the schema "
                          f"selects {job.schema.feature_count}")

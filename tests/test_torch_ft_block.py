@@ -1,15 +1,19 @@
 """The port's fused FT block (shifu_tpu_torch/ops/ft_block.py) against the
 JAX package's Pallas kernel (shifu_tpu/ops/pallas_ft_block.py) run in
-interpret mode on the CPU.
+interpret mode on the CPU, forward and custom-VJP gradients, and the two
+packages' engagement gates.
 
 On the CPU the port's wrapper runs the kernel's plain PyTorch twin; the CUDA
 kernel itself is held against that twin on the card by chip_smoke.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from shifu_tpu.config.schema import ModelSpec as JaxModelSpec
@@ -85,7 +89,6 @@ def test_engagement_gate_matches_jax():
     """Same rules as the JAX gate at inference for on/off and the shape
     limits; "auto" engages wherever the shape fits (JAX engages it on a TPU
     only)."""
-    import dataclasses
     jspec, tspec = _specs(64, 8, 4)
     for kw in (dict(), dict(fused_block="off"), dict(dropout_rate=0.1),
                dict(attention_impl="flash")):
@@ -98,6 +101,66 @@ def test_engagement_gate_matches_jax():
     auto = dataclasses.replace(tspec, fused_block="auto")
     assert ft_block.fused_block_engaged(auto, 31)
     assert not ft_block.fused_block_engaged(auto, 65)
+
+
+@pytest.mark.parametrize("mode", ["on", "off", "auto"])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("train", [False, True])
+def test_engagement_gate_train_rule_matches_jax(mode, dropout, train):
+    """The training rule of the JAX gate: a block with dropout is not fused
+    in training.  "auto" is held to JAX's "on", since JAX engages "auto"
+    only on a TPU (ROADMAP.md section C)."""
+    jspec, tspec = _specs(64, 8, 4, fused_block=mode)
+    jspec = dataclasses.replace(jspec, dropout_rate=dropout,
+                                fused_block="on" if mode == "auto" else mode)
+    tspec = dataclasses.replace(tspec, dropout_rate=dropout)
+    for s in (31, 65):
+        assert (ft_block.fused_block_engaged(tspec, s, train=train)
+                == jax_ftb.fused_block_engaged(jspec, s, train=train)), s
+
+
+def test_fused_grads_match_jax_custom_vjp():
+    """dx and every dparam of the port's fused block (recompute backward)
+    against `jax.vjp` of the JAX fused block (custom VJP, Pallas forward in
+    interpret mode): 2e-5 on dx, 1e-4 on the params, the bounds
+    tests/test_roofline.py holds the fused VJP to."""
+    b, s, d, h, r = 3, 9, 16, 2, 2
+    rng = np.random.default_rng(77)
+    x = rng.normal(size=(b, s, d)).astype(np.float32)
+    p = _params(rng, d, r)
+    dy = rng.normal(size=(b, s, d)).astype(np.float32)
+    jspec, tspec = _specs(d, h, r)
+    names = list(p)
+    _, vjp = jax.vjp(
+        lambda x_, *flat: jax_ftb.fused_transformer_block(
+            x_, dict(zip(names, flat)), jspec),
+        jnp.asarray(x), *(jnp.asarray(p[n]) for n in names))
+    want = vjp(jnp.asarray(dy))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tp = {n: torch.from_numpy(p[n]).requires_grad_(True) for n in names}
+    out = ft_block.fused_transformer_block(tx, tp, tspec)
+    got = torch.autograd.grad(out, [tx, *tp.values()], torch.from_numpy(dy))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=TOL, atol=TOL)
+    for n, a, w in zip(names, got[1:], want[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4, err_msg=n)
+
+
+def test_fused_grads_reach_bf16_tokens_and_f32_params():
+    """A bf16 block input gets a bf16 gradient through the f32 kernel; the
+    f32 params get f32 gradients."""
+    b, s, d, h, r = 2, 5, 8, 2, 1
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32))
+    xb = x.to(torch.bfloat16).requires_grad_(True)
+    p = {k: torch.from_numpy(v).requires_grad_(True)
+         for k, v in _params(rng, d, r).items()}
+    out = ft_block.fused_transformer_block(xb, p, _specs(d, h, r)[1])
+    out.float().sum().backward()
+    assert xb.grad.dtype == torch.bfloat16
+    assert all(t.grad is not None and t.grad.dtype == torch.float32
+               for t in p.values())
 
 
 def test_kill_switch(monkeypatch):
@@ -139,4 +202,5 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_kernel_sources_listed():
     assert set(_build.sources()) == {"ft_block", "small_attention",
-                                     "int8_matmul"}
+                                     "int8_matmul", "flash_fwd",
+                                     "flash_bwd_dq", "flash_bwd_dkv"}

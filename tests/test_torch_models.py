@@ -19,7 +19,7 @@ from shifu_tpu.models.registry import build_model as jax_build_model
 from shifu_tpu_torch.config.schema import DataSchema, ModelSpec, _from_dict
 from shifu_tpu_torch.export.artifact import params_from_jax
 from shifu_tpu_torch.models.registry import build_model
-from shifu_tpu_torch.ops import ft_block, small_attention
+from shifu_tpu_torch.ops import flash_attention, ft_block, small_attention
 
 N_NUMERIC, N_CAT, VOCAB = 5, 2, 11
 
@@ -190,8 +190,140 @@ def test_unported_configurations_raise():
     schema = _from_dict(DataSchema, dataclasses.asdict(_schema()))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(ModelSpec(model_type="deepfm"), schema, device="cpu")
-    for kw in (dict(attention_impl="flash"), dict(attention_impl="ring"),
+    for kw in (dict(attention_impl="ulysses"), dict(attention_impl="ring"),
                dict(pipeline_stages=2)):
         spec = ModelSpec(**dict(_ft_kw("auto", "float32"), **kw))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(spec, schema, device="cpu")
+
+
+def _forced_flash(monkeypatch):
+    """Send the JAX model's flash route through its Pallas kernels
+    (interpret mode, 32-row blocks), as the port always takes its kernels;
+    the JAX package is not edited."""
+    import functools
+    from shifu_tpu.models import ft_transformer as jax_ft
+    from shifu_tpu.ops import pallas_attention as jax_fa
+    monkeypatch.setattr(jax_ft, "flash_attention", functools.partial(
+        jax_fa.flash_attention, use_pallas=True, block_q=32, block_k=32))
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_ft_flash_matches_jax(monkeypatch, cdt):
+    """attention_impl="flash" with the unfused block: the port's flash
+    attention against the JAX model's Pallas flash kernels."""
+    _forced_flash(monkeypatch)
+    kw = dict(_ft_kw("off", cdt), attention_impl="flash")
+    jfwd, model = _pair(kw)
+    x = _rows(np.random.default_rng(8), 6)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x)).numpy()
+    tol = F32_TOL if cdt == "float32" else BF16_TOL
+    np.testing.assert_allclose(got, jfwd(x), rtol=tol, atol=tol)
+    assert flash_attention.flash_fwd.launches == 0
+
+
+def test_ft_flash_spec_fuses_where_the_gate_admits(monkeypatch):
+    """JAX fuses a flash spec whenever its gate admits the shape (S <= 64),
+    and so does the port: with fused_block on, no flash call at S = 8."""
+    from shifu_tpu_torch.models import ft_transformer
+    calls = []
+    real = ft_transformer.flash_attention
+    monkeypatch.setattr(ft_transformer, "flash_attention",
+                        lambda *a: calls.append(1) or real(*a))
+    schema = _from_dict(DataSchema, dataclasses.asdict(_schema()))
+    for mode, want in (("on", 0), ("off", 2)):
+        model = build_model(ModelSpec(**dict(_ft_kw(mode, "float32"),
+                                             attention_impl="flash")),
+                            schema, device="cpu")
+        calls.clear()
+        with torch.inference_mode():
+            model(torch.from_numpy(_rows(np.random.default_rng(9), 3)))
+        assert len(calls) == want, mode
+
+
+def _dropout_model(**kw):
+    schema = _from_dict(DataSchema, dataclasses.asdict(_schema()))
+    spec = ModelSpec(**{**_ft_kw("auto", "float32"), "dropout_rate": 0.2,
+                        **kw})
+    return build_model(spec, schema, device="cpu", train=True,
+                       generator=torch.Generator().manual_seed(3))
+
+
+def test_ft_dropout_is_deterministic_per_seed_and_step():
+    """The unfused block drops out after proj and after mlp_out; the masks
+    are a pure function of (seed, step) through the trainer's dropout
+    stream, and eval mode turns them off (and fuses the block again)."""
+    from shifu_tpu_torch.models.base import Dropout, set_dropout_generator
+    from shifu_tpu_torch.train.step import DropoutStream
+    model = _dropout_model()
+    assert sum(isinstance(m, Dropout) for m in model.modules()) == 4
+    x = torch.from_numpy(_rows(np.random.default_rng(10), 8))
+    stream = DropoutStream(seed=5)
+
+    def run(step, seed_stream=stream):
+        set_dropout_generator(model, seed_stream.generator(x.device, step))
+        with torch.no_grad():
+            return model(x)
+
+    a, b, c = run(3), run(3), run(4)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c)
+    assert not torch.equal(a, run(3, DropoutStream(seed=6)))
+    model.eval()
+    with torch.no_grad():
+        ev = model(x)
+    nodrop = _dropout_model(dropout_rate=0.0).eval()
+    with torch.no_grad():
+        torch.testing.assert_close(ev, nodrop(x), rtol=0, atol=0)
+    assert list(model.state_dict()) == list(nodrop.state_dict())
+
+
+def test_ft_remat_grads_equal_without_remat_with_dropout_on():
+    """remat=True recomputes each block in the backward pass; the block
+    restores its dropout generator first, so the recompute draws the
+    forward's masks and the gradients equal remat=False's."""
+    from shifu_tpu_torch.models.base import set_dropout_generator
+    x = torch.from_numpy(_rows(np.random.default_rng(11), 8))
+    grads = []
+    for remat in (False, True):
+        model = _dropout_model(remat=remat)
+        set_dropout_generator(model, torch.Generator().manual_seed(99))
+        loss = model(x).square().mean()
+        grads.append(torch.autograd.grad(loss, list(model.parameters())))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    assert any(float(g.abs().sum()) > 0 for g in grads[1])
+
+
+def test_embedding_gradient_scatters_in_f32_like_jax():
+    """Many rows on one id at bf16: the port's lookup gradient sums the rows
+    in f32 and rounds once to bf16, as JAX's lookup gradient does (within
+    one bf16 ulp); a plain bf16 gather's autograd would add the rows in
+    bf16 and land far off."""
+    from shifu_tpu.ops.pallas_embedding import embedding_lookup as jax_lookup
+    from shifu_tpu_torch.models.embedding import embedding_lookup
+    rng = np.random.default_rng(12)
+    nc, v, d, b = 3, 20, 8, 2048
+    table = rng.normal(size=(nc, v, d)).astype(np.float32)
+    ids = rng.integers(0, v, size=(b, nc)).astype(np.int32)
+    ids[: b // 2, 0] = 7                      # 1024+ rows on one id
+    g = rng.normal(size=(b, nc, d)).astype(np.float32)
+    tb = torch.from_numpy(table).to(torch.bfloat16).requires_grad_(True)
+    gb = torch.from_numpy(g).to(torch.bfloat16)
+    out = embedding_lookup(tb, torch.from_numpy(ids))
+    (got,) = torch.autograd.grad(out, tb, gb)
+    jt = jnp.asarray(tb.detach().float().numpy(), jnp.bfloat16)
+    jout, vjp = jax.vjp(lambda t: jax_lookup(t, jnp.asarray(ids)), jt)
+    (want,) = vjp(jnp.asarray(gb.float().numpy(), jnp.bfloat16))
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_array_equal(out.detach().float().numpy(),
+                                  np.asarray(jout.astype(jnp.float32)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -7,
+                               atol=1e-6)
+    fields = torch.arange(nc)[None, :]
+    plain = torch.autograd.grad(tb[fields, torch.from_numpy(ids).long()],
+                                tb, gb)[0].float().numpy()
+    assert np.abs(plain - want).max() > 10 * np.abs(
+        got.float().numpy() - want).max() + 1e-3

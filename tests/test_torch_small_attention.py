@@ -1,16 +1,18 @@
 """The port's small-token attention (shifu_tpu_torch/ops/small_attention.py)
-and `mha` against the JAX package's: the Pallas kernel
-(shifu_tpu/ops/pallas_small_attention.py) in interpret mode on the CPU, and
-`ops/attention.mha`.
+and `mha` against the JAX package's: the Pallas kernels
+(shifu_tpu/ops/pallas_small_attention.py, forward and backward) in
+interpret mode on the CPU, and `ops/attention.mha`.
 
-On the CPU the port's wrapper runs the kernel's plain PyTorch twin; the CUDA
-kernel itself is held against that twin on the card by chip_smoke.py.
+On the CPU the port's wrappers run the kernels' plain PyTorch twins; the
+CUDA kernels themselves are held against those twins on the card by
+chip_smoke.py.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from shifu_tpu.ops import attention as jax_attention
@@ -100,3 +102,76 @@ def test_bad_inputs_raise():
         sa.small_token_attention(q[0], q[0], q[0])        # rank 3
     with pytest.raises(ValueError):
         sa.small_token_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+# -- backward ---------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(3, 2, 9, 8), (2, 1, 33, 16),
+                                   (4, 3, 5, 3), (2, 2, 1, 4)])
+def test_bwd_plain_matches_pallas_interpret_f32(shape):
+    q, k, v = _qkv(shape, 40 + sum(shape))
+    g = np.random.default_rng(sum(shape)).normal(size=shape).astype(
+        np.float32)
+    scale = shape[-1] ** -0.5
+    want = jax_sa._run_bwd(*(jnp.asarray(t) for t in (q, k, v, g)), scale,
+                           True)
+    got = sa.small_attention_bwd_plain(
+        *(torch.from_numpy(t) for t in (q, k, v, g)), scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=F32_TOL,
+                                   atol=F32_TOL, err_msg=name)
+
+
+def test_bwd_plain_matches_pallas_interpret_bf16():
+    shape = (3, 2, 12, 8)
+    q, k, v = _qkv(shape, 21)
+    g = np.random.default_rng(22).normal(size=shape).astype(np.float32)
+    bf = [torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v, g)]
+    want = jax_sa._run_bwd(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in bf),
+        8 ** -0.5, True)
+    got = sa.small_attention_bwd(*bf, 8 ** -0.5)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        # both sum in f32 and round once to bf16: one bf16 ulp apart at most
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b.astype(jnp.float32)),
+                                   rtol=BF16_RTOL, atol=1e-6, err_msg=name)
+    assert sa.small_attention_bwd.launches == 0  # CPU: no kernel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autograd_grads_match_jax_vjp(dtype):
+    """The autograd function's gradients against `jax.vjp` of the JAX
+    wrapper with the Pallas kernels forced (interpret mode)."""
+    shape = (5, 2, 11, 4)
+    q, k, v = _qkv(shape, 31)
+    g = np.random.default_rng(32).normal(size=shape).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    ts = [torch.from_numpy(t).to(tdt).requires_grad_(True)
+          for t in (q, k, v)]
+    tg = torch.from_numpy(g).to(tdt)
+    out = sa.small_token_attention(*ts)
+    got = torch.autograd.grad(out, ts, tg)
+    jout, vjp = jax.vjp(
+        lambda a, b, c: jax_sa.small_token_attention(a, b, c,
+                                                     use_pallas=True),
+        *(jnp.asarray(t.detach().float().numpy(), jdt) for t in ts))
+    want = vjp(jnp.asarray(tg.float().numpy(), jdt))
+    tol = (dict(rtol=F32_TOL, atol=F32_TOL) if dtype == "float32"
+           else dict(rtol=BF16_RTOL, atol=1e-6))
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(jout.astype(jnp.float32)), **tol)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == tdt
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b.astype(jnp.float32)),
+                                   err_msg=name, **tol)
+
+
+def test_bwd_bad_device_raises():
+    q = torch.zeros(2, 2, 4, 4, device="meta")
+    with pytest.raises(ValueError):
+        sa.small_attention_bwd(q, q, q, q, 0.5)
