@@ -11,14 +11,17 @@ stderr, and no result line is printed):
 2. build    — builds the CUDA kernels from shifu_tpu_torch/csrc (one nvcc per
                source, all started together) and prints the build seconds.
                From here to the end of phase 3 a second process runs the
-               CPU halves of the FT locksteps (phases 11-13), and the first
-               profile sets CUPTI up beside the build.
+               CPU halves of the FT and DeepFM locksteps (phases 11-13,
+               15), and the first profile sets CUPTI up beside the build.
 3. kernels  — each kernel against its plain PyTorch version on the card, at
                the shapes its path gives it and at edge shapes, with the
                tolerance stated beside each check: the fused block (#1),
                small-token attention forward (#2) and backward (#3), the
-               int8 first layer (#4), flash attention forward (#7) and its
-               dq and dk/dv kernels (#8).  Device times (the profiler's
+               int8 first layer (#4), the embedding lookup (#5, bitwise,
+               with `F.embedding` on offset ids as its yardstick) and the
+               rows-touched update (#6, SGD and Adadelta, duplicate ids),
+               flash attention forward (#7) and its dq and dk/dv kernels
+               (#8).  Device times (the profiler's
                kernel durations per call) of kernel, plain version and, for
                attention, `scaled_dot_product_attention` as a yardstick
                (forward, and forward + backward through autograd), with
@@ -26,6 +29,8 @@ stderr, and no result line is printed):
                least time the card could take (bound: bytes over the
                memory rate or operations over the peak for the compute
                dtype).
+   (The FT phases 4, 5, 12 and 13 look their categorical ids up through
+   #5: one launch per batch, counted in their launch checks.)
 4. serve    — a full-width FT-Transformer artifact (token_dim 64, 3 layers,
    fused      8 heads, mlp_ratio 4, 30 features of which 6 categorical with
                vocab 1000, bf16 compute; random weights from a seeded
@@ -38,7 +43,7 @@ stderr, and no result line is printed):
    unfused    forward kernel must launch, no other.
    profile  — both artifacts served once more under torch.profiler: the
                device's busy share of the wall time and its top kernels
-               (Chrome traces written to chiprun_out/).
+               (gzip Chrome traces written to chiprun_out/).
 6. train    — the repo's headline MLP job at full width (bench.py: 30
                features, hidden (100, 100, 100) relu, bf16, weighted_mse,
                Adadelta 0.003, batch 65536, 2,621,440 rows; int8 wire) on
@@ -75,11 +80,32 @@ stderr, and no result line is printed):
                1024, 8 steps, 1 epoch: #7 launches 3 x (steps + eval
                batches), each #8 kernel 3 x steps; the lockstep at batch 8
                (the CPU's plain attention at S = 1001 is the limit).
-14. a JSON line {"kernels": [...]} with each kernel's launches on its
+14. train   — DeepFM at 100k vocab (bench.py:510: 30 features, 6
+    DeepFM    categorical, embedding_dim 16, hidden 100-100 relu, bf16,
+               Adadelta 0.003, batch 32768; 1,048,576 rows, 65,536 valid, 1
+               epoch) on the per-batch tier with dedup and the sparse
+               update: #5 launches steps + eval batches, #6 2 x steps (two
+               tables); samples/s, eval seconds, the dedup ratio, the peak
+               device memory.
+15. lockstep — 8 steps of that job in f32, card vs CPU from one init on
+               the same deduped batches: losses and every leaf's change,
+               the tables and their two slots included, within 1e-2.
+16. train   — the same job on the resident tier: raw ids, so #6 meets
+               duplicates; the same launch counts.
+17. serve   — the trained DeepFM served by the daemon, within 0.02 of the
+               CPU scorer, #5 once a batch; a profiled training epoch.
+18. train   — DeepFM at 4M vocab (bench.py:366-398), batch 4096, 8 steps,
+               sparse update on (#6 2 x steps) and off: samples/s of each
+               and their ratio, and the host time to build the 1.5 GB table.
+19. train   — Wide&Deep on the 1000-column schema (bench.py:507: 50
+               categorical, vocab 1000), batch 8192, 16 steps, dense update:
+               #5 launches steps + eval batches.
+20. a JSON line {"kernels": [...]} with each kernel's launches on its
    training path (FT fused for #1, FT unfused for #2 and #3, the headline
-   MLP for #4, FT flash for #7 and #8), its error against the plain
-   version, its times and its bound; every kernel must have launched there.
-15. the last line: {"ok": true, "device": {...}}.
+   MLP for #4, DeepFM for #5 and #6, FT flash for #7 and #8), its error
+   against the plain version, its times and its bound; every kernel must
+   have launched there.
+21. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -145,6 +171,11 @@ SHIFU_ROWS = 5_000
 FT_BLOCK_SHAPE = (8192, 31, 64, 8, 4)
 SMALL_ATTN_SHAPE = (8192, 8, 31, 8)
 FLASH_SHAPE = (1024, 8, 1001, 8)
+# the embedding kernels on the DeepFM 100k-vocab training path: the lookup
+# of the concatenated (6, 100000, 16 + 1) bf16 table at batch 32768, and
+# the rows-touched update (U, Nc, V, D) of the f32 16-dim table
+LOOKUP_SHAPE = (32768, 6, 100_000, 17)
+ROWS_SHAPE = (32768, 6, 100_000, 16)
 
 SERVE_THREADS = 8
 SERVE_ROWS_PER_THREAD = 512
@@ -693,6 +724,198 @@ def check_int8_matmul(device, gen) -> dict:
             "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
 
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two float tensors (NaN rows included)."""
+    import torch
+    view = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(view), b.view(view)))
+
+
+def check_embedding_lookup(device, gen) -> dict:
+    """Kernel #5 against `lookup_reference`, bitwise (a gather copies
+    values): at the DeepFM training shape and at edge shapes (D 1 to 128,
+    f32/bf16/f16, 50 fields, ids V, -1, -V and past [-V, V), B off every
+    block size)."""
+    import torch
+    import torch.nn.functional as F
+    from shifu_tpu_torch.ops import embedding as emb
+
+    def case(b, nc, v, d, dtype, edge_ids=False):
+        table = randn_on(gen, device, nc, v, d).to(dtype)
+        ids = torch.randint(0, v, (b, nc), generator=gen, dtype=torch.int32)
+        if edge_ids:
+            ids.view(-1)[:7] = torch.tensor(
+                [v, -1, -v, v - 1, 0, -v - 1, v + 5], dtype=torch.int32)
+        ids = ids.to(device)
+        got = emb.embedding_lookup(table, ids)
+        want = emb.lookup_reference(table, ids)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            fail(f"embedding_lookup B={b} Nc={nc} V={v} D={d} {dtype}: not "
+                 "bitwise equal to lookup_reference")
+        return table, ids
+
+    for shape in ((1001, 6, 1000, 1, torch.bfloat16, True),
+                  (3, 6, 5, 16, torch.float32, True),
+                  (777, 6, 1000, 64, torch.float16, True),
+                  (257, 3, 100, 128, torch.float32, True),
+                  (4099, 50, 1000, 17, torch.bfloat16, True),
+                  (33, 1, 7, 3, torch.float16, True)):
+        case(*shape)
+    b, nc, v, d = LOOKUP_SHAPE
+    table, ids = case(b, nc, v, d, torch.bfloat16)
+    offset_ids = (ids.long() + torch.arange(nc, device=device) * v)
+    flat_table = table.view(nc * v, d)
+
+    def kernel():
+        return emb.embedding_lookup(table, ids)
+
+    def plain():
+        return emb.lookup_reference(table, ids)
+
+    def library():
+        return F.embedding(offset_ids, flat_table)
+
+    if not same_bits(library(), plain()):
+        fail("F.embedding with offset ids differs from lookup_reference")
+    ms, plain_ms, library_ms = (device_ms(kernel), device_ms(plain),
+                                device_ms(library))
+    n_bytes = 2 * b * nc * d * table.element_size() + ids.numel() * 4
+    bnd, by = bound_ms(n_bytes, 0.0, table.dtype)
+    say(f"kernels: embedding_lookup B={b} Nc={nc} V={v} D={d} bf16 bitwise "
+        f"equal to its plain version (and at edge shapes: D 1..128, "
+        f"f32/bf16/f16, Nc 50, ids V/-1/-V/outside [-V, V)); device time: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.embedding on offset "
+        f"ids {library_ms:.4f} ms, bound {bnd:.4f} ms ({by}, "
+        f"{n_bytes / 1e6:.1f} MB)")
+    return {"name": "embedding_lookup", "route": "cuda",
+            "source": "shifu_tpu_torch/csrc/embedding_lookup.cu",
+            "replaces": "shifu_tpu/ops/pallas_embedding.py:62",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": library_ms}
+
+
+ROWS_TOL_TEXT = "rtol 1e-5 atol 1e-6 (the JAX tests' own)"
+
+
+def check_rows_update(device, gen) -> dict:
+    """Kernel #6 against its plain version on the same inputs: SGD and
+    Adadelta at the DeepFM training shape (a batch's unique ids per field
+    padded with the sentinel V), D 16 and 1, an f32 and a bf16 table, odd
+    edge shapes, and a raw batch with duplicates, which must give what its
+    deduped batch gives.  Held bitwise where it can be (both round every
+    f32 operation on its own), and within ROWS_TOL_TEXT."""
+    import torch
+    from shifu_tpu_torch.embed.dedup import dedup_ids
+    from shifu_tpu_torch.ops import embedding as emb
+
+    def state(nc, v, d, dtype):
+        table = randn_on(gen, device, nc, v, d).to(dtype)
+        slots = tuple(randn_on(gen, device, nc, v, d).square() * 1e-3
+                      for _ in range(2))
+        return table, slots
+
+    def run(fn, table, slots, g_rows, ids, rule):
+        t, s = table.clone(), tuple(x.clone() for x in slots)
+        fn(t, s if rule == "adadelta" else (), g_rows, ids, rule, 3e-3)
+        return t, s
+
+    def compare(label, got, want) -> tuple[float, bool]:
+        (gt, gs), (wt, ws) = got, want
+        err, bitwise = 0.0, True
+        for g, w in zip((gt, *gs), (wt, *ws)):
+            bitwise = bitwise and same_bits(g, w)
+            err = max(err, check_close(label, g, w, 1e-6, 1e-5))
+        return err, bitwise
+
+    def case(u, nc, v, d, dtype, rule, raw=False):
+        table, slots = state(nc, v, d, dtype)
+        ids = torch.randint(0, v, (u, nc), generator=gen, dtype=torch.int32)
+        if not raw:
+            ids = torch.from_numpy(dedup_ids(ids.numpy(), v)[0])
+        ids = ids.to(device)
+        dense_g = randn_on(gen, device, nc, v, d)
+        fields = torch.arange(nc, device=device)[None, :]
+        g_rows = dense_g[fields, ids.long().clamp(0, v - 1)]
+        label = (f"rows_update {rule} U={u} Nc={nc} V={v} D={d} {dtype}"
+                 f"{' raw ids' if raw else ''}")
+        got = run(emb.fused_rows_update, table, slots, g_rows, ids, rule)
+        want = run(emb.rows_update_plain, table, slots, g_rows, ids, rule)
+        torch.cuda.synchronize()
+        err, bitwise = compare(label, got, want)
+        return table, slots, g_rows, ids, dense_g, err, bitwise
+
+    results = [case(*shape)[5:] for shape in
+               ((1000, 6, 1000, 1, torch.float32, "adadelta"),
+                (4097, 6, 1000, 17, torch.float16, "sgd"),
+                (3, 2, 5, 3, torch.float32, "adadelta"),
+                (32768, 6, 100_000, 16, torch.bfloat16, "adadelta"),
+                (32768, 6, 100_000, 1, torch.float32, "sgd"),
+                (2000, 50, 1000, 16, torch.float32, "adadelta"))]
+    # duplicates: a raw batch equals its deduped batch (same dense grad)
+    u, nc, v, d = ROWS_SHAPE
+    table, slots = state(nc, v, d, torch.float32)
+    raw = torch.randint(0, v // 10, (u, nc), generator=gen,
+                        dtype=torch.int32)
+    uniq = torch.from_numpy(dedup_ids(raw.numpy(), v)[0]).to(device)
+    raw = raw.to(device)
+    dense_g = randn_on(gen, device, nc, v, d)
+    fields = torch.arange(nc, device=device)[None, :]
+    for rule in ("sgd", "adadelta"):
+        got = run(emb.fused_rows_update, table, slots,
+                  dense_g[fields, raw.long()], raw, rule)
+        dedup = run(emb.fused_rows_update, table, slots,
+                    dense_g[fields, uniq.long().clamp(0, v - 1)], uniq, rule)
+        plain = run(emb.rows_update_plain, table, slots,
+                    dense_g[fields, raw.long()], raw, rule)
+        torch.cuda.synchronize()
+        results.append(compare(f"rows_update {rule} raw vs plain", got,
+                               plain))
+        if not compare(f"rows_update {rule} raw vs dedup", got, dedup)[1]:
+            fail(f"rows_update {rule}: a raw batch with duplicates does not "
+                 "give its deduped batch's table and slots bitwise")
+    # the headline: adadelta on the f32 D = 16 table of the DeepFM path
+    table, slots, g_rows, ids, _, err, bitwise = case(u, nc, v, d,
+                                                      torch.float32,
+                                                      "adadelta")
+    results.append((err, bitwise))
+    touched = int(((ids >= 0) & (ids < v)).sum())
+
+    def kernel():
+        return emb.fused_rows_update(table, slots, g_rows, ids, "adadelta",
+                                     3e-3)
+
+    def plain():
+        return emb.rows_update_plain(table, slots, g_rows, ids, "adadelta",
+                                     3e-3)
+
+    ms, plain_ms = device_ms(kernel), device_ms(plain)
+    g1 = g_rows[..., :1].contiguous()
+    t1, s1 = state(nc, v, 1, torch.float32)
+    ms_d1 = device_ms(lambda: emb.fused_rows_update(t1, s1, g1, ids,
+                                                    "adadelta", 3e-3))
+    n_bytes = touched * 7 * d * 4 + ids.numel() * 4
+    bnd, by = bound_ms(n_bytes, 0.0, torch.float32)
+    all_bitwise = all(bw for _, bw in results)
+    say(f"kernels: rows_update adadelta U={u} Nc={nc} V={v} D={d} f32 "
+        f"({touched} touched rows of {u * nc}, the rest the sentinel) max|err| "
+        f"{err:.3e} (tol {ROWS_TOL_TEXT}); "
+        f"{'bitwise equal' if all_bitwise else 'NOT bitwise equal'} to its "
+        f"plain version at every shape (SGD/Adadelta, D 1..17, f32/bf16/f16, "
+        f"Nc 50, raw ids with duplicates, which give the deduped batch's "
+        f"rows bitwise); max|err| over all {max(e for e, _ in results):.3e}; "
+        f"device time: kernel {ms:.4f} ms (D=1 table {ms_d1:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}: 7*D*4 bytes a touched "
+        f"row + the ids); library none (no single PyTorch call gathers, "
+        f"applies Adadelta and scatters)")
+    return {"name": "rows_update", "route": "cuda",
+            "source": "shifu_tpu_torch/csrc/rows_update.cu",
+            "replaces": "shifu_tpu/ops/pallas_embedding.py:465",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+
+
 # -- phases 4 and 5: the serving path ---------------------------------------
 
 def serving_schema(num_features: int = 30, num_categorical: int = 6,
@@ -830,7 +1053,7 @@ def profile_serve(label: str, export_dir: str, schema, rng, device,
                   out_dir: str = "chiprun_out") -> None:
     """One more serving run of `export_dir` under torch.profiler: prints
     the device's busy share of the wall time and the kernels that take the
-    most device time, and writes a Chrome trace to `out_dir`.  The
+    most device time, and writes a gzip Chrome trace to `out_dir`.  The
     profiler slows the host, so this run's wall time is not a result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -860,7 +1083,7 @@ def profile_serve(label: str, export_dir: str, schema, rng, device,
         say(f"profile {label}:   {t / 1e3:9.3f} ms  {n:6d}x  {key[:90]}")
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir,
-                                          f"serve_{label}_trace.json"))
+                                          f"serve_{label}_trace.json.gz"))
 
 
 def ft_serving_spec(fused_block: str = "auto"):
@@ -908,6 +1131,8 @@ def synthetic_datasets(schema, n_train: int, n_valid: int, seed: int):
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
     from shifu_tpu_torch.ops import flash_attention as fa
+    from shifu_tpu_torch.ops.embedding import (embedding_lookup,
+                                               fused_rows_update)
     from shifu_tpu_torch.ops.ft_block import fused_transformer_block
     from shifu_tpu_torch.ops.int8_matmul import int8_matmul_dequant
     from shifu_tpu_torch.ops.small_attention import (small_attention_bwd,
@@ -916,6 +1141,8 @@ def launch_counters() -> dict:
             "small_attention": small_token_attention,
             "small_attention_bwd": small_attention_bwd,
             "int8_matmul": int8_matmul_dequant,
+            "embedding_lookup": embedding_lookup,
+            "rows_update": fused_rows_update,
             "flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
             "flash_bwd_dkv": fa.flash_bwd_dkv}
 
@@ -996,34 +1223,51 @@ def int8_launches(job):
 
 def lockstep_batches(job, train_ds, n_steps: int) -> list:
     """The first `n_steps` batches of the job's epoch order, cast for the
-    wire as the training loop casts them."""
+    wire as the training loop casts them; under a sparse plan with dedup
+    their ids are compacted first, as on the per-batch tier."""
     from shifu_tpu_torch.data import pipeline as pipe
+    from shifu_tpu_torch.embed.dedup import attach_dedup
+    from shifu_tpu_torch.train.sparse_embed import resolve_plan
     wcast = pipe.wire_cast_fn(job.schema, job.data, job.model.compute_dtype,
-                              compact=True)
+                              compact=True) or (lambda b: b)
+    plan = resolve_plan(job) if job.embed.dedup != "off" else None
+    dedup = (attach_dedup(plan.layout, plan.max_vocab) if plan
+             else (lambda b: b))
     batches = []
     for b in pipe.batch_iterator(train_ds, job.data.batch_size,
                                  seed=job.data.shuffle_seed):
-        batches.append(wcast(b))
+        batches.append(wcast(dedup(b)))
         if len(batches) == n_steps:
             break
     return batches
 
 
+def lockstep_leaves(state) -> dict:
+    """Every parameter and every sparse-table moment slot, f32 on the
+    host."""
+    out = {k: v.detach().cpu().float().clone()
+           for k, v in state.model.state_dict().items()}
+    for name, slots in (state.table_slots or {}).items():
+        for i, s in enumerate(slots):
+            out[f"{name}:slot{i}"] = s.detach().cpu().float().clone()
+    return out
+
+
 def lockstep_run(job, batches, dev) -> tuple[np.ndarray, dict, dict]:
     """Train steps over `batches` on `dev` from the job's init: (losses,
-    initial params, each param's change), as numpy on the host."""
+    initial leaves, each leaf's change), as numpy on the host; the leaves
+    are the parameters and the sparse tables' moment slots."""
     from shifu_tpu_torch.train.loop import init_state, to_device
     from shifu_tpu_torch.train.step import make_train_step
     state = init_state(job, job.schema.feature_count, dev)
-    init = {k: v.detach().cpu().float().clone()
-            for k, v in state.model.state_dict().items()}
+    init = lockstep_leaves(state)
     step = make_train_step(job)
     out = []
     for b in batches:
         state, m = step(state, to_device(b, job, dev))
         out.append(float(m["loss"]))
-    moved = {k: (v.detach().cpu().float() - init[k]).numpy()
-             for k, v in state.model.state_dict().items()}
+    moved = {k: (v - init[k]).numpy()
+             for k, v in lockstep_leaves(state).items()}
     return np.asarray(out), {k: v.numpy() for k, v in init.items()}, moved
 
 
@@ -1136,7 +1380,9 @@ def profile_training(label: str, job, train_ds, valid_ds, device,
     """A steady-state training epoch under torch.profiler: the window runs
     from the end of epoch 0 to the end of epoch 1 (its steps and its
     eval); prints the device's busy share of the window and its top
-    kernels and writes a Chrome trace `<label>_trace.json` to `out_dir`.
+    kernels and writes a gzip Chrome trace `<label>_trace.json.gz` to
+    `out_dir` (gzip keeps the traces of every profile under the 64 MiB a
+    chip call may bring back).
     The profiler slows the host, so the window's wall time is not a
     result."""
     import torch
@@ -1170,7 +1416,8 @@ def profile_training(label: str, job, train_ds, valid_ds, device,
     for key, t, n in sorted(avgs, key=lambda a: -a[1])[:10]:
         say(f"profile {label}:   {t / 1e3:9.3f} ms  {n:6d}x  {key[:90]}")
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"{label}_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          f"{label}_trace.json.gz"))
 
 
 def training_phases(device, tmp: str, kernels: list) -> None:
@@ -1300,14 +1547,16 @@ def ft_paths() -> dict:
 
 
 def cpu_lockstep_refs(n_steps: int = 8) -> dict:
-    """The CPU halves of the three FT locksteps, label -> `lockstep_run` on
-    the CPU.  `main` runs this in a process of its own while the kernels
-    build and the kernel checks run: on the 8-core host of the H100
-    machine these halves took 35-51 s in the script's main thread."""
+    """The CPU halves of the three FT locksteps and of the DeepFM one,
+    label -> `lockstep_run` on the CPU.  `main` runs this in a process of
+    its own while the kernels build and the kernel checks run: on the
+    8-core host of the H100 machine the FT halves took 35-51 s in the
+    script's main thread."""
     import torch
+    paths = {**ft_paths(), "DeepFM": deepfm_lockstep_path()}
     return {label: lockstep_run(job, lockstep_batches(job, tr, n_steps),
                                 torch.device("cpu"))
-            for label, (_, job, tr, _) in ft_paths().items()}
+            for label, (_, job, tr, _) in paths.items()}
 
 
 def ft_training_phases(device, tmp: str, kernels: list,
@@ -1348,7 +1597,8 @@ def ft_training_phases(device, tmp: str, kernels: list,
         "train FT unfused", unfused, tr_c, va_c, device, want_tier="resident",
         want_launches=lambda st, ev: {"small_attention": layers * st,
                                       "small_attention_bwd": layers * st,
-                                      "ft_block": layers * ev})
+                                      "ft_block": layers * ev,
+                                      "embedding_lookup": st + ev})
     set_launches(kernels, launches, ("small_attention", "small_attention_bwd"))
     lap("train FT unfused")
     lockstep(unfused_lock, tr_c, device, label="lockstep FT unfused",
@@ -1364,13 +1614,199 @@ def ft_training_phases(device, tmp: str, kernels: list,
         "train FT flash", flash, tr_w, va_w, device, want_tier="resident",
         want_launches=lambda st, ev: {"flash_fwd": layers * (st + ev),
                                       "flash_bwd_dq": layers * st,
-                                      "flash_bwd_dkv": layers * st})
+                                      "flash_bwd_dkv": layers * st,
+                                      "embedding_lookup": st + ev})
     set_launches(kernels, launches, ("flash_fwd", "flash_bwd_dq",
                                      "flash_bwd_dkv"))
     lap("train FT flash")
     lockstep(flash_lock, tr_w, device, label="lockstep FT flash",
              cpu_ref=cpu_refs["FT flash"])
     lap("lockstep FT flash")
+
+
+# -- phases 14 to 19: Wide&Deep and DeepFM -------------------------------------
+
+# the embedding rungs of bench.py, none cut in width: DeepFM at 100k vocab
+# (:510: 30 features, 6 categorical, embedding_dim 16, hidden 100-100 relu,
+# bf16, weighted_mse, Adadelta 0.003, batch 32768, 32 batches), its 4M-vocab
+# sparse-against-dense pair (:366-398: batch 4096, 8 steps) and the
+# 1000-column Wide&Deep (:507: 1000 features, 50 categorical, vocab 1000,
+# batch 8192, 16 batches); 65,536 valid rows for the 100k DeepFM
+DEEPFM_VOCAB = 100_000
+DEEPFM_BATCH = 32768
+DEEPFM_TRAIN_ROWS = 32 * DEEPFM_BATCH
+DEEPFM_VALID_ROWS = 65_536
+BIG_VOCAB = 4_000_000
+BIG_VOCAB_BATCH = 4096
+BIG_VOCAB_STEPS = 8
+WD_BATCH = 8192
+WD_TRAIN_ROWS = 16 * WD_BATCH
+WD_VALID_ROWS = 8192
+# the DeepFM lockstep computes in f32, as the FT ones do: card and CPU then
+# differ in summation order only (the lookup gradient's index_add_ adds in
+# f32 atomics on the card)
+LOCKSTEP_DEEPFM_DTYPE = "float32"
+
+
+def dlrm_job(model_type: str, schema, batch: int, epochs: int = 1,
+             staged: bool = True, sparse: str = "auto"):
+    from shifu_tpu_torch.config.schema import (DataConfig, JobConfig,
+                                               ModelSpec, OptimizerConfig,
+                                               TrainConfig)
+    return JobConfig(
+        schema=schema, data=DataConfig(batch_size=batch, staged=staged),
+        model=ModelSpec(model_type=model_type, hidden_nodes=(100, 100),
+                        activations=("relu", "relu"), embedding_dim=16,
+                        compute_dtype="bfloat16"),
+        train=TrainConfig(epochs=epochs, loss="weighted_mse",
+                          optimizer=OptimizerConfig(name="adadelta",
+                                                    learning_rate=0.003),
+                          sparse_embedding_update=sparse),
+    ).validate()
+
+
+def deepfm_schema(vocab: int):
+    from shifu_tpu_torch.data import synthetic
+    return synthetic.make_schema(num_features=30, num_categorical=6,
+                                 vocab_size=vocab)
+
+
+def deepfm_lockstep_path() -> tuple:
+    """(job, lockstep job, train, valid) of the DeepFM 100k-vocab rung on
+    the per-batch tier, from SEED alone (the process that runs the
+    lockstep's CPU half builds the same)."""
+    job = dlrm_job("deepfm", deepfm_schema(DEEPFM_VOCAB), DEEPFM_BATCH,
+                   staged=False)
+    lock = with_batch(job, DEEPFM_BATCH, compute_dtype=LOCKSTEP_DEEPFM_DTYPE)
+    return (job, lock, *synthetic_datasets(job.schema, DEEPFM_TRAIN_ROWS,
+                                           DEEPFM_VALID_ROWS, SEED + 3))
+
+
+def sparse_launches(steps: int, evals: int) -> dict:
+    """A sparse DeepFM run: one lookup a step and eval batch, one update a
+    step for each of its two tables."""
+    return {"embedding_lookup": steps + evals, "rows_update": 2 * steps}
+
+
+def big_vocab_pair(device) -> None:
+    """DeepFM at 4M vocab with the sparse update on and off (bench.py's
+    `ladder_deepfm_4mvocab_sparse_speedup`): 2 epochs of 4 steps each, the
+    resident tier (raw ids through kernel #6 when on); samples/s of epoch
+    1 and their ratio, and the seconds `train` spends before its first
+    epoch, which building the model on the host takes."""
+    import gc
+    import torch
+    schema = deepfm_schema(BIG_VOCAB)
+    steps_per_epoch = BIG_VOCAB_STEPS // 2
+    tr, va = synthetic_datasets(schema, steps_per_epoch * BIG_VOCAB_BATCH,
+                                BIG_VOCAB_BATCH, SEED + 4)
+    rate = {}
+    for mode in ("on", "off"):
+        job = dlrm_job("deepfm", schema, BIG_VOCAB_BATCH, epochs=2,
+                       sparse=mode)
+        label = f"train DeepFM 4M vocab sparse {mode}"
+        t0 = time.perf_counter()
+        res, _ = run_training(
+            label, job, tr, va, device, want_tier="resident",
+            want_launches=(sparse_launches if mode == "on" else
+                           lambda st, ev: {"embedding_lookup": st + ev}))
+        wall = time.perf_counter() - t0
+        setup = wall - sum(m.epoch_time + m.valid_time for m in res.history)
+        last = res.history[-1]
+        rate[mode] = steps_per_epoch * BIG_VOCAB_BATCH / last.epoch_time
+        say(f"{label}: set-up {setup:.2f} s before epoch 0 (the model built "
+            f"on the host: the (6, 4000000, 16) f32 table, 1.54 GB, and the "
+            f"(6, 4000000, 1) one drawn by a torch.Generator, then copied to "
+            f"the card); epoch 1 {rate[mode]:.1f} samples/s")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"train DeepFM 4M vocab: sparse on / off samples/s (epoch 1) = "
+        f"{rate['on'] / rate['off']:.3f} ({rate['on']:.1f} / "
+        f"{rate['off']:.1f})")
+
+
+def embedding_training_phases(device, tmp: str, kernels: list,
+                              cpu_refs: dict) -> None:
+    import torch
+    from shifu_tpu_torch.data import synthetic
+    from shifu_tpu_torch.export.artifact import save_artifact
+
+    job, lock_job, tr, va = deepfm_lockstep_path()
+    say(f"train DeepFM: {tr.num_rows} train + {va.num_rows} valid rows, 30 "
+        f"features (6 categorical, vocab {DEEPFM_VOCAB}), embedding_dim 16, "
+        f"hidden (100, 100) relu, bf16, {job.train.loss}, adadelta 0.003, "
+        f"batch {DEEPFM_BATCH}, 1 epoch, per-batch tier with dedup, sparse "
+        f"update (auto: vocab >= 100000)")
+    torch.cuda.reset_peak_memory_stats(device)
+    res, launches = run_training("train DeepFM", job, tr, va, device,
+                                 want_tier="batch",
+                                 want_launches=sparse_launches)
+    peak = torch.cuda.max_memory_allocated(device)
+    if res.dedup is None or res.state.table_slots is None:
+        fail("train DeepFM: the sparse plan or the dedup did not engage")
+    ded = res.dedup
+    say(f"train DeepFM: dedup {ded['unique']} unique rows of {ded['cells']} "
+        f"id cells in {ded['batches']} batches, ratio "
+        f"{ded['unique'] / ded['cells']:.4f}; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB")
+    set_launches(kernels, launches, ("embedding_lookup", "rows_update"))
+    # the host's share of a step: the dedup of one batch, timed alone on
+    # the epoch's batches
+    from shifu_tpu_torch.data import pipeline as pipe
+    from shifu_tpu_torch.embed.dedup import attach_dedup
+    plan_layout = res.state.model.layout
+    batches = list(pipe.batch_iterator(tr, DEEPFM_BATCH,
+                                       seed=job.data.shuffle_seed))
+    transform = attach_dedup(plan_layout, DEEPFM_VOCAB)
+    t0 = time.perf_counter()
+    for b in batches:
+        transform(b)
+    dedup_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    step_ms = res.history[0].epoch_time / len(batches) * 1e3
+    say(f"train DeepFM: host dedup {dedup_ms:.3f} ms a batch, of "
+        f"{step_ms:.3f} ms a step in the epoch")
+    del batches
+    lap("train DeepFM")
+    lockstep(lock_job, tr, device, label="lockstep DeepFM",
+             cpu_ref=cpu_refs["DeepFM"])
+    lap("lockstep DeepFM")
+
+    resident = job.replace(data=dataclasses.replace(job.data, staged=True))
+    run_training("train DeepFM resident", resident, tr, va, device,
+                 want_tier="resident", want_launches=sparse_launches)
+    lap("train DeepFM resident")
+
+    export_dir = save_artifact(res.state.model, job.model, job.schema,
+                               f"{tmp}/trained_deepfm")
+    served = serve_phase("trained DeepFM", export_dir, job.schema,
+                         np.random.default_rng(SEED), device,
+                         rows_per_thread=128, n_frames=1)
+    report_serve("trained DeepFM", served)
+    if served["launches"] != {k: (served["dispatched"]
+                                  if k == "embedding_lookup" else 0)
+                              for k in served["launches"]}:
+        fail(f"trained DeepFM: launches {served['launches']}, expected one "
+             f"lookup a batch ({served['dispatched']}) and no other kernel")
+    profile_training("train_deepfm", job, tr, va, device)
+    del res
+    lap("serve trained DeepFM and profile train_deepfm")
+
+    big_vocab_pair(device)
+    lap("train DeepFM 4M vocab, sparse on and off")
+
+    wd_schema = synthetic.make_schema(num_features=1000, num_categorical=50,
+                                      vocab_size=1000)
+    wd = dlrm_job("wide_deep", wd_schema, WD_BATCH)
+    tr_w, va_w = synthetic_datasets(wd_schema, WD_TRAIN_ROWS, WD_VALID_ROWS,
+                                    SEED + 5)
+    say(f"train Wide&Deep: 1000 features (50 categorical, vocab 1000), "
+        f"{tr_w.num_rows} train + {va_w.num_rows} valid rows, batch "
+        f"{WD_BATCH}, 1 epoch, resident tier, dense update (vocab < 100000)")
+    run_training("train Wide&Deep", wd, tr_w, va_w, device,
+                 want_tier="resident",
+                 want_launches=lambda st, ev: {"embedding_lookup": st + ev})
+    lap("train Wide&Deep 1000 columns")
 
 
 def main() -> None:
@@ -1439,7 +1875,8 @@ def main() -> None:
     gen = torch.Generator().manual_seed(SEED)
     kernels = []
     for check in (check_ft_block, check_small_attention,
-                  check_small_attention_bwd, check_int8_matmul, check_flash):
+                  check_small_attention_bwd, check_int8_matmul,
+                  check_embedding_lookup, check_rows_update, check_flash):
         got = check(device, gen)
         kernels.extend(got if isinstance(got, list) else [got])
         lap(check.__name__)
@@ -1461,19 +1898,23 @@ def main() -> None:
         fused_dir = save_artifact(model, spec, schema, f"{tmp}/fused")
         res = serve_phase("fused", fused_dir, schema, rng, device)
         report_serve("fused", res)
-        want = {"ft_block": spec.num_layers * res["dispatched"]}
+        want = {"ft_block": spec.num_layers * res["dispatched"],
+                "embedding_lookup": res["dispatched"]}
         if res["launches"] != {k: want.get(k, 0) for k in res["launches"]}:
             fail(f"fused path: launches {res['launches']}, expected "
-                 f"num_layers x batches = {want} and no other kernel")
+                 f"num_layers x batches and one lookup a batch = {want} "
+                 "and no other kernel")
 
         off_spec = dataclasses.replace(spec, fused_block="off")
         off_dir = save_artifact(model, off_spec, schema, f"{tmp}/unfused")
         res = serve_phase("unfused", off_dir, schema, rng, device)
         report_serve("unfused", res)
-        want = {"small_attention": spec.num_layers * res["dispatched"]}
+        want = {"small_attention": spec.num_layers * res["dispatched"],
+                "embedding_lookup": res["dispatched"]}
         if res["launches"] != {k: want.get(k, 0) for k in res["launches"]}:
             fail(f"unfused path: launches {res['launches']}, expected "
-                 f"num_layers x batches = {want} and no other kernel")
+                 f"num_layers x batches and one lookup a batch = {want} "
+                 "and no other kernel")
 
         profile_serve("fused", fused_dir, schema, rng, device)
         profile_serve("unfused", off_dir, schema, rng, device)
@@ -1483,11 +1924,13 @@ def main() -> None:
         training_phases(device, tmp, kernels)
         # phases 11 to 13: train the FT-Transformer on both attention paths
         ft_training_phases(device, tmp, kernels, cpu_refs)
+        # phases 14 to 19: train and serve Wide&Deep and DeepFM
+        embedding_training_phases(device, tmp, kernels, cpu_refs)
 
     missing = [kr["name"] for kr in kernels if not kr.get("launches")]
     if missing:
         fail(f"kernels not launched on their training path: {missing}")
-    # phase 14: the kernels line; phase 15: the result line
+    # phase 20: the kernels line; phase 21: the result line
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -88,7 +88,8 @@ class ModelSpec:
 
     The port reads `model_type`, the MLP fields (with `dropout_rate` and
     `l2_scale` in training), the FT-Transformer fields (`attention_impl`
-    "local" or "flash", `remat`), `fused_block` and the dtypes.  The rest
+    "local" or "flash", `remat`), `fused_block`, `embedding_dim` and
+    `num_heads` (Wide&Deep, DeepFM), and the dtypes.  The rest
     (ring and Ulysses attention, `pipeline_*`, `num_experts`) belong to
     model types or modes that later slices port; they are kept so that any
     artifact's `model_spec` parses.
@@ -332,9 +333,9 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training loop settings; `local_sgd_window`,
-    `sparse_embedding_update` and `scaling_gate` are parsed and checked but
-    belong to tiers that later slices port."""
+    """Training loop settings; `local_sgd_window` and `scaling_gate` are
+    parsed and checked but belong to tiers that later slices port.
+    `sparse_embedding_update` selects train/sparse_embed.py's plan."""
 
     epochs: int = 100
     loss: str = "weighted_mse"
@@ -411,8 +412,10 @@ class ObsConfig:
 
 @dataclass(frozen=True)
 class EmbedConfig:
-    """The JAX package's sparse-embedding engine knobs (slice (c)), carried
-    so a JAX job dict parses."""
+    """The JAX package's sparse-embedding engine knobs.  The port reads
+    `dedup` ("off" turns the per-batch id compaction off); the tiering
+    fields are carried so a JAX job dict parses (tiering is ROADMAP.md
+    queue A item (e))."""
 
     dedup: str = "auto"
     tiering: str = "off"

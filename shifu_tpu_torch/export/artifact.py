@@ -78,13 +78,19 @@ def params_from_jax(flat: dict[str, np.ndarray],
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"weight {key!r} has shape {arr.shape}, model "
                              f"expects {tuple(ref.shape)}")
+        if arr.dtype.kind == "V":
+            # a bfloat16 array of JAX's numpy extension: widened exactly
+            arr = arr.astype(np.float32)
         out[key] = torch.tensor(arr, dtype=ref.dtype)
     return out
 
 
 def flat_params(model: nn.Module) -> dict[str, np.ndarray]:
-    """The model's parameters under `/`-joined Flax key names."""
-    return {k.replace(".", "/"): v.detach().cpu().numpy()
+    """The model's parameters under `/`-joined Flax key names; bfloat16
+    parameters are written as float32 (exact), since numpy has no
+    bfloat16."""
+    return {k.replace(".", "/"): (v.float() if v.dtype == torch.bfloat16
+                                  else v).detach().cpu().numpy()
             for k, v in model.state_dict().items()}
 
 

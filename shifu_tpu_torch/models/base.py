@@ -3,9 +3,11 @@
 Parameters keep the JAX package's names and layouts so that an artifact's
 `weights.npz` maps one to one onto a module's `state_dict` (`/` becomes
 `.`): a dense kernel is `(in, out)` and the product is `y = x @ W + b`.
-Compute runs in `compute_dtype` with parameters held in float32, casting
-where Flax's `nn.Dense(dtype=cdt)` casts: inputs, kernel and bias to the
-compute dtype, product and bias add in it.
+Compute runs in `compute_dtype` with parameters held in `param_dtype`
+(ModelSpec.param_dtype, float32 by default), casting where Flax's
+`nn.Dense(dtype=cdt, param_dtype=pdt)` casts: inputs, kernel and bias to
+the compute dtype, product and bias add in it.  Parameters are drawn in
+float32 and then rounded to `param_dtype`.
 
 `_WireDense` is the int8-wire first layer of a model trained on the int8
 wire: the same `kernel`/`bias`, but an int8 input goes through
@@ -38,18 +40,29 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def cat_promoted(tensors: list, dim: int) -> torch.Tensor:
+    """torch.cat after promoting every part to their widest dtype, as
+    jnp.concatenate does (torch.cat refuses mixed dtypes)."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return torch.cat([t.to(dt) for t in tensors], dim=dim)
+
+
 class Dense(nn.Module):
     """Counterpart of flax `nn.Dense` with `dtype=cdt`: params `kernel`
-    (in, out) and `bias` (out,), float32; xavier kernel."""
+    (in, out) and `bias` (out,) in `param_dtype`; xavier kernel."""
 
     def __init__(self, in_features: int, out_features: int,
                  compute_dtype: str = "bfloat16", bias_fn=zeros_bias,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 param_dtype: str = "float32"):
         super().__init__()
         self.cdt = dtype_of(compute_dtype)
+        pdt = dtype_of(param_dtype)
         self.kernel = nn.Parameter(
-            xavier_uniform((in_features, out_features), generator))
-        self.bias = nn.Parameter(bias_fn((out_features,), generator))
+            xavier_uniform((in_features, out_features), generator).to(pdt))
+        self.bias = nn.Parameter(bias_fn((out_features,), generator).to(pdt))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return (x.to(self.cdt) @ self.kernel.to(self.cdt)
@@ -68,13 +81,14 @@ class _WireDense(Dense):
 
     def __init__(self, in_features: int, out_features: int, wire: Wire,
                  compute_dtype: str = "bfloat16", bias_fn=zeros_bias,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 param_dtype: str = "float32"):
         if not int8_available(in_features, out_features):
             raise ValueError(
                 f"_WireDense: {in_features} -> {out_features} is outside the "
                 "int8 kernel's shape gate; decode the wire before the model")
         super().__init__(in_features, out_features, compute_dtype, bias_fn,
-                         generator)
+                         generator, param_dtype)
         scale, offset = wire
         self.register_buffer("wire_scale",
                              torch.tensor(scale, dtype=torch.float32),
@@ -100,15 +114,16 @@ class ShifuDense(nn.Module):
                  activation: Optional[str] = None, xavier_bias: bool = True,
                  compute_dtype: str = "bfloat16",
                  generator: Optional[torch.Generator] = None,
-                 wire: Optional[Wire] = None):
+                 wire: Optional[Wire] = None, param_dtype: str = "float32"):
         super().__init__()
         if wire is None:
             self.Dense_0 = Dense(in_features, features, compute_dtype,
-                                 bias_init(xavier_bias), generator)
+                                 bias_init(xavier_bias), generator,
+                                 param_dtype)
         else:
             self.Dense_0 = _WireDense(in_features, features, wire,
                                       compute_dtype, bias_init(xavier_bias),
-                                      generator)
+                                      generator, param_dtype)
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -162,7 +177,8 @@ class MLPTrunk(nn.Module):
                                          spec.activations)):
             self.add_module(f"hidden_layer{i}", ShifuDense(
                 n_in, n, act, spec.xavier_bias_init, spec.compute_dtype,
-                generator, wire=wire if i == 0 else None))
+                generator, wire=wire if i == 0 else None,
+                param_dtype=spec.param_dtype))
             n_in = n
         self.out_features = n_in
         # parameterless: the state_dict keeps only the hidden layers
@@ -184,7 +200,7 @@ class ScoringHead(nn.Module):
         super().__init__()
         self.shifu_output_0 = ShifuDense(
             in_features, spec.num_heads, None, spec.xavier_bias_init,
-            spec.compute_dtype, generator)
+            spec.compute_dtype, generator, param_dtype=spec.param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.shifu_output_0(x).float()

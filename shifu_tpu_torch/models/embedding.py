@@ -1,17 +1,19 @@
-"""Feature embeddings (port of the FT-Transformer's part of
-shifu_tpu/models/embedding.py): field layout, the numeric/categorical
-split, the two tokenizers, and `embedding_lookup` (the gather of
-shifu_tpu/ops/pallas_embedding.py with its XLA-path gradient)."""
+"""Feature embeddings (port of shifu_tpu/models/embedding.py): field
+layout, the numeric/categorical split, the categorical tables and the
+numeric field vectors, and `fused_lookup`, one lookup for the tables that
+share ids.  Every lookup goes through `ops/embedding.embedding_lookup`
+(kernel #5 on the card; re-exported here)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..config.schema import DataSchema
+from ..config.schema import DataSchema, ModelSpec
+from ..ops.embedding import embedding_lookup
 from ..ops.initializers import xavier_uniform
 from .base import dtype_of
 
@@ -79,45 +81,16 @@ def split_features(features: torch.Tensor, layout: FieldLayout
     return num, ids
 
 
-class _EmbeddingLookup(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, table, ids):
-        nc = table.shape[0]
-        ctx.save_for_backward(ids)
-        ctx.table_shape, ctx.table_dtype = tuple(table.shape), table.dtype
-        fields = torch.arange(nc, device=ids.device)
-        return table[fields[None, :], ids.long()]
-
-    @staticmethod
-    def backward(ctx, g):
-        (ids,) = ctx.saved_tensors
-        nc, v, d = ctx.table_shape
-        flat = (torch.arange(nc, device=ids.device)[None, :] * v
-                + ids.long()).reshape(-1)
-        grad = torch.zeros((nc * v, d), dtype=torch.float32, device=g.device)
-        grad.index_add_(0, flat, g.reshape(-1, d).float())
-        return grad.reshape(nc, v, d).to(ctx.table_dtype), None
-
-
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """out[b, f, :] = table[f, ids[b, f], :] for a (Nc, V, D) table and
-    (B, Nc) ids in [0, V).  Its gradient scatter-adds the rows in f32 and
-    rounds once to the table's dtype, as JAX's `_scatter_grad` (and the
-    one-hot gradient) then `.astype` do: a plain bf16 gather would add a
-    row's updates in bf16 in its backward.  Plain PyTorch on every device;
-    the TPU lookup kernel (pallas_embedding.py `_pallas_lookup`) waits for
-    the embedding models' slice (ROADMAP.md)."""
-    return _EmbeddingLookup.apply(table, ids)
-
-
 class CategoricalEmbed(nn.Module):
     """Per-field embedding tables stacked as one `embedding` param
-    (num_fields, max_vocab, dim); ids (B, Nc) -> (B, Nc, dim) in the
-    compute dtype through `embedding_lookup`."""
+    (num_fields, max_vocab, dim) in `param_dtype`; ids (B, Nc) ->
+    (B, Nc, dim) in the compute dtype through `embedding_lookup`.
+    `table()` is the compute-dtype table, for `fused_lookup`."""
 
     def __init__(self, layout: FieldLayout, dim: int,
                  compute_dtype: str = "bfloat16",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 param_dtype: str = "float32"):
         super().__init__()
         self.layout = layout
         self.dim = dim
@@ -125,33 +98,61 @@ class CategoricalEmbed(nn.Module):
         if layout.num_categorical:
             self.embedding = nn.Parameter(xavier_uniform(
                 (layout.num_categorical, max(layout.vocab_sizes), dim),
-                generator))
+                generator).to(dtype_of(param_dtype)))
+
+    def table(self) -> torch.Tensor:
+        return self.embedding.to(self.cdt)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         if self.layout.num_categorical == 0:
             return torch.zeros((ids.shape[0], 0, self.dim), dtype=self.cdt,
                                device=ids.device)
-        return embedding_lookup(self.embedding.to(self.cdt), ids)
+        return embedding_lookup(self.table(), ids)
+
+
+def fused_lookup(embeds: Sequence[CategoricalEmbed], ids: torch.Tensor
+                 ) -> list[torch.Tensor]:
+    """One lookup for several CategoricalEmbeds over the same ids: their
+    tables concatenated along dim, gathered once, the result split back
+    per embed.  The same values as a lookup per embed.  (The JAX package
+    looks them up separately under SHIFU_TPU_PALLAS, only because its TPU
+    kernel needs D % 128 == 0; the card has no such limit.)"""
+    fused = embedding_lookup(torch.cat([e.table() for e in embeds], dim=-1),
+                             ids)
+    return list(fused.split([e.dim for e in embeds], dim=-1))
+
+
+def paired_cat_embed(layout: FieldLayout, spec: ModelSpec,
+                     generator: Optional[torch.Generator] = None
+                     ) -> tuple[CategoricalEmbed, CategoricalEmbed]:
+    """The (embedding_dim, num_heads) pair of tables over the same ids that
+    Wide&Deep and DeepFM both hold, looked up together by `fused_lookup`."""
+    return tuple(CategoricalEmbed(layout, dim, spec.compute_dtype, generator,
+                                  spec.param_dtype)
+                 for dim in (spec.embedding_dim, spec.num_heads))
 
 
 class NumericEmbed(nn.Module):
     """Numeric feature tokens: x_j -> x_j * w_j + b_j, (B, Nn) -> (B, Nn, dim).
 
     As in the JAX module, x is cast to the compute dtype and then meets the
-    float32 params, so the tokens come out in float32 (type promotion)."""
+    params in `param_dtype`, so with float32 params the tokens come out in
+    float32 (type promotion)."""
 
     def __init__(self, layout: FieldLayout, dim: int,
                  compute_dtype: str = "bfloat16",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 param_dtype: str = "float32"):
         super().__init__()
         self.layout = layout
         self.dim = dim
         self.cdt = dtype_of(compute_dtype)
         if layout.num_numeric:
+            pdt = dtype_of(param_dtype)
             self.weight = nn.Parameter(
-                xavier_uniform((layout.num_numeric, dim), generator))
+                xavier_uniform((layout.num_numeric, dim), generator).to(pdt))
             self.bias = nn.Parameter(
-                torch.zeros((layout.num_numeric, dim), dtype=torch.float32))
+                torch.zeros((layout.num_numeric, dim), dtype=pdt))
 
     def forward(self, numeric: torch.Tensor) -> torch.Tensor:
         if self.layout.num_numeric == 0:

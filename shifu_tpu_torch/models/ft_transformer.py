@@ -39,7 +39,7 @@ from ..ops.ft_block import fused_block_engaged, fused_transformer_block
 from ..ops.initializers import xavier_uniform
 from ..ops.small_attention import (small_attention_applicable,
                                    small_token_attention)
-from .base import Dense, Dropout, ShifuDense, dtype_of
+from .base import Dense, Dropout, ShifuDense, cat_promoted, dtype_of
 from .embedding import (CategoricalEmbed, FieldLayout, NumericEmbed,
                         split_features)
 
@@ -74,17 +74,20 @@ class TransformerBlock(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         d, r, cdt = spec.token_dim, spec.mlp_ratio, spec.compute_dtype
+        pdt = spec.param_dtype
         if d % spec.num_attention_heads != 0:
             raise ValueError(
                 f"token_dim ({d}) must be divisible by num_attention_heads "
                 f"({spec.num_attention_heads})")
         self.spec = spec
         self.ln_attn = LayerNorm(d, cdt)
-        self.qkv = Dense(d, 3 * d, cdt, generator=generator)
-        self.proj = Dense(d, d, cdt, generator=generator)
+        self.qkv = Dense(d, 3 * d, cdt, generator=generator, param_dtype=pdt)
+        self.proj = Dense(d, d, cdt, generator=generator, param_dtype=pdt)
         self.ln_mlp = LayerNorm(d, cdt)
-        self.mlp_in = Dense(d, r * d, cdt, generator=generator)
-        self.mlp_out = Dense(r * d, d, cdt, generator=generator)
+        self.mlp_in = Dense(d, r * d, cdt, generator=generator,
+                            param_dtype=pdt)
+        self.mlp_out = Dense(r * d, d, cdt, generator=generator,
+                             param_dtype=pdt)
         self.drop_attn = Dropout(spec.dropout_rate)
         self.drop_mlp = Dropout(spec.dropout_rate)
 
@@ -151,19 +154,22 @@ class FTTransformer(nn.Module):
                 "A item (f)); export the canonical per-block artifact")
         self.spec = spec
         self.layout = layout
-        d, cdt = spec.token_dim, spec.compute_dtype
+        d, cdt, pdt = spec.token_dim, spec.compute_dtype, spec.param_dtype
         self.cdt = dtype_of(cdt)
         if layout.num_numeric:
-            self.numeric_tokenizer = NumericEmbed(layout, d, cdt, generator)
+            self.numeric_tokenizer = NumericEmbed(layout, d, cdt, generator,
+                                                  pdt)
         if layout.num_categorical:
-            self.cat_tokenizer = CategoricalEmbed(layout, d, cdt, generator)
-        self.cls_token = nn.Parameter(xavier_uniform((1, 1, d), generator))
+            self.cat_tokenizer = CategoricalEmbed(layout, d, cdt, generator,
+                                                  pdt)
+        self.cls_token = nn.Parameter(
+            xavier_uniform((1, 1, d), generator).to(dtype_of(pdt)))
         for i in range(spec.num_layers):
             self.add_module(f"block_{i}", TransformerBlock(spec, generator))
         self.ln_final = LayerNorm(d, cdt)
         self.shifu_output_0 = ShifuDense(d, spec.num_heads, None,
                                          spec.xavier_bias_init, cdt,
-                                         generator)
+                                         generator, param_dtype=pdt)
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         numeric, ids = split_features(features, self.layout)
@@ -172,12 +178,9 @@ class FTTransformer(nn.Module):
             tokens.append(self.numeric_tokenizer(numeric))
         if self.layout.num_categorical:
             tokens.append(self.cat_tokenizer(ids))
-        # numeric tokens are float32 (promotion); the concat promotes the
-        # categorical ones with them before the cast, as jnp.concatenate does
-        dt = tokens[0].dtype
-        for t in tokens[1:]:
-            dt = torch.promote_types(dt, t.dtype)
-        x = torch.cat([t.to(dt) for t in tokens], dim=1)
+        # numeric tokens are float32 under f32 params (promotion); the
+        # concat promotes the categorical ones with them before the cast
+        x = cat_promoted(tokens, dim=1)
         cls = self.cls_token.to(self.cdt).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x.to(self.cdt)], dim=1).contiguous()
         remat = self.spec.remat and torch.is_grad_enabled()

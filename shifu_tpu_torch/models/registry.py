@@ -14,8 +14,6 @@ from .base import Wire
 
 # model types of the JAX ladder that later slices port (ROADMAP.md)
 _NOT_PORTED = {
-    "wide_deep": "queue A item (c)",
-    "deepfm": "queue A item (c)",
     "multitask": "queue A item (e)",
     "moe_mlp": "queue A item (e)",
 }
@@ -39,10 +37,14 @@ def build_model(spec: ModelSpec, schema: DataSchema,
     if spec.model_type == "mlp":
         from .mlp import ShifuMLP
         model = ShifuMLP(spec, schema.feature_count, generator, wire)
-    elif spec.model_type == "ft_transformer":
+    elif spec.model_type in ("ft_transformer", "wide_deep", "deepfm"):
+        from .deepfm import DeepFM
         from .embedding import field_layout
         from .ft_transformer import FTTransformer
-        model = FTTransformer(spec, field_layout(schema), generator)
+        from .wide_deep import WideDeep
+        cls = {"ft_transformer": FTTransformer, "wide_deep": WideDeep,
+               "deepfm": DeepFM}[spec.model_type]
+        model = cls(spec, field_layout(schema), generator)
     elif spec.model_type in _NOT_PORTED:
         raise NotImplementedError(
             f"model_type {spec.model_type!r} is not ported yet (ROADMAP.md, "

@@ -7,7 +7,10 @@ JAX package's rule: the device-resident tier when the training partition,
 in its in-card format (int8 features on the wire grid, u8 targets, the
 weight column elided when all ones), fits `data.device_resident_bytes`;
 otherwise the per-batch tier, which casts each batch on the host and copies
-it to the card.  Every epoch ends with a full evaluation of the valid set
+it to the card.  Under a sparse embedding plan (train/sparse_embed.py) the
+per-batch tier compacts each batch's ids first (embed/dedup, unless
+`embed.dedup` is "off"); the resident tier updates from the raw ids, as in
+the JAX package.  Every epoch ends with a full evaluation of the valid set
 (zero-weight tail padding) every `eval_every_epochs`, the console line of
 `EpochMetrics`, and the early-stopping bookkeeping.
 
@@ -33,14 +36,18 @@ import torch
 from ..config.schema import JobConfig
 from ..data import pipeline as pipe
 from ..device import DeviceLike, resolve_device
+from ..embed.dedup import attach_dedup
 from ..models.registry import build_model
 from ..ops import metrics as metrics_lib
+from . import sparse_embed
 from .optimizers import Optimizer
 from .step import (make_device_epoch_step, make_eval_step, make_train_step,
                    wire_fused_into_model, wire_grid)
 from .train_state import TrainState
 
 Console = Callable[[str], None]
+
+_TRAINABLE = ("mlp", "ft_transformer", "wide_deep", "deepfm")
 
 
 @dataclasses.dataclass
@@ -68,6 +75,9 @@ class TrainResult:
     job: JobConfig
     # input tier that trained the epochs: "resident" or "batch"
     tier: str = ""
+    # the per-batch dedup's counts (embed/dedup `dedup_state`: batches,
+    # unique rows, raw id cells), or None when no batch was compacted
+    dedup: Optional[dict] = None
 
 
 def init_state(job: JobConfig, num_features: int,
@@ -75,15 +85,16 @@ def init_state(job: JobConfig, num_features: int,
     """Build the model in training mode and its optimizer.  Weights are
     drawn from a `torch.Generator` seeded with `train.seed` (other numbers
     than the JAX package's init from the same seed).  When int8 features
-    reach the model natively its layer 0 carries the wire grid.  The MLP
-    and the FT-Transformer train; the other model types wait for later
-    slices (ROADMAP.md queue A items (c) and (e))."""
-    if job.model.model_type not in ("mlp", "ft_transformer"):
+    reach the model natively its layer 0 carries the wire grid.  Under a
+    sparse embedding plan the optimizer leaves the embedding tables out and
+    their slots go on `table_slots`.  The MLP, the FT-Transformer,
+    Wide&Deep and DeepFM train; multitask and moe_mlp wait for a later
+    slice (ROADMAP.md queue A item (e))."""
+    if job.model.model_type not in _TRAINABLE:
         raise NotImplementedError(
             f"training model_type {job.model.model_type!r} is not ported "
-            "yet (ROADMAP.md queue A: item (c) for wide_deep and deepfm, "
-            "(e) for multitask and moe_mlp); the port trains the MLP and "
-            "the FT-Transformer")
+            "yet (ROADMAP.md queue A item (e)); the port trains "
+            + ", ".join(_TRAINABLE))
     if num_features != job.schema.feature_count:
         raise ValueError(f"dataset has {num_features} features, the schema "
                          f"selects {job.schema.feature_count}")
@@ -92,9 +103,13 @@ def init_state(job: JobConfig, num_features: int,
                         generator=torch.Generator().manual_seed(
                             job.train.seed),
                         wire=wire, train=True)
-    return TrainState(model=model,
-                      optimizer=Optimizer(model.parameters(),
-                                          job.train.optimizer))
+    plan = sparse_embed.resolve_plan(job)
+    tables = set(sparse_embed.table_names(model, plan)) if plan else set()
+    dense = [p for n, p in model.named_parameters() if n not in tables]
+    return TrainState(
+        model=model, optimizer=Optimizer(dense, job.train.optimizer),
+        table_slots=(sparse_embed.init_table_slots(model, plan)
+                     if tables else None))
 
 
 def to_device(batch: dict[str, np.ndarray], job: JobConfig,
@@ -215,6 +230,7 @@ def train(job: JobConfig,
                          "1.0 — use wire_weight_mode=auto or float32")
     wcast = pipe.wire_cast_fn(job.schema, job.data, cdt,
                               compact=(label_ok, weight_ok))
+    dedup = None
     if train_ds.num_rows == 0:
         raise ValueError("training dataset has 0 rows — nothing to train on")
     bs = job.data.batch_size
@@ -260,6 +276,15 @@ def train(job: JobConfig,
         device_epoch_step = make_device_epoch_step(job)
     else:
         train_step = make_train_step(job)
+        plan = (sparse_embed.resolve_plan(job)
+                if job.embed.dedup != "off" else None)
+        if plan is not None:
+            # dedup reads the f32 features, so it runs before the wire cast
+            dedup = attach_dedup(plan.layout, plan.max_vocab)
+            bcast = (dedup if wcast is None
+                     else (lambda b, _c=wcast: _c(dedup(b))))
+        else:
+            bcast = wcast
     eval_step = make_eval_step(job)
 
     history: list[EpochMetrics] = []
@@ -280,8 +305,8 @@ def train(job: JobConfig,
                     train_ds, bs, shuffle=job.data.shuffle,
                     seed=job.data.shuffle_seed, epoch=epoch,
                     drop_remainder=job.data.drop_remainder):
-                if wcast is not None:
-                    batch = wcast(batch)
+                if bcast is not None:
+                    batch = bcast(batch)
                 state, m = train_step(state, to_device(batch, job, dev))
                 loss_acc = m["loss"] if loss_acc is None \
                     else loss_acc + m["loss"]
@@ -335,4 +360,5 @@ def train(job: JobConfig,
         if early_stop_now:
             break
     return TrainResult(state=state, history=history, job=job,
-                       tier="resident" if use_resident else "batch")
+                       tier="resident" if use_resident else "batch",
+                       dedup=dict(dedup.dedup_state) if dedup else None)

@@ -15,8 +15,13 @@ package engages the fused path only on a TPU; the port engages it wherever
 the shape gate admits, so a CUDA int8 batch always reaches the kernel (a
 deliberate difference, ROADMAP.md section C).
 
-Waits for later slices: the sparse embedding apply, local SGD and the
-staged (scan over host-fed blocks) step.
+The update is `make_apply_gradients`: the dense optimizer, or under a
+sparse embedding plan the dense optimizer on every parameter but the
+tables and the rows-touched update on the tables (train/sparse_embed.py),
+which reads the batch's ids.
+
+Waits for later slices: local SGD and the staged (scan over host-fed
+blocks) step.
 """
 
 from __future__ import annotations
@@ -144,10 +149,24 @@ def make_loss_fn(job: JobConfig):
     return loss_fn
 
 
+def make_apply_gradients(job: JobConfig
+                         ) -> Callable[[TrainState, Batch], TrainState]:
+    """(state, batch) -> state: one update from the parameters' .grad.  The
+    dense optimizer, or the sparse plan's apply, which reads the batch's
+    features or, when the feeder attached them, its unique ids."""
+    from .sparse_embed import make_sparse_apply
+
+    sparse = make_sparse_apply(job)
+    if sparse is None:
+        return lambda state, batch: state.apply_gradients()
+    return sparse
+
+
 def make_train_step(job: JobConfig
                     ) -> Callable[[TrainState, Batch], tuple[TrainState, dict]]:
     """(state, batch) -> (state, {"loss"}): forward, backward, one update."""
     loss_fn = make_loss_fn(job)
+    apply_grads = make_apply_gradients(job)
 
     def step(state: TrainState, batch: Batch):
         state.model.train()
@@ -155,7 +174,7 @@ def make_train_step(job: JobConfig
             p.grad = None
         loss = loss_fn(state.model, batch, state.step)
         loss.backward()
-        state.apply_gradients()
+        state = apply_grads(state, batch)
         return state, {"loss": loss.detach()}
 
     return step

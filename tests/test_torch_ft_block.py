@@ -203,4 +203,5 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_kernel_sources_listed():
     assert set(_build.sources()) == {"ft_block", "small_attention",
                                      "int8_matmul", "flash_fwd",
-                                     "flash_bwd_dq", "flash_bwd_dkv"}
+                                     "flash_bwd_dq", "flash_bwd_dkv",
+                                     "embedding_lookup", "rows_update"}

@@ -189,7 +189,7 @@ def test_params_from_jax_rejects_missing_extra_and_misshaped_keys():
 def test_unported_configurations_raise():
     schema = _from_dict(DataSchema, dataclasses.asdict(_schema()))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(ModelSpec(model_type="deepfm"), schema, device="cpu")
+        build_model(ModelSpec(model_type="multitask"), schema, device="cpu")
     for kw in (dict(attention_impl="ulysses"), dict(attention_impl="ring"),
                dict(pipeline_stages=2)):
         spec = ModelSpec(**dict(_ft_kw("auto", "float32"), **kw))
@@ -327,3 +327,80 @@ def test_embedding_gradient_scatters_in_f32_like_jax():
                                 tb, gb)[0].float().numpy()
     assert np.abs(plain - want).max() > 10 * np.abs(
         got.float().numpy() - want).max() + 1e-3
+
+
+# -- param_dtype ------------------------------------------------------------
+
+_PDT_KW = {
+    "mlp": dict(model_type="mlp", hidden_nodes=(6, 4),
+                activations=("relu", "tanh")),
+    "ft_transformer": dict(_ft_kw("off", "float32")),
+    "wide_deep": dict(model_type="wide_deep", hidden_nodes=(6,),
+                      activations=("relu",), embedding_dim=4),
+    "deepfm": dict(model_type="deepfm", hidden_nodes=(6,),
+                   activations=("relu",), embedding_dim=4),
+}
+
+
+@pytest.mark.parametrize("model_type", sorted(_PDT_KW))
+def test_param_dtypes_follow_param_dtype_like_jax(model_type):
+    """With param_dtype="bfloat16" every parameter has the dtype the JAX
+    package gives it: bf16, but the FT's LayerNorm scales and biases,
+    which Flax keeps in f32."""
+    kw = dict(_PDT_KW[model_type], param_dtype="bfloat16")
+    want = {k: str(v.dtype) for k, v in
+            _flatten_params(_init_params(kw, 0)).items()}
+    schema = _from_dict(DataSchema, dataclasses.asdict(_schema()))
+    model = build_model(ModelSpec(**kw), schema, device="cpu")
+    got = {k.replace(".", "/"): str(v.dtype).replace("torch.", "")
+           for k, v in model.state_dict().items()}
+    assert got == want
+    assert "bfloat16" in got.values()
+
+
+@pytest.mark.parametrize("model_type", sorted(_PDT_KW))
+def test_bf16_params_train_in_lockstep_with_jax(model_type):
+    """4 SGD steps of `make_train_step` with bf16 parameters (f32 compute),
+    from the same params on the same batches: the losses within 1e-2
+    relative (bf16 updates round on both sides, at the same points, but
+    the gradients they round come from sums in other orders), and the
+    parameters stay bf16."""
+    import json
+
+    from shifu_tpu.config import schema as jax_schema
+    from shifu_tpu.train import loop as jax_loop
+    from shifu_tpu.train import step as jax_step
+    from shifu_tpu_torch.config.schema import JobConfig
+    from shifu_tpu_torch.export.artifact import params_from_jax as carry
+    from shifu_tpu_torch.train import loop, step
+
+    jjob = jax_schema.JobConfig(
+        schema=_schema(), data=jax_schema.DataConfig(batch_size=32),
+        model=JaxModelSpec(**dict(_PDT_KW[model_type],
+                                  param_dtype="bfloat16")),
+        train=jax_schema.TrainConfig(
+            epochs=1, optimizer=jax_schema.OptimizerConfig(
+                name="sgd", learning_rate=0.1))).validate()
+    pjob = JobConfig.from_dict(json.loads(jjob.to_json())).validate()
+    n_feat = N_NUMERIC + N_CAT
+    jstate = jax_loop.init_state(jjob, n_feat)
+    state = loop.init_state(pjob, n_feat, "cpu")
+    state.model.load_state_dict(carry(_flatten_params(
+        jax.device_get(jstate.params)), state.model))
+    jtrain, ptrain = jax_step.make_train_step(jjob), step.make_train_step(pjob)
+    rng = np.random.default_rng(13)
+    jl, pl = [], []
+    for _ in range(4):
+        b = {"features": _rows(rng, 32),
+             "target": (rng.random((32, 1)) < 0.5).astype(np.float32),
+             "weight": np.ones((32, 1), np.float32)}
+        jstate, jm = jtrain(jstate, {k: jnp.asarray(v) for k, v in
+                                     b.items()})
+        state, pm = ptrain(state, {k: torch.from_numpy(v)
+                                   for k, v in b.items()})
+        jl.append(float(jm["loss"]))
+        pl.append(float(pm["loss"]))
+    np.testing.assert_allclose(pl, jl, rtol=1e-2)
+    assert all(p.dtype == torch.bfloat16
+               for n, p in state.model.named_parameters()
+               if "ln_" not in n)

@@ -476,7 +476,7 @@ def test_files_load_first_where_jax_would_stream(tmp_path, monkeypatch):
         m.train_error for m in again.history]
 
 
-@pytest.mark.parametrize("model_type", ["deepfm", "wide_deep"])
+@pytest.mark.parametrize("model_type", ["multitask", "moe_mlp"])
 def test_training_other_models_is_refused(model_type):
     _, pjob = _jobs("float32", wire="float32")
     job = dataclasses.replace(pjob, model=dataclasses.replace(
