@@ -7,7 +7,8 @@ Phases (each prints one line; any failure exits non-zero with the reason on
 stderr, and no result line is printed):
 
 1. device   — CUDA must be present; prints the card's name and
-               `nvidia-smi --query-gpu=name,power.limit` on a line of its own.
+               `nvidia-smi --query-gpu=name,power.limit` on a line of its own,
+               then the SM count and maximum SM clock (`clocks.max.sm`).
 2. build    — builds the CUDA kernels from shifu_tpu_torch/csrc (one nvcc per
                source, all started together) and prints the build seconds.
                From here to the end of phase 3 a second process runs the
@@ -27,8 +28,11 @@ stderr, and no result line is printed):
                (forward, and forward + backward through autograd), with
                the median whole-call times (CUDA events) beside some; the
                least time the card could take (bound: bytes over the
-               memory rate or operations over the peak for the compute
-               dtype).
+               memory rate, operations over the peak for the compute
+               dtype, or, for the attention kernels, exponentials over
+               the special-function units' rate at the maximum SM clock,
+               which phase 1 reads); the flash kernels' factors against
+               SDPA and the names of SDPA's kernels.
    (The FT phases 4, 5, 12 and 13 look their categorical ids up through
    #5: one launch per batch, counted in their launch checks.)
 4. serve    — a full-width FT-Transformer artifact (token_dim 64, 3 layers,
@@ -223,16 +227,78 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
-    """The larger of bytes over the memory rate and operations over the
+def queued_ms(fn, reps: int = 10, warmup: int = 1) -> float:
+    """Device time of one call from CUDA events around `reps` calls queued
+    back to back behind a spin kernel of a quarter second, so that the
+    host has queued them all before the card reaches the first event, and
+    the time holds no host work however slow the host is; fails if the
+    card reached it first."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(0.25 * SFU["clock_hz"]))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if start.query():
+        fail("queued_ms: the card reached the first event before the host "
+             "had queued the calls")
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# the special-function unit's ex2 results per clock per SM, compute
+# capability 9.0 (CUDA C++ Programming Guide, "Arithmetic Instructions",
+# the throughput table: 16 for exp2 and the other SFU functions)
+EX2_PER_CLOCK_PER_SM = 16
+# (SMs, max SM clock in Hz) of the card, set by `read_sm_clock` in main
+SFU = {"sms": 0, "clock_hz": 0.0}
+
+
+def read_sm_clock() -> str:
+    """Read the card's SM count and its maximum SM clock
+    (`nvidia-smi --query-gpu=clocks.max.sm`) once, for the exponential term
+    of `bound_ms`; returns a line that says them."""
+    import torch
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    text = out.stdout.strip().splitlines()[0] if out.stdout else ""
+    try:
+        mhz = float(text.split()[0])
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi clocks.max.sm: cannot read {text!r} "
+             f"({out.stderr.strip()})")
+    SFU["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    SFU["clock_hz"] = mhz * 1e6
+    rate = SFU["sms"] * EX2_PER_CLOCK_PER_SM * SFU["clock_hz"]
+    return (f"sfu: {SFU['sms']} SMs x {EX2_PER_CLOCK_PER_SM} ex2/clock x "
+            f"clocks.max.sm {text} = {rate / 1e12:.3f} T exponentials/s")
+
+
+def bound_ms(n_bytes: float, n_ops: float, dtype,
+             n_exp: float = 0.0) -> tuple[float, str]:
+    """The largest of bytes over the memory rate, operations over the
     card's peak for the compute dtype (the tensor-core rate for bf16/f16,
-    the CUDA-core rate for f32)."""
+    the CUDA-core rate for f32), and exponentials over the special-function
+    units' rate: SMs x 16 ex2 a clock (CUDA C++ Programming Guide,
+    arithmetic-instruction throughput table, compute capability 9.0) x the
+    maximum SM clock that `read_sm_clock` read."""
     import torch
     peak = (PEAK_16BIT_FLOPS if dtype in (torch.bfloat16, torch.float16)
             else PEAK_F32_FLOPS)
-    t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
-    t_ops = n_ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    terms = [(n_bytes / PEAK_HBM_BYTES * 1e3, "bytes"),
+             (n_ops / peak * 1e3, "operations")]
+    if n_exp:
+        if not SFU["clock_hz"]:
+            fail("bound_ms: the SM clock was not read (read_sm_clock)")
+        rate = SFU["sms"] * EX2_PER_CLOCK_PER_SM * SFU["clock_hz"]
+        terms.append((n_exp / rate * 1e3, "exponentials"))
+    return max(terms, key=lambda t: t[0])
 
 
 def device_events(prof) -> list:
@@ -246,25 +312,52 @@ def device_events(prof) -> list:
             and e.self_device_time_total > 0]
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time of one call, from the profiler: the summed durations of
-    the kernels it launches, without the host time between them (CUDA
-    events around a call that launches a short kernel time the wrapper's
-    host work)."""
+# device events the profiler dropped and saw, over every device_ms profile
+PROFILE_EVENTS = {"profiles": 0, "lost": 0, "seen": 0}
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3,
+              names: list | None = None) -> float:
+    """Device time of one call, from the profiler: the durations of the
+    kernels it launches, without the host time between them (CUDA events
+    around a call that launches a short kernel time the wrapper's host
+    work).  On the H100 machine a profile drops a few device events at its
+    start (a kernel launched once a call shows reps - 1 or reps - 2
+    times), and once, in a long run, it dropped them all.  So each
+    kernel's mean duration counts ceil(count / reps) times a call, which
+    holds while a kernel loses fewer than reps of its events; a profile in
+    which a kernel lost more than half of them is taken again, once,
+    before the check fails.  `PROFILE_EVENTS` keeps the tally.  `names`,
+    when given, receives the device events' names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(t for _, t, _ in device_events(prof))
-    if total <= 0:
-        fail("device_ms: the profiler saw no device time")
-    return total / reps / 1e3
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        per_call = {n: -(-c // reps) for n, _, c in events}
+        lost = sum(per_call[n] * reps - c for n, _, c in events)
+        PROFILE_EVENTS["profiles"] += 1
+        PROFILE_EVENTS["lost"] += lost
+        PROFILE_EVENTS["seen"] += sum(c for _, _, c in events)
+        if events and all(2 * (per_call[n] * reps - c) <= per_call[n] * reps
+                          for n, _, c in events):
+            break
+        say(f"device_ms: profile {attempt + 1} of "
+            f"{getattr(fn, '__qualname__', fn)} lost {lost} device events "
+            f"({len(events)} kernels or copies seen)")
+    else:
+        fail("device_ms: the profiler lost more than half of a kernel's "
+             "device events in two profiles")
+    if names is not None:
+        names.extend(n for n, _, _ in events)
+    return sum(t / c * per_call[n] for n, t, c in events) / 1e3
 
 
 def randn_on(gen, device, *shape):
@@ -440,12 +533,14 @@ def check_small_attention(device, gen) -> dict:
                                                time_ms(library))
     n_bytes = 4 * q.numel() * q.element_size()
     n_ops = 4.0 * b * h * s * s * d + 4.0 * b * h * s * s
-    bnd, by = bound_ms(n_bytes, n_ops, q.dtype)
+    n_exp = float(b * h) * s * s
+    bnd, by = bound_ms(n_bytes, n_ops, q.dtype, n_exp)
     say(f"kernels: small_attention B={b} H={h} S={s} D={d} bf16 max|err| "
         f"{err:.3e} (tol {BF16_ATOL:g}+2^-7*|ref|: one bf16 ulp); edge shapes "
         f"max|err| {max(edge_errs):.3e}; device time: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (max|diff| "
-        f"{lib_err:.3e}), bound {bnd:.4f} ms ({by}); whole call (CUDA "
+        f"{lib_err:.3e}), bound {bnd:.4f} ms ({by}; {n_exp:.4g} "
+        f"exponentials); whole call (CUDA "
         f"events): kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms, "
         f"sdpa {library_call_ms:.4f} ms")
     return {"name": "small_attention", "route": "cuda",
@@ -481,10 +576,12 @@ def check_grad(name: str, got, want) -> float:
     return check_close(name, got, want, atol, rtol)
 
 
-def sdpa_times(q, k, v, g, scale) -> tuple[float, float]:
+def sdpa_times(q, k, v, g, scale, names: dict | None = None
+               ) -> tuple[float, float]:
     """(forward, forward + backward) device ms of
     `scaled_dot_product_attention` on these inputs: the library yardstick,
-    never called by the port."""
+    never called by the port.  `names`, when given, receives the names of
+    the device events of each ("fwd", "fwd_bwd") from the same profiles."""
     import torch
     import torch.nn.functional as F
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -496,7 +593,11 @@ def sdpa_times(q, k, v, g, scale) -> tuple[float, float]:
         out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
         return torch.autograd.grad(out, (qg, kg, vg), g)
 
-    return device_ms(fwd), device_ms(fwd_bwd)
+    if names is None:
+        return device_ms(fwd), device_ms(fwd_bwd)
+    names["fwd"], names["fwd_bwd"] = [], []
+    return (device_ms(fwd, names=names["fwd"]),
+            device_ms(fwd_bwd, names=names["fwd_bwd"]))
 
 
 def check_small_attention_bwd(device, gen) -> dict:
@@ -536,13 +637,15 @@ def check_small_attention_bwd(device, gen) -> dict:
     call_ms, plain_call_ms = time_ms(kernel), time_ms(plain)
     n_bytes = 7 * q.numel() * q.element_size()
     n_ops = 10.0 * b * h * s * s * d
-    bnd, by = bound_ms(n_bytes, n_ops, q.dtype)
+    n_exp = float(b * h) * s * s
+    bnd, by = bound_ms(n_bytes, n_ops, q.dtype, n_exp)
     say(f"kernels: small_attention_bwd B={b} H={h} S={s} D={d} bf16 max|err| "
         f"{err:.3e} over dq, dk, dv (tol {grad_tolerance(q.dtype)[2]}: one "
         f"bf16 ulp plus f32 summation order); edge shapes max|err| "
         f"{max(edge_errs):.3e}; device time: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa forward+backward {library_ms:.4f} ms (its "
-        f"forward alone {sdpa_fwd_ms:.4f} ms), bound {bnd:.4f} ms ({by}); "
+        f"forward alone {sdpa_fwd_ms:.4f} ms), bound {bnd:.4f} ms ({by}; "
+        f"{n_exp:.4g} exponentials); "
         f"whole call (CUDA events): kernel {call_ms:.4f} ms, plain "
         f"{plain_call_ms:.4f} ms")
     return {"name": "small_attention_bwd", "route": "cuda",
@@ -552,9 +655,84 @@ def check_small_attention_bwd(device, gen) -> dict:
             "bound_ms": bnd, "bound_by": by, "library_ms": library_ms}
 
 
+# check_flash's edge shapes: S from 1 to 1001, D from 1 to 128, the three
+# dtypes; S = 63, 64, 65 and 129 sit at the kernels' 64-row tiles, D = 9
+# takes the element-load staging and D = 8 the 16-byte copies
+FLASH_EDGE_SHAPES = (
+    [(2, 3, 1, 8, "float32"), (3, 2, 33, 16, "bfloat16"),
+     (1, 5, 64, 64, "float16"), (2, 2, 1001, 8, "bfloat16"),
+     (1, 3, 70, 128, "float32"), (2, 1, 130, 1, "bfloat16"),
+     (1, 2, 257, 128, "bfloat16"), (3, 1, 45, 24, "float32")]
+    + [(2, 3, s, d, dt) for s in (63, 64, 65, 129) for d in (8, 9)
+       for dt in ("bfloat16", "float16")]
+    + [(2, 2, 1001, 8, "float32"), (2, 2, 1001, 8, "float16")])
+
+
+def _instantiation(mangled: str) -> str:
+    """'bf16 D<=8' for a flash kernel's mangled name (its T and padded D)."""
+    import re
+    m = re.search(r"kernelI(13__nv_bfloat16|6__half|f)Li(\d+)E", mangled)
+    if not m:
+        return mangled[:40]
+    dtype = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    return f"{dtype[m.group(1)]} D<={m.group(2)}"
+
+
+def flash_build_report(src: str) -> str:
+    """Per instantiation of a flash source: the registers and spill bytes
+    ptxas reported, and the counts of HMMA (tensor-core mma), MUFU.EX2 and
+    FFMA.RM (the range reduction of an accurate expf, which the kernels
+    must not have) in its SASS, read with `cuobjdump -sass` from the built
+    library where the toolkit has it.  Shared memory is dynamic (3
+    buffers of the streamed tiles), so ptxas reports none."""
+    import re
+    import shutil
+    from shifu_tpu_torch.ops import _build
+    usage, cur = {}, None
+    for ln in _build.build_logs.get(src, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = _instantiation(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur:
+            usage.setdefault(cur, {})["spill"] = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            usage.setdefault(cur, {})["regs"] = m.group(1)
+    counts = {}
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if os.path.exists(tool):
+        out = subprocess.run([tool, "-sass", _build._target(src)],
+                             capture_output=True, text=True, timeout=300)
+        for fn in out.stdout.split("Function : ")[1:]:
+            counts[_instantiation(fn.splitlines()[0])] = tuple(
+                len(re.findall(op, fn))
+                for op in (r"\bHMMA\.", r"MUFU\.EX2", r"FFMA\.RM"))
+    parts = []
+    for key in sorted(set(usage) | set(counts)):
+        u = usage.get(key, {})
+        text = (f"{key} {u.get('regs', '?')} regs, spill st/ld "
+                f"{u.get('spill', '?')} B")
+        if key in counts:
+            text += (" ; SASS HMMA {} MUFU.EX2 {} FFMA.RM {}"
+                     .format(*counts[key]))
+        parts.append(text)
+    return " | ".join(parts) + ("" if counts else " (no cuobjdump)")
+
+
+# the least share of a flash kernel's time a call from CUDA events over
+# calls queued back to back (`queued_ms`) that its profiled device time may
+# read
+FLASH_PROFILE_SHARE = 0.9
+
+
 def check_flash(device, gen) -> list:
     """Kernels #7 (flash_fwd) and #8 (flash_bwd_dq, flash_bwd_dkv) against
-    their plain versions; returns their three kernel entries."""
+    their plain versions; returns their three kernel entries.  The bound
+    counts one exponential a (query, key) pair for each kernel: the
+    forward's one-pass softmax adds a rescale a row a key tile, which a
+    two-pass softmax would not need, so the bound leaves it out."""
     import torch
     from shifu_tpu_torch.ops import flash_attention as fa
 
@@ -583,14 +761,13 @@ def check_flash(device, gen) -> list:
                            check_grad(f"flash_bwd_dkv dv {label}", dv, dv_p))}
         return (q, k, v, g, scale, lse_p, dres), errs
 
-    edge = [case(*shape)[1] for shape in
-            ((2, 3, 1, 8, torch.float32), (3, 2, 33, 16, torch.bfloat16),
-             (1, 5, 64, 64, torch.float16), (2, 2, 1001, 8, torch.bfloat16),
-             (1, 3, 70, 128, torch.float32), (2, 1, 130, 1, torch.bfloat16),
-             (1, 2, 257, 128, torch.bfloat16), (3, 1, 45, 24, torch.float32))]
+    edge = [case(b, h, s, d, getattr(torch, dt))[1]
+            for b, h, s, d, dt in FLASH_EDGE_SHAPES]
     b, h, s, d = FLASH_SHAPE
     (q, k, v, g, scale, lse, dres), errs = case(b, h, s, d, torch.bfloat16)
-    sdpa_fwd_ms, sdpa_grad_ms = sdpa_times(q, k, v, g, scale)
+    sdpa_names = {}
+    sdpa_fwd_ms, sdpa_grad_ms = sdpa_times(q, k, v, g, scale, sdpa_names)
+    sdpa_bwd_ms = sdpa_grad_ms - sdpa_fwd_ms
     elt = q.element_size()
     bh_s = b * h * s
     pairs = float(b * h) * s * s
@@ -612,24 +789,48 @@ def check_flash(device, gen) -> list:
     entries = []
     for name, key, replaces, kernel, plain, n_bytes, n_ops, lib_ms in specs:
         ms = device_ms(kernel, reps=5, warmup=1)
+        # the profiler's time against CUDA events around calls queued back
+        # to back: a profile that lost one of its 5 kernel events would
+        # read at most 4/5 of it
+        call_ms = queued_ms(kernel)
+        if ms < FLASH_PROFILE_SHARE * call_ms:
+            fail(f"{name}: the profiler saw {ms:.4f} ms of device time, "
+                 f"under {FLASH_PROFILE_SHARE} of the {call_ms:.4f} ms a "
+                 f"call that CUDA events read over calls queued back to "
+                 f"back")
         plain_ms = device_ms(plain, reps=3, warmup=1)
-        bnd, by = bound_ms(n_bytes, n_ops, q.dtype)
+        bnd, by = bound_ms(n_bytes, n_ops, q.dtype, pairs)
+        if key == "fwd":
+            vs = (f"sdpa forward {lib_ms:.4f} ms, kernel/sdpa "
+                  f"{ms / lib_ms:.3f}x")
+        else:
+            vs = (f"sdpa forward+backward (dq, dk, dv together) "
+                  f"{lib_ms:.4f} ms, kernel/that {ms / lib_ms:.3f}x, "
+                  f"kernel/sdpa backward alone {ms / sdpa_bwd_ms:.3f}x")
         say(f"kernels: {name} B={b} H={h} S={s} D={d} bf16 max|err| "
             f"{errs[key]:.3e} (tol {tol_text}); edge shapes (S 1..1001, D "
             f"1..128, f32/bf16/f16) max|err| "
             f"{max(e[key] for e in edge):.3e}; device time: kernel {ms:.4f} "
-            f"ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}); "
-            + ("sdpa forward" if key == "fwd" else
-               "sdpa forward+backward (dq, dk, dv together)")
-            + f" {lib_ms:.4f} ms")
+            f"ms (CUDA events over calls queued back to back: "
+            f"{call_ms:.4f} ms a call), plain "
+            f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}; {pairs:.4g} "
+            f"exponentials, one a (query, key) pair), kernel/bound "
+            f"{ms / bnd:.3f}x; {vs}")
         entries.append({"name": name, "route": "cuda",
                         "source": f"shifu_tpu_torch/csrc/{name}.cu",
                         "replaces": replaces, "max_abs_err": errs[key],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
                         "bound_by": by, "library_ms": lib_ms})
+    bwd_ms = entries[1]["ms"] + entries[2]["ms"]
+    say(f"kernels: flash backward #8 (dq + dk/dv) {bwd_ms:.4f} ms: "
+        f"{bwd_ms / sdpa_grad_ms:.3f}x sdpa forward+backward "
+        f"({sdpa_grad_ms:.4f} ms), {bwd_ms / sdpa_bwd_ms:.3f}x sdpa backward "
+        f"alone ({sdpa_bwd_ms:.4f} ms)")
     say(f"kernels: sdpa at B={b} H={h} S={s} D={d} bf16: forward "
         f"{sdpa_fwd_ms:.4f} ms, forward+backward {sdpa_grad_ms:.4f} ms, so "
-        f"its backward takes about {sdpa_grad_ms - sdpa_fwd_ms:.4f} ms")
+        f"its backward takes about {sdpa_bwd_ms:.4f} ms; its device "
+        f"kernels: forward {sorted(set(sdpa_names['fwd']))}, "
+        f"forward+backward {sorted(set(sdpa_names['fwd_bwd']))}")
     return entries
 
 
@@ -1834,6 +2035,7 @@ def main() -> None:
         f"{len(os.sched_getaffinity(0))} CPUs, {torch.get_num_threads()} "
         "torch threads")
     say(smi_line)
+    say(read_sm_clock())
     device = torch.device("cuda:0")
 
     # the CPU halves of the FT locksteps run in a process of their own from
@@ -1863,6 +2065,9 @@ def main() -> None:
         fail(f"build: {built['error']}")
     build_s = built["s"]
     for src in sorted(_build.build_logs):
+        if src.startswith("flash_"):
+            say(f"build: {src}: " + flash_build_report(src))
+            continue
         usage = [ln.strip() for ln in _build.build_logs[src].splitlines()
                  if "registers" in ln or "spill" in ln]
         say(f"build: {src}: " + " | ".join(usage))
@@ -1880,6 +2085,9 @@ def main() -> None:
         got = check(device, gen)
         kernels.extend(got if isinstance(got, list) else [got])
         lap(check.__name__)
+    say("profiler: {lost} device events lost and {seen} seen over "
+        "{profiles} profiles of the kernel checks (each time counts the "
+        "events it saw: see device_ms)".format(**PROFILE_EVENTS))
     try:
         cpu_refs = pending.get(timeout=900)
     except Exception as e:  # noqa: BLE001 — reported as the phase's failure

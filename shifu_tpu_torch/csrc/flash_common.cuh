@@ -1,137 +1,539 @@
 // Shared pieces of the flash attention kernels, one source each
 // (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
-// Replace the TPU kernels shifu_tpu/ops/pallas_attention.py
-// _flash_fwd_impl (_fwd_kernel) and _flash_bwd_impl (_dq_kernel,
-// _dkv_kernel).  Same math: q, k, v, dO widened to f32; scores
-// s = (q . k) * scale; the forward keeps a running max m, normaliser l and
-// unnormalised o in f32 and writes o / l (rounded once to q's dtype) and
-// lse = m + log(l) (f32); the backward takes p = exp(s - lse) and
-// dS = p (dP - Dres) with Dres = rowsum(dO * o), computed by the caller
-// (a torch op, as it is an XLA op beside the TPU kernels); dq = scale *
-// dS k, dk = scale * dS^T q, dv = p^T dO, each rounded once.
+// Replace the TPU kernels shifu_tpu/ops/pallas_attention.py:198
+// _flash_fwd_impl (_fwd_kernel) and :227 _flash_bwd_impl (_dq_kernel,
+// _dkv_kernel).  Same function: scores s = (q . k) * scale; the forward
+// keeps a running max m and normaliser l in f32 and writes o = (p v) / l,
+// rounded once to q's dtype, and lse = m + log(l) (f32); the backward takes
+// p = exp(s - lse) and dS = p (dP - Dres) with Dres = rowsum(dO * o),
+// computed by the caller (a torch op, as it is an XLA op beside the TPU
+// kernels); dq = scale * dS k, dk = scale * dS^T q, dv = p^T dO, each
+// summed in f32 and rounded once.  Deterministic: no atomics.
 //
-// Bound on the H100: operations.  At the flash path's shape (B=1024, H=8,
-// S=1001, D=8, bf16) one forward does 4 S^2 D FLOP per (sample, head),
-// 263 GFLOP in all, plus S^2 exponentials, over 33 MB of q, k, v and o.
-// These first kernels run on the CUDA cores in f32 (67 TFLOP/s), not on
-// the tensor cores: at D = 8 a tensor-core tile would be half padding, and
-// a first kernel is right and simple first.
+// Bound on the H100.  At the flash path's shape (B=1024, H=8, S=1001, D=8,
+// bf16) a forward is B H S^2 = 8.21e9 (query, key) pairs: 4 D = 32 matrix
+// FLOP each (263 GFLOP, 0.27 ms at 989 TFLOP/s), one exponential each
+// (8.21e9 over the SFU's 16 ex2 a clock per SM, 132 SMs: ~2.0 ms), over
+// 4 x 65.6 M bf16 values = 525 MB (0.16 ms at 3.35 TB/s).  Each backward
+// kernel recomputes p, so it too needs B H S^2 exponentials.  At D <= 16
+// the exponentials bound these kernels; above, the products.
 //
-// Design.  The TPU grid walked its K/V blocks in order and carried
-// (m, l, o) in VMEM scratch from one grid step to the next; its wrapper
-// padded S to a common multiple of 512-row blocks.  Here a CTA of 128
-// threads owns one (sample, head) and one tile of rows, and a loop inside
-// the CTA streams the other operand through shared memory (f32, zero past
-// S), so nothing is carried between CTAs, the ragged edge of S is masked in
-// the kernel, and nothing is padded in device memory.  G = 1, 2, 4 or 8
-// threads share a row, each holding DPT = 8 or 16 of its D dims in
-// registers (dim d = i * G + t for thread t of the group), and a row's dot
-// products are summed across the group by xor shuffles, which give every
-// thread of the group the same sum.  Every kernel is deterministic: no
-// atomics.
+// Design.  A CTA of 4 warps owns one (sample, head) and kRows rows
+// (queries for the forward and dq, keys for dk/dv): at D <= 16 two 16-row
+// m-tiles a warp (128 rows a CTA), which share every B operand loaded from
+// shared memory and give each warp two independent chains of work; above,
+// one (64 rows).  A loop inside the CTA streams the other operand in tiles
+// of kN rows through a ring of 3 shared buffers (one barrier a tile), kept
+// in the 16-bit input dtype (cp.async, 16 bytes a copy, each thread's
+// copies fixed by its index, when D is a multiple of 8) and zero past S and
+// past D.  Every product runs on the tensor cores (mma.sync m16n8k8 for a
+// contraction over D = 8, m16n8k16 otherwise, operands through ldmatrix):
+// the scores Q K^T (and dO V^T), then P V, dS K, P^T dO and dS^T Q with P
+// and dS taken from the f32 accumulators in registers.  The softmax keeps
+// to the special-function unit: scale * log2(e) is folded into one FFMA a
+// score, ex2.approx a score, the row max a tree over the thread's scores
+// and two quad shuffles a tile, the row sum thread-local until the end.
+// The ragged edge of S is masked in the last tile; nothing is padded in
+// device memory.
+//
+// What limits them.  At D = 8 a pair costs one ex2 on the SFU (8 cycles a
+// warp instruction per SM sub-partition) and about seven other
+// instructions a lane: the FFMA, the max, the sum and the hi/lo split of P
+// (three more for dS in the backward, six for P and dS in dk/dv), so issue
+// and the SFU are nearly even, and on the H100 the kernels run at about
+// twice the exponential bound, dk/dv above it (PERF.md).  Tried on the
+// card and slower: more accumulators an output, tf32 products (fewer split
+// instructions, twice the mma), the next tile's scores computed beside this
+// tile's exponentials, more CTAs an SM by capping registers (but for dq).
+//
+// Accuracy.  Q K^T and dO V^T take the inputs as they are (exact products,
+// f32 sums).  P and dS are f32 and go in as two 16-bit parts, hi = x
+// rounded and lo = x - hi rounded, two mma into one f32 accumulator: one
+// rounding of P or dS to bf16 would miss the tolerances where an output
+// element cancels towards 0.  In f16, dS's lo part is scaled by 2^11 into
+// an accumulator of its own (unscaled at the end), so that it cannot
+// underflow.  f32 inputs are held as bf16 hi + lo parts and every product
+// takes three mma (hi hi, lo hi, hi lo).
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace shifu {
 namespace flash {
 
-constexpr int kThreads = 128;
-// rows of the streamed operand per tile.  The forward keeps a tile's scores
-// in registers and unrolls over them: at 32 rows nvcc took 25.6 s for its
-// 15 instantiations, at 16 rows 12.3 s (CUDA 12.8, the H100 machine), for a
-// rescale and two barriers every 16 keys instead of every 32
-constexpr int kTile = 16;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxD = 128;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
+// f16 dS: the lo part's scale (and 1 / it)
+constexpr float kLoScale = 2048.f;
+constexpr float kLoUnscale = 1.f / 2048.f;
 
-template <int G>
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(kFull, x, off);
-  return x;
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+
+// The tiling of kernel kind K at the padded head dim DP: kMt 16-row
+// m-tiles a warp (they share each B operand loaded from shared memory),
+// so a CTA owns kRows rows; kN streamed rows a tile; the shared row stride
+// kLd (elements; 16 bytes of padding above D = 8 keep ldmatrix's 8 row
+// addresses on distinct banks); a ring of 3 buffers, so that one barrier a
+// tile keeps a buffer from being refilled while it is read.
+template <int DP, int K>
+struct Tile {
+  static constexpr int kMt = DP <= 16 ? 2 : 1;
+  static constexpr int kRows = 16 * kWarps * kMt;
+  static constexpr int kN =
+      DP == 8 && K != kDq ? 64 : DP <= 16 ? 32 : DP <= 64 ? 64 : 32;
+  static constexpr int kLd = DP == 8 ? 8 : DP + 8;
+  static constexpr int kBufs = 3;
+};
+
+// E: the 16-bit type the tensor cores take for T; kSplit: T is f32, held as
+// bf16 hi + lo; kLoAcc: dS's lo part goes to an accumulator of its own
+template <typename T>
+struct Mma {
+  using E = __nv_bfloat16;
+  static constexpr bool kSplit = true;
+  static constexpr bool kLoAcc = false;
+};
+template <>
+struct Mma<__nv_bfloat16> {
+  using E = __nv_bfloat16;
+  static constexpr bool kSplit = false;
+  static constexpr bool kLoAcc = false;
+};
+template <>
+struct Mma<__half> {
+  using E = __half;
+  static constexpr bool kSplit = false;
+  static constexpr bool kLoAcc = true;
+};
+
+// -- 16-bit pairs ------------------------------------------------------------
+
+template <typename E>
+__device__ __forceinline__ uint32_t pack(float a, float b) {  // a low
+  uint32_t u;
+  if constexpr (std::is_same<E, __half>::value) {
+    __half2 h = __floats2half2_rn(a, b);
+    u = *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    u = *reinterpret_cast<uint32_t*>(&h);
+  }
+  return u;
 }
 
-// this thread's DPT dims of a row of D values in device memory (0 past D)
-template <typename T, int G, int DPT>
-__device__ __forceinline__ void load_row(const T* __restrict__ row, int D,
-                                         int t, bool live, float (&r)[DPT]) {
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int d = i * G + t;
-    r[i] = (live && d < D) ? to_f32(row[d]) : 0.f;
+template <typename E>
+__device__ __forceinline__ float2 unpack(uint32_t u) {
+  if constexpr (std::is_same<E, __half>::value) {
+    return __half22float2(*reinterpret_cast<__half2*>(&u));
+  } else {
+    return make_float2(__uint_as_float(u << 16),
+                       __uint_as_float(u & 0xffff0000u));
   }
 }
 
-// this thread's DPT dims of a shared-memory row of G * DPT floats
-template <int G, int DPT>
-__device__ __forceinline__ void smem_row(const float* __restrict__ row, int t,
-                                         float (&r)[DPT]) {
-  if constexpr (G == 1) {
+// (a, b) as hi = rounded and lo = (x - hi) * lo_scale rounded
+template <typename E>
+__device__ __forceinline__ void split(float a, float b, uint32_t& hi,
+                                      uint32_t& lo, float lo_scale = 1.f) {
+  hi = pack<E>(a, b);
+  const float2 h = unpack<E>(hi);
+  lo = pack<E>((a - h.x) * lo_scale, (b - h.y) * lo_scale);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The max of this thread's scores in row half H (row g, or g + 8) of a
+// tile, as a tree: a chain of fmaxf would be 2 NT deep
+template <int H, int NT>
+__device__ __forceinline__ float tile_max(const float (&s)[NT][4]) {
+  float t[NT];
 #pragma unroll
-    for (int i = 0; i < DPT; i += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(row + i);
-      r[i] = f.x;
-      r[i + 1] = f.y;
-      r[i + 2] = f.z;
-      r[i + 3] = f.w;
+  for (int j = 0; j < NT; ++j) t[j] = fmaxf(s[j][2 * H], s[j][2 * H + 1]);
+#pragma unroll
+  for (int w = NT / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) t[j] = fmaxf(t[j], t[j + w]);
+  return t[0];
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// -- tensor-core instructions ------------------------------------------------
+
+// c += a (16 x 16) b (16 x 8), f32 accumulate
+template <typename E>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t* a,
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<E, __half>::value) {
+    asm(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// c += a (16 x 8) b (8 x 8), f32 accumulate
+template <typename E>
+__device__ __forceinline__ void mma8(float (&c)[4], const uint32_t* a,
+                                     uint32_t b0) {
+  if constexpr (std::is_same<E, __half>::value) {
+    asm(
+        "mma.sync.aligned.m16n8k8.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(b0));
+  } else {
+    asm(
+        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(b0));
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// 16 bytes global -> shared, zero-filled when !valid
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+__device__ __forceinline__ void cp_wait_prev() {  // all but the newest group
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// zero an accumulator array
+template <int A, int N>
+__device__ __forceinline__ void zero(float (&acc)[A][N][4]) {
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
+}
+
+// acc += lacc / kLoScale: the lo parts' own accumulators folded back
+template <int A, int N>
+__device__ __forceinline__ void fold(float (&acc)[A][N][4],
+                                     const float (&lacc)[A][N][4]) {
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[a][n][e] = fmaf(lacc[a][n][e], kLoUnscale, acc[a][n][e]);
+}
+
+// -- operands ----------------------------------------------------------------
+
+// A tile of streamed rows in shared memory: hi and, for f32 inputs, lo
+template <typename E>
+struct Panel {
+  E* hi;
+  E* lo;
+};
+
+template <typename T>
+__device__ __forceinline__ float elem(const T* __restrict__ x, int r, int d,
+                                      int S, int D) {
+  return (r < S && d < D) ? to_f32(x[(long long)r * D + d]) : 0.f;
+}
+
+// Stage rows [r0, r0 + N) of two (S, D) matrices x0 and x1 into panels
+// p0 and p1 of stride LD, zero past S and D.  vec: 16-bit T, D % 8 == 0 and
+// 16-byte aligned rows: one cp.async a 16-byte chunk, each thread's chunks
+// fixed by its index (no loop bounds or divisions at run time); else
+// element loads (and, for f32, the hi/lo split).
+template <typename T, int DP, int N, int LD>
+__device__ __forceinline__ void stage2(Panel<typename Mma<T>::E> p0,
+                                       Panel<typename Mma<T>::E> p1,
+                                       const T* __restrict__ x0,
+                                       const T* __restrict__ x1, int r0,
+                                       int S, int D, bool vec) {
+  using E = typename Mma<T>::E;
+  if constexpr (!Mma<T>::kSplit) {
+    if (vec) {
+      constexpr int kC = DP / 8, kPer = N * kC;  // 16-byte chunks an operand
+#pragma unroll
+      for (int it = 0; it < (2 * kPer + kThreads - 1) / kThreads; ++it) {
+        const int i = it * kThreads + threadIdx.x;
+        if ((2 * kPer) % kThreads != 0 && i >= 2 * kPer) break;
+        const int op = i / kPer, j = (i % kPer) / kC, c = i % kC;
+        const int r = r0 + j;
+        E* dst = (op ? p1.hi : p0.hi) + j * LD + c * 8;
+        if (c * 8 < D)
+          cp16(dst, (op ? x1 : x0) + (long long)(r < S ? r : 0) * D + c * 8,
+               r < S);
+        else
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      }
+      return;
+    }
+  }
+#pragma unroll 1
+  for (int op = 0; op < 2; ++op) {
+    const Panel<E> p = op ? p1 : p0;
+    const T* x = op ? x1 : x0;
+    for (int i = threadIdx.x; i < N * DP; i += kThreads) {
+      const int j = i / DP, d = i % DP;
+      const float v = elem(x, r0 + j, d, S, D);
+      const E h = from_f32<E>(v);
+      p.hi[j * LD + d] = h;
+      if constexpr (Mma<T>::kSplit)
+        p.lo[j * LD + d] = from_f32<E>(v - to_f32(h));
+    }
+  }
+}
+
+// The A fragments (16 x DP) of rows [r0, r0 + 16) of a (S, D) matrix, times
+// sgn (exact): register i holds the pair (row g + 8 (i & 1), column
+// 16 (i / 4) + 8 ((i >> 1) & 1) + 2 t) and its neighbour, as mma's A
+// operand wants; lo only for f32 inputs.
+template <typename T, int DP>
+__device__ __forceinline__ void load_a(const T* __restrict__ x, int r0, int S,
+                                       int D, float sgn, uint32_t (&hi)[DP / 4],
+                                       uint32_t (&lo)[DP / 4]) {
+  using E = typename Mma<T>::E;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < DP / 4; ++i) {
+    const int r = r0 + g + 8 * (i & 1);
+    const int d = 16 * (i / 4) + 8 * ((i >> 1) & 1) + 2 * t;
+    const float a = sgn * elem(x, r, d, S, D), b = sgn * elem(x, r, d + 1, S, D);
+    if constexpr (Mma<T>::kSplit)
+      split<E>(a, b, hi[i], lo[i]);
+    else
+      hi[i] = pack<E>(a, b);
+  }
+}
+
+// acc[m][j] (m-tile m, 16 x 8 streamed rows 8j..8j+7) = A[m] (16 x DP,
+// registers) . X^T over the NT * 8 rows of panel x, each B fragment loaded
+// once for the MT m-tiles.  f32 inputs: hi hi + hi lo + lo hi.
+template <typename E, int DP, int LD, int NT, int MT, bool kSplit>
+__device__ __forceinline__ void score_mma(float (&acc)[MT][NT][4],
+                                          const uint32_t (&ah)[MT][DP / 4],
+                                          const uint32_t (&al)[MT][DP / 4],
+                                          Panel<E> x) {
+  const int lane = threadIdx.x % 32;
+  zero(acc);
+  if constexpr (DP == 8) {
+#pragma unroll
+    for (int j = 0; j < NT; j += 4) {
+      uint32_t b[4], bl[4];
+      ldsm4(b, x.hi + (8 * j + lane) * LD);
+      if constexpr (kSplit) ldsm4(bl, x.lo + (8 * j + lane) * LD);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mma8<E>(acc[m][j + u], ah[m], b[u]);
+          if constexpr (kSplit) {
+            mma8<E>(acc[m][j + u], ah[m], bl[u]);
+            mma8<E>(acc[m][j + u], al[m], b[u]);
+          }
+        }
     }
   } else {
+    const int mat = lane / 8, r = lane % 8;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) r[i] = row[i * G + t];
+    for (int j = 0; j < NT; j += 2) {
+#pragma unroll
+      for (int kc = 0; kc < DP / 16; ++kc) {
+        const int off = (8 * (j + (mat >> 1)) + r) * LD + 16 * kc + 8 * (mat & 1);
+        uint32_t b[4], bl[4];
+        ldsm4(b, x.hi + off);
+        if constexpr (kSplit) ldsm4(bl, x.lo + off);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            mma16<E>(acc[m][j + u], ah[m] + 4 * kc, b[2 * u], b[2 * u + 1]);
+            if constexpr (kSplit) {
+              mma16<E>(acc[m][j + u], ah[m] + 4 * kc, bl[2 * u], bl[2 * u + 1]);
+              mma16<E>(acc[m][j + u], al[m] + 4 * kc, b[2 * u], b[2 * u + 1]);
+            }
+          }
+      }
+    }
   }
 }
 
-template <int DPT>
-__device__ __forceinline__ float dot(const float (&a)[DPT],
-                                     const float (&b)[DPT]) {
-  float s = 0.f;
+// The A fragment (16 x 16) of columns 16 kc .. 16 kc + 15 of an f32
+// accumulator, as hi and lo parts (lo times lo_scale)
+template <typename E, int NT>
+__device__ __forceinline__ void a_from_acc(const float (&s)[NT][4], int kc,
+                                           uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                           float lo_scale = 1.f) {
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) s = fmaf(a[i], b[i], s);
-  return s;
+  for (int i = 0; i < 4; ++i) {
+    const float* c = s[2 * kc + (i >> 1)] + 2 * (i & 1);
+    split<E>(c[0], c[1], hi[i], lo[i], lo_scale);
+  }
 }
 
-// stage rows [r0, r0 + kTile) of a (S, D) matrix as f32, zero past S and D
+// acc[m] (16 x DP) += A[m] (16 x 16 streamed rows 16 kc..) . X over those
+// rows of panel x (transposed loads, once for the MT m-tiles): hi hi and
+// lo hi, plus hi lo for f32 inputs; the lo A part goes to lacc (acc
+// itself, or an accumulator of its own)
+template <typename E, int DP, int LD, int MT, bool kSplit>
+__device__ __forceinline__ void out_mma(float (&acc)[MT][DP / 8][4],
+                                        float (&lacc)[MT][DP / 8][4],
+                                        const uint32_t (&ah)[MT][4],
+                                        const uint32_t (&al)[MT][4],
+                                        Panel<E> x, int kc) {
+  const int lane = threadIdx.x % 32;
+  if constexpr (DP == 8) {
+    const int off = (16 * kc + lane % 16) * LD;
+    uint32_t b[2], bl[2];
+    ldsm2t(b, x.hi + off);
+    if constexpr (kSplit) ldsm2t(bl, x.lo + off);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      mma16<E>(acc[m][0], ah[m], b[0], b[1]);
+      mma16<E>(lacc[m][0], al[m], b[0], b[1]);
+      if constexpr (kSplit) mma16<E>(acc[m][0], ah[m], bl[0], bl[1]);
+    }
+  } else {
+    const int mat = lane / 8, r = lane % 8;
+#pragma unroll
+    for (int n = 0; n < DP / 8; n += 2) {
+      const int off = (16 * kc + 8 * (mat & 1) + r) * LD + 8 * (n + (mat >> 1));
+      uint32_t b[4], bl[4];
+      ldsm4t(b, x.hi + off);
+      if constexpr (kSplit) ldsm4t(bl, x.lo + off);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mma16<E>(acc[m][n + u], ah[m], b[2 * u], b[2 * u + 1]);
+          mma16<E>(lacc[m][n + u], al[m], b[2 * u], b[2 * u + 1]);
+          if constexpr (kSplit)
+            mma16<E>(acc[m][n + u], ah[m], bl[2 * u], bl[2 * u + 1]);
+        }
+    }
+  }
+}
+
+// Store a (16 x DP) f32 accumulator's rows [r0, r0 + 16), times mul per row
+// half (rows g and g + 8), rounded once to T; rows past S and columns past
+// D are not written.
 template <typename T, int DP>
-__device__ __forceinline__ void stage(float (*dst)[DP],
-                                      const T* __restrict__ src, int r0,
-                                      int S, int D) {
-  for (int idx = threadIdx.x; idx < kTile * DP; idx += kThreads) {
-    const int j = idx / DP, d = idx % DP;
-    const int r = r0 + j;
-    dst[j][d] = (r < S && d < D) ? to_f32(src[(long long)r * D + d]) : 0.f;
-  }
+__device__ __forceinline__ void store_rows(T* __restrict__ y,
+                                           const float (&acc)[DP / 8][4],
+                                           int r0, int S, int D, float mul0,
+                                           float mul1) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e >> 1), d = 8 * n + 2 * t + (e & 1);
+      if (r < S && d < D)
+        y[(long long)r * D + d] = from_f32<T>(acc[n][e] * ((e >> 1) ? mul1 : mul0));
+    }
 }
 
-// Launch K<T, G, DPT>::run(blocks, stream, tiles, args...) for the head
-// dim: D <= 8 and <= 16 one thread per row, then 2, 4 and 8 threads of 16
-// dims each; blocks = (B * H) * tiles, a tile being 128 / G rows.  Returns
-// the CUDA error code of the launch (0 = cudaSuccess).
-template <typename T, template <typename, int, int> class K, int G, int DPT,
-          typename... A>
+// -- launch ------------------------------------------------------------------
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// Launch K<T, DP>::run(blocks, stream, tiles, args...) for the head dim
+// padded to DP = 8, 16, 32, 64 or 128; blocks = (B * H) * tiles, a tile
+// being the K<T, DP>::kRows rows a CTA owns.  Returns the CUDA error code
+// of the launch.
+template <typename T, template <typename, int> class K, int DP, typename... A>
 int launch_one(long long bh, int S, cudaStream_t st, A... args) {
-  constexpr int R = kThreads / G;
-  const int tiles = (S + R - 1) / R;
-  K<T, G, DPT>::run((unsigned)(bh * tiles), st, tiles, args...);
-  return (int)cudaGetLastError();
+  constexpr int kRows = K<T, DP>::kRows;
+  const int tiles = (S + kRows - 1) / kRows;
+  const int err = K<T, DP>::run((unsigned)(bh * tiles), st, tiles, args...);
+  return err ? err : (int)cudaGetLastError();
 }
 
-template <typename T, template <typename, int, int> class K, typename... A>
+template <typename T, template <typename, int> class K, typename... A>
 int launch_d(int D, long long bh, int S, cudaStream_t st, A... args) {
-  if (D <= 8) return launch_one<T, K, 1, 8>(bh, S, st, args...);
-  if (D <= 16) return launch_one<T, K, 1, 16>(bh, S, st, args...);
-  if (D <= 32) return launch_one<T, K, 2, 16>(bh, S, st, args...);
-  if (D <= 64) return launch_one<T, K, 4, 16>(bh, S, st, args...);
-  return launch_one<T, K, 8, 16>(bh, S, st, args...);
+  if (D <= 8) return launch_one<T, K, 8>(bh, S, st, args...);
+  if (D <= 16) return launch_one<T, K, 16>(bh, S, st, args...);
+  if (D <= 32) return launch_one<T, K, 32>(bh, S, st, args...);
+  if (D <= 64) return launch_one<T, K, 64>(bh, S, st, args...);
+  return launch_one<T, K, 128>(bh, S, st, args...);
+}
+
+// Allow `bytes` of dynamic shared memory for `kernel` (above the 48 KB a
+// launch may take without asking); returns the CUDA error code
+template <typename F>
+int allow_smem(F* kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // The entry point of each source: checks the shape, then launches K for the
 // dtype code; `args` go to K::run after (blocks, stream, row tiles).
-template <template <typename, int, int> class K, typename... A>
+template <template <typename, int> class K, typename... A>
 int dispatch(int dtype, int B, int H, int S, int D, void* stream,
              A... args) {
   if (B < 0 || H < 1 || S < 1 || D < 1 || D > kMaxD)
