@@ -10,10 +10,16 @@ stderr, and no result line is printed):
                `nvidia-smi --query-gpu=name,power.limit` on a line of its own,
                then the SM count and maximum SM clock (`clocks.max.sm`).
 2. build    — builds the CUDA kernels from shifu_tpu_torch/csrc (one nvcc per
-               source, all started together) and prints the build seconds.
-               From here to the end of phase 3 a second process runs the
-               CPU halves of the FT and DeepFM locksteps (phases 11-13,
-               15), and the first profile sets CUPTI up beside the build.
+               source, all started together) and prints the build seconds;
+               for the flash sources and the fused block, each
+               instantiation's registers, spills and SASS counts (HMMA,
+               MUFU.EX2, and FFMA.RM or MUFU.TANH): every fused-block
+               instantiation must have HMMA and no MUFU.TANH.
+               While they build, a second process runs the CPU halves of
+               the FT and DeepFM locksteps (phases 11-13, 15); it has
+               ended before the first profile sets CUPTI up, since on the
+               H100 machine profiles taken while such a process lived now
+               and then lost their first device events.
 3. kernels  — each kernel against its plain PyTorch version on the card, at
                the shapes its path gives it and at edge shapes, with the
                tolerance stated beside each check: the fused block (#1),
@@ -23,7 +29,9 @@ stderr, and no result line is printed):
                rows-touched update (#6, SGD and Adadelta, duplicate ids),
                flash attention forward (#7) and its dq and dk/dv kernels
                (#8).  Device times (the profiler's
-               kernel durations per call) of kernel, plain version and, for
+               kernel durations per call; for #7 and #8, which take
+               milliseconds a call, CUDA events) of kernel, plain
+               version and, for
                attention, `scaled_dot_product_attention` as a yardstick
                (forward, and forward + backward through autograd), with
                the median whole-call times (CUDA events) beside some; the
@@ -31,8 +39,12 @@ stderr, and no result line is printed):
                memory rate, operations over the peak for the compute
                dtype, or, for the attention kernels, exponentials over
                the special-function units' rate at the maximum SM clock,
-               which phase 1 reads); the flash kernels' factors against
-               SDPA and the names of SDPA's kernels.
+               which phase 1 reads; for #1 the largest of bytes, its four
+               products at the bf16 tensor-core rate times the passes of
+               its f32 split, and the rest at the f32 rate, with the
+               all-f32 figure beside it); the flash kernels' factors
+               against SDPA, #5's against `F.embedding`, and the names of
+               SDPA's kernels.
    (The FT phases 4, 5, 12 and 13 look their categorical ids up through
    #5: one launch per batch, counted in their launch checks.)
 4. serve    — a full-width FT-Transformer artifact (token_dim 64, 3 layers,
@@ -314,6 +326,7 @@ def device_events(prof) -> list:
 
 # device events the profiler dropped and saw, over every device_ms profile
 PROFILE_EVENTS = {"profiles": 0, "lost": 0, "seen": 0}
+PROFILE_ATTEMPTS = 4
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3,
@@ -321,20 +334,24 @@ def device_ms(fn, reps: int = 20, warmup: int = 3,
     """Device time of one call, from the profiler: the durations of the
     kernels it launches, without the host time between them (CUDA events
     around a call that launches a short kernel time the wrapper's host
-    work).  On the H100 machine a profile drops a few device events at its
-    start (a kernel launched once a call shows reps - 1 or reps - 2
-    times), and once, in a long run, it dropped them all.  So each
-    kernel's mean duration counts ceil(count / reps) times a call, which
-    holds while a kernel loses fewer than reps of its events; a profile in
-    which a kernel lost more than half of them is taken again, once,
-    before the check fails.  `PROFILE_EVENTS` keeps the tally.  `names`,
-    when given, receives the device events' names."""
+    work).  On the H100 machine a profile dropped a few device events at
+    its start (a kernel launched once a call showed reps - 1 or reps - 2
+    times), and now and then it dropped them all, while another process
+    lived beside this one (`main` ends its second process before the
+    first profile).  So each kernel's mean duration counts
+    ceil(count / reps) times a call, which holds while a kernel loses
+    fewer than reps of its events; a profile in which a
+    kernel lost more than half of them is taken again, and the check fails
+    after PROFILE_ATTEMPTS such profiles.  (The millisecond-scale flash
+    kernels, whose profiles lost every event most often, are timed with
+    `queued_ms` instead: see check_flash.)  `PROFILE_EVENTS` keeps the
+    tally.  `names`, when given, receives the device events' names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(2):
+    for attempt in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -353,8 +370,9 @@ def device_ms(fn, reps: int = 20, warmup: int = 3,
             f"{getattr(fn, '__qualname__', fn)} lost {lost} device events "
             f"({len(events)} kernels or copies seen)")
     else:
-        fail("device_ms: the profiler lost more than half of a kernel's "
-             "device events in two profiles")
+        fail(f"device_ms: {getattr(fn, '__qualname__', fn)}: the profiler "
+             f"lost more than half of a kernel's device events in "
+             f"{PROFILE_ATTEMPTS} profiles")
     if names is not None:
         names.extend(n for n, _, _ in events)
     return sum(t / c * per_call[n] for n, t, c in events) / 1e3
@@ -372,8 +390,8 @@ def randn_on(gen, device, *shape):
 
 def warm_profiler(device) -> None:
     """One short profile on the card: the first in a process sets
-    CUPTI up (about 9 s on the H100 machine's host), so `main` runs it while
-    nvcc builds the kernels.  Run it in the thread that profiles later:
+    CUPTI up (about 9 s on the H100 machine's host), so that no profile a
+    check reads is that one.  Run it in the thread that profiles later:
     Kineto reports an error when CUPTI was set up in another."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -422,16 +440,36 @@ def block_params(d: int, r: int, gen, device):
     return {k: v.to(device) for k, v in p.items()}
 
 
-def ft_block_ops(b: int, s: int, d: int, h: int, r: int) -> float:
-    """Operations of one block on these shapes: the four products, the
-    attention products, and the elementwise work (LayerNorm ~8/elt, gelu
-    ~10/elt, softmax ~4 per score, residual adds)."""
+def ft_block_ops(b: int, s: int, d: int, h: int,
+                 r: int) -> tuple[float, float]:
+    """Operations of one block on these shapes: (the four products, the
+    rest: the attention products and the elementwise work, LayerNorm
+    ~8/elt, gelu ~10/elt, softmax ~4 per score, residual adds)."""
     m = b * s
     products = 2 * m * (3 * d * d + d * d + 2 * r * d * d)
     attention = 4 * b * h * s * s * (d // h)
     elementwise = 2 * 8 * m * d + 10 * m * r * d + 4 * b * h * s * s + 2 * m * d
-    return float(products + attention + elementwise)
+    return float(products), float(attention + elementwise)
 
+
+# the tensor-core passes a product of #1 takes: each f32 operand as bf16
+# hi + lo, three mma (hi hi, hi lo, lo hi), the cheapest split that
+# tests/test_torch_ft_block_numerics.py finds within F32_ATOL/F32_RTOL at
+# every shape below
+FT_SPLIT_PASSES = 3
+
+# check_ft_block's edge shapes (B, S, D, H, R): the serving buckets' low
+# end (B = 1, 16), a last block part full (B = 1001 at 4 samples a block),
+# S at and around the 16-row m-tiles (15, 16, 17, 33) and S = 1 and 64, D
+# off the mma's 16 (8, 13, 24, 40), D = 128 with hidden 1024, head dims 1,
+# 8, 16 and 32 (the kernel's three attention cases), R from 1 to 8
+FT_BLOCK_EDGE_SHAPES = (
+    (1, 31, 64, 8, 4), (7, 9, 16, 2, 2), (5, 13, 24, 3, 3),
+    (64, 64, 128, 16, 8), (3, 1, 8, 1, 1), (16, 31, 64, 8, 4),
+    (1001, 31, 64, 8, 4), (600, 15, 64, 8, 4), (600, 16, 64, 8, 4),
+    (600, 17, 64, 8, 4), (300, 33, 64, 8, 4), (500, 31, 40, 5, 4),
+    (500, 31, 64, 8, 1), (500, 31, 64, 8, 8), (300, 31, 64, 4, 4),
+    (300, 31, 64, 2, 4), (9, 5, 13, 13, 1))
 
 def check_ft_block(device, gen) -> dict:
     import torch
@@ -450,9 +488,7 @@ def check_ft_block(device, gen) -> dict:
                           want, F32_ATOL, F32_RTOL)
         return spec, p, x, err
 
-    edge_errs = [case(*shape)[3] for shape in
-                 ((1, 31, 64, 8, 4), (7, 9, 16, 2, 2), (5, 13, 24, 3, 3),
-                  (64, 64, 128, 16, 8), (3, 1, 8, 1, 1))]
+    edge_errs = [case(*shape)[3] for shape in FT_BLOCK_EDGE_SHAPES]
     b, s, d, h, r = FT_BLOCK_SHAPE
     spec, p, x, err = case(b, s, d, h, r)
     def kernel():
@@ -475,12 +511,23 @@ def check_ft_block(device, gen) -> dict:
     bwd_ms = device_ms(forward_backward) - ms
     call_ms, plain_call_ms = time_ms(kernel), time_ms(plain)
     n_bytes = 2 * x.numel() * 4 + sum(t.numel() for t in p.values()) * 4
-    bnd, by = bound_ms(n_bytes, ft_block_ops(b, s, d, h, r), torch.float32)
+    products, rest = ft_block_ops(b, s, d, h, r)
+    terms = [(n_bytes / PEAK_HBM_BYTES * 1e3, "bytes"),
+             (FT_SPLIT_PASSES * products / PEAK_16BIT_FLOPS * 1e3,
+              f"products on the tensor cores, {FT_SPLIT_PASSES} bf16 passes"),
+             (rest / PEAK_F32_FLOPS * 1e3, "the rest at the f32 rate")]
+    bnd, term = max(terms)
+    by = "bytes" if term == "bytes" else "operations"
+    f32_bnd = (products + rest) / PEAK_F32_FLOPS * 1e3
     say(f"kernels: ft_block B={b} S={s} D={d} H={h} R={r} f32 max|err| "
         f"{err:.3e} (tol {F32_ATOL:g}+{F32_RTOL:g}*|ref|, f32 vs f32: "
         f"summation order only); edge shapes max|err| {max(edge_errs):.3e}; "
         f"device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bnd:.4f} ms ({by}); whole call (CUDA events): kernel "
+        f"{bnd:.4f} ms ({term}; terms: "
+        + ", ".join(f"{t} {v:.4f}" for v, t in terms)
+        + f"; {products / 1e9:.2f} GFLOP of products, {rest / 1e9:.2f} of "
+        f"the rest; all at the f32 CUDA-core rate {f32_bnd:.4f}), "
+        f"kernel/bound {ms / bnd:.3f}x; whole call (CUDA events): kernel "
         f"{call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; backward (plain "
         f"recompute, as in JAX) {bwd_ms:.4f} ms device time per block")
     return {"name": "ft_block", "route": "cuda",
@@ -669,8 +716,13 @@ FLASH_EDGE_SHAPES = (
 
 
 def _instantiation(mangled: str) -> str:
-    """'bf16 D<=8' for a flash kernel's mangled name (its T and padded D)."""
+    """'bf16 D<=8' for a flash kernel's mangled name (its T and padded D);
+    'KS=4 DH=8' for the fused block's (D padded / 16, and the head dim of
+    its attention: 8, 16, or 0 for any other)."""
     import re
+    m = re.search(r"ft_block_kernelILi(\d+)ELi(\d+)E", mangled)
+    if m:
+        return f"KS={m.group(1)} DH={m.group(2)}"
     m = re.search(r"kernelI(13__nv_bfloat16|6__half|f)Li(\d+)E", mangled)
     if not m:
         return mangled[:40]
@@ -678,16 +730,25 @@ def _instantiation(mangled: str) -> str:
     return f"{dtype[m.group(1)]} D<={m.group(2)}"
 
 
-def flash_build_report(src: str) -> str:
-    """Per instantiation of a flash source: the registers and spill bytes
-    ptxas reported, and the counts of HMMA (tensor-core mma), MUFU.EX2 and
-    FFMA.RM (the range reduction of an accurate expf, which the kernels
-    must not have) in its SASS, read with `cuobjdump -sass` from the built
-    library where the toolkit has it.  Shared memory is dynamic (3
-    buffers of the streamed tiles), so ptxas reports none."""
+# SASS opcodes each kernel's build line counts: HMMA (tensor-core mma);
+# for flash MUFU.EX2 and FFMA.RM (the range reduction of an accurate expf,
+# which its tile loops must not have); for the fused block MUFU.EX2
+# (exp2f) and MUFU.TANH (tanh.approx, too coarse for its tolerance: it
+# must have none)
+SASS_OPS = {"flash": ("HMMA", "MUFU.EX2", "FFMA.RM"),
+            "ft_block": ("HMMA", "MUFU.EX2", "MUFU.TANH")}
+
+
+def build_report(src: str) -> tuple[str, dict]:
+    """Per instantiation of a source: the registers and spill bytes ptxas
+    reported, and the counts of SASS_OPS in its SASS, read with
+    `cuobjdump -sass` from the built library where the toolkit has it.
+    Returns the line and {instantiation: {op: count}} ({} without
+    cuobjdump).  Shared memory is dynamic, so ptxas reports none."""
     import re
     import shutil
     from shifu_tpu_torch.ops import _build
+    ops = SASS_OPS["flash" if src.startswith("flash_") else src]
     usage, cur = {}, None
     for ln in _build.build_logs.get(src, "").splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -706,25 +767,20 @@ def flash_build_report(src: str) -> str:
         out = subprocess.run([tool, "-sass", _build._target(src)],
                              capture_output=True, text=True, timeout=300)
         for fn in out.stdout.split("Function : ")[1:]:
-            counts[_instantiation(fn.splitlines()[0])] = tuple(
-                len(re.findall(op, fn))
-                for op in (r"\bHMMA\.", r"MUFU\.EX2", r"FFMA\.RM"))
+            counts[_instantiation(fn.splitlines()[0])] = {
+                op: len(re.findall(r"\b" + re.escape(op) + r"\b", fn))
+                for op in ops}
     parts = []
     for key in sorted(set(usage) | set(counts)):
         u = usage.get(key, {})
         text = (f"{key} {u.get('regs', '?')} regs, spill st/ld "
                 f"{u.get('spill', '?')} B")
         if key in counts:
-            text += (" ; SASS HMMA {} MUFU.EX2 {} FFMA.RM {}"
-                     .format(*counts[key]))
+            text += " ; SASS " + " ".join(f"{op} {n}"
+                                          for op, n in counts[key].items())
         parts.append(text)
-    return " | ".join(parts) + ("" if counts else " (no cuobjdump)")
-
-
-# the least share of a flash kernel's time a call from CUDA events over
-# calls queued back to back (`queued_ms`) that its profiled device time may
-# read
-FLASH_PROFILE_SHARE = 0.9
+    return (" | ".join(parts) + ("" if counts else " (no cuobjdump)"),
+            counts)
 
 
 def check_flash(device, gen) -> list:
@@ -732,7 +788,13 @@ def check_flash(device, gen) -> list:
     their plain versions; returns their three kernel entries.  The bound
     counts one exponential a (query, key) pair for each kernel: the
     forward's one-pass softmax adds a rescale a row a key tile, which a
-    two-pass softmax would not need, so the bound leaves it out."""
+    two-pass softmax would not need, so the bound leaves it out.  These
+    kernels take milliseconds a call, so their device time comes from CUDA
+    events, not the profiler (whose profiles of them lost every event most
+    often): the kernel's over calls queued back to back behind a spin
+    kernel (`queued_ms`), the plain version's (hundreds of launches a call,
+    more than the launch queue holds behind the spin) around each call
+    (`time_ms`), where the card, not the host, sets the pace."""
     import torch
     from shifu_tpu_torch.ops import flash_attention as fa
 
@@ -788,17 +850,8 @@ def check_flash(device, gen) -> list:
          6 * q.numel() * elt + 2 * bh_s * 4, 8.0 * pairs * d, sdpa_grad_ms))
     entries = []
     for name, key, replaces, kernel, plain, n_bytes, n_ops, lib_ms in specs:
-        ms = device_ms(kernel, reps=5, warmup=1)
-        # the profiler's time against CUDA events around calls queued back
-        # to back: a profile that lost one of its 5 kernel events would
-        # read at most 4/5 of it
-        call_ms = queued_ms(kernel)
-        if ms < FLASH_PROFILE_SHARE * call_ms:
-            fail(f"{name}: the profiler saw {ms:.4f} ms of device time, "
-                 f"under {FLASH_PROFILE_SHARE} of the {call_ms:.4f} ms a "
-                 f"call that CUDA events read over calls queued back to "
-                 f"back")
-        plain_ms = device_ms(plain, reps=3, warmup=1)
+        ms = queued_ms(kernel)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
         bnd, by = bound_ms(n_bytes, n_ops, q.dtype, pairs)
         if key == "fwd":
             vs = (f"sdpa forward {lib_ms:.4f} ms, kernel/sdpa "
@@ -810,10 +863,8 @@ def check_flash(device, gen) -> list:
         say(f"kernels: {name} B={b} H={h} S={s} D={d} bf16 max|err| "
             f"{errs[key]:.3e} (tol {tol_text}); edge shapes (S 1..1001, D "
             f"1..128, f32/bf16/f16) max|err| "
-            f"{max(e[key] for e in edge):.3e}; device time: kernel {ms:.4f} "
-            f"ms (CUDA events over calls queued back to back: "
-            f"{call_ms:.4f} ms a call), plain "
-            f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}; {pairs:.4g} "
+            f"{max(e[key] for e in edge):.3e}; device time (CUDA events): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}; {pairs:.4g} "
             f"exponentials, one a (query, key) pair), kernel/bound "
             f"{ms / bnd:.3f}x; {vs}")
         entries.append({"name": name, "route": "cuda",
@@ -933,11 +984,24 @@ def same_bits(a, b) -> bool:
             and torch.equal(a.view(view), b.view(view)))
 
 
+# check_embedding_lookup's edge shapes (B, Nc, V, D, dtype): D 1 to 128 in
+# the three dtypes, 50 fields, B off every block size; 16-byte rows
+# (bf16/f16 D = 8, f32 D = 4 and 16: one vector load a run); a B * Nc * D
+# that leaves a ragged last 16-byte run in each dtype (f32 105, bf16 595,
+# f16 45 elements)
+LOOKUP_EDGE_SHAPES = (
+    (1001, 6, 1000, 1, "bfloat16"), (3, 6, 5, 16, "float32"),
+    (777, 6, 1000, 64, "float16"), (257, 3, 100, 128, "float32"),
+    (4099, 50, 1000, 17, "bfloat16"), (33, 1, 7, 3, "float16"),
+    (999, 6, 1000, 8, "bfloat16"), (999, 6, 1000, 8, "float16"),
+    (33, 2, 10, 4, "float32"), (5, 3, 100, 7, "float32"),
+    (7, 5, 100, 17, "bfloat16"), (3, 3, 100, 5, "float16"))
+
+
 def check_embedding_lookup(device, gen) -> dict:
     """Kernel #5 against `lookup_reference`, bitwise (a gather copies
-    values): at the DeepFM training shape and at edge shapes (D 1 to 128,
-    f32/bf16/f16, 50 fields, ids V, -1, -V and past [-V, V), B off every
-    block size)."""
+    values): at the DeepFM training shape and at LOOKUP_EDGE_SHAPES, with
+    the ids V, -1, -V and ids past [-V, V)."""
     import torch
     import torch.nn.functional as F
     from shifu_tpu_torch.ops import embedding as emb
@@ -957,13 +1021,8 @@ def check_embedding_lookup(device, gen) -> dict:
                  "bitwise equal to lookup_reference")
         return table, ids
 
-    for shape in ((1001, 6, 1000, 1, torch.bfloat16, True),
-                  (3, 6, 5, 16, torch.float32, True),
-                  (777, 6, 1000, 64, torch.float16, True),
-                  (257, 3, 100, 128, torch.float32, True),
-                  (4099, 50, 1000, 17, torch.bfloat16, True),
-                  (33, 1, 7, 3, torch.float16, True)):
-        case(*shape)
+    for b, nc, v, d, dt in LOOKUP_EDGE_SHAPES:
+        case(b, nc, v, d, getattr(torch, dt), edge_ids=True)
     b, nc, v, d = LOOKUP_SHAPE
     table, ids = case(b, nc, v, d, torch.bfloat16)
     offset_ids = (ids.long() + torch.arange(nc, device=device) * v)
@@ -980,16 +1039,33 @@ def check_embedding_lookup(device, gen) -> dict:
 
     if not same_bits(library(), plain()):
         fail("F.embedding with offset ids differs from lookup_reference")
+    # what feeds #5 on the DeepFM path at the default f32 param_dtype: the
+    # 16- and 1-wide f32 tables cast to bf16 and concatenated, once a step
+    tables = (randn_on(gen, device, nc, v, d - 1),
+              randn_on(gen, device, nc, v, 1))
+
+    def feed():
+        return torch.cat([t.to(table.dtype) for t in tables], dim=-1)
+
     ms, plain_ms, library_ms = (device_ms(kernel), device_ms(plain),
                                 device_ms(library))
+    feed_ms = device_ms(feed)
+    # the casts read f32 and write bf16, the concatenation reads and
+    # writes bf16
+    feed_bytes = nc * v * d * (4 + 2 + 2 * table.element_size())
     n_bytes = 2 * b * nc * d * table.element_size() + ids.numel() * 4
     bnd, by = bound_ms(n_bytes, 0.0, table.dtype)
     say(f"kernels: embedding_lookup B={b} Nc={nc} V={v} D={d} bf16 bitwise "
         f"equal to its plain version (and at edge shapes: D 1..128, "
-        f"f32/bf16/f16, Nc 50, ids V/-1/-V/outside [-V, V)); device time: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.embedding on offset "
-        f"ids {library_ms:.4f} ms, bound {bnd:.4f} ms ({by}, "
-        f"{n_bytes / 1e6:.1f} MB)")
+        f"f32/bf16/f16, Nc 50, 16-byte rows, ragged last runs, ids "
+        f"V/-1/-V/outside [-V, V)); device time: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, F.embedding on offset ids {library_ms:.4f} ms "
+        f"(kernel/F.embedding {ms / library_ms:.3f}x), bound {bnd:.4f} ms "
+        f"({by}, {n_bytes / 1e6:.1f} MB; kernel/bound {ms / bnd:.3f}x)")
+    say(f"kernels: what feeds #5 on the DeepFM path (f32 tables ({nc}, {v}, "
+        f"{d - 1}) and ({nc}, {v}, 1) cast to bf16 and concatenated, once a "
+        f"step): {feed_ms:.4f} ms device time, {feed_bytes / 1e6:.1f} MB "
+        f"moved, {feed_ms / ms:.1f}x the lookup itself")
     return {"name": "embedding_lookup", "route": "cuda",
             "source": "shifu_tpu_torch/csrc/embedding_lookup.cu",
             "replaces": "shifu_tpu/ops/pallas_embedding.py:62",
@@ -1576,21 +1652,42 @@ def shifu_files_run(tmp: str, device) -> None:
         f"{launches['int8_matmul']} times")
 
 
+def table_casts_ms(prof, lead: tuple) -> tuple[float, int]:
+    """(device ms, calls) in a profile of the casts (aten::_to_copy) whose
+    input's leading dims are `lead`: on the DeepFM path, the per-step cast
+    of the embedding tables to the compute dtype that feeds kernel #5
+    (models/embedding.py `table`).  Needs a profile that recorded shapes.
+    (Their concatenation is not told apart here: the profiler records no
+    shapes for aten::cat's list of tensors; check_embedding_lookup times
+    the cast and the concatenation together.)"""
+    ms, calls = 0.0, 0
+    for e in prof.key_averages(group_by_input_shape=True):
+        first = (e.input_shapes or [[]])[0]
+        if (e.key == "aten::_to_copy"
+                and tuple(first[:len(lead)]) == tuple(lead)):
+            ms += getattr(e, "device_time_total", 0.0) / 1e3
+            calls += e.count
+    return ms, calls
+
+
 def profile_training(label: str, job, train_ds, valid_ds, device,
+                     table_lead: tuple | None = None,
                      out_dir: str = "chiprun_out") -> None:
     """A steady-state training epoch under torch.profiler: the window runs
     from the end of epoch 0 to the end of epoch 1 (its steps and its
     eval); prints the device's busy share of the window and its top
     kernels and writes a gzip Chrome trace `<label>_trace.json.gz` to
     `out_dir` (gzip keeps the traces of every profile under the 64 MiB a
-    chip call may bring back).
+    chip call may bring back).  With `table_lead`, also the device time of
+    the embedding tables' casts (`table_casts_ms`).
     The profiler slows the host, so the window's wall time is not a
     result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from shifu_tpu_torch.train.loop import train
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   record_shapes=table_lead is not None)
     window = {}
 
     def on_epoch(m) -> None:
@@ -1616,6 +1713,11 @@ def profile_training(label: str, job, train_ds, valid_ds, device,
         f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / wall:.2f}% of wall)")
     for key, t, n in sorted(avgs, key=lambda a: -a[1])[:10]:
         say(f"profile {label}:   {t / 1e3:9.3f} ms  {n:6d}x  {key[:90]}")
+    if table_lead is not None:
+        ms, calls = table_casts_ms(prof, table_lead)
+        say(f"profile {label}: casts of the {table_lead + ('...',)} tables "
+            f"that feed #5: {ms:.3f} ms device time over the window "
+            f"({calls} calls)")
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir,
                                           f"{label}_trace.json.gz"))
@@ -1750,9 +1852,8 @@ def ft_paths() -> dict:
 def cpu_lockstep_refs(n_steps: int = 8) -> dict:
     """The CPU halves of the three FT locksteps and of the DeepFM one,
     label -> `lockstep_run` on the CPU.  `main` runs this in a process of
-    its own while the kernels build and the kernel checks run: on the
-    8-core host of the H100 machine the FT halves took 35-51 s in the
-    script's main thread."""
+    its own while the kernels build: on the 8-core host of the H100
+    machine the FT halves took 35-51 s in the script's main thread."""
     import torch
     paths = {**ft_paths(), "DeepFM": deepfm_lockstep_path()}
     return {label: lockstep_run(job, lockstep_batches(job, tr, n_steps),
@@ -1989,7 +2090,8 @@ def embedding_training_phases(device, tmp: str, kernels: list,
                               for k in served["launches"]}:
         fail(f"trained DeepFM: launches {served['launches']}, expected one "
              f"lookup a batch ({served['dispatched']}) and no other kernel")
-    profile_training("train_deepfm", job, tr, va, device)
+    profile_training("train_deepfm", job, tr, va, device,
+                     table_lead=(6, DEEPFM_VOCAB))
     del res
     lap("serve trained DeepFM and profile train_deepfm")
 
@@ -2038,41 +2140,39 @@ def main() -> None:
     say(read_sm_clock())
     device = torch.device("cuda:0")
 
-    # the CPU halves of the FT locksteps run in a process of their own from
-    # here to the end of the kernel checks, which read device times that
-    # the host does not move (their whole-call CUDA-event times share the
-    # host with it); the serving and training phases, bound by the host,
-    # start after it has finished
+    # phase 2: build (one nvcc per source) while the CPU halves of the
+    # locksteps run in a process of their own; that process has ended
+    # before the first profile: profiles taken while it lived, even idle,
+    # now and then lost their first device events, in one run more than
+    # half of a kernel's in every retake
     pool = multiprocessing.get_context("spawn").Pool(1)
     pending = pool.apply_async(cpu_lockstep_refs)
-
-    # phase 2: build in a thread (it waits on nvcc), while the first
-    # profile (CUPTI's set-up, seconds) runs in this one: CUPTI
-    # must be set up in the thread that profiles
-    built = {}
-
-    def build() -> None:
-        try:
-            built["s"] = _build.build_all()
-        except Exception as e:  # noqa: BLE001 — reported below
-            built["error"] = e
-
-    build_thread = threading.Thread(target=build)
-    build_thread.start()
+    try:
+        build_s = _build.build_all()
+    except Exception as e:  # noqa: BLE001 — reported as the phase's failure
+        fail(f"build: {e}")
+    try:
+        cpu_refs = pending.get(timeout=900)
+    except Exception as e:  # noqa: BLE001 — reported as the phase's failure
+        fail(f"the CPU halves of the FT locksteps failed: {e!r}")
+    pool.close()
+    pool.join()
     warm_profiler(device)
-    build_thread.join()
-    if "error" in built:
-        fail(f"build: {built['error']}")
-    build_s = built["s"]
     for src in sorted(_build.build_logs):
-        if src.startswith("flash_"):
-            say(f"build: {src}: " + flash_build_report(src))
+        if src.startswith("flash_") or src == "ft_block":
+            line, counts = build_report(src)
+            say(f"build: {src}: " + line)
+            if src == "ft_block" and any(
+                    not c["HMMA"] or c["MUFU.TANH"] for c in counts.values()):
+                fail("build: an ft_block instantiation has no HMMA (the "
+                     "products must run on the tensor cores) or has "
+                     "MUFU.TANH (tanh.approx)")
             continue
         usage = [ln.strip() for ln in _build.build_logs[src].splitlines()
                  if "registers" in ln or "spill" in ln]
         say(f"build: {src}: " + " | ".join(usage))
     say(f"build: {len(_build.sources())} kernels in {build_s:.2f} s")
-    lap("device and build")
+    lap("device, build, the CPU halves of the locksteps")
 
     # phase 3: kernels against their plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2088,13 +2188,6 @@ def main() -> None:
     say("profiler: {lost} device events lost and {seen} seen over "
         "{profiles} profiles of the kernel checks (each time counts the "
         "events it saw: see device_ms)".format(**PROFILE_EVENTS))
-    try:
-        cpu_refs = pending.get(timeout=900)
-    except Exception as e:  # noqa: BLE001 — reported as the phase's failure
-        fail(f"the CPU halves of the FT locksteps failed: {e!r}")
-    pool.close()
-    pool.join()
-    lap("wait for the CPU halves of the FT locksteps")
 
     # phases 4 and 5: serve the full-width artifact, fused then unfused
     schema = serving_schema()

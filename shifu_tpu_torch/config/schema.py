@@ -7,7 +7,8 @@ package's dataclasses with the same defaults and checks, so an artifact's
 `topology.json` and a JAX `JobConfig.to_dict()` parse unchanged
 (`_from_dict`).  `ObsConfig`, `EmbedConfig`, `MeshConfig`,
 `CheckpointConfig` and `RuntimeConfig` carry their fields so such a dict
-loads; the port does not act on them yet beyond refusing a checkpoint
+loads, and the first three keep the JAX package's checks; the port acts
+on them only through `embed.dedup` and by refusing a checkpoint
 directory (`train/loop.train`).  `ServingConfig` keeps only the knobs the
 port's daemon uses.
 """
@@ -398,7 +399,8 @@ class TrainConfig:
 @dataclass(frozen=True)
 class ObsConfig:
     """The JAX package's device-profiling knobs, carried so a JAX job dict
-    parses; the port has no flight recorder yet."""
+    parses and checked as the JAX package checks them; the port has no
+    flight recorder yet."""
 
     trace_epochs: str = "off"
     trace_dir: str = ""
@@ -408,6 +410,26 @@ class ObsConfig:
     anomaly_zscore: float = 6.0
     anomaly_min_chunks: int = 8
     anomaly_min_ratio: float = 0.5
+
+    def validate(self) -> None:
+        from ..obs import devprof  # parse, don't duplicate the grammar
+        try:
+            devprof.parse_trace_epochs(self.trace_epochs)
+        except ValueError as e:
+            raise ConfigError(str(e))
+        if self.trace_top_k < 1:
+            raise ConfigError(
+                f"obs.trace_top_k must be >= 1: {self.trace_top_k}")
+        if self.anomaly_window < 4:
+            raise ConfigError(
+                f"obs.anomaly_window must be >= 4: {self.anomaly_window}")
+        if self.anomaly_zscore <= 0 or self.anomaly_min_ratio < 0:
+            raise ConfigError(
+                "obs.anomaly_zscore must be > 0 and anomaly_min_ratio >= 0")
+        if self.anomaly_min_chunks < 2:
+            raise ConfigError(
+                f"obs.anomaly_min_chunks must be >= 2: "
+                f"{self.anomaly_min_chunks}")
 
 
 @dataclass(frozen=True)
@@ -425,6 +447,25 @@ class EmbedConfig:
     cold_dir: str = ""
     prefetch: bool = True
 
+    def validate(self) -> None:
+        if self.dedup not in ("auto", "off"):
+            raise ConfigError(
+                f"embed.dedup must be auto|off: {self.dedup!r}")
+        if self.tiering not in ("off", "host"):
+            raise ConfigError(
+                f"embed.tiering must be off|host: {self.tiering!r}")
+        if self.tier_dtype not in ("float32", "int8"):
+            raise ConfigError(
+                f"embed.tier_dtype must be float32|int8: "
+                f"{self.tier_dtype!r}")
+        if self.hot_rows < 0:
+            raise ConfigError(f"embed.hot_rows must be >= 0: "
+                              f"{self.hot_rows}")
+        if not (0.0 < self.hot_fraction <= 1.0):
+            raise ConfigError(
+                f"embed.hot_fraction must be in (0, 1]: "
+                f"{self.hot_fraction}")
+
 
 @dataclass(frozen=True)
 class MeshConfig:
@@ -436,6 +477,20 @@ class MeshConfig:
     seq: int = 1
     pipe: int = 1
     axis_order: tuple[str, ...] = ("data", "seq", "pipe", "model")
+
+    def validate(self) -> None:
+        for name in ("data", "model", "seq", "pipe"):
+            if getattr(self, name) < 1:
+                raise ConfigError(f"mesh axis {name} must be >= 1")
+        known = {"data", "seq", "pipe", "model"}
+        if (not set(self.axis_order) <= known
+                or len(set(self.axis_order)) != len(self.axis_order)):
+            raise ConfigError(f"axis_order must be distinct axes from "
+                              f"{sorted(known)}: {self.axis_order}")
+        for name in known - set(self.axis_order):
+            if getattr(self, name) != 1:
+                raise ConfigError(f"mesh axis {name} > 1 but missing from "
+                                  "axis_order")
 
 
 @dataclass(frozen=True)
@@ -488,6 +543,9 @@ class JobConfig:
         self.data.validate()
         self.model.validate()
         self.train.validate()
+        self.runtime.mesh.validate()
+        self.obs.validate()
+        self.embed.validate()
         if self.train.bagging_sample_rate < 1.0 and self.data.out_of_core:
             raise ConfigError("bagging_sample_rate < 1 is not supported with "
                               "out-of-core datasets")

@@ -63,9 +63,27 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace shifu {
 namespace flash {
+
+// the shared building blocks (common.cuh, mma.cuh), for the flash
+// sources' `using namespace shifu::flash`
+using shifu::aligned16;
+using shifu::cp16;
+using shifu::cp_commit;
+using shifu::cp_wait_prev;
+using shifu::ldsm2t;
+using shifu::ldsm4;
+using shifu::ldsm4t;
+using shifu::mma16;
+using shifu::mma8;
+using shifu::pack;
+using shifu::quad_sum;
+using shifu::smem_addr;
+using shifu::split;
+using shifu::unpack;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -115,40 +133,6 @@ struct Mma<__half> {
   static constexpr bool kLoAcc = true;
 };
 
-// -- 16-bit pairs ------------------------------------------------------------
-
-template <typename E>
-__device__ __forceinline__ uint32_t pack(float a, float b) {  // a low
-  uint32_t u;
-  if constexpr (std::is_same<E, __half>::value) {
-    __half2 h = __floats2half2_rn(a, b);
-    u = *reinterpret_cast<uint32_t*>(&h);
-  } else {
-    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    u = *reinterpret_cast<uint32_t*>(&h);
-  }
-  return u;
-}
-
-template <typename E>
-__device__ __forceinline__ float2 unpack(uint32_t u) {
-  if constexpr (std::is_same<E, __half>::value) {
-    return __half22float2(*reinterpret_cast<__half2*>(&u));
-  } else {
-    return make_float2(__uint_as_float(u << 16),
-                       __uint_as_float(u & 0xffff0000u));
-  }
-}
-
-// (a, b) as hi = rounded and lo = (x - hi) * lo_scale rounded
-template <typename E>
-__device__ __forceinline__ void split(float a, float b, uint32_t& hi,
-                                      uint32_t& lo, float lo_scale = 1.f) {
-  hi = pack<E>(a, b);
-  const float2 h = unpack<E>(hi);
-  lo = pack<E>((a - h.x) * lo_scale, (b - h.y) * lo_scale);
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -174,92 +158,6 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
 }
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
-
-// -- tensor-core instructions ------------------------------------------------
-
-// c += a (16 x 16) b (16 x 8), f32 accumulate
-template <typename E>
-__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t* a,
-                                      uint32_t b0, uint32_t b1) {
-  if constexpr (std::is_same<E, __half>::value) {
-    asm(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// c += a (16 x 8) b (8 x 8), f32 accumulate
-template <typename E>
-__device__ __forceinline__ void mma8(float (&c)[4], const uint32_t* a,
-                                     uint32_t b0) {
-  if constexpr (std::is_same<E, __half>::value) {
-    asm(
-        "mma.sync.aligned.m16n8k8.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(b0));
-  } else {
-    asm(
-        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(b0));
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8 x 8 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// 16 bytes global -> shared, zero-filled when !valid
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;");
-}
-__device__ __forceinline__ void cp_wait_prev() {  // all but the newest group
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
 
 // zero an accumulator array
 template <int A, int N>
@@ -497,9 +395,6 @@ __device__ __forceinline__ void store_rows(T* __restrict__ y,
 
 // -- launch ------------------------------------------------------------------
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
 
 // Launch K<T, DP>::run(blocks, stream, tiles, args...) for the head dim
 // padded to DP = 8, 16, 32, 64 or 128; blocks = (B * H) * tiles, a tile

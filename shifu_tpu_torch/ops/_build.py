@@ -94,12 +94,13 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or none
 
 
-def build_all() -> float:
-    """Build every kernel that is not current, one nvcc per source, all
-    started together; returns the wall seconds."""
+def build_all(names: Optional[list[str]] = None) -> float:
+    """Build every kernel (or those of `names`) that is not current, one
+    nvcc per source, all started together; returns the wall seconds."""
     t0 = time.perf_counter()
     with _lock:
-        started = {n: s for n in sources() if (s := _start(n)) is not None}
+        started = {n: s for n in (names or sources())
+                   if (s := _start(n)) is not None}
         errors = []
         for n, s in started.items():
             try:

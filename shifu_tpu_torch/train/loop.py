@@ -193,6 +193,16 @@ def train(job: JobConfig,
             "runtime.checkpoint.directory is set, but the port has no "
             "checkpoint yet (train/checkpoint.py: ROADMAP.md queue A, the "
             "first item); unset it to train without one")
+    # the JAX loop's refusal: it takes the resident or the staged tier
+    # exactly when data.staged and data.drop_remainder are both set (where
+    # it would stage, the port runs the per-batch tier and trains)
+    if job.train.local_sgd_window > 0 and not (job.data.staged
+                                               and job.data.drop_remainder):
+        raise ValueError(
+            "local_sgd_window (SAGN mode) needs the staged or "
+            "device-resident input tier: set data.staged=True and "
+            "data.drop_remainder=True (local replicas are synchronized "
+            "by epoch scans, not per-batch dispatches)")
     cdt = job.model.compute_dtype
     wmode = pipe.wire_mode(job.schema, job.data, cdt)
     if train_ds is None:

@@ -132,13 +132,41 @@ def test_config_fields_and_defaults_match_jax(cls):
     {"data": {"resident_format": "fp8"}},
     {"train": {"optimizer": {"schedule": "cosine"}}},
     {"train": {"early_stop_patience": -1}},
+    {"embed": {"dedup": "bogus"}},
+    {"embed": {"hot_fraction": 0.0}},
+    {"runtime": {"mesh": {"data": 0}}},
+    {"obs": {"trace_epochs": "nonsense"}},
 ])
 def test_validation_errors_match_jax(bad):
+    messages = []
     for pkg in (jax_config, port_config):
         job = pkg.JobConfig.from_dict({"schema": dataclasses.asdict(
             jax_synth.make_schema(4)), **bad})
-        with pytest.raises(pkg.ConfigError):
+        with pytest.raises(pkg.ConfigError) as err:
             job.validate()
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
+
+
+@pytest.mark.parametrize("spec", [
+    "", "off", " OFF ", "0", "false", "none", None, "first", "on", "true",
+    "every:3", "EVERY:1", "0,2,5", " 4 , 7 ,", "3",
+    "nonsense", "every:0", "every:-2", "every:x", "every:", "1,two",
+    "first,2", "every:2,3",
+])
+def test_trace_epochs_grammar_matches_jax(spec):
+    from shifu_tpu.obs import devprof as jax_devprof
+    from shifu_tpu_torch.obs import devprof
+
+    def outcome(parse):
+        try:
+            pred = parse(spec)
+        except ValueError as e:
+            return "raises", str(e)
+        return "parses", [pred(e, s) for e in range(8) for s in (0, 2)]
+
+    assert (outcome(devprof.parse_trace_epochs)
+            == outcome(jax_devprof.parse_trace_epochs))
 
 
 def test_int8_requires_categorical_free_features():

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of shifu_tpu_torch, and not
-chip_smoke.py, imports JAX, Flax, Optax or the JAX package."""
+"""The port stands alone: no module of shifu_tpu_torch, and neither
+chip_smoke.py nor kernel_ab.py, imports JAX, Flax, Optax or the JAX
+package."""
 
 import os
 import re
@@ -17,7 +18,7 @@ _IMPORT = re.compile(
 
 
 def _sources():
-    out = [os.path.join(_ROOT, "chip_smoke.py")]
+    out = [os.path.join(_ROOT, f) for f in ("chip_smoke.py", "kernel_ab.py")]
     for dirpath, _dirs, files in os.walk(_PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -30,7 +31,7 @@ def test_importing_the_port_loads_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    shifu_tpu_torch.__path__, 'shifu_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, kernel_ab\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{_FORBIDDEN!r})\n"
         "print(len(names), bad)\n"

@@ -378,6 +378,52 @@ def test_train_matches_jax_train_bf16(monkeypatch):
         assert abs(g.valid_auc - w.valid_auc) <= 1e-2
 
 
+def test_local_sgd_needs_the_resident_tier_in_both(monkeypatch):
+    """local_sgd_window > 0: the per-batch tier raises the JAX loop's
+    ValueError in both packages; on the resident tier both train (one
+    device holds one replica, so the window's average is the identity and
+    the epochs match plain SGD's)."""
+    def jobs(**data_kw):
+        jjob, _ = _jobs("float32", **data_kw)
+        jjob = dataclasses.replace(jjob, train=dataclasses.replace(
+            jjob.train, epochs=2, local_sgd_window=4,
+            optimizer=jax_schema.OptimizerConfig(name="sgd",
+                                                 learning_rate=0.1)))
+        pjob = port_schema.JobConfig.from_dict(json.loads(jjob.to_json()))
+        return jjob.validate(), pjob.validate()
+
+    (jtr, jva), (ptr, pva) = _datasets()
+    jjob, pjob = jobs(staged=False)
+    messages = []
+    for fn, job, tr, va in ((jax_loop.train, jjob, jtr, jva),
+                            (loop.train, pjob, ptr, pva)):
+        kw = {"device": "cpu"} if fn is loop.train else {}
+        with pytest.raises(ValueError, match="local_sgd_window") as err:
+            fn(job, tr, va, console=lambda s: None, **kw)
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
+
+    jjob, pjob = jobs()
+    jres = jax_loop.train(jjob, jtr, jva, console=lambda s: None)
+    jinit = jax_loop.init_state(jjob, F)
+    real_init = loop.init_state
+
+    def carried(job, num_features, device=None):
+        state = real_init(job, num_features, device)
+        flat = {k: np.asarray(v) for k, v in
+                _flatten_params(jax.device_get(jinit.params)).items()}
+        state.model.load_state_dict(params_from_jax(flat, state.model))
+        return state
+
+    monkeypatch.setattr(loop, "init_state", carried)
+    pres = loop.train(pjob, ptr, pva, console=lambda s: None, device="cpu")
+    assert pres.tier == "resident"
+    assert len(pres.history) == len(jres.history) == 2
+    for g, w in zip(pres.history, jres.history):
+        assert g.train_error == pytest.approx(w.train_error, rel=1e-4)
+        assert abs(g.valid_auc - w.valid_auc) <= 1e-3
+
+
 def test_eval_pads_the_tail_with_zero_weight_rows():
     _, pjob = _jobs("float32")
     (_, _), (_, pva) = _datasets(n_valid=300)
