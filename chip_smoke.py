@@ -11,10 +11,13 @@ stderr, and no result line is printed):
                then the SM count and maximum SM clock (`clocks.max.sm`).
 2. build    — builds the CUDA kernels from shifu_tpu_torch/csrc (one nvcc per
                source, all started together) and prints the build seconds;
-               for the flash sources and the fused block, each
-               instantiation's registers, spills and SASS counts (HMMA,
-               MUFU.EX2, and FFMA.RM or MUFU.TANH): every fused-block
-               instantiation must have HMMA and no MUFU.TANH.
+               for the flash sources, the fused block and small attention,
+               each instantiation's registers, spills and SASS counts
+               (HMMA, MUFU.EX2, and FFMA.RM or MUFU.TANH): every
+               fused-block instantiation must have HMMA and no MUFU.TANH,
+               every small-attention one HMMA, and the training path's
+               small-attention forward and backward (bf16, D <= 8, S <=
+               32) no spills.
                While they build, a second process runs the CPU halves of
                the FT and DeepFM locksteps (phases 11-13, 15); it has
                ended before the first profile sets CUPTI up, since on the
@@ -90,7 +93,8 @@ stderr, and no result line is printed):
     FT unfused categorical, vocab 1000, float32 wire) with dropout 0.1, 1
                epoch: #2 and #3 launch 3 x train steps, and #1 3 x eval
                batches (dropout switches fusion off in training only); the
-               lockstep at batch 1024 with fused_block="off", dropout 0.
+               lockstep at batch 1024 with fused_block="off", dropout 0; a
+               profiled epoch, with #2's and #3's device time and share.
 13. train   — attention_impl="flash" on the 1000-column schema (bench.py:
     FT flash  507-508: 1000 features, 50 categorical, S = 1001 tokens), batch
                1024, 8 steps, 1 epoch: #7 launches 3 x (steps + eval
@@ -537,6 +541,36 @@ def check_ft_block(device, gen) -> dict:
             "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
 
+# The edge shapes (B, H, S, D, dtype) of check_small_attention and
+# check_small_attention_bwd.  The shapes the checks had before the
+# tensor-core kernels (S = 1, 9, 31, 33, 64; D = 1, 3, 8, 16; B*H = 99, 17,
+# 3, not multiples of the 4 warps of a CTA), then a grid over the edges of
+# the new design: S = 16, 17, 32, 33, 48, 64 about the 16-row m-tiles and
+# the 32- and 64-key register tiles; D = 8 and 16 (16-byte copies) and 9
+# (element loads), in the three dtypes, at B*H = 9; and three shapes of
+# 9000 groups, more than a wave of warps holds, so that each warp stages
+# its next group while it computes one.  The forward also at the unfused
+# FT's smallest and largest serving buckets (B = 16 and 4096, H 8, S 31,
+# D 8, bf16).
+_SMALL_ATTN_GRID = [(3, 3, s, d, dt) for s in (16, 17, 32, 33, 48, 64)
+                    for d in (8, 9, 16)
+                    for dt in ("bfloat16", "float16", "float32")]
+_SMALL_ATTN_MANY = [(1000, 9, 33, 9, "float16"), (1000, 9, 17, 16, "float32"),
+                    (1000, 9, 64, 8, "bfloat16")]
+SMALL_ATTN_EDGE_SHAPES = (
+    [(1, 8, 31, 8, "bfloat16"), (9, 4, 64, 16, "float32"),
+     (33, 3, 9, 3, "float32"), (5, 2, 64, 16, "bfloat16"),
+     (17, 8, 31, 8, "float16"), (2, 1, 1, 1, "float32")]
+    + _SMALL_ATTN_GRID + _SMALL_ATTN_MANY
+    + [(16, 8, 31, 8, "bfloat16"), (4096, 8, 31, 8, "bfloat16")])
+SMALL_ATTN_BWD_EDGE_SHAPES = (
+    [(1, 8, 31, 8, "bfloat16"), (9, 4, 64, 16, "float32"),
+     (33, 3, 9, 3, "float32"), (5, 2, 64, 16, "bfloat16"),
+     (17, 1, 33, 8, "float16"), (3, 1, 1, 1, "float32"),
+     (11, 3, 33, 16, "bfloat16")]
+    + _SMALL_ATTN_GRID + _SMALL_ATTN_MANY)
+
+
 def check_small_attention(device, gen) -> dict:
     import torch
     import torch.nn.functional as F
@@ -557,10 +591,8 @@ def check_small_attention(device, gen) -> dict:
                           f"{dtype}", got, want, atol, rtol)
         return q, k, v, scale, err
 
-    edge_errs = [case(*shape)[4] for shape in
-                 ((1, 8, 31, 8, torch.bfloat16), (9, 4, 64, 16, torch.float32),
-                  (33, 3, 9, 3, torch.float32), (5, 2, 64, 16, torch.bfloat16),
-                  (17, 8, 31, 8, torch.float16), (2, 1, 1, 1, torch.float32))]
+    edge_errs = [case(b, h, s, d, getattr(torch, dt))[4]
+                 for b, h, s, d, dt in SMALL_ATTN_EDGE_SHAPES]
     b, h, s, d = SMALL_ATTN_SHAPE
     q, k, v, scale, err = case(b, h, s, d, torch.bfloat16)
     def kernel():
@@ -663,13 +695,8 @@ def check_small_attention_bwd(device, gen) -> dict:
                 for n, x, y in zip(("dq", "dk", "dv"), got, want)]
         return q, k, v, g, scale, max(errs)
 
-    # S = 1, 33 (one lane with two rows), 64; D = 1, 3, 16; B*H = 99, 17,
-    # 3: not multiples of the 4 warps of a block
-    edge_errs = [case(*shape)[5] for shape in
-                 ((1, 8, 31, 8, torch.bfloat16), (9, 4, 64, 16, torch.float32),
-                  (33, 3, 9, 3, torch.float32), (5, 2, 64, 16, torch.bfloat16),
-                  (17, 1, 33, 8, torch.float16), (3, 1, 1, 1, torch.float32),
-                  (11, 3, 33, 16, torch.bfloat16))]
+    edge_errs = [case(b, h, s, d, getattr(torch, dt))[5]
+                 for b, h, s, d, dt in SMALL_ATTN_BWD_EDGE_SHAPES]
     b, h, s, d = SMALL_ATTN_SHAPE
     q, k, v, g, scale, err = case(b, h, s, d, torch.bfloat16)
 
@@ -717,16 +744,23 @@ FLASH_EDGE_SHAPES = (
 
 def _instantiation(mangled: str) -> str:
     """'bf16 D<=8' for a flash kernel's mangled name (its T and padded D);
-    'KS=4 DH=8' for the fused block's (D padded / 16, and the head dim of
-    its attention: 8, 16, or 0 for any other)."""
+    'fwd bf16 D<=8 S<=32' for a small-attention kernel's (forward or
+    backward, T, D and S padded); 'KS=4 DH=8' for the fused block's (D
+    padded / 16, and the head dim of its attention: 8, 16, or 0 for any
+    other)."""
     import re
+    dtype = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    m = re.search(r"sa_(fwd|bwd)_kernelI(13__nv_bfloat16|6__half|f)Li(\d+)E"
+                  r"Li(\d+)E", mangled)
+    if m:
+        return (f"{m.group(1)} {dtype[m.group(2)]} D<={m.group(3)} "
+                f"S<={m.group(4)}")
     m = re.search(r"ft_block_kernelILi(\d+)ELi(\d+)E", mangled)
     if m:
         return f"KS={m.group(1)} DH={m.group(2)}"
     m = re.search(r"kernelI(13__nv_bfloat16|6__half|f)Li(\d+)E", mangled)
     if not m:
         return mangled[:40]
-    dtype = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
     return f"{dtype[m.group(1)]} D<={m.group(2)}"
 
 
@@ -734,9 +768,12 @@ def _instantiation(mangled: str) -> str:
 # for flash MUFU.EX2 and FFMA.RM (the range reduction of an accurate expf,
 # which its tile loops must not have); for the fused block MUFU.EX2
 # (exp2f) and MUFU.TANH (tanh.approx, too coarse for its tolerance: it
-# must have none)
+# must have none); for small attention MUFU.EX2 (ex2.approx)
 SASS_OPS = {"flash": ("HMMA", "MUFU.EX2", "FFMA.RM"),
-            "ft_block": ("HMMA", "MUFU.EX2", "MUFU.TANH")}
+            "ft_block": ("HMMA", "MUFU.EX2", "MUFU.TANH"),
+            "small_attention": ("HMMA", "MUFU.EX2")}
+# the small-attention instantiations of the training path (bf16, D 8, S 31)
+SMALL_ATTN_PATH_KERNELS = ("fwd bf16 D<=8 S<=32", "bwd bf16 D<=8 S<=32")
 
 
 def build_report(src: str) -> tuple[str, dict]:
@@ -781,6 +818,28 @@ def build_report(src: str) -> tuple[str, dict]:
         parts.append(text)
     return (" | ".join(parts) + ("" if counts else " (no cuobjdump)"),
             counts)
+
+
+def check_small_attention_build(counts: dict) -> None:
+    """Every small-attention instantiation runs its products on the tensor
+    cores (HMMA in its SASS, where cuobjdump could read it), and the
+    training path's forward and backward spill nothing (ptxas)."""
+    import re
+    from shifu_tpu_torch.ops import _build
+    if any(not c["HMMA"] for c in counts.values()):
+        fail("build: a small_attention instantiation has no HMMA (the "
+             "products must run on the tensor cores)")
+    cur = None
+    for ln in _build.build_logs.get("small_attention", "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = _instantiation(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur in SMALL_ATTN_PATH_KERNELS and (int(m.group(1))
+                                                     or int(m.group(2))):
+            fail(f"build: small_attention {cur} (the training path's) "
+                 f"spills: {ln.strip()}")
 
 
 def check_flash(device, gen) -> list:
@@ -1672,6 +1731,7 @@ def table_casts_ms(prof, lead: tuple) -> tuple[float, int]:
 
 def profile_training(label: str, job, train_ds, valid_ds, device,
                      table_lead: tuple | None = None,
+                     focus: dict | None = None,
                      out_dir: str = "chiprun_out") -> None:
     """A steady-state training epoch under torch.profiler: the window runs
     from the end of epoch 0 to the end of epoch 1 (its steps and its
@@ -1679,7 +1739,9 @@ def profile_training(label: str, job, train_ds, valid_ds, device,
     kernels and writes a gzip Chrome trace `<label>_trace.json.gz` to
     `out_dir` (gzip keeps the traces of every profile under the 64 MiB a
     chip call may bring back).  With `table_lead`, also the device time of
-    the embedding tables' casts (`table_casts_ms`).
+    the embedding tables' casts (`table_casts_ms`); with `focus` ({label:
+    a substring of kernel names}), each such kernel's device time, its
+    launches and its share of the window's device time.
     The profiler slows the host, so the window's wall time is not a
     result."""
     import torch
@@ -1713,6 +1775,12 @@ def profile_training(label: str, job, train_ds, valid_ds, device,
         f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / wall:.2f}% of wall)")
     for key, t, n in sorted(avgs, key=lambda a: -a[1])[:10]:
         say(f"profile {label}:   {t / 1e3:9.3f} ms  {n:6d}x  {key[:90]}")
+    for name, part in (focus or {}).items():
+        t = sum(e[1] for e in avgs if part in e[0])
+        n = sum(e[2] for e in avgs if part in e[0])
+        say(f"profile {label}: {name}: {t / 1e3:.3f} ms over {n} launches, "
+            f"{100 * t / busy_us:.2f}% of the device time; "
+            f"{t / 1e3 / steps:.4f} ms a step")
     if table_lead is not None:
         ms, calls = table_casts_ms(prof, table_lead)
         say(f"profile {label}: casts of the {table_lead + ('...',)} tables "
@@ -1810,6 +1878,16 @@ def with_batch(job, batch: int, **model_kw):
         model=dataclasses.replace(job.model, **model_kw))
 
 
+def ft_unfused_job():
+    """Path A, unfused: dropout switches fusion off in training only, so
+    kernels #2 and #3 run every step and kernel #1 every eval batch; 6
+    categorical columns with vocab 1000 take the f32 embedding scatter."""
+    from shifu_tpu_torch.data import synthetic
+    cat_schema = synthetic.make_schema(num_features=30, num_categorical=6,
+                                       vocab_size=1000)
+    return ft_job(cat_schema, FT_BATCH, 1, dropout_rate=0.1)
+
+
 def ft_paths() -> dict:
     """The three FT training paths, label -> (job, lockstep job, train
     dataset, valid dataset), from SEED alone: the process that runs the
@@ -1819,12 +1897,8 @@ def ft_paths() -> dict:
     # its backward the plain recompute
     fused = ft_job(synthetic.make_schema(num_features=30), FT_BATCH,
                    FT_EPOCHS)
-    # path A, unfused: dropout switches fusion off in training only, so
-    # kernels #2 and #3 run every step and kernel #1 every eval batch; 6
-    # categorical columns with vocab 1000 take the f32 embedding scatter
-    cat_schema = synthetic.make_schema(num_features=30, num_categorical=6,
-                                       vocab_size=1000)
-    unfused = ft_job(cat_schema, FT_BATCH, 1, dropout_rate=0.1)
+    unfused = ft_unfused_job()
+    cat_schema = unfused.schema
     # path B, flash attention at 1001 tokens: kernels #7 and #8
     wide = synthetic.make_schema(num_features=1000, num_categorical=50,
                                  vocab_size=1000)
@@ -1906,6 +1980,10 @@ def ft_training_phases(device, tmp: str, kernels: list,
     lockstep(unfused_lock, tr_c, device, label="lockstep FT unfused",
              cpu_ref=cpu_refs["FT unfused"])
     lap("lockstep FT unfused")
+    profile_training("train_ft_unfused", unfused, tr_c, va_c, device,
+                     focus={"#2 small_attention": "sa_fwd_kernel",
+                            "#3 small_attention_bwd": "sa_bwd_kernel"})
+    lap("profile train FT unfused")
 
     flash, flash_lock, tr_w, va_w = paths["FT flash"]
     say(f"train FT flash: 1000 features (50 categorical, vocab 1000), "
@@ -2159,7 +2237,7 @@ def main() -> None:
     pool.join()
     warm_profiler(device)
     for src in sorted(_build.build_logs):
-        if src.startswith("flash_") or src == "ft_block":
+        if src.startswith("flash_") or src in ("ft_block", "small_attention"):
             line, counts = build_report(src)
             say(f"build: {src}: " + line)
             if src == "ft_block" and any(
@@ -2167,6 +2245,8 @@ def main() -> None:
                 fail("build: an ft_block instantiation has no HMMA (the "
                      "products must run on the tensor cores) or has "
                      "MUFU.TANH (tanh.approx)")
+            if src == "small_attention":
+                check_small_attention_build(counts)
             continue
         usage = [ln.strip() for ln in _build.build_logs[src].splitlines()
                  if "registers" in ln or "spill" in ln]

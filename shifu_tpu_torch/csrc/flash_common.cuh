@@ -70,29 +70,37 @@ namespace flash {
 
 // the shared building blocks (common.cuh, mma.cuh), for the flash
 // sources' `using namespace shifu::flash`
+using shifu::Mma;
+using shifu::Panel;
+using shifu::a_from_acc;
 using shifu::aligned16;
 using shifu::cp16;
 using shifu::cp_commit;
 using shifu::cp_wait_prev;
+using shifu::ex2;
+using shifu::fold;
+using shifu::kLoScale;
+using shifu::kLoUnscale;
+using shifu::kLog2e;
 using shifu::ldsm2t;
 using shifu::ldsm4;
 using shifu::ldsm4t;
 using shifu::mma16;
 using shifu::mma8;
+using shifu::out_mma;
 using shifu::pack;
+using shifu::quad_max;
 using shifu::quad_sum;
+using shifu::score_mma;
 using shifu::smem_addr;
 using shifu::split;
+using shifu::tile_max;
 using shifu::unpack;
+using shifu::zero;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxD = 128;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kLog2e = 1.4426950408889634f;
-// f16 dS: the lo part's scale (and 1 / it)
-constexpr float kLoScale = 2048.f;
-constexpr float kLoUnscale = 1.f / 2048.f;
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
@@ -112,85 +120,7 @@ struct Tile {
   static constexpr int kBufs = 3;
 };
 
-// E: the 16-bit type the tensor cores take for T; kSplit: T is f32, held as
-// bf16 hi + lo; kLoAcc: dS's lo part goes to an accumulator of its own
-template <typename T>
-struct Mma {
-  using E = __nv_bfloat16;
-  static constexpr bool kSplit = true;
-  static constexpr bool kLoAcc = false;
-};
-template <>
-struct Mma<__nv_bfloat16> {
-  using E = __nv_bfloat16;
-  static constexpr bool kSplit = false;
-  static constexpr bool kLoAcc = false;
-};
-template <>
-struct Mma<__half> {
-  using E = __half;
-  static constexpr bool kSplit = false;
-  static constexpr bool kLoAcc = true;
-};
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The max of this thread's scores in row half H (row g, or g + 8) of a
-// tile, as a tree: a chain of fmaxf would be 2 NT deep
-template <int H, int NT>
-__device__ __forceinline__ float tile_max(const float (&s)[NT][4]) {
-  float t[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) t[j] = fmaxf(s[j][2 * H], s[j][2 * H + 1]);
-#pragma unroll
-  for (int w = NT / 2; w > 0; w /= 2)
-#pragma unroll
-    for (int j = 0; j < w; ++j) t[j] = fmaxf(t[j], t[j + w]);
-  return t[0];
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-
-
-// zero an accumulator array
-template <int A, int N>
-__device__ __forceinline__ void zero(float (&acc)[A][N][4]) {
-#pragma unroll
-  for (int a = 0; a < A; ++a)
-#pragma unroll
-    for (int n = 0; n < N; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
-}
-
-// acc += lacc / kLoScale: the lo parts' own accumulators folded back
-template <int A, int N>
-__device__ __forceinline__ void fold(float (&acc)[A][N][4],
-                                     const float (&lacc)[A][N][4]) {
-#pragma unroll
-  for (int a = 0; a < A; ++a)
-#pragma unroll
-    for (int n = 0; n < N; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[a][n][e] = fmaf(lacc[a][n][e], kLoUnscale, acc[a][n][e]);
-}
-
 // -- operands ----------------------------------------------------------------
-
-// A tile of streamed rows in shared memory: hi and, for f32 inputs, lo
-template <typename E>
-struct Panel {
-  E* hi;
-  E* lo;
-};
 
 template <typename T>
 __device__ __forceinline__ float elem(const T* __restrict__ x, int r, int d,
@@ -263,114 +193,6 @@ __device__ __forceinline__ void load_a(const T* __restrict__ x, int r0, int S,
       split<E>(a, b, hi[i], lo[i]);
     else
       hi[i] = pack<E>(a, b);
-  }
-}
-
-// acc[m][j] (m-tile m, 16 x 8 streamed rows 8j..8j+7) = A[m] (16 x DP,
-// registers) . X^T over the NT * 8 rows of panel x, each B fragment loaded
-// once for the MT m-tiles.  f32 inputs: hi hi + hi lo + lo hi.
-template <typename E, int DP, int LD, int NT, int MT, bool kSplit>
-__device__ __forceinline__ void score_mma(float (&acc)[MT][NT][4],
-                                          const uint32_t (&ah)[MT][DP / 4],
-                                          const uint32_t (&al)[MT][DP / 4],
-                                          Panel<E> x) {
-  const int lane = threadIdx.x % 32;
-  zero(acc);
-  if constexpr (DP == 8) {
-#pragma unroll
-    for (int j = 0; j < NT; j += 4) {
-      uint32_t b[4], bl[4];
-      ldsm4(b, x.hi + (8 * j + lane) * LD);
-      if constexpr (kSplit) ldsm4(bl, x.lo + (8 * j + lane) * LD);
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          mma8<E>(acc[m][j + u], ah[m], b[u]);
-          if constexpr (kSplit) {
-            mma8<E>(acc[m][j + u], ah[m], bl[u]);
-            mma8<E>(acc[m][j + u], al[m], b[u]);
-          }
-        }
-    }
-  } else {
-    const int mat = lane / 8, r = lane % 8;
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-#pragma unroll
-      for (int kc = 0; kc < DP / 16; ++kc) {
-        const int off = (8 * (j + (mat >> 1)) + r) * LD + 16 * kc + 8 * (mat & 1);
-        uint32_t b[4], bl[4];
-        ldsm4(b, x.hi + off);
-        if constexpr (kSplit) ldsm4(bl, x.lo + off);
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            mma16<E>(acc[m][j + u], ah[m] + 4 * kc, b[2 * u], b[2 * u + 1]);
-            if constexpr (kSplit) {
-              mma16<E>(acc[m][j + u], ah[m] + 4 * kc, bl[2 * u], bl[2 * u + 1]);
-              mma16<E>(acc[m][j + u], al[m] + 4 * kc, b[2 * u], b[2 * u + 1]);
-            }
-          }
-      }
-    }
-  }
-}
-
-// The A fragment (16 x 16) of columns 16 kc .. 16 kc + 15 of an f32
-// accumulator, as hi and lo parts (lo times lo_scale)
-template <typename E, int NT>
-__device__ __forceinline__ void a_from_acc(const float (&s)[NT][4], int kc,
-                                           uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                           float lo_scale = 1.f) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float* c = s[2 * kc + (i >> 1)] + 2 * (i & 1);
-    split<E>(c[0], c[1], hi[i], lo[i], lo_scale);
-  }
-}
-
-// acc[m] (16 x DP) += A[m] (16 x 16 streamed rows 16 kc..) . X over those
-// rows of panel x (transposed loads, once for the MT m-tiles): hi hi and
-// lo hi, plus hi lo for f32 inputs; the lo A part goes to lacc (acc
-// itself, or an accumulator of its own)
-template <typename E, int DP, int LD, int MT, bool kSplit>
-__device__ __forceinline__ void out_mma(float (&acc)[MT][DP / 8][4],
-                                        float (&lacc)[MT][DP / 8][4],
-                                        const uint32_t (&ah)[MT][4],
-                                        const uint32_t (&al)[MT][4],
-                                        Panel<E> x, int kc) {
-  const int lane = threadIdx.x % 32;
-  if constexpr (DP == 8) {
-    const int off = (16 * kc + lane % 16) * LD;
-    uint32_t b[2], bl[2];
-    ldsm2t(b, x.hi + off);
-    if constexpr (kSplit) ldsm2t(bl, x.lo + off);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      mma16<E>(acc[m][0], ah[m], b[0], b[1]);
-      mma16<E>(lacc[m][0], al[m], b[0], b[1]);
-      if constexpr (kSplit) mma16<E>(acc[m][0], ah[m], bl[0], bl[1]);
-    }
-  } else {
-    const int mat = lane / 8, r = lane % 8;
-#pragma unroll
-    for (int n = 0; n < DP / 8; n += 2) {
-      const int off = (16 * kc + 8 * (mat & 1) + r) * LD + 8 * (n + (mat >> 1));
-      uint32_t b[4], bl[4];
-      ldsm4t(b, x.hi + off);
-      if constexpr (kSplit) ldsm4t(bl, x.lo + off);
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          mma16<E>(acc[m][n + u], ah[m], b[2 * u], b[2 * u + 1]);
-          mma16<E>(lacc[m][n + u], al[m], b[2 * u], b[2 * u + 1]);
-          if constexpr (kSplit)
-            mma16<E>(acc[m][n + u], ah[m], bl[2 * u], bl[2 * u + 1]);
-        }
-    }
   }
 }
 
