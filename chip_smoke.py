@@ -11,13 +11,17 @@ stderr, and no result line is printed):
                then the SM count and maximum SM clock (`clocks.max.sm`).
 2. build    — builds the CUDA kernels from shifu_tpu_torch/csrc (one nvcc per
                source, all started together) and prints the build seconds;
-               for the flash sources, the fused block and small attention,
-               each instantiation's registers, spills and SASS counts
-               (HMMA, MUFU.EX2, and FFMA.RM or MUFU.TANH): every
-               fused-block instantiation must have HMMA and no MUFU.TANH,
-               every small-attention one HMMA, and the training path's
-               small-attention forward and backward (bf16, D <= 8, S <=
-               32) no spills.
+               for the flash sources, the fused block, small attention,
+               the int8 layer and the rows update, each instantiation's
+               registers, spills and SASS counts (HMMA, MUFU.EX2, and
+               FFMA.RM or MUFU.TANH; LDG.E.128 and STG.E.128 for the rows
+               update): every fused-block instantiation must have HMMA
+               and no MUFU.TANH, every small-attention and int8 one HMMA,
+               the rows update's f32 4-element ones 128-bit global loads
+               and stores, and the training paths' instantiations (small
+               attention's bf16 forward and backward at D <= 8, S <= 32;
+               the int8 layer's bf16 panel kernel; the rows update's f32
+               4-element Adadelta) no spills.
                While they build, a second process runs the CPU halves of
                the FT and DeepFM locksteps (phases 11-13, 15); it has
                ended before the first profile sets CUPTI up, since on the
@@ -27,9 +31,14 @@ stderr, and no result line is printed):
                the shapes its path gives it and at edge shapes, with the
                tolerance stated beside each check: the fused block (#1),
                small-token attention forward (#2) and backward (#3), the
-               int8 first layer (#4), the embedding lookup (#5, bitwise,
-               with `F.embedding` on offset ids as its yardstick) and the
-               rows-touched update (#6, SGD and Adadelta, duplicate ids),
+               int8 first layer (#4, at INT8_EDGE_SHAPES: N, F and M off
+               the kernel's tiles, strided and misaligned q, the three
+               dtypes), the embedding lookup (#5, bitwise, with
+               `F.embedding` on offset ids as its yardstick) and the
+               rows-touched update (#6, bitwise, SGD and Adadelta, D 1 to
+               128 in the three dtypes with deduped and with raw ids, one
+               id a field, the sentinel alone; timed on a batch's deduped
+               ids and on its raw ids),
                flash attention forward (#7) and its dq and dk/dv kernels
                (#8).  Device times (the profiler's
                kernel durations per call; for #7 and #8, which take
@@ -196,6 +205,8 @@ FLASH_SHAPE = (1024, 8, 1001, 8)
 # the rows-touched update (U, Nc, V, D) of the f32 16-dim table
 LOOKUP_SHAPE = (32768, 6, 100_000, 17)
 ROWS_SHAPE = (32768, 6, 100_000, 16)
+# the headline MLP's layer 0: (batch, features, hidden)
+INT8_SHAPE = (65536, 30, 100)
 
 SERVE_THREADS = 8
 SERVE_ROWS_PER_THREAD = 512
@@ -747,7 +758,9 @@ def _instantiation(mangled: str) -> str:
     'fwd bf16 D<=8 S<=32' for a small-attention kernel's (forward or
     backward, T, D and S padded); 'KS=4 DH=8' for the fused block's (D
     padded / 16, and the head dim of its attention: 8, 16, or 0 for any
-    other)."""
+    other); 'panel bf16' for the int8 layer's (panel or tiled kernel, T);
+    'f32 VEC=4 adadelta' for the rows update's (T, elements an access,
+    rule)."""
     import re
     dtype = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
     m = re.search(r"sa_(fwd|bwd)_kernelI(13__nv_bfloat16|6__half|f)Li(\d+)E"
@@ -758,6 +771,15 @@ def _instantiation(mangled: str) -> str:
     m = re.search(r"ft_block_kernelILi(\d+)ELi(\d+)E", mangled)
     if m:
         return f"KS={m.group(1)} DH={m.group(2)}"
+    m = re.search(r"(panel|tiled)_kernelI(13__nv_bfloat16|6__half|f)E",
+                  mangled)
+    if m:
+        return f"{m.group(1)} {dtype[m.group(2)]}"
+    m = re.search(r"rows_update_kernelI(13__nv_bfloat16|6__half|f)Li(\d+)E"
+                  r"Lb([01])E", mangled)
+    if m:
+        return (f"{dtype[m.group(1)]} VEC={m.group(2)} "
+                f"{('sgd', 'adadelta')[int(m.group(3))]}")
     m = re.search(r"kernelI(13__nv_bfloat16|6__half|f)Li(\d+)E", mangled)
     if not m:
         return mangled[:40]
@@ -771,9 +793,15 @@ def _instantiation(mangled: str) -> str:
 # must have none); for small attention MUFU.EX2 (ex2.approx)
 SASS_OPS = {"flash": ("HMMA", "MUFU.EX2", "FFMA.RM"),
             "ft_block": ("HMMA", "MUFU.EX2", "MUFU.TANH"),
-            "small_attention": ("HMMA", "MUFU.EX2")}
+            "small_attention": ("HMMA", "MUFU.EX2"),
+            "int8_matmul": ("HMMA",),
+            "rows_update": ("LDG.E.128", "STG.E.128")}
 # the small-attention instantiations of the training path (bf16, D 8, S 31)
 SMALL_ATTN_PATH_KERNELS = ("fwd bf16 D<=8 S<=32", "bwd bf16 D<=8 S<=32")
+# the int8 layer's and the rows update's instantiations of the training
+# paths (the MLP's bf16 panel; DeepFM's f32 D = 16 Adadelta tables)
+INT8_PATH_KERNELS = ("panel bf16",)
+ROWS_PATH_KERNELS = ("f32 VEC=4 adadelta",)
 
 
 def build_report(src: str) -> tuple[str, dict]:
@@ -820,26 +848,52 @@ def build_report(src: str) -> tuple[str, dict]:
             counts)
 
 
-def check_small_attention_build(counts: dict) -> None:
-    """Every small-attention instantiation runs its products on the tensor
-    cores (HMMA in its SASS, where cuobjdump could read it), and the
-    training path's forward and backward spill nothing (ptxas)."""
+def check_no_spills(src: str, path_kernels: tuple) -> None:
+    """The training path's instantiations of `src` spill nothing (ptxas)."""
     import re
     from shifu_tpu_torch.ops import _build
-    if any(not c["HMMA"] for c in counts.values()):
-        fail("build: a small_attention instantiation has no HMMA (the "
-             "products must run on the tensor cores)")
     cur = None
-    for ln in _build.build_logs.get("small_attention", "").splitlines():
+    for ln in _build.build_logs.get(src, "").splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             cur = _instantiation(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
-        if m and cur in SMALL_ATTN_PATH_KERNELS and (int(m.group(1))
-                                                     or int(m.group(2))):
-            fail(f"build: small_attention {cur} (the training path's) "
-                 f"spills: {ln.strip()}")
+        if m and cur in path_kernels and (int(m.group(1))
+                                          or int(m.group(2))):
+            fail(f"build: {src} {cur} (the training path's) spills: "
+                 f"{ln.strip()}")
+
+
+def check_small_attention_build(counts: dict) -> None:
+    """Every small-attention instantiation runs its products on the tensor
+    cores (HMMA in its SASS, where cuobjdump could read it), and the
+    training path's forward and backward spill nothing (ptxas)."""
+    if any(not c["HMMA"] for c in counts.values()):
+        fail("build: a small_attention instantiation has no HMMA (the "
+             "products must run on the tensor cores)")
+    check_no_spills("small_attention", SMALL_ATTN_PATH_KERNELS)
+
+
+def check_int8_build(counts: dict) -> None:
+    """Every int8-layer instantiation runs its products on the tensor
+    cores (HMMA), and the MLP's bf16 panel kernel spills nothing."""
+    if any(not c["HMMA"] for c in counts.values()):
+        fail("build: an int8_matmul instantiation has no HMMA (the "
+             "products must run on the tensor cores)")
+    check_no_spills("int8_matmul", INT8_PATH_KERNELS)
+
+
+def check_rows_build(counts: dict) -> None:
+    """The rows update's f32 instantiations with 4-element accesses move
+    rows with 128-bit global loads and stores, and DeepFM's (Adadelta)
+    spills nothing."""
+    for key, c in counts.items():
+        if key.startswith("f32 VEC=4") and not (c["LDG.E.128"]
+                                                and c["STG.E.128"]):
+            fail(f"build: rows_update {key} has no 128-bit global load or "
+                 f"store: {c}")
+    check_no_spills("rows_update", ROWS_PATH_KERNELS)
 
 
 def check_flash(device, gen) -> list:
@@ -963,14 +1017,50 @@ def int8_tolerance(xc, wc, bc, dtype):
             + xc.shape[1] * 2.0 ** -24 * (xc.abs() @ wc.abs()) + 1e-6)
 
 
+# check_int8_matmul's edge shapes (M, F, N, dtype, offset, q's layout):
+# the kernel takes a panel of 128 rows with all N <= 128 columns and F <=
+# 64 features in one step, else 128 x 128 tiles over chunks of 64
+# features.  N off 8 and 16 (100, 7), just past one panel (129, 257) and
+# at its edge (128); F off 16 (30, 17, 1), at the panel's edge (64) and
+# past it (65, 4096); M off 128 (1, 127, 129, ...); q strided (copied to
+# a contiguous buffer by the wrapper) and q a contiguous view that is not
+# 16-byte aligned (the tiled kernel takes it); the three dtypes
+INT8_EDGE_SHAPES = (
+    (1, 30, 100, "bfloat16", False, ""),
+    (127, 17, 7, "float16", True, ""),
+    (129, 1, 100, "float32", True, ""),
+    (1000, 30, 100, "bfloat16", True, ""),
+    (777, 30, 100, "float32", True, ""),
+    (513, 30, 100, "float16", False, ""),
+    (300, 1, 7, "bfloat16", True, ""),
+    (129, 30, 129, "bfloat16", True, ""),
+    (257, 17, 257, "float16", False, ""),
+    (127, 30, 257, "float32", True, ""),
+    (255, 64, 128, "float32", False, ""),
+    (128, 65, 128, "bfloat16", True, ""),
+    (129, 4096, 4096, "bfloat16", False, ""),
+    (65, 4096, 33, "float32", True, ""),
+    (2000, 30, 100, "bfloat16", False, "strided"),
+    (1000, 17, 7, "float16", True, "strided"),
+    (1001, 30, 100, "float32", True, "misaligned"),
+    (129, 30, 100, "bfloat16", False, "misaligned"),
+)
+
+
 def check_int8_matmul(device, gen) -> dict:
+    """Kernel #4 against `int8_matmul_plain` at the MLP's layer-0 shape
+    (INT8_SHAPE, bf16) and at INT8_EDGE_SHAPES, within INT8_TOL_TEXT."""
     import torch
     from shifu_tpu_torch.ops import int8_matmul as i8
 
-    def case(m, f, n, dtype, with_offset, strided=False):
-        q = torch.randint(-127, 128, (m, 2 * f if strided else f),
-                          generator=gen, dtype=torch.int8)
-        q = (q[:, ::2] if strided else q).to(device)
+    def case(m, f, n, dtype, with_offset, layout=""):
+        cols = 2 * f if layout == "strided" else f
+        lead = 1 if layout == "misaligned" else 0
+        q = torch.randint(-127, 128, (m + lead, cols), generator=gen,
+                          dtype=torch.int8).to(device)
+        q = q[:, ::2] if layout == "strided" else q[lead:]
+        if layout == "misaligned" and q.data_ptr() % 16 == 0:
+            fail(f"int8_matmul M={m} F={f}: the misaligned view is aligned")
         w = (torch.randn(f, n, generator=gen) * f ** -0.5).to(device)
         b = (torch.randn(n, generator=gen) * 0.1).to(device)
         scale = torch.full((f,), 8.0 / 127, device=device)
@@ -980,7 +1070,7 @@ def check_int8_matmul(device, gen) -> dict:
         want = i8.int8_matmul_plain(q, w, b, scale, offset, dtype)
         torch.cuda.synchronize()
         label = (f"int8_matmul M={m} F={f} N={n} {dtype} offset="
-                 f"{with_offset}{' strided q' if strided else ''}")
+                 f"{with_offset}{' ' + layout + ' q' if layout else ''}")
         if got.dtype != dtype or got.shape != (m, n):
             fail(f"{label}: returned {got.dtype} {tuple(got.shape)}")
         tol = int8_tolerance(i8.dequant_plain(q, scale, offset).to(dtype)
@@ -998,16 +1088,9 @@ def check_int8_matmul(device, gen) -> dict:
             err = float(diff.max().item())
         return q, w, b, scale, offset, err
 
-    edge_errs = [case(*shape)[5] for shape in
-                 ((1, 30, 100, torch.bfloat16, False),
-                  (1000, 30, 100, torch.bfloat16, True),
-                  (777, 30, 100, torch.float32, True),
-                  (513, 30, 100, torch.float16, False),
-                  (300, 1, 7, torch.bfloat16, True),
-                  (129, 4096, 4096, torch.bfloat16, False),
-                  (65, 4096, 33, torch.float32, True),
-                  (2000, 30, 100, torch.bfloat16, False, True))]
-    m, f, n = 65536, 30, 100
+    edge_errs = [case(m, f, n, getattr(torch, dt), off, layout)[5]
+                 for m, f, n, dt, off, layout in INT8_EDGE_SHAPES]
+    m, f, n = INT8_SHAPE
     q, w, b, scale, offset, err = case(m, f, n, torch.bfloat16, False)
 
     def kernel():
@@ -1022,12 +1105,13 @@ def check_int8_matmul(device, gen) -> dict:
     bnd, by = bound_ms(n_bytes, 2.0 * m * f * n, torch.bfloat16)
     say(f"kernels: int8_matmul M={m} F={f} N={n} bf16 max|err| {err:.3e} "
         f"(tol {INT8_TOL_TEXT}: summation order and a rounding flip before "
-        f"and after the bias add); edge shapes max|err| "
-        f"{max(edge_errs):.3e}; device time: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}); whole call (CUDA "
-        f"events): kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; "
-        "library none (no single PyTorch call dequantizes int8 and "
-        "multiplies)")
+        f"and after the bias add); {len(INT8_EDGE_SHAPES)} edge shapes "
+        f"(N 7..4096, F 1..4096, M 1..2000, f32/bf16/f16, strided and "
+        f"misaligned q) max|err| {max(edge_errs):.3e}; device time: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+        f"kernel/bound {ms / bnd:.2f}x); whole call (CUDA events): kernel "
+        f"{call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; library none (no "
+        "single PyTorch call dequantizes int8 and multiplies)")
     return {"name": "int8_matmul", "route": "cuda",
             "source": "shifu_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "shifu_tpu/ops/pallas_int8_matmul.py:120",
@@ -1133,15 +1217,31 @@ def check_embedding_lookup(device, gen) -> dict:
 
 
 ROWS_TOL_TEXT = "rtol 1e-5 atol 1e-6 (the JAX tests' own)"
+# check_rows_update's edge shapes (U, Nc, V, D, dtype, rule): D 1 to 128
+# over the kernel's access widths (4 elements where D % 4 == 0, else 2,
+# else 1), f32/bf16/f16, each taken with deduped ids (`unique=True`) and
+# with raw ids (duplicates and ids outside [0, V) among them)
+ROWS_EDGE_SHAPES = tuple(
+    (1000, 6, 1000, d, dt, rule)
+    for d in (1, 3, 4, 16, 17, 128)
+    for dt, rule in (("float32", "adadelta"), ("bfloat16", "sgd"),
+                     ("float16", "adadelta"))) + (
+    (4097, 6, 1000, 17, "float16", "sgd"),
+    (3, 2, 5, 3, "float32", "adadelta"),
+    (32768, 6, 100_000, 16, "bfloat16", "adadelta"),
+    (32768, 6, 100_000, 1, "float32", "sgd"),
+    (2000, 50, 1000, 16, "float32", "adadelta"))
 
 
 def check_rows_update(device, gen) -> dict:
-    """Kernel #6 against its plain version on the same inputs: SGD and
-    Adadelta at the DeepFM training shape (a batch's unique ids per field
-    padded with the sentinel V), D 16 and 1, an f32 and a bf16 table, odd
-    edge shapes, and a raw batch with duplicates, which must give what its
-    deduped batch gives.  Held bitwise where it can be (both round every
-    f32 operation on its own), and within ROWS_TOL_TEXT."""
+    """Kernel #6 against its plain version on the same inputs, bitwise
+    (both round every f32 operation on its own) and within ROWS_TOL_TEXT:
+    at ROWS_EDGE_SHAPES with deduped and with raw ids, a raw batch with
+    duplicates against its deduped batch, every id of a field equal (the
+    raw path's worst contention), a batch of the sentinel alone; then at
+    the DeepFM path's shape (ROWS_SHAPE, f32 Adadelta) the times of a
+    batch's deduped ids (`unique=True`, the per-batch tier), of its raw
+    ids (the resident tier) and of the D = 1 table."""
     import torch
     from shifu_tpu_torch.embed.dedup import dedup_ids
     from shifu_tpu_torch.ops import embedding as emb
@@ -1152,9 +1252,9 @@ def check_rows_update(device, gen) -> dict:
                       for _ in range(2))
         return table, slots
 
-    def run(fn, table, slots, g_rows, ids, rule):
+    def run(fn, table, slots, g_rows, ids, rule, **kw):
         t, s = table.clone(), tuple(x.clone() for x in slots)
-        fn(t, s if rule == "adadelta" else (), g_rows, ids, rule, 3e-3)
+        fn(t, s if rule == "adadelta" else (), g_rows, ids, rule, 3e-3, **kw)
         return t, s
 
     def compare(label, got, want) -> tuple[float, bool]:
@@ -1165,85 +1265,131 @@ def check_rows_update(device, gen) -> dict:
             err = max(err, check_close(label, g, w, 1e-6, 1e-5))
         return err, bitwise
 
-    def case(u, nc, v, d, dtype, rule, raw=False):
+    def gathered(dense_g, ids, v):
+        fields = torch.arange(ids.shape[1], device=device)[None, :]
+        return dense_g[fields, ids.long().clamp(0, v - 1)]
+
+    def case(u, nc, v, d, dtype, rule, raw=False, ids=None):
         table, slots = state(nc, v, d, dtype)
-        ids = torch.randint(0, v, (u, nc), generator=gen, dtype=torch.int32)
-        if not raw:
-            ids = torch.from_numpy(dedup_ids(ids.numpy(), v)[0])
-        ids = ids.to(device)
+        if ids is None:
+            ids = torch.randint(0, v, (u, nc), generator=gen,
+                                dtype=torch.int32)
+            if raw:  # ids the update skips, among the duplicates
+                ids.view(-1)[:4] = torch.tensor([v, -1, v + 5, -v],
+                                                dtype=torch.int32)
+            else:
+                ids = torch.from_numpy(dedup_ids(ids.numpy(), v)[0])
+            ids = ids.to(device)
         dense_g = randn_on(gen, device, nc, v, d)
-        fields = torch.arange(nc, device=device)[None, :]
-        g_rows = dense_g[fields, ids.long().clamp(0, v - 1)]
+        g_rows = gathered(dense_g, ids, v)
         label = (f"rows_update {rule} U={u} Nc={nc} V={v} D={d} {dtype}"
                  f"{' raw ids' if raw else ''}")
-        got = run(emb.fused_rows_update, table, slots, g_rows, ids, rule)
+        got = run(emb.fused_rows_update, table, slots, g_rows, ids, rule,
+                  unique=not raw)
         want = run(emb.rows_update_plain, table, slots, g_rows, ids, rule)
         torch.cuda.synchronize()
         err, bitwise = compare(label, got, want)
-        return table, slots, g_rows, ids, dense_g, err, bitwise
+        if not bitwise:
+            fail(f"{label}: not bitwise equal to rows_update_plain")
+        return table, slots, g_rows, ids, err
 
-    results = [case(*shape)[5:] for shape in
-               ((1000, 6, 1000, 1, torch.float32, "adadelta"),
-                (4097, 6, 1000, 17, torch.float16, "sgd"),
-                (3, 2, 5, 3, torch.float32, "adadelta"),
-                (32768, 6, 100_000, 16, torch.bfloat16, "adadelta"),
-                (32768, 6, 100_000, 1, torch.float32, "sgd"),
-                (2000, 50, 1000, 16, torch.float32, "adadelta"))]
-    # duplicates: a raw batch equals its deduped batch (same dense grad)
+    results = [case(un, nc_, vn, dn, getattr(torch, dt), rule, raw=raw)[4]
+               for un, nc_, vn, dn, dt, rule in ROWS_EDGE_SHAPES
+               for raw in (False, True)]
     u, nc, v, d = ROWS_SHAPE
+    # the raw path's worst contention: every id of a field equal; and a
+    # batch of the sentinel alone, which leaves the table as it was
+    same = (torch.arange(nc, dtype=torch.int32) * 7)[None, :].repeat(u, 1)
+    results.append(case(u, nc, v, d, torch.float32, "adadelta", raw=True,
+                        ids=same.to(device))[4])
+    sentinel = torch.full((u, nc), v, dtype=torch.int32, device=device)
+    for raw in (False, True):
+        table, slots, g_rows, _, err = case(u, nc, v, d, torch.float32,
+                                            "adadelta", raw=raw,
+                                            ids=sentinel)
+        left = run(emb.fused_rows_update, table, slots, g_rows, sentinel,
+                   "adadelta", unique=not raw)
+        if not all(same_bits(x, y) for x, y in zip((left[0], *left[1]),
+                                                   (table, *slots))):
+            fail("rows_update: a batch of the sentinel changed the table")
+        results.append(err)
+    # duplicates: a raw batch equals its deduped batch (same dense grad)
     table, slots = state(nc, v, d, torch.float32)
     raw = torch.randint(0, v // 10, (u, nc), generator=gen,
                         dtype=torch.int32)
     uniq = torch.from_numpy(dedup_ids(raw.numpy(), v)[0]).to(device)
     raw = raw.to(device)
     dense_g = randn_on(gen, device, nc, v, d)
-    fields = torch.arange(nc, device=device)[None, :]
     for rule in ("sgd", "adadelta"):
         got = run(emb.fused_rows_update, table, slots,
-                  dense_g[fields, raw.long()], raw, rule)
+                  gathered(dense_g, raw, v), raw, rule)
         dedup = run(emb.fused_rows_update, table, slots,
-                    dense_g[fields, uniq.long().clamp(0, v - 1)], uniq, rule)
+                    gathered(dense_g, uniq, v), uniq, rule, unique=True)
         plain = run(emb.rows_update_plain, table, slots,
-                    dense_g[fields, raw.long()], raw, rule)
+                    gathered(dense_g, raw, v), raw, rule)
         torch.cuda.synchronize()
-        results.append(compare(f"rows_update {rule} raw vs plain", got,
-                               plain))
+        err, bitwise = compare(f"rows_update {rule} raw vs plain", got,
+                               plain)
+        if not bitwise:
+            fail(f"rows_update {rule} raw ids: not bitwise equal to "
+                 "rows_update_plain")
+        results.append(err)
         if not compare(f"rows_update {rule} raw vs dedup", got, dedup)[1]:
             fail(f"rows_update {rule}: a raw batch with duplicates does not "
                  "give its deduped batch's table and slots bitwise")
-    # the headline: adadelta on the f32 D = 16 table of the DeepFM path
-    table, slots, g_rows, ids, _, err, bitwise = case(u, nc, v, d,
-                                                      torch.float32,
-                                                      "adadelta")
-    results.append((err, bitwise))
+    # the headline: adadelta on the f32 D = 16 table of the DeepFM path, a
+    # batch's deduped ids and then its raw ids
+    raw = torch.randint(0, v, (u, nc), generator=gen, dtype=torch.int32)
+    uniq = torch.from_numpy(dedup_ids(raw.numpy(), v)[0]).to(device)
+    raw = raw.to(device)
+    table, slots, g_rows, ids, err = case(u, nc, v, d, torch.float32,
+                                          "adadelta", ids=uniq)
+    results.append(err)
+    g_raw = gathered(randn_on(gen, device, nc, v, d), raw, v)
     touched = int(((ids >= 0) & (ids < v)).sum())
 
     def kernel():
         return emb.fused_rows_update(table, slots, g_rows, ids, "adadelta",
+                                     3e-3, unique=True)
+
+    def kernel_raw():
+        return emb.fused_rows_update(table, slots, g_raw, raw, "adadelta",
                                      3e-3)
 
     def plain():
         return emb.rows_update_plain(table, slots, g_rows, ids, "adadelta",
                                      3e-3)
 
-    ms, plain_ms = device_ms(kernel), device_ms(plain)
+    ms, raw_ms, plain_ms = (device_ms(kernel), device_ms(kernel_raw),
+                            device_ms(plain))
     g1 = g_rows[..., :1].contiguous()
     t1, s1 = state(nc, v, 1, torch.float32)
     ms_d1 = device_ms(lambda: emb.fused_rows_update(t1, s1, g1, ids,
-                                                    "adadelta", 3e-3))
+                                                    "adadelta", 3e-3,
+                                                    unique=True))
     n_bytes = touched * 7 * d * 4 + ids.numel() * 4
     bnd, by = bound_ms(n_bytes, 0.0, torch.float32)
-    all_bitwise = all(bw for _, bw in results)
+    bnd_d1, _ = bound_ms(touched * 7 * 4 + ids.numel() * 4, 0.0,
+                         torch.float32)
+    # the raw batch's bound counts its distinct rows once: the touched rows
+    # of its deduped batch
+    bnd_raw, _ = bound_ms(touched * 7 * d * 4 + raw.numel() * 4, 0.0,
+                          torch.float32)
     say(f"kernels: rows_update adadelta U={u} Nc={nc} V={v} D={d} f32 "
         f"({touched} touched rows of {u * nc}, the rest the sentinel) max|err| "
-        f"{err:.3e} (tol {ROWS_TOL_TEXT}); "
-        f"{'bitwise equal' if all_bitwise else 'NOT bitwise equal'} to its "
-        f"plain version at every shape (SGD/Adadelta, D 1..17, f32/bf16/f16, "
-        f"Nc 50, raw ids with duplicates, which give the deduped batch's "
-        f"rows bitwise); max|err| over all {max(e for e, _ in results):.3e}; "
-        f"device time: kernel {ms:.4f} ms (D=1 table {ms_d1:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}: 7*D*4 bytes a touched "
-        f"row + the ids); library none (no single PyTorch call gathers, "
+        f"{err:.3e} (tol {ROWS_TOL_TEXT}); bitwise equal to its plain "
+        f"version at every shape ({len(ROWS_EDGE_SHAPES)} edge shapes, D "
+        f"1..128, f32/bf16/f16, SGD/Adadelta, Nc 50, each with deduped and "
+        f"raw ids; every id of a field equal; the sentinel alone; raw ids "
+        f"with duplicates, which give the deduped batch's rows bitwise); "
+        f"max|err| over all {max(results):.3e}; device time: kernel {ms:.4f} "
+        f"ms on the deduped ids (unique=True; bound {bnd:.4f} ms, {by}: "
+        f"7*D*4 bytes a touched row + the ids; kernel/bound "
+        f"{ms / bnd:.2f}x), {raw_ms:.4f} ms on the same batch's raw ids "
+        f"({raw.numel()} entries, {touched} distinct rows; bound "
+        f"{bnd_raw:.4f} ms; kernel/bound {raw_ms / bnd_raw:.2f}x), "
+        f"{ms_d1:.4f} ms for the D=1 table (bound {bnd_d1:.4f} ms), plain "
+        f"{plain_ms:.4f} ms; library none (no single PyTorch call gathers, "
         f"applies Adadelta and scatters)")
     return {"name": "rows_update", "route": "cuda",
             "source": "shifu_tpu_torch/csrc/rows_update.cu",
@@ -2237,7 +2383,7 @@ def main() -> None:
     pool.join()
     warm_profiler(device)
     for src in sorted(_build.build_logs):
-        if src.startswith("flash_") or src in ("ft_block", "small_attention"):
+        if src.startswith("flash_") or src in SASS_OPS:
             line, counts = build_report(src)
             say(f"build: {src}: " + line)
             if src == "ft_block" and any(
@@ -2247,6 +2393,10 @@ def main() -> None:
                      "MUFU.TANH (tanh.approx)")
             if src == "small_attention":
                 check_small_attention_build(counts)
+            if src == "int8_matmul":
+                check_int8_build(counts)
+            if src == "rows_update":
+                check_rows_build(counts)
             continue
         usage = [ln.strip() for ln in _build.build_logs[src].splitlines()
                  if "registers" in ln or "spill" in ln]

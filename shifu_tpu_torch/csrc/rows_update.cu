@@ -19,22 +19,29 @@
 // version; t' is stored in the table's dtype (f32, bf16 or f16), rounded to
 // nearest even.
 //
-// Duplicates.  The TPU kernel needs the in-range ids of a field unique within
-// a call: two copies of one row would race their write-back DMAs.  The port
-// sends raw-id batches through this kernel as well, so it must hold with
-// duplicates: every read of a row must come before any write to it.  Two
-// launches on one stream do that: the first computes every touched row's new
-// values into a (U, Nc, D) f32 scratch per buffer, the second writes them
-// back.  Duplicates of one id carry the same gradient row (the summed dense
-// gradient gathered at that id) and read the same old row, so they write the
-// same bytes, whatever their order.
-//
 // Bound on the H100: bytes of the touched rows, g read and t, a, d read and
 // written, 7 * D * 4 bytes a row for Adadelta (3 for SGD; a bf16 table moves
-// fewer).  The scratch costs 6 * D * 4 more (written, then read back), and
-// rows of 64 or 68 bytes (D = 16 f32; the first-order table has D = 1) are
-// read element by element, one thread per element: a simple design that is
-// right first.
+// fewer), plus the ids.  One pass moves just those: each row is read, updated
+// in registers and written back by the threads that own it, and nothing else
+// is written.  A row of D elements is cut into D / VEC chunks of VEC
+// elements, VEC = 4 where D and the pointers allow it (16-byte loads and
+// stores of g, the slots and an f32 table; 8 bytes of a bf16 or f16 table),
+// else 2, else 1.  The chunks of one row go to a power-of-two group of lanes
+// of one warp (4 lanes at D = 16 f32, a whole warp from D = 128), whose
+// first lane reads the id and computes the row's offset once; the group's
+// other lanes take it by a shuffle, so no thread divides per element.
+//
+// Duplicates.  The TPU kernel needs the in-range ids of a field unique
+// within a call: two copies of one row would race their read-modify-write.
+// The dedup path's ids are unique (`stamp` null: every in-range entry
+// updates its row).  Raw-id batches (the resident tier, embed.dedup "off")
+// carry duplicates, and duplicates of one id carry the same gradient row
+// (the summed dense gradient gathered at that id), so one copy's update is
+// the whole update.  `stamp` (Nc * V int32, kept by the wrapper between
+// calls) elects that copy: the entry whose atomicMax(&stamp[f * V + id],
+// call) returns less than `call` owns the row, and the others skip it.
+// `call` grows strictly from launch to launch on the stamp's stream, so no
+// stamp needs clearing between calls.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -42,7 +49,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr unsigned kMaxBlocks = 132u * 32u;
+constexpr unsigned kMaxBlocks = 132u * 16u;
 // the constants as the plain version's Python floats reach f32
 constexpr float kRho = (float)0.95;
 constexpr float kOneMinusRho = (float)(1.0 - 0.95);
@@ -50,123 +57,170 @@ constexpr float kEps = (float)1e-8;
 
 enum Rule : int { kSgd = 0, kAdadelta = 1 };
 
-// the touched element i of the (U, Nc, D) rows: its offset in the table, or
-// -1 when its id is outside [0, V)
-__device__ __forceinline__ long long table_offset(const int* __restrict__ ids,
-                                                  unsigned i, unsigned nc,
-                                                  long long v, unsigned d) {
-  const unsigned row = i / d;  // u * Nc + f
-  const unsigned c = i - row * d;
-  const long long id = ids[row];
-  if (id < 0 || id >= v) return -1;
-  return ((long long)(row % nc) * v + id) * d + c;
-}
+// VEC elements of type E, loaded and stored as one access
+template <typename E, int VEC>
+struct alignas(sizeof(E) * VEC) Pack {
+  E v[VEC];
+};
 
-template <typename T>
+template <typename T, int VEC, bool kAda>
 __global__ void __launch_bounds__(kThreads)
-    compute_kernel(const T* __restrict__ table,
-                   const float* __restrict__ accu,
-                   const float* __restrict__ delta,
-                   const float* __restrict__ g_rows,
-                   const int* __restrict__ ids, float* __restrict__ new_t,
-                   float* __restrict__ new_a, float* __restrict__ new_d,
-                   unsigned n, unsigned nc, long long v, unsigned d,
-                   int rule, float lr) {
-  for (unsigned i = blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += gridDim.x * kThreads) {
-    const long long off = table_offset(ids, i, nc, v, d);
-    if (off < 0) continue;
-    const float g = g_rows[i];
-    const float t = shifu::to_f32(table[off]);
-    if (rule == kSgd) {
-      new_t[i] = __fsub_rn(t, __fmul_rn(lr, g));
-      continue;
+    rows_update_kernel(T* __restrict__ table, float* __restrict__ accu,
+                       float* __restrict__ delta,
+                       const float* __restrict__ g_rows,
+                       const int* __restrict__ ids, int* __restrict__ stamp,
+                       int call, long long n_rows, int nc, long long v, int d,
+                       int lanes_log2, float lr) {
+  const int lanes = 1 << lanes_log2;  // a row's lanes, a power of two <= 32
+  const int sub = threadIdx.x & (lanes - 1);
+  const int chunks = d / VEC;
+  const long long rows_per_block = kThreads >> lanes_log2;
+  // the loop's trip count is the same for every thread of a block, so the
+  // whole warp reaches each shuffle
+  for (long long base = blockIdx.x * rows_per_block; base < n_rows;
+       base += (long long)gridDim.x * rows_per_block) {
+    const long long row = base + (threadIdx.x >> lanes_log2);  // u * Nc + f
+    long long off = -1;
+    if (sub == 0 && row < n_rows) {
+      const int id = ids[row];
+      if (id >= 0 && id < v) {
+        const long long slot = (long long)(row % nc) * v + id;
+        if (stamp == nullptr || atomicMax(stamp + slot, call) < call)
+          off = slot * d;
+      }
     }
-    const float a = accu[off];
-    const float dd = delta[off];
-    const float a2 =
-        __fadd_rn(__fmul_rn(kRho, a), __fmul_rn(__fmul_rn(kOneMinusRho, g), g));
-    const float u = __fdiv_rn(__fmul_rn(g, __fsqrt_rn(__fadd_rn(dd, kEps))),
-                              __fsqrt_rn(__fadd_rn(a2, kEps)));
-    new_a[i] = a2;
-    new_d[i] = __fadd_rn(__fmul_rn(kRho, dd),
-                         __fmul_rn(__fmul_rn(kOneMinusRho, u), u));
-    new_t[i] = __fsub_rn(t, __fmul_rn(lr, u));
+    off = __shfl_sync(0xffffffffu, off, 0, lanes);
+    if (off < 0) continue;
+    const float* g_row = g_rows + row * d;
+    for (int c = sub; c < chunks; c += lanes) {
+      const long long e = off + (long long)c * VEC;
+      const Pack<float, VEC> g =
+          *reinterpret_cast<const Pack<float, VEC>*>(g_row + c * VEC);
+      Pack<T, VEC> t = *reinterpret_cast<const Pack<T, VEC>*>(table + e);
+      if constexpr (!kAda) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          t.v[i] = shifu::from_f32<T>(
+              __fsub_rn(shifu::to_f32(t.v[i]), __fmul_rn(lr, g.v[i])));
+      } else {
+        Pack<float, VEC> a = *reinterpret_cast<const Pack<float, VEC>*>(
+            accu + e);
+        Pack<float, VEC> dd = *reinterpret_cast<const Pack<float, VEC>*>(
+            delta + e);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float gi = g.v[i];
+          const float a2 =
+              __fadd_rn(__fmul_rn(kRho, a.v[i]),
+                        __fmul_rn(__fmul_rn(kOneMinusRho, gi), gi));
+          const float u =
+              __fdiv_rn(__fmul_rn(gi, __fsqrt_rn(__fadd_rn(dd.v[i], kEps))),
+                        __fsqrt_rn(__fadd_rn(a2, kEps)));
+          a.v[i] = a2;
+          dd.v[i] = __fadd_rn(__fmul_rn(kRho, dd.v[i]),
+                              __fmul_rn(__fmul_rn(kOneMinusRho, u), u));
+          t.v[i] = shifu::from_f32<T>(
+              __fsub_rn(shifu::to_f32(t.v[i]), __fmul_rn(lr, u)));
+        }
+        *reinterpret_cast<Pack<float, VEC>*>(accu + e) = a;
+        *reinterpret_cast<Pack<float, VEC>*>(delta + e) = dd;
+      }
+      *reinterpret_cast<Pack<T, VEC>*>(table + e) = t;
+    }
   }
 }
 
+// the widest VEC in {4, 2, 1} that divides D and to which every buffer is
+// aligned
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    write_kernel(T* __restrict__ table, float* __restrict__ accu,
-                 float* __restrict__ delta, const int* __restrict__ ids,
-                 const float* __restrict__ new_t,
-                 const float* __restrict__ new_a,
-                 const float* __restrict__ new_d, unsigned n, unsigned nc,
-                 long long v, unsigned d, int rule) {
-  for (unsigned i = blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += gridDim.x * kThreads) {
-    const long long off = table_offset(ids, i, nc, v, d);
-    if (off < 0) continue;
-    table[off] = shifu::from_f32<T>(new_t[i]);
-    if (rule == kAdadelta) {
-      accu[off] = new_a[i];
-      delta[off] = new_d[i];
-    }
+int vec_width(const void* table, const void* accu, const void* delta,
+              const void* g_rows, int d) {
+  for (int vec = 4; vec > 1; vec /= 2) {
+    if (d % vec) continue;
+    const size_t t = vec * sizeof(T), f = vec * sizeof(float);
+    const auto ok = [](const void* p, size_t b) {
+      return p == nullptr || reinterpret_cast<uintptr_t>(p) % b == 0;
+    };
+    if (ok(table, t) && ok(accu, f) && ok(delta, f) && ok(g_rows, f))
+      return vec;
   }
+  return 1;
+}
+
+template <typename T, int VEC>
+void launch_vec(void* table, void* accu, void* delta, const void* g_rows,
+                const void* ids, void* stamp, int call, long long n_rows,
+                int nc, long long v, int d, int rule, float lr,
+                cudaStream_t st) {
+  const int chunks = d / VEC;
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < chunks && lanes_log2 < 5) ++lanes_log2;
+  const long long rows_per_block = kThreads >> lanes_log2;
+  long long blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const auto kernel = rule == kAdadelta ? rows_update_kernel<T, VEC, true>
+                                        : rows_update_kernel<T, VEC, false>;
+  kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+      static_cast<T*>(table), static_cast<float*>(accu),
+      static_cast<float*>(delta), static_cast<const float*>(g_rows),
+      static_cast<const int*>(ids), static_cast<int*>(stamp), call, n_rows,
+      nc, v, d, lanes_log2, lr);
 }
 
 template <typename T>
 void launch(void* table, void* accu, void* delta, const void* g_rows,
-            const void* ids, void* scratch, unsigned n, unsigned nc,
-            long long v, unsigned d, int rule, float lr, cudaStream_t st) {
-  unsigned blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  float* new_t = static_cast<float*>(scratch);
-  float* new_a = rule == kAdadelta ? new_t + n : nullptr;
-  float* new_d = rule == kAdadelta ? new_t + 2 * (size_t)n : nullptr;
-  compute_kernel<T><<<blocks, kThreads, 0, st>>>(
-      static_cast<const T*>(table), static_cast<const float*>(accu),
-      static_cast<const float*>(delta), static_cast<const float*>(g_rows),
-      static_cast<const int*>(ids), new_t, new_a, new_d, n, nc, v, d, rule,
-      lr);
-  write_kernel<T><<<blocks, kThreads, 0, st>>>(
-      static_cast<T*>(table), static_cast<float*>(accu),
-      static_cast<float*>(delta), static_cast<const int*>(ids), new_t, new_a,
-      new_d, n, nc, v, d, rule);
+            const void* ids, void* stamp, int call, long long n_rows, int nc,
+            long long v, int d, int rule, float lr, cudaStream_t st) {
+  switch (vec_width<T>(table, accu, delta, g_rows, d)) {
+    case 4:
+      launch_vec<T, 4>(table, accu, delta, g_rows, ids, stamp, call, n_rows,
+                       nc, v, d, rule, lr, st);
+      break;
+    case 2:
+      launch_vec<T, 2>(table, accu, delta, g_rows, ids, stamp, call, n_rows,
+                       nc, v, d, rule, lr, st);
+      break;
+    default:
+      launch_vec<T, 1>(table, accu, delta, g_rows, ids, stamp, call, n_rows,
+                       nc, v, d, rule, lr, st);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches both passes on `stream` and does not synchronise.  `scratch`
-// holds 1 (sgd) or 3 (adadelta) f32 buffers of U * Nc * D, which must be
-// below 2^31; `accu` and `delta` may be null for sgd.  Returns the CUDA
-// error code of the launches (0 = cudaSuccess).
+// Launches one pass on `stream` and does not synchronise.  `stamp` null:
+// the in-range ids of each field are unique within the call.  Otherwise
+// `stamp` holds Nc * V int32, each below `call` (> 0), and duplicates are
+// allowed (module comment).  `accu` and `delta` may be null for sgd.
+// Returns the CUDA error code of the launch (0 = cudaSuccess).
 int rows_update(void* table, void* accu, void* delta, const void* g_rows,
-                const void* ids, void* scratch, long long U, int Nc,
+                const void* ids, void* stamp, int call, long long U, int Nc,
                 long long V, int D, int rule, int dtype, float lr,
                 void* stream) {
-  if (U < 0 || Nc < 1 || V < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  if (U < 0 || Nc < 1 || V < 1 || V > INT32_MAX || D < 1)
+    return (int)cudaErrorInvalidValue;
   if (rule != kSgd && rule != kAdadelta) return (int)cudaErrorInvalidValue;
   if (rule == kAdadelta && (accu == nullptr || delta == nullptr))
     return (int)cudaErrorInvalidValue;
-  const long long n = U * Nc * D;
-  if (n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaSuccess;
+  if (stamp != nullptr && call < 1) return (int)cudaErrorInvalidValue;
+  const long long n_rows = U * Nc;
+  if (n_rows * D >= (1LL << 40)) return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case shifu::kFloat32:
-      launch<float>(table, accu, delta, g_rows, ids, scratch, (unsigned)n, Nc,
+      launch<float>(table, accu, delta, g_rows, ids, stamp, call, n_rows, Nc,
                     V, D, rule, lr, st);
       break;
     case shifu::kBFloat16:
-      launch<__nv_bfloat16>(table, accu, delta, g_rows, ids, scratch,
-                            (unsigned)n, Nc, V, D, rule, lr, st);
+      launch<__nv_bfloat16>(table, accu, delta, g_rows, ids, stamp, call,
+                            n_rows, Nc, V, D, rule, lr, st);
       break;
     case shifu::kFloat16:
-      launch<__half>(table, accu, delta, g_rows, ids, scratch, (unsigned)n,
-                     Nc, V, D, rule, lr, st);
+      launch<__half>(table, accu, delta, g_rows, ids, stamp, call, n_rows, Nc,
+                     V, D, rule, lr, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -12,16 +12,18 @@ Port of shifu_tpu/ops/pallas_embedding.py.  Two kernels:
   table's dtype.  It is plain PyTorch on either device, as the JAX
   backward is XLA; on the card `index_add_` adds in f32 atomics, in no
   fixed order.
-- `fused_rows_update(table, slots, g_rows, ids, rule, lr)`: the SGD or
-  Adadelta update of the touched rows of a table (and of its two f32
-  Adadelta slots), in place.  On CUDA tensors it launches
-  `csrc/rows_update.cu` (the TPU kernel `_pallas_rows_update`); on CPU
-  tensors it runs `rows_update_plain`, the same math in plain PyTorch
+- `fused_rows_update(table, slots, g_rows, ids, rule, lr, unique=False)`:
+  the SGD or Adadelta update of the touched rows of a table (and of its
+  two f32 Adadelta slots), in place.  On CUDA tensors it launches
+  `csrc/rows_update.cu` (the TPU kernel `_pallas_rows_update`) once; on
+  CPU tensors it runs `rows_update_plain`, the same math in plain PyTorch
   (`rows_update_reference` is its functional form).  Only ids in [0, V)
   are updated; the dedup sentinel V pads a batch of unique ids to a fixed
-  size.  Unlike the TPU kernel it takes duplicate in-range ids: every
-  duplicate carries the same gradient row and reads the same old row, so
-  it writes the same bytes.
+  size.  `unique=True` says the in-range ids of each field are unique, the
+  TPU kernel's own contract.  Unlike the TPU kernel it also takes
+  duplicate in-range ids (`unique=False`, the default): every duplicate
+  carries the same gradient row, so one of them, elected through a
+  per-row stamp the wrapper keeps, updates the row.
 
 There is no fallback from a kernel to its plain version: a CUDA call the
 kernel cannot take raises.
@@ -224,10 +226,11 @@ def _rows_lib() -> ctypes.CDLL:
     lib = _build.load("rows_update")
     if not getattr(lib, "_shifu_typed", False):
         lib.rows_update.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_int,
+            [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_void_p])
+                                     ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_void_p])
         lib.rows_update.restype = ctypes.c_int
         lib.rows_update_error_string.argtypes = [ctypes.c_int]
         lib.rows_update_error_string.restype = ctypes.c_char_p
@@ -235,9 +238,36 @@ def _rows_lib() -> ctypes.CDLL:
     return lib
 
 
+# (device index, stream, Nc * V) -> [int32 stamp of Nc * V, last call]:
+# a raw-id launch elects one entry per touched row by an atomicMax of its
+# call number on the row's stamp (csrc/rows_update.cu).  The call numbers
+# of one stamp grow strictly in the order of the launches on its stream:
+# _launch_lock is held from taking a number to the launch.  Before the
+# number would pass INT32_MAX the stamp is zeroed on that stream and the
+# count starts again.
+_stamps: dict = {}
+_STAMP_MAX_CALL = 2 ** 31 - 1
+_launch_lock = threading.Lock()
+
+
+def _next_stamp(dev: torch.device, stream: int,
+                rows: int) -> tuple[torch.Tensor, int]:
+    """The stamp and the next call number; under _launch_lock."""
+    key = (dev.index, stream, rows)
+    entry = _stamps.get(key)
+    if entry is None:
+        entry = _stamps[key] = [torch.zeros(rows, dtype=torch.int32,
+                                            device=dev), 0]
+    if entry[1] == _STAMP_MAX_CALL:
+        entry[0].zero_()
+        entry[1] = 0
+    entry[1] += 1
+    return entry[0], entry[1]
+
+
 def _launch_rows_update(table: torch.Tensor, slots: tuple,
                         g_rows: torch.Tensor, ids: torch.Tensor, rule: str,
-                        lr: float) -> None:
+                        lr: float, unique: bool) -> None:
     if table.dim() != 3 or table.dtype not in _DTYPE_CODES:
         raise ValueError(f"fused_rows_update: table must be (Nc, V, D) f32, "
                          f"bf16 or f16; got {tuple(table.shape)} "
@@ -269,25 +299,24 @@ def _launch_rows_update(table: torch.Tensor, slots: tuple,
         return
     ids = ids.to(torch.int32).contiguous()
     g_rows = g_rows.contiguous()
-    # the new rows, computed before any is written back: duplicates read
-    # the old rows (csrc/rows_update.cu)
-    scratch = torch.empty((len(slots) + 1, u, nc, d), dtype=torch.float32,
-                          device=dev)
     accu, delta = slots if slots else (None, None)
     lib = _rows_lib()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _launch_lock:
         stream = torch.cuda.current_stream(dev).cuda_stream
+        stamp, call = ((None, 0) if unique
+                       else _next_stamp(dev, stream, nc * v))
         rc = lib.rows_update(
             table.data_ptr(), accu.data_ptr() if accu is not None else None,
             delta.data_ptr() if delta is not None else None,
-            g_rows.data_ptr(), ids.data_ptr(), scratch.data_ptr(), u, nc, v,
+            g_rows.data_ptr(), ids.data_ptr(),
+            stamp.data_ptr() if stamp is not None else None, call, u, nc, v,
             d, RULES.index(rule), _DTYPE_CODES[table.dtype], float(lr),
             stream)
     if rc != 0:
         msg = lib.rows_update_error_string(rc).decode()
         raise RuntimeError(f"rows_update kernel launch failed: {msg} "
                            f"(U={u} Nc={nc} V={v} D={d} {rule} "
-                           f"{table.dtype})")
+                           f"{table.dtype} unique={unique})")
     with _count_lock:
         fused_rows_update.launches += 1
 
@@ -295,22 +324,26 @@ def _launch_rows_update(table: torch.Tensor, slots: tuple,
 @torch.no_grad()
 def fused_rows_update(table: torch.Tensor, slots: tuple,
                       g_rows: torch.Tensor, ids: torch.Tensor, rule: str,
-                      lr: float) -> tuple[torch.Tensor, tuple]:
+                      lr: float, unique: bool = False
+                      ) -> tuple[torch.Tensor, tuple]:
     """Apply `rule` ("sgd" or "adadelta") at learning rate `lr` to the rows
     of `table` (Nc, V, D) that `ids` (U, Nc) touch, with their gradient
     rows `g_rows` (U, Nc, D) f32, in place on `table` and `slots` (() for
     sgd, (accu, delta) f32 for adadelta).  Math in f32, new rows stored in
-    the table's dtype; ids outside [0, V) are skipped; duplicate ids are
-    allowed.  CUDA tensors launch the kernel (counted in
-    `fused_rows_update.launches`, once per call); CPU tensors run the plain
-    version.  Returns (table, slots)."""
+    the table's dtype; ids outside [0, V) are skipped.  `unique=True`
+    promises that the in-range ids of each field are unique (a deduped
+    batch); with False, the default, duplicate ids are allowed, each
+    carrying the same gradient row.  CUDA tensors launch the kernel
+    (counted in `fused_rows_update.launches`, once per call); CPU tensors
+    run the plain version, which gives the same bits either way.  Returns
+    (table, slots)."""
     _check_rule(rule)
     slots = tuple(slots)
     if table.device.type == "cpu":
         rows_update_plain(table, slots, g_rows, ids, rule, lr)
     else:
         _check_device("fused_rows_update", table)
-        _launch_rows_update(table, slots, g_rows, ids, rule, lr)
+        _launch_rows_update(table, slots, g_rows, ids, rule, lr, unique)
     return table, slots
 
 

@@ -13,7 +13,8 @@ decay.
 The ids of the update are the batch's compacted unique ids when the feeder
 attached them (embed/dedup, the per-batch tier), else the raw ids of the
 batch (the resident tier).  Both go through the kernel on the card: it
-takes duplicate ids (ops/embedding).  The JAX package sends raw ids to its
+takes duplicate ids, and is told when they are unique (`unique=True`), so
+that it updates each row without electing one copy (ops/embedding).  The JAX package sends raw ids to its
 XLA reference instead, since its TPU kernel needs unique ids; the values
 are the same (ROADMAP.md section C).
 """
@@ -178,7 +179,8 @@ def make_sparse_apply(job: JobConfig) -> Optional[Callable]:
                     continue
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
                 fused_rows_update(p.detach(), state.table_slots[name],
-                                  g[fields, safe].float(), ids, plan.rule, lr)
+                                  g[fields, safe].float(), ids, plan.rule, lr,
+                                  unique=unique is not None)
         state.step += 1
         return state
 

@@ -125,13 +125,17 @@ def test_cuda_lookup_routes_to_the_kernel(monkeypatch):
 
 
 def test_cuda_rows_update_routes_to_the_kernel(monkeypatch):
+    """A CUDA table reaches the launch, with `unique` as the caller gave
+    it (False, the default, takes duplicate ids)."""
     calls = []
     monkeypatch.setattr(emb, "rows_update_plain", _no_plain)
     monkeypatch.setattr(emb, "_launch_rows_update",
                         lambda *a: calls.append(a))
     t = _FakeCudaTensor()
     emb.fused_rows_update(t, [], "g", "ids", "sgd", 0.1)
-    assert calls == [(t, (), "g", "ids", "sgd", 0.1)]
+    emb.fused_rows_update(t, [], "g", "ids", "sgd", 0.1, unique=True)
+    assert calls == [(t, (), "g", "ids", "sgd", 0.1, False),
+                     (t, (), "g", "ids", "sgd", 0.1, True)]
 
 
 @pytest.mark.parametrize("which", ["lookup", "rows"])
@@ -278,3 +282,77 @@ def test_rows_update_on_a_bf16_table():
     for a, b in zip(got_s, want_s):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("rule", ["sgd", "adadelta"])
+def test_plain_update_ignores_unique(rule):
+    """`unique` only tells the kernel how to treat duplicates: on the CPU
+    a deduped batch leaves the same bits with unique=True and False."""
+    rng = np.random.default_rng(6)
+    table, slots, g, ids = _update_inputs(rng)
+    out = []
+    for unique in (True, False):
+        t = torch.from_numpy(table.copy())
+        s = tuple(torch.from_numpy(x.copy()) for x in slots)
+        emb.fused_rows_update(t, s if rule == "adadelta" else (),
+                              torch.from_numpy(g), torch.from_numpy(ids),
+                              rule, 0.5, unique=unique)
+        out.append((t, s))
+    (t1, s1), (t2, s2) = out
+    assert np.array_equal(_port_bits(t1), _port_bits(t2))
+    assert all(np.array_equal(_port_bits(a), _port_bits(b))
+               for a, b in zip(s1, s2))
+
+
+def _deepfm_job(dedup: str):
+    from shifu_tpu_torch.config.schema import (DataConfig, EmbedConfig,
+                                               JobConfig, ModelSpec,
+                                               OptimizerConfig, TrainConfig)
+    from shifu_tpu_torch.data import synthetic
+    return JobConfig(
+        schema=synthetic.make_schema(num_features=6, num_categorical=NC,
+                                     vocab_size=V),
+        data=DataConfig(batch_size=8),
+        model=ModelSpec(model_type="deepfm", hidden_nodes=(4,),
+                        activations=("relu",), embedding_dim=D),
+        train=TrainConfig(epochs=1, loss="weighted_mse",
+                          optimizer=OptimizerConfig(name="adadelta",
+                                                    learning_rate=0.5),
+                          sparse_embedding_update="on"),
+        embed=EmbedConfig(dedup=dedup)).validate()
+
+
+@pytest.mark.parametrize("dedup,attach,want", [
+    ("auto", True, True),    # the per-batch tier's deduped ids
+    ("auto", False, False),  # raw ids (the resident tier)
+    ("off", True, False),    # dedup "off" reads the raw ids
+])
+def test_sparse_apply_says_when_ids_are_unique(monkeypatch, dedup, attach,
+                                               want):
+    """`make_sparse_apply` passes unique=True exactly when it updates from
+    the batch's UNIQUE_KEY ids; on the card that reaches the kernel's
+    launch (test_cuda_rows_update_routes_to_the_kernel)."""
+    from shifu_tpu_torch.embed.dedup import UNIQUE_KEY, attach_dedup
+    from shifu_tpu_torch.models.embedding import field_layout
+    from shifu_tpu_torch.train import loop, sparse_embed, step
+    job = _deepfm_job(dedup)
+    state = loop.init_state(job, job.schema.feature_count, "cpu")
+    seen, real = [], sparse_embed.fused_rows_update
+
+    def record(*a, **k):
+        seen.append(k.get("unique"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(sparse_embed, "fused_rows_update", record)
+    rng = np.random.default_rng(7)
+    feats = rng.normal(size=(8, 6)).astype(np.float32)
+    feats[:, 6 - NC:] = rng.integers(0, 4, size=(8, NC))  # duplicates
+    batch = {"features": feats,
+             "target": (rng.random((8, 1)) < 0.5).astype(np.float32),
+             "weight": np.ones((8, 1), np.float32)}
+    if attach:
+        batch = attach_dedup(field_layout(job.schema), V)(batch)
+        assert UNIQUE_KEY in batch
+    step.make_train_step(job)(state, loop.to_device(batch, job,
+                                                    torch.device("cpu")))
+    assert seen == [want] * len(state.table_slots) and seen
