@@ -84,13 +84,36 @@ stderr, and no result line is printed):
                parameter's change over the 8 steps, within stated
                tolerances.
 8. shifu    — ModelConfig.json + ColumnConfig.json + gzip part files through
-               `job_config_from_shifu` and `train` on the per-batch tier
-               (`device_resident_bytes=0`); the kernel launches there too.
+               `job_config_from_shifu` past the resident budget
+               (`device_resident_bytes=0`): the loaded datasets on the
+               staged tier, then `train(job)` from the files, which streams
+               its first epoch from the parse and stages the second; #4's
+               launches counted for each (every batch of every streamed
+               block, the zero-weight tail's included).
 9. serve    — the trained headline model saved with `save_artifact` and served
    trained    by the daemon on the card, checked against the CPU scorer.
 10. profile — one steady-state training epoch (epoch 1, its steps and its
                eval) under torch.profiler: busy share, top kernels, a Chrome
                trace in chiprun_out/.
+10a. resume — the headline job on the staged tier (the feeder on, a
+               checkpoint every epoch, 3 epochs): an unbroken run; a spawned
+               child SIGKILLed after epoch 1's save; the resume here at
+               epoch 2.  The per-epoch losses and the final parameters must
+               equal the unbroken run's bitwise; #4 launches steps + eval
+               batches of the epochs each run trained.  Prints the save and
+               restore seconds, the bytes of a step and epoch 1's goodput
+               buckets.
+10b. sigterm — a spawned child of that job gets SIGTERM after epoch 0: it
+               must save at epoch 1's first chunk boundary, exit 75 and
+               journal `preemption_grace` at that step; the resume here
+               trains epochs 1 and 2.
+10c. feeder — the staged headline job with `overlap_epochs` on and off, 3
+               epochs each (epoch 2 under the profiler): losses and order
+               digests bitwise equal; step ms, samples/s, the input seconds
+               exposed and hidden, the device's busy share.  Once on the
+               f32 datasets held in memory (each block cast to the int8
+               wire on the producing thread), then, with 10a and 10b, on
+               int8 features as the loader stores them.
 11. train   — the FT-Transformer rung at full width (bench.py:524-527: 30
     FT fused  numeric features, batch 8192, 131,072 rows, bf16 wire; the
                model of phase 4, dropout 0), 2 epochs on the resident tier:
@@ -112,10 +135,15 @@ stderr, and no result line is printed):
 14. train   — DeepFM at 100k vocab (bench.py:510: 30 features, 6
     DeepFM    categorical, embedding_dim 16, hidden 100-100 relu, bf16,
                Adadelta 0.003, batch 32768; 1,048,576 rows, 65,536 valid, 1
-               epoch) on the per-batch tier with dedup and the sparse
-               update: #5 launches steps + eval batches, #6 2 x steps (two
+               epoch) on the per-batch tier through the feeder (dedup on
+               its assembly thread, pinned copies on its own stream) and
+               the sparse update: #5 launches steps + eval batches, #6 2 x steps (two
                tables); samples/s, eval seconds, the dedup ratio, the peak
                device memory.
+14a. feeder — that job with `overlap_epochs` on and off, as in 10c: order
+               digests equal, losses within 1e-6 relative (the lookup's
+               backward adds duplicate ids with f32 atomics); #5 and #6 as
+               in phase 14.
 15. lockstep — 8 steps of that job in f32, card vs CPU from one init on
                the same deduped batches: losses and every leaf's change,
                the tables and their two slots included, within 1e-2.
@@ -1802,10 +1830,26 @@ def lockstep(job, train_ds, device, n_steps: int = 8,
         + ", ".join(f"{k} {v:.3e}" for k, v in moved_rel.items()))
 
 
+def stream_launches(job, n_train: int) -> int:
+    """Train steps of a streamed first epoch: every batch of every
+    streamed block, the pad-only batches of a zero-weight tail included
+    (train/loop.py: blocks of the staged chunk size)."""
+    from shifu_tpu_torch.data import pipeline as pipe
+    bs = job.data.batch_size
+    row_b = pipe.wire_row_bytes(job.schema, job.data, job.model.compute_dtype)
+    nb = max(1, min(job.data.block_batches, (32 << 20) // (bs * row_b)))
+    pad = (job.train.loss in ("weighted_mse", "weighted_bce")
+           and job.model.l2_scale <= 0)
+    blocks = -(-n_train // (bs * nb)) if pad else n_train // (bs * nb)
+    return blocks * nb
+
+
 def shifu_files_run(tmp: str, device) -> None:
     """The Shifu user's entry point: ModelConfig.json + ColumnConfig.json +
-    gzip part files -> job_config_from_shifu -> train, on the per-batch
-    tier (device_resident_bytes=0)."""
+    gzip part files -> job_config_from_shifu -> train, past the resident
+    budget (device_resident_bytes=0): the loaded datasets train on the
+    staged tier, and `train(job)` from the files streams its first epoch
+    from the parse, then stages."""
     from shifu_tpu_torch.config import job_config_from_shifu
     from shifu_tpu_torch.data import pipeline as pipe
     from shifu_tpu_torch.data import synthetic
@@ -1837,24 +1881,37 @@ def shifu_files_run(tmp: str, device) -> None:
                                 data_paths=(data_dir,))
     job = job.replace(data=dataclasses.replace(
         job.data, wire_dtype="int8", device_resident_bytes=0))
-    # the datasets train() loads, loaded again to count the launches
+    # the datasets train() streams and then retains, loaded to count
     train_ds, valid_ds = pipe.load_datasets(
         job.schema, job.data, feature_dtype=f"int8c{job.data.wire_int8_clip:g}")
     _, launches = run_training("shifu", job, train_ds, valid_ds, device,
-                               want_tier="batch",
+                               want_tier="staged",
                                want_launches=int8_launches(job))
+    steps, evals = steps_and_evals(job, train_ds.num_rows, valid_ds.num_rows,
+                                   job.train.epochs)
+    streamed = stream_launches(job, train_ds.num_rows)
+    want = streamed + steps // job.train.epochs * (job.train.epochs - 1) \
+        + evals
+    lines = []
     reset_launches()
     from shifu_tpu_torch.train.loop import train
-    res = train(job, console=lambda ln: None, device=device)
-    if read_launches() != launches or res.tier != "batch":
-        fail(f"shifu: train(job) from the files launched {read_launches()} "
-             f"on the {res.tier!r} tier, the loaded datasets {launches} on "
-             "'batch'")
+    res = train(job, console=lines.append, device=device)
+    got = read_launches()
+    if (res.tier != "staged" or got["int8_matmul"] != want
+            or sum(got.values()) != want
+            or not any(ln.startswith("Streaming first epoch")
+                       for ln in lines)):
+        fail(f"shifu: train(job) from the files launched {got} on the "
+             f"{res.tier!r} tier, expected the streamed first epoch "
+             f"({streamed} steps), then the staged tier: int8_matmul {want}; "
+             f"console {lines}")
     say(f"shifu: job_config_from_shifu({SHIFU_ROWS} rows in 4 gzip parts) "
         f"-> {job.model.model_type} {job.model.hidden_nodes}, batch "
-        f"{job.data.batch_size}, {job.train.optimizer.name}; train(job) "
-        f"from the files on the per-batch tier launched the int8 kernel "
-        f"{launches['int8_matmul']} times")
+        f"{job.data.batch_size}, {job.train.optimizer.name}; the loaded "
+        f"datasets on the staged tier launched the int8 kernel "
+        f"{launches['int8_matmul']} times; train(job) from the files "
+        f"streamed epoch 0 ({streamed} steps, "
+        f"{res.history[0].train_error:.6f}) then staged: {want} launches")
 
 
 def table_casts_ms(prof, lead: tuple) -> tuple[float, int]:
@@ -1937,6 +1994,324 @@ def profile_training(label: str, job, train_ds, valid_ds, device,
                                           f"{label}_trace.json.gz"))
 
 
+# -- phases 10a to 10c: resume, SIGTERM drain and the feeder -----------------
+
+RESUME_EPOCHS = 3
+CHILD_TIMEOUT_S = 300
+
+
+def staged_headline_job(directory: str = "", overlap: bool = True,
+                        epochs: int = RESUME_EPOCHS):
+    """The headline job past the resident budget (the staged tier), with a
+    checkpoint every epoch in `directory`."""
+    job = headline_job(epochs=epochs, device_resident_bytes=0,
+                       overlap_epochs=overlap)
+    return job.replace(runtime=dataclasses.replace(
+        job.runtime, checkpoint=dataclasses.replace(
+            job.runtime.checkpoint, directory=directory,
+            save_every_epochs=1)))
+
+
+def int8_datasets(job, *datasets) -> tuple:
+    """The datasets with their features on the job's int8 wire grid, as
+    `load_datasets(..., feature_dtype="int8c8")` stores them."""
+    from shifu_tpu_torch.data import pipeline as pipe
+    scale, offset = pipe.wire_params(job.schema, job.data)
+    return tuple(pipe.TabularDataset(
+        pipe.wire_quantize(ds.features, scale, offset), ds.target, ds.weight)
+        for ds in datasets)
+
+
+def save_headline_datasets(tmp: str, train_ds, valid_ds) -> None:
+    for part, ds in (("train", train_ds), ("valid", valid_ds)):
+        for key in ("features", "target", "weight"):
+            np.save(f"{tmp}/headline_{part}_{key}.npy", getattr(ds, key))
+
+
+def load_headline_datasets(tmp: str) -> tuple:
+    from shifu_tpu_torch.data import pipeline as pipe
+    return tuple(pipe.TabularDataset(*(
+        np.load(f"{tmp}/headline_{part}_{key}.npy")
+        for key in ("features", "target", "weight")))
+        for part in ("train", "valid"))
+
+
+def journal(path: str) -> list:
+    from shifu_tpu_torch import obs
+    return obs.read_journal(os.path.join(path, "journal.jsonl"))
+
+
+def configure_obs(path: str) -> None:
+    from shifu_tpu_torch import obs
+    obs.reset_for_tests()
+    obs.configure(path, flush_every=1)
+
+
+def train_child(tmp: str, job_json: str, device: str, mode: str) -> None:
+    """A spawned process training `job_json` (the staged headline job,
+    checkpointing in its directory) on `device`.
+    mode "kill": after epoch 1 (its checkpoint is saved before the
+    callback) it writes its losses to `<directory>.history.json` and
+    SIGKILLs itself.  mode "term": after epoch 0 it writes
+    `<directory>.ready` and waits for `<directory>.sent`, which the parent
+    creates once it has sent SIGTERM; the drain then lands at the first
+    chunk boundary of epoch 1.  Its journal goes to `<directory>.tele`."""
+    import signal
+    import torch
+    from shifu_tpu_torch.config.schema import JobConfig
+    from shifu_tpu_torch.train.loop import train
+
+    job = JobConfig.from_dict(json.loads(job_json))
+    directory = job.runtime.checkpoint.directory
+    configure_obs(f"{directory}.tele")
+    train_ds, valid_ds = load_headline_datasets(tmp)
+    history = []
+
+    def on_epoch(m) -> None:
+        history.append([m.epoch, m.train_error, m.valid_error, m.valid_auc])
+        if mode == "kill" and m.epoch == 1:
+            with open(f"{directory}.history.json", "w") as f:
+                json.dump(history, f)
+            os.kill(os.getpid(), signal.SIGKILL)
+        if mode == "term" and m.epoch == 0:
+            open(f"{directory}.ready", "w").close()
+            while not os.path.exists(f"{directory}.sent"):
+                time.sleep(0.01)
+
+    train(job, train_ds, valid_ds, console=lambda ln: None,
+          epoch_callback=on_epoch, device=torch.device(device))
+
+
+def spawn_child(tmp: str, job, device, mode: str):
+    """`train_child` in a spawned process; the job and the device travel
+    as arguments, the datasets as .npy files in `tmp`."""
+    proc = multiprocessing.get_context("spawn").Process(
+        target=train_child, args=(tmp, job.to_json(), str(device), mode))
+    proc.start()
+    return proc
+
+
+def join_child(proc, label: str) -> int:
+    proc.join(CHILD_TIMEOUT_S)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        fail(f"{label}: the child did not end within {CHILD_TIMEOUT_S} s")
+    return proc.exitcode
+
+
+def staged_block_batches(job) -> int:
+    from shifu_tpu_torch.data import pipeline as pipe
+    bs = job.data.batch_size
+    row_b = pipe.wire_row_bytes(job.schema, job.data, job.model.compute_dtype)
+    return max(1, min(job.data.block_batches, (32 << 20) // (bs * row_b)))
+
+
+def check_int8_run(label: str, job, n_train: int, n_valid: int,
+                   epochs_run: int, res) -> None:
+    """#4 launched once a train step and eval batch of the epochs that
+    ran, and no other kernel; the tier is staged."""
+    steps, evals = steps_and_evals(job, n_train, n_valid, epochs_run)
+    got = read_launches()
+    want = {k: 0 for k in got}
+    want["int8_matmul"] = steps + evals
+    if got != want or res.tier != "staged":
+        fail(f"{label}: launches {got} on the {res.tier!r} tier, expected "
+             f"{want} ({steps} steps + {evals} eval batches) on 'staged'")
+
+
+def resume_phase(tmp: str, device, train_ds, valid_ds) -> None:
+    """Phase 10a: the staged headline job, the feeder on, a checkpoint
+    every epoch, 3 epochs: unbroken; then a spawned child SIGKILLed after
+    epoch 1's save, resumed here.  Losses bitwise equal to the unbroken
+    run's; #4 launches for the epochs that ran."""
+    import torch
+    from shifu_tpu_torch.train import checkpoint as ckpt_lib
+    from shifu_tpu_torch.train.loop import train
+
+    n_tr, n_va = train_ds.num_rows, valid_ds.num_rows
+    configure_obs(f"{tmp}/unbroken.tele")
+    reset_launches()
+    job = staged_headline_job(f"{tmp}/unbroken")
+    unbroken = train(job, train_ds, valid_ds, console=lambda ln: None,
+                     device=device)
+    check_int8_run("resume: unbroken", job, n_tr, n_va, RESUME_EPOCHS,
+                   unbroken)
+    recs = journal(f"{tmp}/unbroken.tele")
+    saves = [r["dur_s"] for r in recs if r["kind"] == "checkpoint_save"]
+    goodput = next(r for r in recs if r["kind"] == "goodput"
+                   and r["epoch"] == 1)
+    newest = ckpt_lib.latest_step(ckpt_lib.make_manager(f"{tmp}/unbroken"))
+    step_dir = f"{tmp}/unbroken/{newest}"
+    step_bytes = sum(os.path.getsize(os.path.join(step_dir, n))
+                     for n in os.listdir(step_dir))
+
+    killed = f"{tmp}/killed"
+    code = join_child(spawn_child(tmp, staged_headline_job(killed), device,
+                                  "kill"), "resume")
+    if code != -9:
+        fail(f"resume: the child exited {code}, expected -9 (SIGKILL after "
+             "epoch 1's save)")
+    with open(f"{killed}.history.json") as f:
+        first = json.load(f)
+    configure_obs(f"{killed}.resume.tele")
+    reset_launches()
+    resumed = train(staged_headline_job(killed), train_ds, valid_ds,
+                    console=lambda ln: None, device=device)
+    check_int8_run("resume: resumed", job, n_tr, n_va, len(resumed.history),
+                   resumed)
+    restores = [r["dur_s"] for r in journal(f"{killed}.resume.tele")
+                if r["kind"] == "checkpoint_restore"]
+    got = [h[1] for h in first] + [m.train_error for m in resumed.history]
+    want = [m.train_error for m in unbroken.history]
+    if resumed.resumed_from_epoch != 2 or got != want:
+        fail(f"resume: resumed at epoch {resumed.resumed_from_epoch} "
+             f"(expected 2); losses killed + resumed {got} against "
+             f"unbroken {want}: not bitwise equal")
+    for a, b in zip(resumed.state.model.state_dict().values(),
+                    unbroken.state.model.state_dict().values()):
+        if not torch.equal(a, b):
+            fail("resume: the resumed parameters differ from the unbroken "
+                 "run's")
+    say(f"resume: staged headline job ({RESUME_EPOCHS} epochs, feeder on, a "
+        f"checkpoint every epoch): killed (SIGKILL) after epoch 1's save, "
+        f"resumed at epoch 2; per-epoch train_error {got} bitwise equal to "
+        f"the unbroken run's, and so are the final parameters; a step "
+        f"holds {step_bytes} bytes; save {min(saves):.4f}-{max(saves):.4f} "
+        f"s (blocking, {len(saves)} saves); restore "
+        f"{', '.join(f'{r:.4f}' for r in restores)} s; epoch 1's goodput "
+        f"buckets {goodput['buckets']} (wall {goodput['wall_s']} s, "
+        f"goodput fraction {goodput['goodput_fraction']})")
+
+
+def sigterm_phase(tmp: str, device, train_ds, valid_ds) -> None:
+    """Phase 10b: a child training the staged headline job gets SIGTERM
+    after epoch 0; it saves at the first chunk boundary of epoch 1 and
+    exits 75; the journal holds `preemption_grace` at that step; the
+    resume here finishes the epochs."""
+    import math
+    import signal
+    from shifu_tpu_torch.train import checkpoint as ckpt_lib
+    from shifu_tpu_torch.train.loop import train
+
+    d = f"{tmp}/term"
+    job = staged_headline_job(d)
+    proc = spawn_child(tmp, job, device, "term")
+    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    while not os.path.exists(f"{d}.ready"):
+        if not proc.is_alive() or time.monotonic() > deadline:
+            join_child(proc, "sigterm")
+            fail(f"sigterm: the child ended (exit {proc.exitcode}) before "
+                 "epoch 0 did")
+        time.sleep(0.01)
+    os.kill(proc.pid, signal.SIGTERM)
+    open(f"{d}.sent", "w").close()
+    code = join_child(proc, "sigterm")
+    spe = train_ds.num_rows // job.data.batch_size
+    drain = spe + min(staged_block_batches(job), spe)
+    latest = ckpt_lib.latest_step(ckpt_lib.make_manager(d))
+    grace = [r for r in journal(f"{d}.tele")
+             if r["kind"] == "preemption_grace"]
+    if code != 75 or latest != drain or len(grace) != 1 or (
+            grace[0]["step"], grace[0]["epoch"], grace[0]["saved"]) \
+            != (drain, 1, True):
+        fail(f"sigterm: exit {code} (expected 75), newest checkpoint step "
+             f"{latest} (expected the drain step {drain}), "
+             f"preemption_grace events {grace}")
+    reset_launches()
+    res = train(job, train_ds, valid_ds, console=lambda ln: None,
+                device=device)
+    check_int8_run("sigterm: resumed", job, train_ds.num_rows,
+                   valid_ds.num_rows, len(res.history), res)
+    if (res.resumed_from_epoch != 1
+            or [m.epoch for m in res.history] != list(range(1, RESUME_EPOCHS))
+            or not all(math.isfinite(m.train_error) for m in res.history)):
+        fail(f"sigterm: the resume ran epochs "
+             f"{[m.epoch for m in res.history]} from "
+             f"{res.resumed_from_epoch}, expected 1..{RESUME_EPOCHS - 1}")
+    say(f"sigterm: the child got SIGTERM after epoch 0, saved step {drain} "
+        f"(epoch 1, chunk 1 of {-(-spe // staged_block_batches(job))}) and "
+        f"exited 75; preemption_grace {grace[0]}; the resume replayed "
+        f"epochs 1-{RESUME_EPOCHS - 1}: train_error "
+        f"{[round(m.train_error, 6) for m in res.history]}")
+
+
+def feeder_pair(label: str, tmp: str, job, train_ds, valid_ds, device,
+                want_tier: str, want_launches, tol: float = 0.0,
+                why: str = "") -> None:
+    """The job with the overlap on and off, 3 epochs each: epochs 0 and 1
+    timed, epoch 2 under the profiler for the device's busy share.  Losses
+    and order digests bitwise equal on and off (`tol` > 0: within that
+    relative difference, for the reason `why`); launch counts per
+    `want_launches`."""
+    import math
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from shifu_tpu_torch.train.loop import train
+
+    out = {}
+    for overlap in (True, False):
+        run = job.replace(
+            data=dataclasses.replace(job.data, overlap_epochs=overlap),
+            train=dataclasses.replace(job.train, epochs=3))
+        tele = f"{tmp}/feeder_{label}_{overlap}"
+        configure_obs(tele)
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        window = {}
+
+        def on_epoch(m, prof=prof, window=window) -> None:
+            torch.cuda.synchronize()
+            if m.epoch == 1:
+                prof.start()
+                window["t0"] = time.perf_counter()
+            elif m.epoch == 2:
+                window["wall"] = time.perf_counter() - window["t0"]
+                prof.stop()
+
+        reset_launches()
+        res = train(run, train_ds, valid_ds, console=lambda ln: None,
+                    epoch_callback=on_epoch, device=device)
+        got = read_launches()
+        steps, evals = steps_and_evals(run, train_ds.num_rows,
+                                       valid_ds.num_rows, 3)
+        want = want_launches(steps, evals)
+        if res.tier != want_tier or any(
+                n != want.get(k, 0) for k, n in got.items()):
+            fail(f"feeder {label}: overlap {overlap}: launches {got} on the "
+                 f"{res.tier!r} tier, expected {want} on {want_tier!r}")
+        busy_us = sum(t for _, t, _ in device_events(prof))
+        reports = {r["epoch"]: r for r in journal(tele)
+                   if r["kind"] == "overlap_report"}
+        out[overlap] = (res, reports, busy_us / 1e6 / window["wall"])
+    (on, rep_on, busy_on), (off, rep_off, busy_off) = out[True], out[False]
+    lo = [m.train_error for m in on.history]
+    lf = [m.train_error for m in off.history]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lo, lf))
+    digests_equal = all(rep_on[e]["order_digest"] == rep_off[e]["order_digest"]
+                        is not None for e in rep_on)
+    if not digests_equal or not all(map(math.isfinite, lo)) or rel > tol:
+        fail(f"feeder {label}: losses on {lo} off {lf} (max rel diff "
+             f"{rel:.3e}, tol {tol:g}); order digests equal: "
+             f"{digests_equal}")
+    spe = train_ds.num_rows // job.data.batch_size
+    rows = spe * job.data.batch_size
+    for name, res, rep, busy in (("on", on, rep_on, busy_on),
+                                 ("off", off, rep_off, busy_off)):
+        m = res.history[1]
+        r = rep[1]
+        say(f"feeder {label}: overlap {name}: epoch 1 {m.epoch_time * 1e3 / spe:.3f} "
+            f"ms a step, {rows / m.epoch_time:.1f} samples/s; input exposed "
+            f"{r['input_exposed_s']:.4f} s, hidden {r['input_hidden_s']:.4f} "
+            f"s, production {r['input_production_s']:.4f} s, prefetched "
+            f"{r['prefetched_chunks']}; epoch 2 under the profiler: device "
+            f"busy {100 * busy:.2f}% of wall (kernels and copies summed)")
+    say(f"feeder {label}: losses on and off "
+        + ("bitwise equal" if lo == lf else
+           f"within {rel:.3e} relative (tol {tol:g}: {why})")
+        + f"; order digests equal on every epoch ({rep_on[1]['tier']} tier)")
+
+
 def training_phases(device, tmp: str, kernels: list) -> None:
     from shifu_tpu_torch.export.artifact import save_artifact
 
@@ -1967,6 +2342,23 @@ def training_phases(device, tmp: str, kernels: list) -> None:
     report_serve("trained", served)
     profile_training("train", job, train_ds, valid_ds, device)
     lap("serve trained and profile train")
+
+    # the staged phases train on int8 features, as the loader stores them
+    # under the int8 wire (quantized once at parse); f32 datasets held in
+    # memory are cast block by block on the producing thread instead
+    feeder_pair("MLP f32 in memory", tmp, staged_headline_job(), train_ds,
+                valid_ds, device, "staged", int8_launches(job))
+    lap("feeder MLP f32 in memory")
+    tr8, va8 = int8_datasets(job, train_ds, valid_ds)
+    del train_ds, valid_ds
+    save_headline_datasets(tmp, tr8, va8)
+    resume_phase(tmp, device, tr8, va8)
+    lap("resume")
+    sigterm_phase(tmp, device, tr8, va8)
+    lap("sigterm")
+    feeder_pair("MLP", tmp, staged_headline_job(), tr8, va8, device,
+                "staged", int8_launches(job))
+    lap("feeder MLP")
 
 
 # -- phases 11 to 13: training the FT-Transformer -----------------------------
@@ -2294,6 +2686,11 @@ def embedding_training_phases(device, tmp: str, kernels: list,
         f"{step_ms:.3f} ms a step in the epoch")
     del batches
     lap("train DeepFM")
+    feeder_pair("DeepFM", tmp, job, tr, va, device, "batch", sparse_launches,
+                tol=1e-6, why="the lookup's backward adds duplicate ids' "
+                "gradients with f32 atomics (index_add_ in "
+                "ops/embedding.scatter_grad), in no fixed order")
+    lap("feeder DeepFM")
     lockstep(lock_job, tr, device, label="lockstep DeepFM",
              cpu_ref=cpu_refs["DeepFM"])
     lap("lockstep DeepFM")

@@ -8,9 +8,8 @@ package's dataclasses with the same defaults and checks, so an artifact's
 (`_from_dict`).  `ObsConfig`, `EmbedConfig`, `MeshConfig`,
 `CheckpointConfig` and `RuntimeConfig` carry their fields so such a dict
 loads, and the first three keep the JAX package's checks; the port acts
-on them only through `embed.dedup` and by refusing a checkpoint
-directory (`train/loop.train`).  `ServingConfig` keeps only the knobs the
-port's daemon uses.
+on `embed.dedup` and on `runtime.checkpoint` (`train/loop.train`).
+`ServingConfig` keeps only the knobs the port's daemon uses.
 """
 
 from __future__ import annotations
@@ -209,12 +208,16 @@ class DataConfig:
     """Input pipeline configuration; every field of the JAX `DataConfig`,
     same defaults and checks.
 
-    The port's loader (`data/pipeline.load_datasets`) is single-host and
-    uncached: `cache_dir`, `cache_format`, `out_of_core`, `host_shard`,
-    `read_threads`/`ingest_workers` (beyond thread count), `prefetch*`,
-    `overlap_epochs`, `block_batches` and `stream_first_epoch` belong to
-    tiers that later slices port (ROADMAP.md queue A).  `staged` and
-    `drop_remainder` gate the device-resident tier as in the JAX loop.
+    The port's input plane (`data/pipeline.py`, `train/loop.py`) is
+    single-host and uncached.  It reads `stream_first_epoch` (a job given
+    files streams its first epoch), `staged`, `drop_remainder` and
+    `device_resident_bytes` (the resident, staged and per-batch tiers, by
+    the JAX loop's rule), `block_batches` (the staged chunk, capped at ~32
+    MB of wire bytes), `overlap_epochs` (the cross-epoch `EpochFeeder`),
+    `prefetch_depth` (its host queue; 0 = auto, which resizes its device
+    queue per epoch) and `prefetch` (its device queue, or the per-epoch
+    producer's).  `cache_dir`, `cache_format`, `out_of_core` and
+    `host_shard` belong to ROADMAP.md queue A item (a)4 and (f).
     """
 
     paths: tuple[str, ...] = ()
@@ -495,8 +498,10 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class CheckpointConfig:
-    """Checkpoint settings; the port refuses a non-empty `directory` until
-    `train/checkpoint.py` is ported (ROADMAP.md queue A)."""
+    """Checkpoint settings, read by `train/loop.train` and
+    `train/checkpoint.py` as in the JAX package; a remote `directory`
+    waits for the remote half of `data/fsio.py` (ROADMAP.md queue A item
+    (a)4)."""
 
     directory: str = ""
     save_every_epochs: int = 1

@@ -1,5 +1,5 @@
-"""In-memory dataset and batch pipeline of the training path (port of the
-single-host part of shifu_tpu/data/pipeline.py).
+"""Dataset, batch pipeline and input plane of the training path (port of
+the single-host part of shifu_tpu/data/pipeline.py).
 
 Files -> vectorized parse -> projected numpy columns -> the train/valid
 split -> static-shape batches.  The features can be stored in the int8 wire
@@ -9,20 +9,31 @@ wire casts each batch (`wire_cast_fn`): int8 features on the grid of
 no bfloat16, so a bfloat16 wire is cast on the card (`train/loop.py`), where
 the model would cast its input anyway.
 Epoch order is a pure function of (seed, epoch) through numpy's PCG64, the
-same stream as the JAX package's, so both train on the same batches.
+same stream as the JAX package's, so both train on the same batches
+(`epoch_order_digest` fingerprints it, equal to the JAX package's).
 
-Waits for later slices (ROADMAP.md queue A): the parse-once cache (v2), the
-streaming loader of the first epoch, `EpochFeeder`, the staged tier, the
-out-of-core tier and multi-host sharding.
+The input plane: `StreamingLoader` trains the first epoch on blocks as the
+files parse; `staged_epoch_blocks` feeds the staged tier's host-fed
+(nb, B, ...) blocks; `EpochFeeder`, one persistent pair of threads
+(assembly, then placement), runs ahead across epochs for the staged and
+per-batch tiers.  Its placement stage (`train/loop.py` builds it) copies
+from pinned host buffers on a CUDA stream of its own.
+
+Waits for later slices (ROADMAP.md queue A): the parse-once cache (v2),
+so a cache is never "hot" here; the out-of-core tier; multi-host sharding.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+import queue
+import threading
+import time
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
+from .. import obs
 from ..config.schema import DataConfig, DataSchema
 from . import reader, split
 
@@ -70,25 +81,42 @@ def _load_one(item: tuple[int, str], schema: DataSchema, data: DataConfig,
     return cols, valid_mask
 
 
-def load_datasets(schema: DataSchema, data: DataConfig,
-                  feature_dtype: str = "float32"
-                  ) -> tuple[TabularDataset, TabularDataset]:
-    """Load (train, valid) from `data.paths` on one host, no cache.
+def source_files(data: DataConfig) -> list[tuple[int, str]]:
+    """(file index, path) in config order; the index keys the row ids of
+    the train/valid split, so every entry point must agree on it."""
+    return list(enumerate(f for p in data.paths
+                          for f in reader.list_data_files(p)))
 
-    Rows split train/valid by the stable hash of (file index, row index)
-    (`split.train_valid_mask`); the training partition then gets one global
-    row shuffle seeded by `split_seed ^ 0xC0FFEE`, as in the JAX package."""
+
+def ingest_pool_width(data: DataConfig, n_files: int) -> int:
+    """Files parsed at once: ingest_workers, else read_threads, else one
+    thread per file."""
+    width = data.ingest_workers or data.read_threads or n_files
+    return max(1, min(width, n_files))
+
+
+def _run_ingest(files: list[tuple[int, str]], schema: DataSchema,
+                data: DataConfig, feature_dtype: str,
+                on_result: Callable[[tuple], None]) -> None:
+    """Parse `files` on a pool and hand each (cols, valid_mask) to
+    `on_result` in file order, as soon as it is ready (a streaming
+    consumer starts before the pool drains)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    # (file index, path) in config order; the index keys the row ids of
-    # the train/valid split
-    files = list(enumerate(f for p in data.paths
-                           for f in reader.list_data_files(p)))
-    width = data.ingest_workers or data.read_threads or len(files)
-    width = max(1, min(width, len(files)))
-    with ThreadPoolExecutor(max_workers=width) as pool:
-        results = list(pool.map(
-            lambda it: _load_one(it, schema, data, feature_dtype), files))
+    if not files:
+        return
+    with ThreadPoolExecutor(
+            max_workers=ingest_pool_width(data, len(files))) as pool:
+        for res in pool.map(
+                lambda it: _load_one(it, schema, data, feature_dtype), files):
+            on_result(res)
+
+
+def _assemble(results: list, schema: DataSchema, data: DataConfig
+              ) -> tuple[TabularDataset, TabularDataset]:
+    """(train, valid) from per-file results: the split, then one global
+    row shuffle of the training partition seeded by split_seed ^ 0xC0FFEE,
+    as in the JAX package."""
     if results:
         features = np.concatenate([c["features"] for c, _ in results])
         target = np.concatenate([c["target"] for c, _ in results])
@@ -106,6 +134,20 @@ def load_datasets(schema: DataSchema, data: DataConfig,
             data.split_seed ^ 0xC0FFEE)).permutation(len(train_idx))
         train_idx = train_idx[perm]
     return full.take(train_idx), full.take(np.nonzero(valid_mask)[0])
+
+
+def load_datasets(schema: DataSchema, data: DataConfig,
+                  feature_dtype: str = "float32"
+                  ) -> tuple[TabularDataset, TabularDataset]:
+    """Load (train, valid) from `data.paths` on one host, no cache.
+
+    Rows split train/valid by the stable hash of (file index, row index)
+    (`split.train_valid_mask`); the training partition then gets one global
+    row shuffle seeded by `split_seed ^ 0xC0FFEE`, as in the JAX package."""
+    results: list = []
+    _run_ingest(source_files(data), schema, data, feature_dtype,
+                results.append)
+    return _assemble(results, schema, data)
 
 
 def wire_mode(schema: DataSchema, data: DataConfig,
@@ -280,3 +322,558 @@ def pad_to_batch(batch: dict[str, np.ndarray], batch_size: int
     mask = np.zeros((batch_size,), bool)
     mask[:n] = True
     return out, mask
+
+
+def wire_row_bytes(schema: DataSchema, data: DataConfig,
+                   model_compute_dtype: str,
+                   compact: bool = True) -> int:
+    """Bytes one row costs on the host-to-card wire under the resolved
+    formats (the compact target/weight wire assumed when `compact`): sizes
+    staged chunks by bytes rather than rows."""
+    mode = wire_mode(schema, data, model_compute_dtype)
+    per_feat = {"int8": 1, "bfloat16": 2}.get(mode, 4)
+    n_tgt = max(len(schema.all_target_indices), 1)
+    tgt = (1 if (compact and data.wire_label_dtype != "float32") else 4)
+    wgt = (0 if (compact and data.wire_weight_mode != "float32") else 4)
+    return schema.feature_count * per_feat + n_tgt * tgt + wgt
+
+
+# -- the input plane ----------------------------------------------------------
+
+class StreamingLoader:
+    """Background-parse loader for the streamed first epoch.
+
+    Parses the files on a background pool (the same per-file parse,
+    projection and split as `load_datasets`) and exposes the results two
+    ways:
+
+    - `first_epoch_blocks(batch_size, block_batches)`: stacked (nb, B, ...)
+      train blocks as soon as enough rows have parsed, in file order (the
+      global shuffle applies to the retained dataset afterwards);
+    - `datasets()`: blocks until every file parsed; returns the same
+      (train, valid) pair `load_datasets` builds, for the later epochs.
+    """
+
+    def __init__(self, schema: DataSchema, data: DataConfig,
+                 feature_dtype: str = "float32"):
+        self._schema = schema
+        self._data = data
+        self._feature_dtype = feature_dtype
+        self._items = source_files(data)
+        self._results: list[tuple[dict, np.ndarray]] = []
+        self._datasets: Optional[tuple[TabularDataset, TabularDataset]] = None
+        self._valid: Optional[TabularDataset] = None
+        self.real_batches = 0  # set by first_epoch_blocks
+        # parse-result queue depth: prefetch_depth, auto (0) keeping 4
+        self._q: queue.Queue = queue.Queue(maxsize=data.prefetch_depth or 4)
+        self._abort = False  # see abort_blocks()
+        self._thread = threading.Thread(target=self._produce, daemon=True,
+                                        name="shifu-stream-parse")
+        self._thread.start()
+
+    def _produce(self) -> None:
+        try:
+            _run_ingest(self._items, self._schema, self._data,
+                        self._feature_dtype, self._q.put)
+        except BaseException as e:  # surface parse errors to the consumer
+            self._q.put(e)
+            return
+        self._q.put(None)
+
+    def first_epoch_blocks(self, batch_size: int, block_batches: int,
+                           pad_tail: bool = True) -> Iterator[dict]:
+        """Stacked train blocks in arrival order; retains every result for
+        datasets().  Must be consumed before datasets() is called.
+
+        Every block has the same shape (block_batches, batch_size, ...).
+        With `pad_tail` the final partial block is completed with
+        zero-weight rows, exact for weighted_mse and weighted_bce without
+        an L2 term (zero-weight rows add zero loss and zero gradient), so
+        every parsed train row trains in the streamed epoch; otherwise the
+        tail waits for the retained dataset's later epochs.
+        `real_batches` counts batches holding at least one real row (the
+        train_error denominator)."""
+        self.real_batches = 0
+        buf: list[dict] = []
+        buffered = 0
+        target_rows = batch_size * block_batches
+
+        def take_rows(take: int) -> dict:
+            nonlocal buffered
+            parts: list[dict] = []
+            got = 0
+            while got < take:
+                head = buf[0]
+                need = take - got
+                n = head["features"].shape[0]
+                if n <= need:
+                    parts.append(buf.pop(0))
+                    got += n
+                else:
+                    parts.append({k: v[:need] for k, v in head.items()})
+                    buf[0] = {k: v[need:] for k, v in head.items()}
+                    got += need
+            buffered -= take
+            return {k: np.concatenate([p[k] for p in parts])
+                    for k in parts[0]}
+
+        def as_block(flat: dict) -> dict:
+            return {k: v.reshape(block_batches, batch_size, *v.shape[1:])
+                    for k, v in flat.items()}
+
+        while True:
+            try:
+                item = self._q.get(timeout=0.1)
+            except queue.Empty:
+                if self._abort:
+                    return
+                continue
+            if item is None:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            cols, valid_mask = item
+            self._results.append((cols, valid_mask))
+            if self._abort:
+                return  # retained above; _drain takes over the queue
+            tm = ~valid_mask
+            if tm.any():
+                buf.append({k: v[tm] for k, v in cols.items()})
+                buffered += int(tm.sum())
+            while buffered >= target_rows:
+                self.real_batches += block_batches
+                yield as_block(take_rows(target_rows))
+        if buffered and pad_tail:
+            n_real = buffered
+            flat = take_rows(n_real)
+            pad = target_rows - n_real
+            padded = {k: np.concatenate(
+                [v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+                for k, v in flat.items()}
+            padded["weight"][n_real:] = 0.0
+            self.real_batches += -(-n_real // batch_size)
+            yield as_block(padded)
+
+    def _drain(self) -> None:
+        """Join the background parse, collecting what first_epoch_blocks
+        did not consume.  Timed gets: the sentinel may already be consumed,
+        and the producer may be blocked on a full queue."""
+        done = False
+        while not done:
+            try:
+                item = self._q.get(timeout=0.1)
+            except queue.Empty:
+                if not self._thread.is_alive():
+                    done = True
+                continue
+            if item is None:
+                done = True
+            elif isinstance(item, BaseException):
+                raise item
+            else:
+                self._results.append(item)
+        self._thread.join()
+
+    def abort_blocks(self) -> None:
+        """Cooperative shutdown of a first_epoch_blocks consumer in another
+        thread: the generator exits at its next poll."""
+        self._abort = True
+
+    def valid_dataset(self) -> TabularDataset:
+        """The valid partition only (a few % of the rows), for the
+        streamed epoch's eval, without the full train assembly."""
+        if self._datasets is not None:
+            return self._datasets[1]
+        if self._valid is None:
+            self._drain()
+            parts = [(c, m) for c, m in self._results if m.any()]
+            if parts:
+                self._valid = TabularDataset(*(
+                    np.concatenate([c[k][m] for c, m in parts])
+                    for k in ("features", "target", "weight")))
+            else:
+                self._valid = TabularDataset(
+                    np.zeros((0, self._schema.feature_count), np.float32),
+                    np.zeros((0, 1), np.float32),
+                    np.zeros((0, 1), np.float32))
+        return self._valid
+
+    def train_dataset(self) -> TabularDataset:
+        """The train partition with load_datasets' global shuffle,
+        assembled when an epoch first needs it."""
+        return self.datasets()[0]
+
+    def datasets(self) -> tuple[TabularDataset, TabularDataset]:
+        """(train, valid), identical to load_datasets' output."""
+        if self._datasets is None:
+            self._drain()
+            self._datasets = _assemble(self._results, self._schema,
+                                       self._data)
+            self._results = []
+        return self._datasets
+
+
+def staged_epoch_offset(num_rows: int, batch_size: int, *,
+                        shuffle: bool = True, epoch: int = 0) -> int:
+    """The staged tier's per-epoch row-offset rotation (batch composition
+    drifts across epochs when rows don't divide the batch evenly)."""
+    nb_total = num_rows // batch_size
+    slack = num_rows - nb_total * batch_size
+    return (epoch * 997) % (slack + 1) if (shuffle and slack > 0) else 0
+
+
+def staged_epoch_blocks(ds: TabularDataset, batch_size: int, *,
+                        shuffle: bool = True, seed: int = 0, epoch: int = 0,
+                        block_batches: int = 32
+                        ) -> Iterator[dict[str, np.ndarray]]:
+    """{'features': (nb, B, F), ...} stacked blocks for the staged epoch:
+    the dataset viewed as (num_batches, B, ...) from the epoch's row
+    offset, whole batches gathered in the epoch's block permutation (row
+    shuffling happens once, at load)."""
+    n = ds.num_rows
+    nb_total = n // batch_size
+    if nb_total == 0:
+        return
+    offset = staged_epoch_offset(n, batch_size, shuffle=shuffle, epoch=epoch)
+
+    def as_blocks(arr: np.ndarray) -> np.ndarray:
+        return arr[offset:offset + nb_total * batch_size].reshape(
+            nb_total, batch_size, *arr.shape[1:])
+
+    feats = as_blocks(ds.features)
+    targ = as_blocks(ds.target)
+    wgt = as_blocks(ds.weight)
+    order = epoch_permutation(nb_total, shuffle=shuffle, seed=seed,
+                              epoch=epoch)
+    for start in range(0, nb_total, block_batches):
+        idx = order[start:start + block_batches]
+        yield {"features": feats[idx], "target": targ[idx],
+               "weight": wgt[idx]}
+
+
+def prefetch_to_device(items: Iterator[dict], put_fn, size: int = 2
+                       ) -> Iterator:
+    """A producer thread runs `put_fn` (cast and placement) over `items`
+    up to `size` ahead of the consumer; errors reach the consumer.  With
+    `size` <= 0 it runs inline."""
+    lat = obs.histogram("data_batch_latency_seconds",
+                        "host batch production + device placement latency")
+
+    def timed_put(b):
+        t0 = time.perf_counter()
+        out = put_fn(b)
+        lat.observe(time.perf_counter() - t0)
+        return out
+
+    if size <= 0:
+        for b in items:
+            yield timed_put(b)
+        return
+    q: queue.Queue = queue.Queue(maxsize=size)
+    end = object()
+
+    def producer() -> None:
+        try:
+            for b in items:
+                q.put(timed_put(b))
+        except BaseException as e:  # surface errors to the consumer
+            q.put(e)
+            return
+        q.put(end)
+
+    threading.Thread(target=producer, daemon=True,
+                     name="shifu-prefetch").start()
+    while True:
+        item = q.get()
+        if item is end:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
+
+
+def next_prefetch_depth(current: int, exposed_fraction: float,
+                        lo: int = 2, hi: int = 8) -> int:
+    """Auto prefetch depth (prefetch_depth == 0): one step per epoch from
+    the ledger's exposed-input fraction.  Visible starvation doubles the
+    feeder's device-side bound (up to `hi`); a fully hidden input path
+    decays it one step toward `lo`."""
+    if exposed_fraction > 0.05:
+        return min(max(current * 2, lo), hi)
+    if exposed_fraction < 0.01 and current > lo:
+        return current - 1
+    return current
+
+
+def epoch_order_digest(tier: str, num_rows: int, batch_size: int, *,
+                       shuffle: bool = True, seed: int = 0,
+                       epoch: int = 0) -> Optional[str]:
+    """blake2b hex digest of the batch order a tier draws for (seed,
+    epoch), the JAX package's: `staged` = the row offset and the block
+    permutation (staged_epoch_blocks); `batch` = batch_iterator's row
+    permutation; `resident` = the loop's block order.  None for the
+    streamed first epoch (file order) and unknown tiers."""
+    import hashlib
+
+    if tier == "staged":
+        nb_total = num_rows // batch_size
+        if nb_total == 0:
+            return None
+        offset = staged_epoch_offset(num_rows, batch_size, shuffle=shuffle,
+                                     epoch=epoch)
+        order = epoch_permutation(nb_total, shuffle=shuffle, seed=seed,
+                                  epoch=epoch)
+        payload = np.concatenate([[offset], order]).astype(np.int64)
+    elif tier in ("batch", "resident"):
+        n = num_rows if tier == "batch" else num_rows // batch_size
+        if n == 0:
+            return None
+        payload = np.asarray(epoch_permutation(n, shuffle=shuffle, seed=seed,
+                                               epoch=epoch), np.int64)
+    else:
+        return None
+    return hashlib.blake2b(payload.tobytes(), digest_size=16).hexdigest()
+
+
+class _DepthGate:
+    """Resizable counting gate bounding the feeder's device queue: the
+    placement thread acquires a slot per staged item, the consumer
+    releases one per item drained.  Shrinking records a deficit that
+    absorbs later releases instead of blocking anyone."""
+
+    def __init__(self, depth: int):
+        self._sem = threading.Semaphore(depth)
+        self._lock = threading.Lock()
+        self._deficit = 0
+        self.depth = depth
+
+    def acquire(self, timeout: float) -> bool:
+        return self._sem.acquire(timeout=timeout)
+
+    def release(self) -> None:
+        with self._lock:
+            if self._deficit > 0:
+                self._deficit -= 1
+                return
+        self._sem.release()
+
+    def resize(self, depth: int) -> None:
+        with self._lock:
+            delta = depth - self.depth
+            self.depth = depth
+            if delta < 0:
+                self._deficit += -delta
+                return
+            # pay down a shrink deficit before releasing new permits
+            paid = min(self._deficit, delta)
+            self._deficit -= paid
+            delta -= paid
+        for _ in range(delta):
+            self._sem.release()
+
+
+class FeederError(RuntimeError):
+    """The persistent feeder died without delivering its epoch: raised in
+    the consumer, so a dead producer fails the epoch instead of hanging
+    it."""
+
+
+class EpochFeeder:
+    """Persistent cross-epoch input feeder (the JAX package's overlap
+    engine).  One pair of host threads lives for the whole job and runs
+    ahead across epoch boundaries:
+
+      assembly thread:  epoch_source(epoch) -> host items (shuffle, gather,
+                        and whatever host transform the source applies)
+      placement thread: put_fn(item) -> device items (pinned copy to the
+                        card on a stream of its own, in the training loop)
+
+    so epoch N+1's first items are assembled and placed while epoch N
+    computes and evaluates.  Items arrive strictly in epoch order, and
+    each epoch's order is the source's pure function of (seed, epoch), so
+    the batches equal the per-epoch path's.
+
+    Bounds: `host_depth` assembled items (host RAM), `depth` placed items
+    (device memory); `set_depth` resizes the device bound between epochs.
+    An exception in either thread is re-raised in the consumer; a thread
+    that dies without its sentinel raises FeederError at the consumer's
+    next poll.  `close()` (idempotent) aborts both threads and drops what
+    was produced ahead."""
+
+    _POLL_S = 0.1
+
+    def __init__(self, epoch_source, put_fn, epochs, *,
+                 depth: int = 2, host_depth: int = 4):
+        self._source = epoch_source
+        self._put_fn = put_fn
+        self._epochs = list(epochs)
+        self._abort = threading.Event()
+        self._hostq: queue.Queue = queue.Queue(maxsize=max(host_depth, 1))
+        self._devq: queue.Queue = queue.Queue()  # bounded by _gate
+        self._gate = _DepthGate(max(depth, 1))
+        self._staged_lock = threading.Lock()
+        self._staged = 0  # item records in devq (sentinels excluded)
+        self._prod_s: dict[int, float] = {}  # epoch -> host seconds
+        self._lat = obs.histogram(
+            "data_batch_latency_seconds",
+            "host batch production + device placement latency")
+        self._threads = [
+            threading.Thread(target=self._assemble, daemon=True,
+                             name="shifu-feeder-assemble"),
+            threading.Thread(target=self._place, daemon=True,
+                             name="shifu-feeder-place"),
+        ]
+        for t in self._threads:
+            t.start()
+
+    # -- producer side ------------------------------------------------------
+
+    def _put(self, q, item) -> bool:
+        while not self._abort.is_set():
+            try:
+                q.put(item, timeout=self._POLL_S)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _assemble(self) -> None:
+        try:
+            for ep in self._epochs:
+                if self._abort.is_set():
+                    return
+                prod = 0.0
+                t0 = time.perf_counter()
+                for item in self._source(ep):
+                    prod += time.perf_counter() - t0
+                    if not self._put(self._hostq, ("item", ep, item, prod)):
+                        return
+                    prod = 0.0
+                    t0 = time.perf_counter()
+                prod += time.perf_counter() - t0
+                if not self._put(self._hostq, ("end", ep, None, prod)):
+                    return
+            self._put(self._hostq, ("done", None, None, 0.0))
+        except BaseException as e:  # forwarded, re-raised by the consumer
+            self._put(self._hostq, ("error", None, e, 0.0))
+
+    def _host_get(self):
+        """Next host-queue record, or None when assembly is gone for good
+        (a last non-blocking look first: its final sentinel may land
+        between a timeout and its exit)."""
+        while not self._abort.is_set():
+            try:
+                return self._hostq.get(timeout=self._POLL_S)
+            except queue.Empty:
+                if not self._threads[0].is_alive():
+                    try:
+                        return self._hostq.get_nowait()
+                    except queue.Empty:
+                        return None
+        return None
+
+    def _place(self) -> None:
+        place_s: dict[int, float] = {}
+        try:
+            while not self._abort.is_set():
+                item = self._host_get()
+                if item is None:
+                    return
+                tag, ep, payload, prod = item
+                if tag == "item":
+                    t0 = time.perf_counter()
+                    dev = self._put_fn(payload)
+                    dt = time.perf_counter() - t0
+                    self._lat.observe(prod + dt)
+                    place_s[ep] = place_s.get(ep, 0.0) + prod + dt
+                    while not self._abort.is_set():
+                        if self._gate.acquire(timeout=self._POLL_S):
+                            with self._staged_lock:
+                                self._staged += 1
+                            self._devq.put(("item", ep, dev))
+                            break
+                    continue
+                if tag == "end":
+                    total = place_s.pop(ep, 0.0) + prod
+                    self._devq.put(("end", ep, total))
+                    continue
+                self._devq.put((tag, ep, payload))  # done / error
+                return
+        except BaseException as e:
+            self._devq.put(("error", None, e))
+
+    # -- consumer side ------------------------------------------------------
+
+    def _get(self):
+        while True:
+            try:
+                return self._devq.get(timeout=self._POLL_S)
+            except queue.Empty:
+                if self._abort.is_set() or not any(
+                        t.is_alive() for t in self._threads):
+                    try:
+                        return self._devq.get_nowait()
+                    except queue.Empty:
+                        raise FeederError(
+                            "input feeder died without delivering its "
+                            "epoch (producer thread gone)")
+
+    def epoch(self, epoch: int) -> Iterator:
+        """Device items for `epoch`, in order.  Epochs must be consumed in
+        the order the feeder was constructed with."""
+        while True:
+            tag, ep, payload = self._get()
+            if tag == "error":
+                self._abort.set()
+                raise payload
+            if tag == "done":
+                raise FeederError(
+                    f"feeder exhausted before epoch {epoch} (consumed out "
+                    "of order?)")
+            if ep != epoch:
+                self._abort.set()
+                raise FeederError(
+                    f"feeder/consumer epoch mismatch: got {ep}, "
+                    f"expected {epoch}")
+            if tag == "end":
+                self._prod_s[epoch] = payload
+                return
+            with self._staged_lock:
+                self._staged -= 1
+            try:
+                yield payload
+            finally:
+                self._gate.release()
+
+    def production_seconds(self, epoch: int) -> float:
+        """Host seconds this epoch's items cost to assemble and place,
+        wherever they ran; 0.0 until the epoch's end marker was consumed."""
+        return self._prod_s.get(epoch, 0.0)
+
+    def ready_ahead(self) -> int:
+        """Items already placed beyond what the consumer pulled: at an
+        epoch boundary, the next epoch's prefetched items."""
+        with self._staged_lock:
+            return max(self._staged, 0)
+
+    @property
+    def depth(self) -> int:
+        return self._gate.depth
+
+    def set_depth(self, depth: int) -> None:
+        """Resize the device-queue bound (auto mode; between epochs)."""
+        self._gate.resize(max(int(depth), 1))
+
+    def close(self) -> None:
+        """Abort both threads and discard run-ahead items.  Idempotent."""
+        self._abort.set()
+        deadline = time.monotonic() + 10.0
+        while (any(t.is_alive() for t in self._threads)
+               and time.monotonic() < deadline):
+            try:  # drain so a producer blocked on a full gate/queue exits
+                self._devq.get_nowait()
+                self._gate.release()
+            except queue.Empty:
+                time.sleep(self._POLL_S / 2)
+        for t in self._threads:
+            t.join(timeout=1.0)

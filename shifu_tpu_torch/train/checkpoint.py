@@ -1,0 +1,458 @@
+"""Checkpoint save and auto-resume with a self-healing restore (port of
+shifu_tpu/train/checkpoint.py, in the port's own format: no Orbax).
+
+A checkpoint directory holds one step tree per save, `<dir>/<step>/`, with
+`state.pt` (`torch.save` of the model's `state_dict`, the optimizer
+chain's state, `TrainState.step` and, under a sparse plan,
+`TrainState.table_slots`) and `extra.json` (`{"epoch", "best_restored"}`).
+A save writes into a temporary directory that is renamed into place, so a
+step tree is whole or absent.  Beside the step trees:
+
+- `manifest-<step>.json`: blake2b over every file of the step tree, and
+  `state_tree`, the path, shape and dtype of every leaf.  It is written
+  after the data, once the save is durable.  Restore re-hashes the tree
+  (unless SHIFU_TPU_CKPT_VERIFY=0) and checks `state_tree` against the
+  restore target before any tensor is loaded.
+- `PROGRESS`: {"epoch", "step"} of the newest durable save.
+
+`restore_latest` is the recovery ladder: a corrupt or unreadable newest
+step falls back to the newest earlier verified one (journaled as
+`checkpoint_fallback`); an incompatible step (`CheckpointIncompatibleError`)
+re-raises; when every step fails the first error is re-raised.  Steps past
+`max_to_keep` are deleted after a save, each journaled as `checkpoint_gc`.
+A save on an existing step bumps its key instead of deleting first: the
+key only orders the saves, the true step is in the state.  With
+`block=False` the state is copied to the host first and written on one
+background thread; at most one save is in flight, and `finalize` makes it
+durable.  Remote directories wait for the remote half of `data/fsio.py`.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Any, Iterable, Optional
+
+import torch
+
+from .. import obs
+from ..data import fsio
+
+PROGRESS_MARKER = "PROGRESS"
+MANIFEST_PREFIX = "manifest-"
+STATE_FILE = "state.pt"
+EXTRA_FILE = "extra.json"
+_DIGEST_ALGO = "blake2b-128"
+
+
+class CheckpointCorruptError(RuntimeError):
+    """The step tree's bytes no longer match its digest manifest."""
+
+
+class CheckpointIncompatibleError(RuntimeError):
+    """The checkpoint's recorded state tree (leaf paths, shapes, dtypes)
+    does not match the restore target: another model, not corruption.
+    Raised before any tensor is loaded."""
+
+
+class CheckpointManager:
+    """A checkpoint directory: its step trees, its retention and its one
+    background writer."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        fsio._local_only(directory)
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max(int(max_to_keep), 1)
+        os.makedirs(self.directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        # (step, extra, tree_spec) of an async save not yet known durable
+        self._pending: Optional[tuple] = None
+
+    def all_steps(self) -> list[int]:
+        try:
+            names = os.listdir(self.directory)
+        except FileNotFoundError:
+            return []
+        return sorted(int(n) for n in names if n.isdigit()
+                      and os.path.isdir(os.path.join(self.directory, n)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def wait_until_finished(self) -> None:
+        """Join the in-flight background save; re-raise its error."""
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join()
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+
+def make_manager(directory: str, max_to_keep: int = 3) -> CheckpointManager:
+    return CheckpointManager(directory, max_to_keep)
+
+
+def _write_progress_marker(directory: str, step: int,
+                           extra: Optional[dict]) -> None:
+    """`<dir>/PROGRESS` ({"epoch": E, "step": S}), rewritten on every
+    durable save: the durable-progress probe, keyed on the epoch (the
+    step re-inflates when a mid-epoch resume replays its epoch).
+    Best-effort: a marker failure must never fail the checkpoint."""
+    payload = json.dumps({"epoch": int((extra or {}).get("epoch", -1)),
+                          "step": int(step)}).encode()
+    try:
+        fsio.write_bytes(os.path.join(directory, PROGRESS_MARKER), payload)
+    except Exception:
+        pass
+
+
+# -- the state tree -----------------------------------------------------------
+
+def _host_copy(obj):
+    """The state's nested dicts, lists and tuples with every tensor copied
+    to the host (an async save must not read tensors later steps change)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+def state_payload(state) -> dict:
+    """What a step holds of a TrainState, as plain nested containers."""
+    return {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step),
+            "table_slots": (None if state.table_slots is None
+                            else {k: list(v)
+                                  for k, v in state.table_slots.items()})}
+
+
+def _leaves(obj, path: str = ""):
+    if isinstance(obj, dict):
+        for k in obj:
+            yield from _leaves(obj[k], f"{path}/{k}")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, obj
+
+
+def _tree_spec(payload: dict) -> list:
+    """[[leaf path, shape, dtype], ...] of a state payload: recorded in
+    the manifest so that restore can refuse an incompatible checkpoint
+    before it loads anything."""
+    out = []
+    for path, x in _leaves(payload):
+        if isinstance(x, torch.Tensor):
+            out.append([path, [int(d) for d in x.shape],
+                        str(x.dtype).replace("torch.", "")])
+        else:
+            out.append([path, [], type(x).__name__])
+    return out
+
+
+# -- integrity: digest manifests ----------------------------------------------
+
+def manifest_path(directory: str, step: int) -> str:
+    return os.path.join(str(directory), f"{MANIFEST_PREFIX}{int(step)}.json")
+
+
+def _tree_files(root: str) -> Iterable[tuple[str, int]]:
+    for full, size in fsio.walk_files(root):
+        yield os.path.relpath(full, root), size
+
+
+def _digest_file(root: str, rel: str) -> str:
+    """Streaming blake2b of one file, in 1 MiB chunks."""
+    h = hashlib.blake2b(digest_size=16)
+    with open(os.path.join(root, rel), "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def write_manifest(directory: str, step: int,
+                   tree_spec: Optional[list] = None) -> Optional[dict]:
+    """Hash every file of the committed step tree into
+    `<dir>/manifest-<step>.json`, once the save is durable.  Best-effort:
+    restore treats a missing manifest as unverified."""
+    step_dir = os.path.join(str(directory), str(int(step)))
+    try:
+        files = {rel: [_digest_file(step_dir, rel), size]
+                 for rel, size in _tree_files(step_dir)}
+        manifest = {"step": int(step), "algo": _DIGEST_ALGO, "files": files}
+        if tree_spec:
+            manifest["state_tree"] = tree_spec
+        fsio.write_bytes(manifest_path(directory, step),
+                         json.dumps(manifest).encode())
+        return manifest
+    except Exception:
+        return None
+
+
+def read_manifest(directory: str, step: int) -> Optional[dict]:
+    try:
+        m = json.loads(fsio.read_bytes(manifest_path(directory, step)))
+        return m if isinstance(m, dict) else None
+    except Exception:
+        return None
+
+
+def verify_manifest(directory: str, step: int) -> Optional[bool]:
+    """Re-hash the step tree against its manifest.  True = verified;
+    False = mismatch, missing or unreadable files; None = no manifest
+    (restore proceeds on trust)."""
+    manifest = read_manifest(directory, step)
+    if manifest is None or not isinstance(manifest.get("files"), dict):
+        return None
+    step_dir = os.path.join(str(directory), str(int(step)))
+    have = dict(_tree_files(step_dir))
+    for rel, entry in manifest["files"].items():
+        digest, size = (entry[0], entry[1]) if isinstance(entry, list) \
+            else (entry, None)
+        if rel not in have or (size is not None and have[rel] != size):
+            return False
+        try:
+            if _digest_file(step_dir, rel) != digest:
+                return False
+        except Exception:
+            return False
+    return True
+
+
+def _finalize_durable(directory: str, step: int, extra: Optional[dict],
+                      tree_spec: Optional[list] = None) -> None:
+    """After a save is durable: the manifest first (the marker must never
+    advertise progress whose integrity record is missing), then PROGRESS."""
+    write_manifest(directory, step, tree_spec)
+    _write_progress_marker(directory, step, extra)
+
+
+def _flush_pending_marker(manager: CheckpointManager) -> None:
+    pending, manager._pending = manager._pending, None
+    if pending is not None:
+        step, extra, tree_spec = pending
+        _finalize_durable(manager.directory, step, extra, tree_spec)
+
+
+# -- save ---------------------------------------------------------------------
+
+def _step_size(directory: str, step: int) -> int:
+    return sum(size for _, size in
+               _tree_files(os.path.join(directory, str(step))))
+
+
+def _gc(manager: CheckpointManager) -> None:
+    """Delete the oldest steps past max_to_keep, each with its manifest,
+    each journaled as `checkpoint_gc` with the bytes it freed."""
+    steps = manager.all_steps()
+    drop, kept = steps[:-manager.max_to_keep], steps[-manager.max_to_keep:]
+    for step in drop:
+        size = _step_size(manager.directory, step)
+        shutil.rmtree(os.path.join(manager.directory, str(step)),
+                      ignore_errors=True)
+        try:
+            os.unlink(manifest_path(manager.directory, step))
+        except OSError:
+            pass
+        obs.counter("checkpoint_gc_total",
+                    "checkpoint steps garbage-collected").inc()
+        obs.counter("checkpoint_gc_bytes_total",
+                    "bytes freed by checkpoint retention").inc(int(size))
+        obs.event("checkpoint_gc", step=int(step), freed_bytes=int(size),
+                  kept=kept)
+
+
+def _write_step(manager: CheckpointManager, step: int, payload: dict,
+                extra: Optional[dict]) -> None:
+    """The step tree in a temporary directory, renamed into place; then
+    retention."""
+    final = os.path.join(manager.directory, str(int(step)))
+    tmp = os.path.join(manager.directory, f".tmp-{int(step)}-{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(payload, os.path.join(tmp, STATE_FILE))
+    with open(os.path.join(tmp, EXTRA_FILE), "w") as f:
+        json.dump(extra, f)
+    os.replace(tmp, final)
+    _gc(manager)
+
+
+def save(manager: CheckpointManager, step: int, state,
+         extra: Optional[dict] = None, block: bool = True) -> None:
+    """Save the train state (and a small metadata dict) at `step`.
+
+    `block=False` (CheckpointConfig.async_save) copies the state to the
+    host, then writes it on a background thread that overlaps the next
+    epoch; any previous in-flight save is finalized first."""
+    manager.wait_until_finished()  # at most one save in flight
+    _flush_pending_marker(manager)  # the previous async save is durable
+    # the clock starts after the previous save's drain: an async
+    # observation times this save's dispatch only
+    t0 = time.perf_counter()
+    # a save on an existing step must still win (a terminal save can land
+    # on the step of a cadence save with another extra): bump the key past
+    # the collision rather than deleting the newest durable step first
+    existing = set(manager.all_steps())
+    while step in existing:
+        step += 1
+    payload = _host_copy(state_payload(state))
+    tree_spec = _tree_spec(payload)
+    if block:
+        _write_step(manager, step, payload, extra)
+        _finalize_durable(manager.directory, step, extra, tree_spec)
+    else:
+        manager._pending = (step, extra, tree_spec)
+
+        def run() -> None:
+            try:
+                _write_step(manager, step, payload, extra)
+            except BaseException as e:  # re-raised by wait_until_finished
+                manager._error = e
+
+        manager._thread = threading.Thread(target=run, daemon=True,
+                                           name="shifu-checkpoint-save")
+        manager._thread.start()
+    dur = time.perf_counter() - t0
+    mode = "blocking" if block else "async"
+    obs.counter("checkpoint_saves_total", "checkpoint saves").inc(mode=mode)
+    obs.histogram("checkpoint_save_seconds",
+                  "checkpoint save latency (async: dispatch only)").observe(
+        dur, mode=mode)
+    obs.event("checkpoint_save", step=int(step),
+              epoch=(extra or {}).get("epoch"), mode=mode,
+              dur_s=round(dur, 4))
+    # save wall is epoch time not spent stepping (async: the dispatch only)
+    obs.goodput.note("checkpoint", dur)
+
+
+def finalize(manager: CheckpointManager) -> None:
+    """Block until any in-flight async save is durable (call before exit)."""
+    manager.wait_until_finished()
+    _flush_pending_marker(manager)
+
+
+def latest_step(manager: CheckpointManager) -> Optional[int]:
+    return manager.latest_step()
+
+
+# -- restore ------------------------------------------------------------------
+
+def _check_compatible(directory: str, step: int, target: dict) -> None:
+    manifest = read_manifest(directory, step)
+    want = manifest.get("state_tree") if manifest else None
+    if not want:
+        return  # no manifest: restore proceeds on trust
+
+    def norm(spec):
+        return [(p, tuple(shape), dt) for p, shape, dt in spec]
+
+    have = _tree_spec(target)
+    if norm(want) == norm(have):
+        return
+    want_map = {p: (shape, dt) for p, shape, dt in norm(want)}
+    have_map = {p: (shape, dt) for p, shape, dt in norm(have)}
+    for path in sorted(set(want_map) | set(have_map)):
+        if want_map.get(path) != have_map.get(path):
+            raise CheckpointIncompatibleError(
+                f"checkpoint step {step} is incompatible with the restore "
+                f"target at {path!r}: saved "
+                f"{want_map.get(path, 'nothing')}, target expects "
+                f"{have_map.get(path, 'nothing')}")
+
+
+def _load_into(state, payload: dict) -> None:
+    """Apply a loaded payload to `state` in place (tensors keep their
+    device and identity, so the optimizer's parameter list stays bound)."""
+    state.model.load_state_dict(payload["model"], strict=True)
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    slots = payload.get("table_slots")
+    if state.table_slots is not None and slots is not None:
+        with torch.no_grad():
+            for name, cur in state.table_slots.items():
+                for dst, src in zip(cur, slots[name]):
+                    dst.copy_(src)
+
+
+def restore(manager: CheckpointManager, step: int, state,
+            with_extra: bool = False):
+    """Restore the state saved at `step` into `state` (built the same way
+    as at save time), in place; returns it (and the extra)."""
+    t0 = time.perf_counter()
+    step_dir = os.path.join(manager.directory, str(int(step)))
+    payload = torch.load(os.path.join(step_dir, STATE_FILE),
+                         map_location="cpu", weights_only=True)
+    extra = None
+    if with_extra:
+        with open(os.path.join(step_dir, EXTRA_FILE)) as f:
+            extra = json.load(f)
+    _load_into(state, payload)
+    dur = time.perf_counter() - t0
+    obs.counter("checkpoint_restores_total", "checkpoint restores").inc()
+    obs.histogram("checkpoint_restore_seconds",
+                  "checkpoint restore latency").observe(dur)
+    obs.event("checkpoint_restore", step=int(step), dur_s=round(dur, 4))
+    # the resume before the first epoch has no ledger open: a no-op
+    obs.goodput.note("restore", dur)
+    if with_extra:
+        return state, extra
+    return state
+
+
+def restore_latest(manager: CheckpointManager, state,
+                   with_extra: bool = False):
+    """Auto-resume with a recovery ladder: restore the newest step, or,
+    when its manifest fails verification or the load itself errors (a
+    truncated or unreadable file), the newest earlier step that works.
+    Every rung skipped is journaled as `checkpoint_fallback`.  Returns
+    None when no checkpoint exists; (state, step) or (state, extra, step)
+    otherwise.  An incompatible step re-raises at once; when every step
+    fails, the first error is re-raised."""
+    steps = sorted(manager.all_steps(), reverse=True)
+    if not steps:
+        return None
+    directory = manager.directory
+    target = state_payload(state)
+    first_err: Optional[Exception] = None
+    for i, step in enumerate(steps):
+        try:
+            if (os.environ.get("SHIFU_TPU_CKPT_VERIFY", "1") != "0"
+                    and verify_manifest(directory, step) is False):
+                raise CheckpointCorruptError(
+                    f"checkpoint step {step} failed digest verification "
+                    f"(manifest-{step}.json)")
+            _check_compatible(directory, step, target)
+            out = restore(manager, step, state, with_extra=with_extra)
+        except CheckpointIncompatibleError:
+            raise  # another model: an older rung would silently lose epochs
+        except Exception as e:  # noqa: BLE001 - each rung fails its own way
+            if first_err is None:
+                first_err = e
+            obs.counter("checkpoint_fallback_total",
+                        "restores that fell back past a bad step").inc(
+                reason=type(e).__name__)
+            obs.event("checkpoint_fallback", failed_step=int(step),
+                      reason=type(e).__name__, error=str(e)[:300],
+                      remaining_steps=[int(s) for s in steps[i + 1:]])
+            obs.flush()
+            continue
+        if i > 0:
+            obs.event("checkpoint_fallback_resolved", step=int(step),
+                      skipped=[int(s) for s in steps[:i]])
+        if with_extra:
+            st, extra = out
+            return st, extra, step
+        return out, step
+    raise first_err

@@ -1,31 +1,44 @@
 """The training loop on one device (port of the single-host path of
 shifu_tpu/train/loop.py).
 
-`train(job, ...)` loads the datasets (or takes them), builds the model and
-optimizer, and runs the epochs on one of two input tiers, chosen by the
-JAX package's rule: the device-resident tier when the training partition,
-in its in-card format (int8 features on the wire grid, u8 targets, the
-weight column elided when all ones), fits `data.device_resident_bytes`;
-otherwise the per-batch tier, which casts each batch on the host and copies
-it to the card.  Under a sparse embedding plan (train/sparse_embed.py) the
-per-batch tier compacts each batch's ids first (embed/dedup, unless
-`embed.dedup` is "off"); the resident tier updates from the raw ids, as in
-the JAX package.  Every epoch ends with a full evaluation of the valid set
-(zero-weight tail padding) every `eval_every_epochs`, the console line of
-`EpochMetrics`, and the early-stopping bookkeeping.
+`train(job, ...)` builds the model and optimizer, resumes from the newest
+checkpoint when `runtime.checkpoint.directory` is set, and runs the epochs
+on one of three input tiers, chosen by the JAX package's rule: the
+device-resident tier when the training partition, in its in-card format
+(int8 features on the wire grid, u8 targets, the weight column elided when
+all ones), fits `data.device_resident_bytes`; else the staged tier, host-fed
+(nb, B, ...) blocks when `data.staged` and `data.drop_remainder` are set;
+else the per-batch tier.  A job given files streams its first epoch from
+the parse (`data.stream_first_epoch`; the port has no cache, so a cache is
+never hot) and loads the retained dataset for the later epochs.
+
+With `data.overlap_epochs` one persistent `EpochFeeder` feeds the staged
+and per-batch tiers: its assembly thread gathers, dedups (under a sparse
+plan, unless `embed.dedup` is "off") and casts; its placement thread copies
+from pinned host buffers to the card on a CUDA stream of its own, and the
+compute stream waits on an event before it reads a placed item.  Off, a
+per-epoch producer thread does the same work for that epoch only.  Batch
+order is a pure function of (seed, epoch) either way.
+
+Every epoch ends with a full evaluation of the valid set (zero-weight tail
+padding) every `eval_every_epochs`, the console line of `EpochMetrics`, the
+early-stopping bookkeeping, the epoch's checkpoint, a SIGTERM drain point,
+and its telemetry: the journal's `epoch`, `goodput` and `overlap_report`
+events, spans, `StepTimer` histograms and the metrics scrape file.  Chunk
+boundaries are save points too (`save_every_seconds`, and the SIGTERM
+drain: save, then `SystemExit(75)`).
 
 Differences from the JAX package, kept on purpose until later slices
-(ROADMAP.md): a job that loads its files loads them first, where the JAX
-package would stream its first epoch (`stream_first_epoch`) unless its
-cache is hot; where the JAX package would run the staged tier, the port
-runs the per-batch tier (same batches per epoch, other order); there is
-no checkpoint (a configured checkpoint directory raises), no telemetry, no
-overlap feeder, no chaos sites and no preemption handling.
+(ROADMAP.md): no chaos sites, no device flight recorder, no drift
+baseline, no multi-host paths.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import signal
+import threading
 import time
 from collections import deque
 from typing import Any, Callable, Optional
@@ -33,21 +46,28 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..config.schema import JobConfig
 from ..data import pipeline as pipe
 from ..device import DeviceLike, resolve_device
 from ..embed.dedup import attach_dedup
 from ..models.registry import build_model
 from ..ops import metrics as metrics_lib
+from . import checkpoint as ckpt_lib
+from . import profiler as prof_lib
 from . import sparse_embed
 from .optimizers import Optimizer
-from .step import (make_device_epoch_step, make_eval_step, make_train_step,
-                   wire_fused_into_model, wire_grid)
+from .step import (make_device_epoch_step, make_epoch_scan_step,
+                   make_eval_step, make_train_step, wire_fused_into_model,
+                   wire_grid)
 from .train_state import TrainState
 
 Console = Callable[[str], None]
 
 _TRAINABLE = ("mlp", "ft_transformer", "wide_deep", "deepfm")
+
+# the exit code of a SIGTERM drain (EX_TEMPFAIL: restart the job)
+PREEMPTED_EXIT = 75
 
 
 @dataclasses.dataclass
@@ -73,11 +93,14 @@ class TrainResult:
     state: TrainState
     history: list[EpochMetrics]
     job: JobConfig
-    # input tier that trained the epochs: "resident" or "batch"
+    # input tier of the loaded epochs: "resident", "staged" or "batch";
+    # "stream" when only the streamed first epoch ran
     tier: str = ""
     # the per-batch dedup's counts (embed/dedup `dedup_state`: batches,
     # unique rows, raw id cells), or None when no batch was compacted
     dedup: Optional[dict] = None
+    # the epoch the run resumed at (0 for a fresh run)
+    resumed_from_epoch: int = 0
 
 
 def init_state(job: JobConfig, num_features: int,
@@ -112,6 +135,11 @@ def init_state(job: JobConfig, num_features: int,
                      if tables else None))
 
 
+def _bf16_wire(job: JobConfig) -> bool:
+    return pipe.wire_mode(job.schema, job.data,
+                          job.model.compute_dtype) == "bfloat16"
+
+
 def to_device(batch: dict[str, np.ndarray], job: JobConfig,
               device: torch.device) -> dict[str, torch.Tensor]:
     """Host arrays -> tensors on `device`.  A bfloat16 wire casts the f32
@@ -120,11 +148,70 @@ def to_device(batch: dict[str, np.ndarray], job: JobConfig,
     out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
            for k, v in batch.items()}
     f = out.get("features")
-    if (f is not None and f.dtype == torch.float32
-            and pipe.wire_mode(job.schema, job.data,
-                               job.model.compute_dtype) == "bfloat16"):
+    if f is not None and f.dtype == torch.float32 and _bf16_wire(job):
         out["features"] = f.to(torch.bfloat16)
     return out
+
+
+class _Placed:
+    """Tensors copied to the card on a side stream, and the event that
+    marks the end of their copies."""
+
+    __slots__ = ("tensors", "event")
+
+    def __init__(self, tensors: dict, event):
+        self.tensors = tensors
+        self.event = event
+
+
+def make_placer(job: JobConfig, device: torch.device):
+    """(put, ready): `put(host dict)` places a batch or block on `device`;
+    `ready(item)` returns its tensors for the compute stream.
+
+    On the card, `put` runs on the producer's thread: it sets the device,
+    copies each array into a pinned host buffer and from there to the card
+    on a CUDA stream of that thread's own, and records an event.  `ready`
+    makes the compute stream wait on that event and marks each tensor as
+    used by the compute stream (`record_stream`), so the caching allocator
+    cannot hand its memory to a later item while the step still reads it.
+    The pinned buffers come from PyTorch's caching host allocator, which
+    reuses a buffer only once the copy out of it has completed.  On the
+    CPU, `put` is `to_device` and `ready` the identity."""
+    if device.type != "cuda":
+        return (lambda b: to_device(b, job, device)), (lambda item: item)
+    local = threading.local()
+    bf16 = _bf16_wire(job)
+
+    def put(batch: dict) -> _Placed:
+        stream = getattr(local, "stream", None)
+        if stream is None:
+            torch.cuda.set_device(device)
+            stream = local.stream = torch.cuda.Stream(device)
+        out = {}
+        with torch.cuda.stream(stream):
+            for k, v in batch.items():
+                host = torch.from_numpy(np.ascontiguousarray(v))
+                pinned = torch.empty(host.shape, dtype=host.dtype,
+                                     pin_memory=True)
+                pinned.copy_(host)
+                out[k] = pinned.to(device, non_blocking=True)
+            f = out.get("features")
+            if f is not None and f.dtype == torch.float32 and bf16:
+                out["features"] = f.to(torch.bfloat16)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return _Placed(out, event)
+
+    def ready(item):
+        if not isinstance(item, _Placed):
+            return item
+        cur = torch.cuda.current_stream(device)
+        cur.wait_event(item.event)
+        for t in item.tensors.values():
+            t.record_stream(cur)
+        return item.tensors
+
+    return put, ready
 
 
 def eval_batch_size(job: JobConfig, num_rows: int) -> int:
@@ -148,11 +235,18 @@ def evaluate(state: TrainState, ds: pipe.TabularDataset, job: JobConfig,
     bs = batch_size or eval_batch_size(job, ds.num_rows)
     wcast = pipe.wire_cast_fn(job.schema, job.data, job.model.compute_dtype)
     sm = metrics_lib.StreamingMetrics()
+    lat = obs.histogram("eval_batch_seconds",
+                        "eval batch score+gather latency")
+    rows = obs.counter("eval_rows_total", "rows evaluated (nonzero weight)")
     pend: deque = deque()
+    t0 = [time.perf_counter()]
 
     def fetch(entry) -> None:
         s, n, tgt, wgt = entry
         sm.update(s.cpu().numpy()[:n, 0], tgt, wgt)
+        lat.observe(time.perf_counter() - t0[0])
+        rows.inc(int(np.count_nonzero(wgt)))
+        t0[0] = time.perf_counter()
 
     for batch in pipe.batch_iterator(ds, bs, shuffle=False,
                                      drop_remainder=False):
@@ -176,6 +270,33 @@ def _stack_blocks(ds: pipe.TabularDataset, nb: int, bs: int) -> dict:
             "weight": stack(ds.weight)}
 
 
+def _resume(job: JobConfig, state: TrainState, console: Console):
+    """The checkpoint manager (None without a directory) and the epoch to
+    start at, after restoring the newest usable checkpoint into `state`."""
+    ck = job.runtime.checkpoint
+    if not ck.directory:
+        return None, 0
+    manager = ckpt_lib.make_manager(ck.directory, ck.max_to_keep)
+    if not ck.resume:
+        return manager, 0
+    fresh_opt = state.optimizer.state_dict()  # before the restore replaces it
+    restored = ckpt_lib.restore_latest(manager, state, with_extra=True)
+    if restored is None:
+        return manager, 0
+    _, extra, step = restored
+    start_epoch = int((extra or {}).get("epoch", 0))
+    console(f"Resumed from checkpoint step {step} (epoch {start_epoch})")
+    obs.event("train_resume", step=int(step), epoch=start_epoch)
+    if (extra or {}).get("best_restored") and start_epoch < job.train.epochs:
+        # the terminal checkpoint's params were rolled back to the best
+        # epoch, but its optimizer moments belong to the last trajectory:
+        # continuing with that pairing would apply mismatched updates
+        state.optimizer.load_state_dict(fresh_opt)
+        console("Resuming past a best-params terminal checkpoint: "
+                "optimizer state reinitialized")
+    return manager, start_epoch
+
+
 def train(job: JobConfig,
           train_ds: Optional[pipe.TabularDataset] = None,
           valid_ds: Optional[pipe.TabularDataset] = None,
@@ -184,18 +305,14 @@ def train(job: JobConfig,
           device: DeviceLike = None) -> TrainResult:
     """Run the training job on `device` (default `cuda:0`; the CPU only
     when asked); returns the final state and the per-epoch history.
-    Datasets may be passed in, else they are loaded from job.data.paths."""
+    Datasets may be passed in, else they are loaded (or the first epoch
+    streamed) from job.data.paths.  SIGTERM (main thread only) saves at
+    the next chunk boundary and raises SystemExit(75)."""
     job = job.validate()
     console = console or (lambda s: print(s, flush=True))
     dev = resolve_device(device)
-    if job.runtime.checkpoint.directory:
-        raise NotImplementedError(
-            "runtime.checkpoint.directory is set, but the port has no "
-            "checkpoint yet (train/checkpoint.py: ROADMAP.md queue A, the "
-            "first item); unset it to train without one")
     # the JAX loop's refusal: it takes the resident or the staged tier
-    # exactly when data.staged and data.drop_remainder are both set (where
-    # it would stage, the port runs the per-batch tier and trains)
+    # exactly when data.staged and data.drop_remainder are both set
     if job.train.local_sgd_window > 0 and not (job.data.staged
                                                and job.data.drop_remainder):
         raise ValueError(
@@ -203,18 +320,41 @@ def train(job: JobConfig,
             "device-resident input tier: set data.staged=True and "
             "data.drop_remainder=True (local replicas are synchronized "
             "by epoch scans, not per-batch dispatches)")
+    # a bare SHIFU_TPU_METRICS_DIR is enough for a library caller
+    obs.configure_from_env()
+    obs.event("train_start", model=job.model.model_type,
+              epochs=job.train.epochs, batch_size=job.data.batch_size,
+              processes=1, devices=1)
     cdt = job.model.compute_dtype
     wmode = pipe.wire_mode(job.schema, job.data, cdt)
+    # the streamed epoch's cast detects the compact target/weight per
+    # block (content-driven, so a resume replays identical formats)
+    wcast_stream = pipe.wire_cast_fn(job.schema, job.data, cdt, compact=True)
+    feature_dtype = (f"int8c{job.data.wire_int8_clip:g}"
+                     if wmode == "int8" else "float32")
+
+    # streamed first epoch: train on parsed blocks while the rest of the
+    # files parse in the background
+    stream_loader = None
+    pending_ingest_s = 0.0  # blocking pre-loop ingest, charged to epoch 1
+    rate = job.train.bagging_sample_rate
     if train_ds is None:
-        feature_dtype = (f"int8c{job.data.wire_int8_clip:g}"
-                         if wmode == "int8" else "float32")
-        train_ds, valid_ds = pipe.load_datasets(job.schema, job.data,
-                                                feature_dtype=feature_dtype)
-    if valid_ds is None:
+        want_stream = (job.data.stream_first_epoch
+                       and not job.data.out_of_core
+                       and job.data.staged and job.data.drop_remainder
+                       and not (0.0 < rate < 1.0))
+        if want_stream:
+            stream_loader = pipe.StreamingLoader(job.schema, job.data,
+                                                 feature_dtype)
+        else:
+            t_ingest = time.perf_counter()
+            train_ds, valid_ds = pipe.load_datasets(
+                job.schema, job.data, feature_dtype=feature_dtype)
+            pending_ingest_s = time.perf_counter() - t_ingest
+    if valid_ds is None and stream_loader is None:
         raise ValueError("train() needs valid_ds when train_ds is given")
 
-    rate = job.train.bagging_sample_rate
-    if 0.0 < rate < 1.0 and train_ds.num_rows > 0:
+    if train_ds is not None and 0.0 < rate < 1.0 and train_ds.num_rows > 0:
         from ..data.split import bagging_mask
         keep = np.nonzero(bagging_mask(
             np.arange(train_ds.num_rows, dtype=np.uint64),
@@ -223,152 +363,492 @@ def train(job: JobConfig,
                 f"(baggingSampleRate={rate:g})")
         train_ds = train_ds.take(keep)
 
-    state = init_state(job, train_ds.num_features or job.schema.feature_count,
-                       dev)
+    num_features = ((train_ds.num_features if train_ds is not None else 0)
+                    or job.schema.feature_count)
+    state = init_state(job, num_features, dev)
+    manager, start_epoch = _resume(job, state, console)
 
-    # compact target/weight wire, decided once over the whole partition
-    label_ok = (job.data.wire_label_dtype in ("auto", "uint8")
-                and pipe.target_u8_exact(train_ds.target))
-    weight_ok = (job.data.wire_weight_mode in ("auto", "elide")
-                 and pipe.weight_all_ones(train_ds.weight))
-    if job.data.wire_label_dtype == "uint8" and not label_ok:
-        raise ValueError("wire_label_dtype=uint8 but targets are not "
-                         "integers in [0, 255] — use wire_label_dtype=auto "
-                         "or float32")
-    if job.data.wire_weight_mode == "elide" and not weight_ok:
-        raise ValueError("wire_weight_mode=elide but weights are not all "
-                         "1.0 — use wire_weight_mode=auto or float32")
-    wcast = pipe.wire_cast_fn(job.schema, job.data, cdt,
-                              compact=(label_ok, weight_ok))
-    dedup = None
-    if train_ds.num_rows == 0:
-        raise ValueError("training dataset has 0 rows — nothing to train on")
+    # streaming serves only the first epoch of a fresh run: a resumed
+    # epoch must replay the shuffled epoch an unbroken run trains
+    if stream_loader is not None and start_epoch > 0:
+        train_ds, valid_ds = stream_loader.datasets()
+        stream_loader = None
+
+    epoch_scan_step = make_epoch_scan_step(job)
+    # chunks of ~32 MB of wire bytes, so a copy stays short and overlaps
+    # compute; by bytes, not rows (the int8 wire carries 4x the rows)
+    row_wire_b = pipe.wire_row_bytes(job.schema, job.data, cdt)
+    chunk_cap = max(1, (32 << 20) // max(job.data.batch_size * row_wire_b, 1))
+    staged_block_batches = max(1, min(job.data.block_batches, chunk_cap))
+    put, ready = make_placer(job, dev)
+
+    # tier plumbing, resolved by _prepare_tiers once train_ds exists
     bs = job.data.batch_size
-    if bs > train_ds.num_rows and job.data.drop_remainder:
-        bs = train_ds.num_rows
-        console(f"batch_size {job.data.batch_size} > {train_ds.num_rows} "
-                f"usable rows; clamped to {bs}")
-
-    # tier rule of the JAX loop: bytes of the partition in its in-card
-    # format against the resident budget
-    rfmt = pipe.resident_feature_format(job.schema, job.data, cdt)
-    feat_row_bytes = train_ds.features.nbytes // max(train_ds.num_rows, 1)
-    if train_ds.features.dtype == np.float32:
-        if rfmt == "int8":
-            feat_row_bytes //= 4
-        elif rfmt == "bfloat16":
-            feat_row_bytes //= 2
-    tgt_row_bytes = train_ds.target.nbytes // max(train_ds.num_rows, 1)
-    if label_ok:
-        tgt_row_bytes //= 4
-    wgt_row_bytes = (0 if weight_ok else
-                     train_ds.weight.nbytes // max(train_ds.num_rows, 1))
-    ds_bytes = (feat_row_bytes + tgt_row_bytes + wgt_row_bytes) \
-        * train_ds.num_rows
-    use_resident = (job.data.staged and job.data.drop_remainder
-                    and 0 < ds_bytes <= job.data.device_resident_bytes
-                    and train_ds.num_rows // bs > 0)
+    use_resident = use_staged = False
     resident_blocks = None
-    if use_resident:
-        nb_total = train_ds.num_rows // bs
-        host_blocks = _stack_blocks(train_ds, nb_total, bs)
-        raw_features = host_blocks["features"]
-        if wcast is not None:
-            host_blocks = wcast(host_blocks)
-        if rfmt == "int8" and host_blocks["features"].dtype != np.int8:
-            # forced int8 residency under a wider wire: quantize the raw
-            # features once on the same static grid
-            scale, offset = pipe.wire_params(job.schema, job.data)
-            host_blocks = dict(host_blocks)
-            host_blocks["features"] = pipe.wire_quantize(raw_features, scale,
-                                                         offset)
-        resident_blocks = to_device(host_blocks, job, dev)
-        device_epoch_step = make_device_epoch_step(job)
-    else:
-        train_step = make_train_step(job)
-        plan = (sparse_embed.resolve_plan(job)
-                if job.embed.dedup != "off" else None)
-        if plan is not None:
-            # dedup reads the f32 features, so it runs before the wire cast
-            dedup = attach_dedup(plan.layout, plan.max_vocab)
-            bcast = (dedup if wcast is None
-                     else (lambda b, _c=wcast: _c(dedup(b))))
-        else:
+    device_epoch_step = None
+    train_step = None
+    wcast = None
+    bcast = None
+    dedup = None
+    prepared = False
+
+    use_overlap = job.data.overlap_epochs
+    feeder: Optional[pipe.EpochFeeder] = None
+    feeder_host_depth = job.data.prefetch_depth or 4
+    feeder_dev_depth = job.data.prefetch if job.data.prefetch_depth else 2
+
+    def _staged_host_blocks(ep: int):
+        """The staged epoch's blocks, wire-cast on the producing thread."""
+        for b in pipe.staged_epoch_blocks(
+                train_ds, bs, shuffle=job.data.shuffle,
+                seed=job.data.shuffle_seed, epoch=ep,
+                block_batches=staged_block_batches):
+            yield wcast(b) if wcast is not None else b
+
+    def _perbatch_host_batches(ep: int):
+        """The epoch's batches, deduped and wire-cast on the producing
+        thread (the feeder's assembly thread when the overlap is on)."""
+        for b in pipe.batch_iterator(
+                train_ds, bs, shuffle=job.data.shuffle,
+                seed=job.data.shuffle_seed, epoch=ep,
+                drop_remainder=job.data.drop_remainder):
+            yield bcast(b) if bcast is not None else b
+
+    def _prepare_tiers():
+        nonlocal bs, use_resident, use_staged, resident_blocks, \
+            device_epoch_step, train_step, wcast, bcast, dedup, prepared
+        prepared = True
+        # compact target/weight wire, decided once over the whole partition
+        label_ok = (job.data.wire_label_dtype in ("auto", "uint8")
+                    and pipe.target_u8_exact(train_ds.target))
+        weight_ok = (job.data.wire_weight_mode in ("auto", "elide")
+                     and pipe.weight_all_ones(train_ds.weight))
+        if job.data.wire_label_dtype == "uint8" and not label_ok:
+            raise ValueError("wire_label_dtype=uint8 but targets are not "
+                             "integers in [0, 255] — use "
+                             "wire_label_dtype=auto or float32")
+        if job.data.wire_weight_mode == "elide" and not weight_ok:
+            raise ValueError("wire_weight_mode=elide but weights are not "
+                             "all 1.0 — use wire_weight_mode=auto or "
+                             "float32")
+        wcast = pipe.wire_cast_fn(job.schema, job.data, cdt,
+                                  compact=(label_ok, weight_ok))
+        if train_ds.num_rows == 0:
+            raise ValueError("training dataset has 0 rows — nothing to "
+                             "train on")
+        bs = job.data.batch_size
+        if bs > train_ds.num_rows and job.data.drop_remainder:
+            bs = train_ds.num_rows
+            console(f"batch_size {job.data.batch_size} > {train_ds.num_rows} "
+                    f"usable rows; clamped to {bs}")
+        # the tier rule: bytes of the partition in its in-card format
+        # against the resident budget
+        rfmt = pipe.resident_feature_format(job.schema, job.data, cdt)
+        n = train_ds.num_rows
+        feat_row_bytes = train_ds.features.nbytes // max(n, 1)
+        if train_ds.features.dtype == np.float32:
+            if rfmt == "int8":
+                feat_row_bytes //= 4
+            elif rfmt == "bfloat16":
+                feat_row_bytes //= 2
+        tgt_row_bytes = train_ds.target.nbytes // max(n, 1)
+        if label_ok:
+            tgt_row_bytes //= 4
+        wgt_row_bytes = 0 if weight_ok else train_ds.weight.nbytes // max(n, 1)
+        ds_bytes = (feat_row_bytes + tgt_row_bytes + wgt_row_bytes) * n
+        use_resident = (job.data.staged and job.data.drop_remainder
+                        and 0 < ds_bytes <= job.data.device_resident_bytes
+                        and n // bs > 0)
+        use_staged = (job.data.staged and job.data.drop_remainder
+                      and not use_resident)
+        if use_resident:
+            nb_total = n // bs
+            host_blocks = _stack_blocks(train_ds, nb_total, bs)
+            raw_features = host_blocks["features"]
+            if wcast is not None:
+                host_blocks = wcast(host_blocks)
+            if rfmt == "int8" and host_blocks["features"].dtype != np.int8:
+                # forced int8 residency under a wider wire: quantize the
+                # raw features once on the same static grid
+                scale, offset = pipe.wire_params(job.schema, job.data)
+                host_blocks = dict(host_blocks)
+                host_blocks["features"] = pipe.wire_quantize(raw_features,
+                                                             scale, offset)
+            resident_blocks = to_device(host_blocks, job, dev)
+            device_epoch_step = make_device_epoch_step(job)
+        elif not use_staged:
+            train_step = make_train_step(job)
+            plan = (sparse_embed.resolve_plan(job)
+                    if job.embed.dedup != "off" else None)
             bcast = wcast
+            if plan is not None:
+                # dedup reads the f32 features: it runs before the cast
+                dedup = attach_dedup(plan.layout, plan.max_vocab)
+                bcast = (dedup if wcast is None
+                         else (lambda b, _c=wcast: _c(dedup(b))))
+
+    if train_ds is not None:
+        _prepare_tiers()
     eval_step = make_eval_step(job)
+    profile_dir = os.environ.get("SHIFU_TPU_PROFILE_DIR")
+    timing_on = (bool(os.environ.get("SHIFU_TPU_TIMING"))
+                 or job.train.log_every_steps > 0)
+
+    # preemption: on SIGTERM, save at the next chunk boundary and exit 75.
+    # The handler only sets a flag; signal.signal raises off the main
+    # thread, and then no handler is installed, as in the JAX loop
+    term_flag = {"hit": False}
+    old_term = None
+    try:
+        old_term = signal.signal(signal.SIGTERM,
+                                 lambda *_: term_flag.update(hit=True))
+    except ValueError:
+        pass  # not the main thread
+
+    save_secs = job.runtime.checkpoint.save_every_seconds
+    last_save = time.monotonic()
+
+    def maybe_midtrain_save(epoch: int) -> None:
+        """A chunk-boundary save point: the time cadence and the SIGTERM
+        drain.  A mid-epoch save records the current epoch, so a resume
+        replays that epoch from its start."""
+        nonlocal last_save
+        if term_flag["hit"]:
+            if manager is not None:
+                cur = int(state.step)
+                saved = False
+                if (ckpt_lib.latest_step(manager) or -1) < cur:
+                    ckpt_lib.save(manager, cur, state,
+                                  extra={"epoch": epoch}, block=True)
+                    saved = True
+                ckpt_lib.finalize(manager)
+                obs.event("preemption_grace", epoch=int(epoch), step=cur,
+                          saved=saved)
+                obs.flush()
+                console("SIGTERM: checkpoint saved, exiting for restart")
+            else:
+                console("SIGTERM: exiting (no checkpoint directory)")
+            raise SystemExit(PREEMPTED_EXIT)
+        if manager is None or save_secs <= 0:
+            return
+        if time.monotonic() - last_save >= save_secs:
+            cur = int(state.step)
+            # `<`: a collision-bumped key can sit above the raw step, and
+            # that still means this step's state is durable
+            if (ckpt_lib.latest_step(manager) or -1) < cur:
+                ckpt_lib.save(manager, cur, state, extra={"epoch": epoch},
+                              block=True)
+            last_save = time.monotonic()
+
+    def run_chunks(items, step_fn, epoch: int, timer, count) -> tuple:
+        """Train on `items` (placed batches or blocks) with `step_fn`;
+        returns (loss sum on the card, batches)."""
+        nonlocal state
+        acc, n = None, 0
+        for item in items:
+            timer.mark_input_ready()
+            xs = ready(item)
+            state, loss = step_fn(state, xs)
+            acc = loss if acc is None else acc + loss
+            n += count(xs)
+            timer.mark_step_done()
+            maybe_midtrain_save(epoch)
+        return acc, n
+
+    def batch_step(st, batch):
+        st, m = train_step(st, batch)
+        return st, m["loss"]
+
+    def block_batches(xs) -> int:
+        return xs["features"].shape[0]
 
     history: list[EpochMetrics] = []
     best_valid = float("inf")
     evals_since_best = 0
     best_params: Optional[dict[str, Any]] = None
-    for epoch in range(job.train.epochs):
-        t0 = time.perf_counter()
-        if use_resident:
-            order = pipe.epoch_permutation(
-                nb_total, shuffle=job.data.shuffle,
-                seed=job.data.shuffle_seed, epoch=epoch)
-            state, loss_acc = device_epoch_step(state, resident_blocks, order)
-            loss_n = nb_total
-        else:
+    pending_loader = None  # streamed loader whose train set is not built
+    pending_thread = None  # background assembly of the retained dataset
+    pending_assembly: dict = {}
+    try:
+        for epoch in range(start_epoch, job.train.epochs):
+            t0 = time.perf_counter()
+            led_open = obs.goodput.begin_epoch()
+            # the blocking load before the loop is charged to the first
+            # epoch: its input bucket, and its wall extends the epoch's
+            ingest_wall_s, pending_ingest_s = pending_ingest_s, 0.0
+            if ingest_wall_s > 0:
+                led_open.add("input", ingest_wall_s)
+            if pending_loader is not None and epoch > start_epoch:
+                # the first epoch after the streamed one: the retained
+                # dataset, assembled in the background behind that epoch's
+                # eval (overlap on) or here
+                if pending_thread is not None:
+                    pending_thread.join()
+                    pending_thread = None
+                    if "error" in pending_assembly:
+                        raise pending_assembly["error"]
+                    train_ds = pending_assembly.pop("train_ds")
+                else:
+                    train_ds = pending_loader.train_dataset()
+                pending_loader = None
+                _prepare_tiers()
             loss_acc, loss_n = None, 0
-            for batch in pipe.batch_iterator(
-                    train_ds, bs, shuffle=job.data.shuffle,
-                    seed=job.data.shuffle_seed, epoch=epoch,
-                    drop_remainder=job.data.drop_remainder):
-                if bcast is not None:
-                    batch = bcast(batch)
-                state, m = train_step(state, to_device(batch, job, dev))
-                loss_acc = m["loss"] if loss_acc is None \
-                    else loss_acc + m["loss"]
-                loss_n += 1
-        if loss_n == 0:
-            raise ValueError(
-                f"epoch {epoch} produced 0 batches ({train_ds.num_rows} "
-                f"rows, batch_size {bs}, drop_remainder="
-                f"{job.data.drop_remainder})")
-        loss_sum = float(loss_acc)  # the epoch's one wait on the card
-        epoch_time = time.perf_counter() - t0
+            timer = prof_lib.StepTimer()
+            timer.start()
+            trace_ctx = prof_lib.maybe_trace(
+                profile_dir if epoch == start_epoch else None)
+            with trace_ctx, obs.span("epoch/train", epoch=epoch):
+                streamed_this_epoch = False
+                if stream_loader is not None and epoch == start_epoch:
+                    stream_bs = bs
+                    console(f"Streaming first epoch: training overlaps the "
+                            f"background parse (batch {stream_bs}, "
+                            f"{staged_block_batches} batches/chunk)")
+                    # zero-weight tail padding is exact only for the
+                    # weight-gated losses without an L2 term
+                    pad_tail = (job.train.loss in ("weighted_mse",
+                                                   "weighted_bce")
+                                and job.model.l2_scale <= 0)
+                    blocks = (wcast_stream(b) for b in
+                              stream_loader.first_epoch_blocks(
+                                  stream_bs, staged_block_batches,
+                                  pad_tail=pad_tail))
+                    loss_acc, _ = run_chunks(
+                        pipe.prefetch_to_device(blocks, put,
+                                                size=job.data.prefetch),
+                        epoch_scan_step, epoch, timer, block_batches)
+                    # the denominator: batches holding at least one real
+                    # row (pad-only batches add zero loss)
+                    loss_n = stream_loader.real_batches
+                    valid_ds = stream_loader.valid_dataset()
+                    pending_loader, stream_loader = stream_loader, None
+                    streamed_this_epoch = loss_n > 0
+                    if (streamed_this_epoch and use_overlap
+                            and epoch + 1 < job.train.epochs):
+                        # assemble and shuffle the retained dataset behind
+                        # this epoch's eval
+                        def _assemble_retained(loader=pending_loader,
+                                               box=pending_assembly):
+                            try:
+                                box["train_ds"] = loader.train_dataset()
+                            except BaseException as e:  # raised at the join
+                                box["error"] = e
 
-        tv0 = time.perf_counter()
-        if (epoch % job.train.eval_every_epochs == 0
-                or epoch == job.train.epochs - 1):
-            valid_error, valid_auc = evaluate(state, valid_ds, job,
-                                              eval_step, dev)
-        else:
-            valid_error, valid_auc = float("nan"), float("nan")
-        valid_time = time.perf_counter() - tv0
+                        pending_thread = threading.Thread(
+                            target=_assemble_retained, daemon=True,
+                            name="shifu-retained-assembly")
+                        pending_thread.start()
+                    if not streamed_this_epoch:
+                        # no full batch streamed: assemble now and rerun
+                        # the epoch on the loaded tiers
+                        train_ds = pending_loader.train_dataset()
+                        pending_loader = None
+                        _prepare_tiers()
+                        console(f"streamed first epoch had no full batch "
+                                f"of {stream_bs}; re-running epoch {epoch} "
+                                f"with batch {bs}")
+                if streamed_this_epoch:
+                    pass
+                elif use_resident:
+                    nb_total = resident_blocks["features"].shape[0]
+                    order = pipe.epoch_permutation(
+                        nb_total, shuffle=job.data.shuffle,
+                        seed=job.data.shuffle_seed, epoch=epoch)
+                    timer.mark_input_ready()
+                    state, loss_acc = device_epoch_step(
+                        state, resident_blocks, order)
+                    loss_n = nb_total
+                    timer.mark_step_done()
+                else:
+                    source = (_staged_host_blocks if use_staged
+                              else _perbatch_host_batches)
+                    if use_overlap:
+                        if feeder is None:
+                            feeder = pipe.EpochFeeder(
+                                source, put, range(epoch, job.train.epochs),
+                                depth=feeder_dev_depth,
+                                host_depth=feeder_host_depth)
+                        items = feeder.epoch(epoch)
+                    else:
+                        items = pipe.prefetch_to_device(
+                            source(epoch), put, size=job.data.prefetch)
+                    if use_staged:
+                        loss_acc, loss_n = run_chunks(
+                            items, epoch_scan_step, epoch, timer,
+                            block_batches)
+                    else:
+                        loss_acc, loss_n = run_chunks(
+                            items, batch_step, epoch, timer, lambda xs: 1)
+            if loss_n == 0:
+                raise ValueError(
+                    f"epoch {epoch} produced 0 batches "
+                    f"({train_ds.num_rows} rows, batch_size {bs}, "
+                    f"drop_remainder={job.data.drop_remainder})")
+            loss_sum = float(loss_acc)  # the epoch's one wait on the card
+            epoch_time = time.perf_counter() - t0
 
-        m = EpochMetrics(epoch=epoch, train_error=loss_sum / max(loss_n, 1),
-                         valid_error=valid_error, valid_auc=valid_auc,
-                         epoch_time=epoch_time, valid_time=valid_time)
-        history.append(m)
-        console(m.console_line(job.train.epochs))
-
-        # early stopping: the best-measured params are kept on the host
-        # and restored at the end, so the returned model is the best one
-        patience = job.train.early_stop_patience
-        early_stop_now = False
-        if patience > 0 and valid_error == valid_error:  # evaluated
-            if valid_error < best_valid - job.train.early_stop_min_delta:
-                best_valid = valid_error
-                evals_since_best = 0
-                best_params = {k: v.detach().cpu().clone() for k, v in
-                               state.model.state_dict().items()}
+            tv0 = time.perf_counter()
+            if (epoch % job.train.eval_every_epochs == 0
+                    or epoch == job.train.epochs - 1):
+                with obs.span("epoch/eval", epoch=epoch):
+                    valid_error, valid_auc = evaluate(state, valid_ds, job,
+                                                      eval_step, dev)
             else:
-                evals_since_best += 1
-                if evals_since_best >= patience:
-                    early_stop_now = True
-                    console(f"Early stop at epoch {epoch}: no valid_error "
-                            f"improvement > {job.train.early_stop_min_delta:g} "
-                            f"in {patience} evaluated epochs "
-                            f"(best {best_valid:.6f})")
-        terminal = early_stop_now or epoch == job.train.epochs - 1
-        if terminal and best_params is not None:
-            state.model.load_state_dict(best_params)
-        if epoch_callback is not None:
-            epoch_callback(m)
-        if early_stop_now:
-            break
+                valid_error, valid_auc = float("nan"), float("nan")
+            valid_time = time.perf_counter() - tv0
+
+            m = EpochMetrics(epoch=epoch,
+                             train_error=loss_sum / max(loss_n, 1),
+                             valid_error=valid_error, valid_auc=valid_auc,
+                             epoch_time=epoch_time, valid_time=valid_time)
+            history.append(m)
+            console(m.console_line(job.train.epochs))
+            timer.emit()
+            obs.counter("train_epochs_total", "completed training epochs").inc()
+            obs.counter("train_batches_total",
+                        "train batches consumed (scan tiers count batches "
+                        "inside each chunk)").inc(loss_n)
+            obs.gauge("train_error", "last epoch's weighted train error").set(
+                m.train_error)
+            if valid_error == valid_error:  # evaluated this epoch, not NaN
+                obs.gauge("valid_error",
+                          "last evaluated weighted valid error").set(
+                    valid_error)
+            if valid_auc == valid_auc:
+                obs.gauge("valid_auc", "last evaluated valid AUC").set(
+                    valid_auc)
+            obs.event("epoch", **dataclasses.asdict(m))
+            obs.flush()
+            if timing_on:
+                console(timer.console_line())
+            tier = ("stream" if streamed_this_epoch else
+                    "resident" if use_resident else
+                    "staged" if use_staged else "batch")
+            order_digest = pipe.epoch_order_digest(
+                tier, train_ds.num_rows if train_ds is not None else 0, bs,
+                shuffle=job.data.shuffle, seed=job.data.shuffle_seed,
+                epoch=epoch)
+
+            # early stopping runs before the terminal save, so that the
+            # checkpoint holds the best params the returned state holds
+            patience = job.train.early_stop_patience
+            early_stop_now = False
+            if patience > 0 and valid_error == valid_error:
+                if valid_error < best_valid - job.train.early_stop_min_delta:
+                    best_valid = valid_error
+                    evals_since_best = 0
+                    best_params = {k: v.detach().cpu().clone() for k, v in
+                                   state.model.state_dict().items()}
+                else:
+                    evals_since_best += 1
+                    if evals_since_best >= patience:
+                        early_stop_now = True
+                        console(f"Early stop at epoch {epoch}: no "
+                                f"valid_error improvement > "
+                                f"{job.train.early_stop_min_delta:g} in "
+                                f"{patience} evaluated epochs "
+                                f"(best {best_valid:.6f})")
+            terminal = early_stop_now or epoch == job.train.epochs - 1
+            best_restored = False
+            if (terminal and best_params is not None
+                    and best_valid < float("inf")):
+                best_restored = True
+                # the terminal checkpoint records epoch=epochs: rolled-back
+                # params with the last trajectory's moments resume as done
+                state.model.load_state_dict(best_params)
+
+            # save before the callback, so an external kill never loses
+            # the completed epoch (async_save trades that for overlap)
+            if manager is not None and (
+                    terminal or (epoch + 1)
+                    % job.runtime.checkpoint.save_every_epochs == 0):
+                extra = {"epoch": (job.train.epochs if terminal
+                                   else epoch + 1)}
+                if best_restored:
+                    extra["best_restored"] = True
+                ckpt_lib.save(manager, int(state.step), state, extra=extra,
+                              block=(early_stop_now
+                                     or not job.runtime.checkpoint.async_save))
+                last_save = time.monotonic()
+            # the epoch boundary: the resident tier's drain point
+            maybe_midtrain_save(epoch + 1)
+
+            # close the goodput ledger over the whole epoch wall
+            led = obs.goodput.current()
+            if led is not None:
+                led.add("input", sum(timer.input_times))
+                led.add("step", sum(timer.step_times))
+                led.add("eval", valid_time)
+                obs.goodput.end_epoch(
+                    epoch, time.perf_counter() - t0 + ingest_wall_s)
+
+            # overlap report: the input wait the card still saw (exposed)
+            # against the host seconds the epoch's items cost (production)
+            exposed_s = sum(timer.input_times)
+            prod_s = (feeder.production_seconds(epoch) if feeder is not None
+                      else exposed_s)
+            hidden_s = max(prod_s - exposed_s, 0.0)
+            eff = (hidden_s / (hidden_s + exposed_s)
+                   if hidden_s + exposed_s > 0 else None)
+            obs.event("overlap_report", epoch=epoch, tier=tier,
+                      overlap=feeder is not None,
+                      prefetch_depth=(feeder.depth if feeder is not None
+                                      else job.data.prefetch),
+                      input_exposed_s=round(exposed_s, 6),
+                      input_production_s=round(prod_s, 6),
+                      input_hidden_s=round(hidden_s, 6),
+                      eval_s=round(valid_time, 6),
+                      prefetched_chunks=(feeder.ready_ahead()
+                                         if feeder is not None else 0),
+                      overlap_efficiency=(round(eff, 4) if eff is not None
+                                          else None),
+                      order_digest=order_digest,
+                      resident_format=(
+                          pipe.resident_feature_format(job.schema, job.data,
+                                                       cdt)
+                          if use_resident else None))
+            obs.counter("overlap_hidden_seconds_total",
+                        "input seconds hidden behind device compute by "
+                        "the overlap engine").inc(hidden_s, kind="input")
+            exp_c = obs.counter("overlap_exposed_seconds_total",
+                                "epoch-boundary seconds still exposed on "
+                                "the critical path (device idle)")
+            exp_c.inc(exposed_s, kind="input")
+            exp_c.inc(valid_time, kind="eval")
+            if eff is not None:
+                obs.gauge("overlap_efficiency",
+                          "last epoch's hidden / (hidden + exposed) input "
+                          "fraction").set(round(eff, 4))
+            wall_now = time.perf_counter() - t0
+            if (feeder is not None and job.data.prefetch_depth == 0
+                    and wall_now > 0):
+                # auto mode: one depth step per epoch
+                feeder.set_depth(pipe.next_prefetch_depth(
+                    feeder.depth, exposed_s / wall_now))
+
+            if epoch_callback is not None:
+                epoch_callback(m)
+            if early_stop_now:
+                break
+    finally:
+        if feeder is not None:
+            # however the loop exits: abort the feeder, drop its run-ahead
+            feeder.close()
+        if pending_thread is not None:
+            # a short courtesy join only: nobody will use an unconsumed
+            # background assembly, and the preemption grace is short
+            pending_thread.join(timeout=1.0)
+        if old_term is not None:
+            signal.signal(signal.SIGTERM, old_term)
+        if manager is not None:
+            # an in-flight async save becomes durable however the loop exits
+            ckpt_lib.finalize(manager)
+        obs.event("train_end", epochs_completed=len(history))
+        obs.flush()
     return TrainResult(state=state, history=history, job=job,
-                       tier="resident" if use_resident else "batch",
-                       dedup=dict(dedup.dedup_state) if dedup else None)
+                       tier=("stream" if not prepared else
+                             "resident" if use_resident else
+                             "staged" if use_staged else "batch"),
+                       dedup=dict(dedup.dedup_state) if dedup else None,
+                       resumed_from_epoch=start_epoch)

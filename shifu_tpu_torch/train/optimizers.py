@@ -19,6 +19,9 @@ composes them as `optax.chain` does, and `MultiSteps` accumulates
 inner update.  `Optimizer.step` adds the updates to the parameters in place
 (the port mutates its parameters where optax returns new ones).  Step
 counters are Python ints, so no update waits on the card.
+`Optimizer.state_dict` / `load_state_dict` carry the chain's state (nested
+lists, tuples and dicts of tensors and ints) through a checkpoint
+(train/checkpoint.py) unchanged.
 """
 
 from __future__ import annotations
@@ -332,3 +335,23 @@ class Optimizer:
             list(grads), self.state, [p.detach() for p in self.params])
         for p, u in zip(self.params, ups):
             p.add_(u)
+
+    def state_dict(self) -> dict:
+        """The transformation's state, as its nested containers."""
+        return {"state": self.state}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Take a saved state (from `state_dict`, possibly loaded on the
+        host): its tensors move to the parameters' device."""
+        dev = self.params[0].device if self.params else torch.device("cpu")
+
+        def to_dev(obj):
+            if isinstance(obj, torch.Tensor):
+                return obj.to(dev)
+            if isinstance(obj, dict):
+                return {k: to_dev(v) for k, v in obj.items()}
+            if isinstance(obj, (list, tuple)):
+                return type(obj)(to_dev(v) for v in obj)
+            return obj
+
+        self.state = to_dev(sd["state"])

@@ -3,8 +3,9 @@
 PyTorch runs eagerly, so a "step builder" returns a plain function: the
 train step is forward, backward and the optimizer update on one batch; the
 device-resident epoch is a Python loop over the (nb, B, ...) blocks already
-on the card, in `epoch_permutation` order, with the loss summed on the card
-and read once per epoch.
+on the card, in `epoch_permutation` order, and the staged tier's step a
+loop over one host-fed (nb, B, ...) block in its own order; both sum the
+loss on the card, which the loop reads once per epoch.
 
 int8 wire features reach the model in one of two ways, as in the JAX
 package.  When the model consumes them natively (`wire_fused_into_model`:
@@ -20,8 +21,8 @@ sparse embedding plan the dense optimizer on every parameter but the
 tables and the rows-touched update on the tables (train/sparse_embed.py),
 which reads the batch's ids.
 
-Waits for later slices: local SGD and the staged (scan over host-fed
-blocks) step.
+Waits for later slices: local SGD across replicas (on one device the
+window's average is the identity).
 """
 
 from __future__ import annotations
@@ -196,6 +197,24 @@ def make_device_epoch_step(job: JobConfig):
         return state, acc
 
     return epoch_step
+
+
+def make_epoch_scan_step(job: JobConfig):
+    """The staged tier's step (JAX `make_epoch_scan_step`): (state, block)
+    -> (state, the loss summed over the block on the card).  `block`
+    holds nb host-fed batches on the card as (nb, B, ...) tensors; the
+    batches train in their order in the block, each a view (no copy), and
+    nothing is read back to the host inside the block."""
+    train_step = make_train_step(job)
+
+    def scan_step(state: TrainState, block: Batch):
+        acc = None
+        for i in range(next(iter(block.values())).shape[0]):
+            state, m = train_step(state, {k: v[i] for k, v in block.items()})
+            acc = m["loss"] if acc is None else acc + m["loss"]
+        return state, acc
+
+    return scan_step
 
 
 def make_eval_step(job: JobConfig) -> Callable[[TrainState, Batch],

@@ -446,12 +446,13 @@ def test_eval_pads_the_tail_with_zero_weight_rows():
 
 @pytest.mark.parametrize("data_kw,want", [
     ({}, "resident"),
-    ({"device_resident_bytes": 0}, "batch"),
+    # past the resident budget the JAX loop stages, and so does the port
+    ({"device_resident_bytes": 0}, "staged"),
     ({"staged": False}, "batch"),
     ({"drop_remainder": False}, "batch"),
     # 1024 rows x (12 int8 features + a u8 target), weight elided
     ({"device_resident_bytes": 1024 * 13}, "resident"),
-    ({"device_resident_bytes": 1024 * 13 - 1}, "batch"),
+    ({"device_resident_bytes": 1024 * 13 - 1}, "staged"),
 ])
 def test_tier_choice(data_kw, want):
     _, pjob = _jobs("float32", **data_kw)
@@ -486,40 +487,78 @@ def test_early_stopping_restores_the_best_params(monkeypatch):
 
 
 def test_checkpoint_directory_is_refused(tmp_path):
+    """A local checkpoint directory trains, saves and resumes
+    (tests/test_torch_checkpoint.py); a remote one is refused, naming the
+    ROADMAP item of the remote filesystems, before anything trains."""
     _, pjob = _jobs("float32")
     job = dataclasses.replace(pjob, runtime=dataclasses.replace(
         pjob.runtime, checkpoint=dataclasses.replace(
-            pjob.runtime.checkpoint, directory=str(tmp_path))))
+            pjob.runtime.checkpoint, directory="gs://bucket/ckpt")))
     (_, _), (ptr, pva) = _datasets()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         loop.train(job, ptr, pva, device="cpu")
 
 
 def test_files_load_first_where_jax_would_stream(tmp_path, monkeypatch):
-    """Deliberate difference (ROADMAP.md section C): with
-    stream_first_epoch (the default) and a cold cache the JAX package
-    streams its first epoch in file order; until the streaming loader is
-    ported the port loads the datasets first, as the JAX package does when
-    its cache is hot, so every epoch trains on the loaded, shuffled
-    partition."""
+    """Both packages stream the first epoch of a job given files: with
+    stream_first_epoch (the default) and no hot cache, neither loads the
+    datasets before epoch 0; both train epoch 0 on the streamed blocks, in
+    file order, with the same block count and `real_batches`, and agree on
+    its train_error.  The later epochs train the retained dataset on the
+    staged tier (the partition is past the resident budget here) in both,
+    with the same losses."""
     from shifu_tpu_torch.data import synthetic
     schema = synthetic.make_schema(F)
     synthetic.write_files(synthetic.make_rows(1500, schema, seed=2),
                           str(tmp_path), 2)
-    _, pjob = _jobs("float32")
-    assert pjob.data.stream_first_epoch
-    job = dataclasses.replace(pjob, data=dataclasses.replace(
+    jjob, pjob = _jobs("float32", device_resident_bytes=0)
+    assert pjob.data.stream_first_epoch and jjob.data.stream_first_epoch
+    pjob = dataclasses.replace(pjob, data=dataclasses.replace(
         pjob.data, paths=(str(tmp_path),)))
-    calls = []
-    real = pipe.load_datasets
-    monkeypatch.setattr(pipe, "load_datasets", lambda *a, **k: calls.append(
-        k.get("feature_dtype")) or real(*a, **k))
-    res = loop.train(job, console=lambda s: None, device="cpu")
-    assert calls == ["int8c8"]
-    tr, va = real(job.schema, job.data, feature_dtype="int8c8")
-    again = loop.train(job, tr, va, console=lambda s: None, device="cpu")
-    assert [m.train_error for m in res.history] == [
-        m.train_error for m in again.history]
+    jjob = jjob.replace(data=dataclasses.replace(
+        jjob.data, paths=(str(tmp_path),)))
+    loads = []
+    for mod in (pipe, jax_pipe):
+        real = mod.load_datasets
+        monkeypatch.setattr(mod, "load_datasets",
+                            lambda *a, _r=real, **k: loads.append(1)
+                            or _r(*a, **k))
+    blocks = {}
+    for name, mod in (("port", pipe), ("jax", jax_pipe)):
+        real_blocks = mod.StreamingLoader.first_epoch_blocks
+
+        def counted(self, *a, _r=real_blocks, _n=name, **k):
+            for b in _r(self, *a, **k):
+                blocks[_n] = blocks.get(_n, 0) + 1
+                yield b
+            blocks[_n + "_real"] = self.real_batches
+
+        monkeypatch.setattr(mod.StreamingLoader, "first_epoch_blocks",
+                            counted)
+    jinit = jax_loop.init_state(jjob, F)
+    real_init = loop.init_state
+
+    def carried(job, num_features, device=None):
+        state = real_init(job, num_features, device)
+        flat = {k: np.asarray(v) for k, v in
+                _flatten_params(jax.device_get(jinit.params)).items()}
+        state.model.load_state_dict(params_from_jax(flat, state.model))
+        return state
+
+    monkeypatch.setattr(loop, "init_state", carried)
+    jlines, plines = [], []
+    jres = jax_loop.train(jjob, console=jlines.append)
+    pres = loop.train(pjob, console=plines.append, device="cpu")
+    assert loads == []  # neither loaded before its first epoch
+    assert any(ln.startswith("Streaming first epoch") for ln in plines)
+    assert any(ln.startswith("Streaming first epoch") for ln in jlines)
+    assert blocks["port"] == blocks["jax"] > 0
+    assert blocks["port_real"] == blocks["jax_real"] > 0
+    assert pres.tier == "staged"
+    assert len(pres.history) == len(jres.history) == 3
+    for g, w in zip(pres.history, jres.history):
+        assert g.train_error == pytest.approx(w.train_error, rel=1e-4)
+        assert abs(g.valid_auc - w.valid_auc) <= 1e-3
 
 
 @pytest.mark.parametrize("model_type", ["multitask", "moe_mlp"])
