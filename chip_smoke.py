@@ -90,6 +90,37 @@ stderr, and no result line is printed):
                its first epoch from the parse and stages the second; #4's
                launches counted for each (every batch of every streamed
                block, the zero-weight tail's included).
+8a. cli-cold — the operator's command, `shifu_tpu_torch.launcher.cli.main(
+               ["train", ...])` in this process, on the headline MLP at full
+               width from ModelConfig.json, ColumnConfig.json and a
+               --globalconfig XML (batch 65536, int8 wire, staged tier, 3
+               epochs, a checkpoint every epoch, a cache dir), on 1,048,576
+               synthetic rows in 16 gzip parts (data/synthetic.write_files
+               in a pool of processes): the first epoch streams from the
+               parse, every part through the native parser; 16 v2 cache
+               entries; #4 launches steps + eval batches; the losses
+               bitwise those of the same command with no cache dir.  Prints
+               the ingest seconds, parse rows/s, cache bytes, each epoch's
+               samples/s, and the native parser's rows/s against the numpy
+               tier's on 4 parts.
+8b. cli-hot — the same command again: "Projected cache is hot", no
+               streamed epoch, 16 cache hits and no miss; the loaded
+               datasets bitwise a cache-off parse's, the losses a cache-off
+               run's without the streamed epoch; the hot ingest seconds.
+8c. out-of-core — `shifu.data.out-of-core=true`: the staged tier on an
+               np.memmap-backed partition; #4 as in 8b; the parse and
+               consolidation seconds, each epoch's samples/s.
+8d. supervised — `python -m shifu_tpu_torch.launcher.cli train --supervise`
+               in a subprocess: an unbroken run; one whose chaos plan exits
+               attempt 1 at epoch 2's start; one whose child gets SIGTERM in
+               epoch 0's checkpoint save (held 5 s by a chaos delay) and
+               exits 75.  Each must restart once (journaled
+               `supervisor_restart`), resume at epoch 2 (1), and end with
+               per-epoch losses and final_model parameters bitwise equal to
+               the unbroken run's; prints the seconds from the kill to the
+               restore and to the resumed epoch's first step.
+8e. serve   — 8d's final_model served by the daemon on the card, within
+               SERVE_ATOL of the CPU scorer.
 9. serve    — the trained headline model saved with `save_artifact` and served
    trained    by the daemon on the card, checked against the CPU scorer.
 10. profile — one steady-state training epoch (epoch 1, its steps and its
@@ -1994,6 +2025,468 @@ def profile_training(label: str, job, train_ds, valid_ds, device,
                                           f"{label}_trace.json.gz"))
 
 
+# -- phases 8a to 8e: the operator's `train` command on the card --------------
+
+# the headline rows cut to 2^20 in 16 gzip parts (writing gzip text is the
+# limit of the script's time), 3 epochs with a checkpoint every epoch
+CLI_ROWS = 1_048_576
+CLI_FILES = 16
+CLI_EPOCHS = 3
+CLI_CHILD_TIMEOUT_S = 300
+# the parse tiers timed on this many of the parts, one file after another
+CLI_PARSE_FILES = 4
+
+
+def _write_cli_part(args) -> None:
+    """One gzip part through `data/synthetic.write_files` (in a pool
+    process): written beside the data dir, then renamed into it."""
+    from shifu_tpu_torch.data import synthetic
+    chunk, data_dir, i = args
+    tmp_dir = f"{data_dir}.w{i}"
+    (path,) = synthetic.write_files(chunk, tmp_dir, num_files=1)
+    os.replace(path, os.path.join(data_dir, f"part-{i:05d}.gz"))
+    os.rmdir(tmp_dir)
+
+
+def write_cli_files(tmp: str) -> tuple:
+    """ModelConfig.json, ColumnConfig.json and the headline's rows (cut to
+    CLI_ROWS, from SEED) in CLI_FILES gzip parts, written by a pool of
+    processes; returns (schema, data dir, seconds)."""
+    from shifu_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    schema = synthetic.make_schema(num_features=30)
+    rows = synthetic.make_rows(CLI_ROWS, schema, seed=SEED)
+    data_dir = f"{tmp}/cli_data"
+    os.makedirs(data_dir)
+    chunks = np.array_split(rows, CLI_FILES)
+    with multiprocessing.get_context("spawn").Pool(
+            min(CLI_FILES, len(os.sched_getaffinity(0)))) as pool:
+        pool.map(_write_cli_part,
+                 [(c, data_dir, i) for i, c in enumerate(chunks)])
+    model_config = {
+        "basic": {"name": "chip_smoke_cli"},
+        "dataSet": {"targetColumnName": "target", "dataDelimiter": "|"},
+        "train": {"validSetRate": 0.1, "numTrainEpochs": CLI_EPOCHS,
+                  "algorithm": "NN",
+                  "params": {"NumHiddenLayers": 3,
+                             "NumHiddenNodes": [100, 100, 100],
+                             "ActivationFunc": ["relu"] * 3,
+                             "LearningRate": 0.003, "Propagation": "Q",
+                             "Loss": "squared"}}}
+    column_config = [{"columnNum": c.index, "columnName": c.name,
+                      "columnFlag": "Target" if c.is_target else None,
+                      "columnType": "N", "finalSelect": c.is_selected}
+                     for c in schema.columns]
+    with open(f"{tmp}/cli_ModelConfig.json", "w") as f:
+        json.dump(model_config, f)
+    with open(f"{tmp}/cli_ColumnConfig.json", "w") as f:
+        json.dump(column_config, f)
+    return schema, data_dir, time.perf_counter() - t0
+
+
+def cli_xml(tmp: str, name: str, data_keys: dict) -> str:
+    """A --globalconfig XML: batch 65536, the int8 wire, the staged tier
+    (device-resident-bytes 0), 3 epochs, and the `shifu.data.*` keys of
+    `data_keys`."""
+    from shifu_tpu_torch.utils import xmlconfig
+    path = f"{tmp}/{name}.xml"
+    xmlconfig.write_configuration_xml({
+        "shifu.application.batch-size": str(TRAIN_BATCH),
+        "shifu.application.epochs": str(CLI_EPOCHS),
+        "shifu.data.wire-dtype": "int8",
+        "shifu.data.device-resident-bytes": "0",
+        **{f"shifu.data.{k}": v for k, v in data_keys.items()}}, path)
+    return path
+
+
+def cli_argv(tmp: str, data_dir: str, xml: str, out: str, device) -> list:
+    """The train command's arguments; on the card the default device
+    (cuda:0), as an operator runs it."""
+    argv = ["train", "--modelconfig", f"{tmp}/cli_ModelConfig.json",
+            "--columnconfig", f"{tmp}/cli_ColumnConfig.json",
+            "--data", data_dir, "--globalconfig", xml, "--output", out]
+    return argv + (["--device", "cpu"] if device.type == "cpu" else [])
+
+
+def cli_run(label: str, argv: list) -> dict:
+    """`launcher.cli.main(argv)` in this process with the launch counts set
+    to 0 just before and read just after; returns the launches, the
+    per-epoch metrics, the console board and the journal."""
+    from shifu_tpu_torch import obs
+    from shifu_tpu_torch.launcher import cli
+
+    reset_launches()
+    t0 = time.perf_counter()
+    code = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    obs.flush()
+    out = argv[argv.index("--output") + 1]
+    if code != 0:
+        fail(f"{label}: the train command exited {code}")
+    with open(f"{out}/metrics.jsonl") as f:
+        metrics = [json.loads(ln) for ln in f if ln.strip()]
+    with open(f"{out}/console.board") as f:
+        board = f.read()
+    return {"launches": launches, "metrics": metrics, "board": board,
+            "journal": journal(f"{out}/telemetry"), "wall_s": wall,
+            "out": out}
+
+
+def cli_losses(metrics: list) -> list:
+    return [(m["epoch"], m["train_error"], m["valid_error"], m["valid_auc"])
+            for m in metrics]
+
+
+def check_cli_launches(label: str, run: dict, want: int) -> None:
+    got = run["launches"]
+    if got["int8_matmul"] != want or sum(got.values()) != want:
+        fail(f"{label}: launches {got}, expected int8_matmul {want} (train "
+             "steps + eval batches) and no other kernel")
+
+
+def cli_samples(run: dict, rows_per_epoch: int) -> str:
+    """Each epoch's samples/s and ms a step (batch TRAIN_BATCH)."""
+    steps = rows_per_epoch // TRAIN_BATCH
+    return ", ".join(f"epoch {m['epoch']} "
+                     f"{rows_per_epoch / m['epoch_time']:.1f} "
+                     f"({1e3 * m['epoch_time'] / steps:.3f} ms a step)"
+                     for m in run["metrics"])
+
+
+def ingest_report(run: dict) -> dict:
+    reports = [r for r in run["journal"] if r["kind"] == "ingest_report"]
+    if len(reports) != 1:
+        fail(f"{run['out']}: {len(reports)} ingest reports, expected 1")
+    return reports[0]
+
+
+def parse_tiers_rows_per_s(data_dir: str) -> tuple:
+    """Rows/s of the native parser and of the numpy tier on the same
+    CLI_PARSE_FILES parts, one file after another (a host-side call)."""
+    from shifu_tpu_torch.data import native_parser, reader
+    files = reader.list_data_files(data_dir)[:CLI_PARSE_FILES]
+    out = []
+    for env in (None, "1"):
+        if env:
+            os.environ["SHIFU_TPU_NO_NATIVE_PARSER"] = env
+        native_parser.reset_for_tests()
+        t0 = time.perf_counter()
+        rows = sum(reader.read_file(p).shape[0] for p in files)
+        out.append((rows / (time.perf_counter() - t0),
+                    reader.last_io_stats()["tier"]))
+        os.environ.pop("SHIFU_TPU_NO_NATIVE_PARSER", None)
+    native_parser.reset_for_tests()
+    if [t for _, t in out] != ["native", "numpy"]:
+        fail(f"parse tiers: {out}")
+    return out[0][0], out[1][0]
+
+
+def find_child(out: str, timeout_s: float) -> int:
+    """The pid of the supervised train child writing to `out` (not its
+    supervisor): the process whose command line names `out` without
+    --supervise."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        for pid in os.listdir("/proc"):
+            if not pid.isdigit():
+                continue
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read().split(b"\0")
+            except OSError:
+                continue
+            if (b"shifu_tpu_torch.launcher.cli" in cmd
+                    and out.encode() in cmd and b"--supervise" not in cmd):
+                return int(pid)
+        time.sleep(0.05)
+    fail(f"no train child for {out} within {timeout_s} s")
+
+
+def supervised_run(label: str, argv: list, plan=None, on_start=None) -> dict:
+    """`python -m shifu_tpu_torch.launcher.cli train --supervise ...` in a
+    subprocess; `plan` goes to SHIFU_TPU_CHAOS_PLAN, `on_start(proc)` runs
+    while it trains.  Returns its output, journal, final parameters."""
+    out = argv[argv.index("--output") + 1]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    if plan is not None:
+        env["SHIFU_TPU_CHAOS_PLAN"] = json.dumps(plan)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shifu_tpu_torch.launcher.cli", *argv,
+         "--supervise"], env=env, cwd=os.path.dirname(
+             os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        if on_start is not None:
+            on_start(proc)
+        stdout, _ = proc.communicate(timeout=CLI_CHILD_TIMEOUT_S)
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        fail(f"{label}: the supervised command exited {proc.returncode}: "
+             f"{stdout[-3000:]}")
+    with np.load(f"{out}/final_model/weights.npz") as z:
+        weights = {k: z[k] for k in z.files}
+    return {"stdout": stdout, "journal": journal(f"{out}/telemetry"),
+            "weights": weights, "wall_s": time.perf_counter() - t0}
+
+
+def journal_losses(recs: list) -> dict:
+    return {r["epoch"]: (r["train_error"], r["valid_error"], r["valid_auc"])
+            for r in recs if r["kind"] == "epoch"}
+
+
+def check_supervised(label: str, run: dict, unbroken: dict,
+                     want_rc: int) -> tuple:
+    """One restart with `want_rc`, and the unbroken run's per-epoch losses
+    and final parameters, bitwise; returns the restart and the resumes."""
+    restarts = [r for r in run["journal"] if r["kind"] == "supervisor_restart"]
+    resumes = [r for r in run["journal"] if r["kind"] == "train_resume"]
+    if (len(restarts) != 1 or restarts[0]["rc"] != want_rc
+            or "succeeded after 2 attempts" not in run["stdout"]):
+        fail(f"{label}: supervisor restarts {restarts} (expected one, rc "
+             f"{want_rc}); output {run['stdout'][-2000:]}")
+    if journal_losses(run["journal"]) != journal_losses(unbroken["journal"]):
+        fail(f"{label}: per-epoch losses {journal_losses(run['journal'])} "
+             f"against the unbroken {journal_losses(unbroken['journal'])}")
+    if (sorted(run["weights"]) != sorted(unbroken["weights"])
+            or not all(np.array_equal(run["weights"][k],
+                                      unbroken["weights"][k])
+                       for k in run["weights"])):
+        fail(f"{label}: final_model's parameters differ from the unbroken "
+             "run's")
+    return restarts[0], resumes
+
+
+def cli_phases(tmp: str, device) -> None:
+    """Phases 8a-8e: the operator's `train` command on the headline MLP."""
+    import dataclasses as dc
+
+    from shifu_tpu_torch import obs
+    from shifu_tpu_torch.data import cache as cache_lib
+    from shifu_tpu_torch.data import native_parser, reader
+    from shifu_tpu_torch.data import pipeline as pipe
+    from shifu_tpu_torch.launcher import cli
+    from shifu_tpu_torch.train.loop import train
+
+    if not native_parser.available():
+        fail("cli: the native parser did not build: "
+             f"{native_parser.unavailable_reason()}")
+    schema, data_dir, write_s = write_cli_files(tmp)
+    cache_dir = f"{tmp}/cli_cache"
+    xml_cache = cli_xml(tmp, "cli_cache", {"cache-dir": cache_dir})
+    xml_off = cli_xml(tmp, "cli_off", {})
+    xml_ooc = cli_xml(tmp, "cli_ooc", {"cache-dir": f"{tmp}/cli_ooc_cache",
+                                       "out-of-core": "true"})
+
+    def argv(xml: str, out: str) -> list:
+        return cli_argv(tmp, data_dir, xml, f"{tmp}/{out}", device)
+
+    args = cli.build_parser().parse_args(argv(xml_cache, "cli_probe"))
+    job = cli._assemble_job(args, write_files=False)[0]
+    fd = f"int8c{job.data.wire_int8_clip:g}"
+    if (job.model.hidden_nodes != (100, 100, 100)
+            or job.train.optimizer.name != "adadelta"
+            or job.data.batch_size != TRAIN_BATCH
+            or job.data.wire_dtype != "int8"):
+        fail(f"cli: the Shifu files assembled another job: {job}")
+    say(f"cli: {CLI_ROWS} rows in {CLI_FILES} gzip parts written in "
+        f"{write_s:.2f} s (data/synthetic.write_files, a pool of processes)")
+
+    # 8a: cold, streamed from the parse through the native parser
+    cold = cli_run("8a cli-cold", argv(xml_cache, "cli_cold"))
+    rep = ingest_report(cold)
+    parsers = sorted({r.get("parser") for r in rep["per_file"]})
+    if (rep["mode"] != "stream" or rep["tiers"] != {"parse": CLI_FILES}
+            or parsers != ["native"] or len(rep["per_file"]) != CLI_FILES):
+        fail(f"8a cli-cold: ingest report {rep['mode']} {rep['tiers']}, "
+             f"parsers {parsers}: expected {CLI_FILES} files streamed "
+             "through the native parser")
+    if "Streaming first epoch" not in cold["board"]:
+        fail("8a cli-cold: the first epoch did not stream")
+    entries = [e for e in cache_lib.scan_cache(cache_dir)
+               if e["tier"] == "projected" and e["status"] == "ok"]
+    if len(entries) != CLI_FILES or any(e["version"] != 2 for e in entries):
+        fail(f"8a cli-cold: {len(entries)} v2 entries in the cache, "
+             f"expected {CLI_FILES}")
+    train_ds, valid_ds = pipe.load_datasets(
+        job.schema, dc.replace(job.data, cache_dir=cache_dir),
+        feature_dtype=fd)
+    n_tr, n_va = train_ds.num_rows, valid_ds.num_rows
+    steps, evals = steps_and_evals(job, n_tr, n_va, CLI_EPOCHS)
+    streamed = stream_launches(job, n_tr)
+    want_stream = streamed + steps // CLI_EPOCHS * (CLI_EPOCHS - 1) + evals
+    check_cli_launches("8a cli-cold", cold, want_stream)
+    off = cli_run("8a cli-cold, cache off", argv(xml_off, "cli_off"))
+    check_cli_launches("8a cli-cold, cache off", off, want_stream)
+    if cli_losses(cold["metrics"]) != cli_losses(off["metrics"]):
+        fail(f"8a cli-cold: losses {cli_losses(cold['metrics'])} against "
+             f"the cache-off run's {cli_losses(off['metrics'])}")
+    native_rps, numpy_rps = parse_tiers_rows_per_s(data_dir)
+    rows_per_epoch = n_tr // TRAIN_BATCH * TRAIN_BATCH
+    cold_ingest = rep["wall_s"]
+    say(f"8a cli-cold: train --globalconfig (cache dir set) streamed epoch "
+        f"0 from {CLI_FILES} parts, all through the native parser: ingest "
+        f"{cold_ingest:.3f} s ({rep['rows'] / cold_ingest:.1f} rows/s over "
+        f"a pool of {rep['pool_width']}; parse {rep['parse_s']:.3f} s, "
+        f"cache writes {rep['write_s']:.3f} s summed over files), "
+        f"{sum(e['bytes'] for e in entries)} cache bytes in {CLI_FILES} v2 "
+        f"entries; samples/s {cli_samples(cold, rows_per_epoch)}; "
+        f"int8_matmul {cold['launches']['int8_matmul']} launches ({streamed} "
+        f"streamed steps + {steps // CLI_EPOCHS * (CLI_EPOCHS - 1)} staged "
+        f"+ {evals} eval batches); losses bitwise equal to the cache-off "
+        f"run's; one file after another, native parser {native_rps:.1f} "
+        f"rows/s against the numpy tier's {numpy_rps:.1f} "
+        f"({native_rps / numpy_rps:.1f}x)")
+    lap("8a cli-cold")
+
+    # 8b: hot, loaded from the v2 entries
+    hits0 = obs.counter("data_cache_hits_total").total()
+    miss0 = obs.counter("data_cache_misses_total").total()
+    hot = cli_run("8b cli-hot", argv(xml_cache, "cli_hot"))
+    hits = int(obs.counter("data_cache_hits_total").total() - hits0)
+    misses = int(obs.counter("data_cache_misses_total").total() - miss0)
+    hrep = ingest_report(hot)
+    if ("Projected cache is hot for every input file: skipping the "
+            "streamed first epoch" not in hot["board"]
+            or "Streaming first epoch" in hot["board"]
+            or hits != CLI_FILES or misses != 0
+            or hrep["tiers"] != {"cache": CLI_FILES}):
+        fail(f"8b cli-hot: {hits} cache hits, {misses} misses, ingest tiers "
+             f"{hrep['tiers']}; board {hot['board'][-1500:]}")
+    check_cli_launches("8b cli-hot", hot, steps + evals)
+    off_tr, off_va = pipe.load_datasets(
+        job.schema, dc.replace(job.data, cache_dir=None), feature_dtype=fd)
+    for name, a, b in (("train", train_ds, off_tr),
+                       ("valid", valid_ds, off_va)):
+        for key in ("features", "target", "weight"):
+            if not np.array_equal(np.asarray(getattr(a, key)),
+                                  getattr(b, key)):
+                fail(f"8b cli-hot: the cached {name} {key} differ from a "
+                     "cache-off parse")
+    ref = train(job.replace(
+        data=dc.replace(job.data, cache_dir=None, stream_first_epoch=False),
+        runtime=dc.replace(job.runtime, checkpoint=dc.replace(
+            job.runtime.checkpoint, directory=""))),
+        console=lambda ln: None, device=device)
+    want = [(m.epoch, m.train_error, m.valid_error, m.valid_auc)
+            for m in ref.history]
+    if cli_losses(hot["metrics"]) != want:
+        fail(f"8b cli-hot: losses {cli_losses(hot['metrics'])} against a "
+             f"cache-off run without the streamed epoch {want}")
+    say(f"8b cli-hot: 'Projected cache is hot' -> loaded: {hits} cache "
+        f"hits, 0 misses; ingest {hrep['wall_s']:.3f} s hot against "
+        f"{cold_ingest:.3f} s cold; the loaded datasets bitwise equal to a "
+        f"cache-off parse, the losses to a cache-off run without the "
+        f"streamed epoch; samples/s {cli_samples(hot, rows_per_epoch)}; "
+        f"int8_matmul {hot['launches']['int8_matmul']} = {steps} steps + "
+        f"{evals} eval batches")
+    del off_tr, off_va, ref
+    lap("8b cli-hot")
+
+    # 8c: out of core, the staged tier on memory-mapped arrays
+    ooc = cli_run("8c out-of-core", argv(xml_ooc, "cli_ooc"))
+    check_cli_launches("8c out-of-core", ooc, steps + evals)
+    ooc_tr, _ = pipe.load_datasets(
+        job.schema, dc.replace(job.data, cache_dir=f"{tmp}/cli_ooc_cache",
+                               out_of_core=True), feature_dtype=fd)
+    tiers = {r["tier"] for r in ooc["journal"]
+             if r["kind"] == "overlap_report"}
+    if not isinstance(ooc_tr.features, np.memmap) or tiers != {"staged"} \
+            or ooc_tr.num_rows != n_tr:
+        fail(f"8c out-of-core: features {type(ooc_tr.features).__name__} "
+             f"({ooc_tr.num_rows} rows), tiers {tiers}: expected the staged "
+             f"tier on an np.memmap of {n_tr} rows")
+    orep = ingest_report(ooc)
+    if orep["mode"] != "outofcore" or sorted(
+            {r.get("parser") for r in orep["per_file"]}) != ["native"]:
+        fail(f"8c out-of-core: ingest report {orep['mode']}, parsers "
+             f"{sorted({r.get('parser') for r in orep['per_file']})}: "
+             "expected every part parsed by the native parser")
+    g0 = next(r for r in ooc["journal"] if r["kind"] == "goodput"
+              and r["epoch"] == 0)
+    ooc_dirs = [e for e in cache_lib.scan_cache(f"{tmp}/cli_ooc_cache")
+                if e["tier"] == "dataset"]
+    say(f"8c out-of-core: parse ({orep['files']} parts through the native "
+        f"parser, a pool of {orep['pool_width']}: {orep['wall_s']:.3f} s) + "
+        f"consolidate into memory-mapped int8 arrays "
+        f"({sum(e['bytes'] for e in ooc_dirs)} bytes), charged to epoch 0's "
+        f"input bucket: {g0['buckets']['input']:.3f} s; samples/s "
+        f"{cli_samples(ooc, rows_per_epoch)}; int8_matmul "
+        f"{ooc['launches']['int8_matmul']} = steps + eval batches")
+    del ooc_tr, train_ds, valid_ds
+    obs.reset_for_tests()  # the in-process runs' sinks
+    lap("8c out-of-core")
+
+    # 8d: supervised; a chaos exit at epoch 2's start, and a SIGTERM drain
+    unbroken = supervised_run("8d supervised, unbroken",
+                              argv(xml_cache, "cli_sup_unbroken"))
+    kill_plan = {"faults": [{"site": "train.epoch_start", "at_epoch": 2,
+                             "action": "exit", "scope": "job",
+                             "max_times": 1}]}
+    killed = supervised_run("8d supervised, chaos",
+                            argv(xml_cache, "cli_sup_killed"), plan=kill_plan)
+    restart, resumes = check_supervised("8d supervised, chaos", killed,
+                                        unbroken, 17)
+    if [r["epoch"] for r in resumes] != [2]:
+        fail(f"8d supervised, chaos: resumed at {resumes}, expected epoch 2")
+    inject = next(r for r in killed["journal"]
+                  if r["kind"] == "chaos_inject")
+    epoch2 = next(r for r in killed["journal"] if r["kind"] == "epoch"
+                  and r["epoch"] == 2)
+    first_step = epoch2["ts"] - epoch2["epoch_time"] - epoch2["valid_time"]
+    term_out = f"{tmp}/cli_sup_term"
+
+    def send_term(proc) -> None:
+        # the child stalls 5 s in epoch 0's checkpoint save; SIGTERM lands
+        # there, and the drain at that epoch boundary exits 75
+        import signal
+        deadline = time.monotonic() + CLI_CHILD_TIMEOUT_S
+        board = f"{term_out}/console.board"
+        while True:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                fail("8d supervised, SIGTERM: the child ended before "
+                     "epoch 0 did")
+            if os.path.exists(board) and "Epoch 0:" in open(board).read():
+                break
+            time.sleep(0.02)
+        os.kill(find_child(term_out, 10.0), signal.SIGTERM)
+
+    term_plan = {"faults": [{"site": "checkpoint.save", "at_call": 1,
+                             "action": "delay", "delay_s": 5,
+                             "scope": "job"}]}
+    termed = supervised_run("8d supervised, SIGTERM",
+                            argv(xml_cache, "cli_sup_term"), plan=term_plan,
+                            on_start=send_term)
+    _, term_resumes = check_supervised("8d supervised, SIGTERM", termed,
+                                       unbroken, 75)
+    grace = [r for r in termed["journal"] if r["kind"] == "preemption_grace"]
+    if [r["epoch"] for r in term_resumes] != [1] or len(grace) != 1:
+        fail(f"8d supervised, SIGTERM: resumed {term_resumes}, "
+             f"preemption_grace {grace}: expected a drain at epoch 1")
+    say(f"8d supervised: the chaos exit at epoch 2's start (attempt 1, rc "
+        f"{restart['rc']}) restarted once and resumed at epoch 2: "
+        f"{resumes[0]['ts'] - inject['ts']:.3f} s from the kill to the "
+        f"restore, {first_step - inject['ts']:.3f} s to the resumed epoch's "
+        f"first step; the SIGTERM drain (exit 75 after epoch 0's save) "
+        f"restarted once and resumed at epoch 1; per-epoch losses and "
+        f"final_model's parameters of both bitwise equal to the unbroken "
+        f"supervised run's; walls unbroken {unbroken['wall_s']:.1f} s, "
+        f"chaos {killed['wall_s']:.1f} s, SIGTERM {termed['wall_s']:.1f} s")
+    lap("8d supervised")
+
+    # 8e: the supervised job's artifact served on the card
+    served = serve_phase("8e serve", f"{tmp}/cli_sup_killed/final_model",
+                         job.schema, np.random.default_rng(SEED), device)
+    report_serve("8e cli-trained", served)
+    lap("8e serve")
+
+
 # -- phases 10a to 10c: resume, SIGTERM drain and the feeder -----------------
 
 RESUME_EPOCHS = 3
@@ -2334,6 +2827,7 @@ def training_phases(device, tmp: str, kernels: list) -> None:
     lap("lockstep")
     shifu_files_run(tmp, device)
     lap("shifu")
+    cli_phases(tmp, device)
 
     export_dir = save_artifact(res.state.model, job.model, job.schema,
                                f"{tmp}/trained_mlp")

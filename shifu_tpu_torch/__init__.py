@@ -9,12 +9,14 @@ What is ported so far: the serving path of an exported artifact (the
 micro-batching daemon `runtime/serve.py` over `TorchScorer`,
 `export/scorer.py`, for the MLP and the FT-Transformer) and the training
 path on one GPU (`train/loop.train`, from Shifu config files or in-memory
-datasets) of the MLP, on the int8 wire, and of the FT-Transformer, with
-local or flash attention.  Seven hand-written CUDA kernels for Hopper run
-on these paths, in six sources (`csrc/ft_block.cu`,
-`csrc/small_attention.cu`, `csrc/int8_matmul.cu`, `csrc/flash_fwd.cu`,
-`csrc/flash_bwd_dq.cu`, `csrc/flash_bwd_dkv.cu`); each has a plain
-PyTorch twin in its wrapper module that serves CPU tensors only.
+datasets) of the MLP, on the int8 wire, of the FT-Transformer, with local
+or flash attention, and of Wide&Deep and DeepFM; and the operator's
+command, `python -m shifu_tpu_torch.launcher.cli train` (the Shifu XML
+overlay, the restart supervisor, the chaos plan), with its data plane:
+the native C++ parser, the parse-once cache and out-of-core ingest.
+Nine hand-written CUDA kernels for Hopper, in eight sources under `csrc/`,
+replace the JAX package's TPU kernels; each has a plain PyTorch twin in
+its wrapper module that serves CPU tensors only.
 
 Entry points run on `cuda:0` unless the caller passes `device="cpu"`
 (`device.resolve_device`).

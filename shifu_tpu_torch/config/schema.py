@@ -209,15 +209,18 @@ class DataConfig:
     same defaults and checks.
 
     The port's input plane (`data/pipeline.py`, `train/loop.py`) is
-    single-host and uncached.  It reads `stream_first_epoch` (a job given
-    files streams its first epoch), `staged`, `drop_remainder` and
-    `device_resident_bytes` (the resident, staged and per-batch tiers, by
-    the JAX loop's rule), `block_batches` (the staged chunk, capped at ~32
-    MB of wire bytes), `overlap_epochs` (the cross-epoch `EpochFeeder`),
-    `prefetch_depth` (its host queue; 0 = auto, which resizes its device
-    queue per epoch) and `prefetch` (its device queue, or the per-epoch
-    producer's).  `cache_dir`, `cache_format`, `out_of_core` and
-    `host_shard` belong to ROADMAP.md queue A item (a)4 and (f).
+    single-host.  It reads `stream_first_epoch` (a job given files streams
+    its first epoch unless the projected cache is hot), `staged`,
+    `drop_remainder` and `device_resident_bytes` (the resident, staged and
+    per-batch tiers, by the JAX loop's rule), `block_batches` (the staged
+    chunk, capped at ~32 MB of wire bytes), `overlap_epochs` (the
+    cross-epoch `EpochFeeder`), `prefetch_depth` (its host queue; 0 = auto,
+    which resizes its device queue per epoch), `prefetch` (its device
+    queue, or the per-epoch producer's), `cache_dir` and `cache_format`
+    (the parse-once cache, `data/cache.py`), `ingest_workers` and
+    `read_threads` (the parse pool), and `out_of_core` (memory-mapped
+    consolidated arrays, `data/outofcore.py`).  `host_shard` belongs to
+    multi-host ingest, ROADMAP.md queue A item (f).
     """
 
     paths: tuple[str, ...] = ()
@@ -513,9 +516,12 @@ class CheckpointConfig:
 
 @dataclass(frozen=True)
 class RuntimeConfig:
-    """Job-level runtime settings of the JAX package, carried so a JAX job
-    dict parses (launcher, pod and multi-host fields wait for later
-    slices)."""
+    """Job-level runtime settings of the JAX package.  The port's launcher
+    (`launcher/cli.py`) reads `app_name`, `timeout_seconds`,
+    `max_restarts`, `liveness_seconds`, `final_model_path`,
+    `checkpoint` and the Kerberos pair; the pod and multi-host fields
+    (`min_hosts`, `distributed`, `param_sharding_rules`, a mesh of more
+    than one device) wait for ROADMAP.md queue A item (f)."""
 
     mesh: MeshConfig = field(default_factory=MeshConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)

@@ -1,12 +1,18 @@
 """Filesystem helpers of the training path: the local half of
 shifu_tpu/data/fsio.py.
 
-`join`, `is_remote`, `walk_files`, `read_bytes`, `write_bytes` (atomic: a
-temporary file in the same directory, then `os.replace`) and `file_info`
-behave as the JAX package's do on local paths.  A remote URI (`gs://`,
-`hdfs://`, `s3://`, ...) is recognised by the same rule and raises
-`NotImplementedError`: the remote half (pyarrow.fs, retries) is ROADMAP.md
-queue A item (a)4, and nothing falls back to another filesystem.
+`join`, `is_remote`, `walk_files`, `list_files`, `read_bytes`,
+`write_bytes` (atomic: a temporary file in the same directory, then
+`os.replace`) and `file_info` behave as the JAX package's do on local
+paths.  A remote URI (`gs://`, `hdfs://`, `s3://`, ...) is recognised by
+the same rule and raises `NotImplementedError`: the remote half
+(pyarrow.fs, retries) is ROADMAP.md queue A item (a)4, and nothing falls
+back to another filesystem.
+
+`read_bytes`, `write_bytes` and `list_files` carry the chaos sites
+`fsio.read_bytes`, `fsio.write_bytes` and `fsio.list_files`.  The JAX
+package probes them on its remote branch only; the port, whose fsio is the
+local half, probes them on every call.
 """
 
 from __future__ import annotations
@@ -49,7 +55,13 @@ def file_info(path: str) -> Tuple[Optional[int], Optional[int]]:
     return int(st.st_size), int(st.st_mtime_ns)
 
 
+def _probe(site: str, path: str) -> None:
+    from .. import chaos
+    chaos.maybe_fail(site, path=path)
+
+
 def read_bytes(path: str) -> bytes:
+    _probe("fsio.read_bytes", path)
     _local_only(path)
     with open(path, "rb") as f:
         return f.read()
@@ -58,6 +70,7 @@ def read_bytes(path: str) -> bytes:
 def write_bytes(path: str, data: bytes) -> None:
     """Write a whole file so that no reader sees a torn write: a temporary
     file beside it, then `os.replace`.  Parent directories are created."""
+    _probe("fsio.write_bytes", path)
     _local_only(path)
     parent = os.path.dirname(os.path.abspath(path))
     os.makedirs(parent, exist_ok=True)
@@ -85,3 +98,21 @@ def walk_files(root: str) -> list[tuple[str, int]]:
             except OSError:
                 continue
     return sorted(out)
+
+
+def list_files(root: str) -> list[str]:
+    """Data files under a directory, skipping '.'/'_' prefixed names (the
+    reference's HDFS listing filter); a file lists itself.  A missing root
+    raises FileNotFoundError."""
+    _probe("fsio.list_files", root)
+    _local_only(root)
+    if os.path.isfile(root):
+        return [root]
+    out = []
+    for name in sorted(os.listdir(root)):
+        if name.startswith(".") or name.startswith("_"):
+            continue
+        full = os.path.join(root, name)
+        if os.path.isfile(full):
+            out.append(full)
+    return out

@@ -1,13 +1,13 @@
 """Dataset, batch pipeline and input plane of the training path (port of
 the single-host part of shifu_tpu/data/pipeline.py).
 
-Files -> vectorized parse -> projected numpy columns -> the train/valid
-split -> static-shape batches.  The features can be stored in the int8 wire
-dtype at parse time (`feature_dtype` "int8c{clip}"), and the host-to-card
-wire casts each batch (`wire_cast_fn`): int8 features on the grid of
-`wire_params`, u8 targets and an elided all-ones weight column.  numpy has
-no bfloat16, so a bfloat16 wire is cast on the card (`train/loop.py`), where
-the model would cast its input anyway.
+Files -> parse (native or numpy tier) -> projected numpy columns -> the
+train/valid split -> static-shape batches.  The features can be stored in
+the wire dtype at parse time (`feature_dtype` "int8c{clip}" or
+"bfloat16"), and the host-to-card wire casts each batch (`wire_cast_fn`):
+int8 features on the grid of `wire_params`, u8 targets and an elided
+all-ones weight column.  Float32 features under a bfloat16 wire are cast
+on the card (`train/loop.py`).
 Epoch order is a pure function of (seed, epoch) through numpy's PCG64, the
 same stream as the JAX package's, so both train on the same batches
 (`epoch_order_digest` fingerprints it, equal to the JAX package's).
@@ -19,13 +19,19 @@ files parse; `staged_epoch_blocks` feeds the staged tier's host-fed
 per-batch tiers.  Its placement stage (`train/loop.py` builds it) copies
 from pinned host buffers on a CUDA stream of its own.
 
-Waits for later slices (ROADMAP.md queue A): the parse-once cache (v2),
-so a cache is never "hot" here; the out-of-core tier; multi-host sharding.
+Ingest goes through the parse-once cache (`cache.py`, v2 entries) when a
+cache dir is set: `projected_cache_complete` says when every file has an
+entry (the cache is "hot", and the loop loads instead of streaming);
+`data.out_of_core` loads memory-mapped consolidated arrays
+(`outofcore.py`).  bf16 features are held as their uint16 bits
+(`bf16_bits`; numpy has no bfloat16), which the placer views as bfloat16
+on the card.  Multi-host sharding waits for ROADMAP.md queue A item (f).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -42,7 +48,8 @@ from . import reader, split
 class TabularDataset:
     """Feature/target/weight arrays for one partition (train or valid)."""
 
-    features: np.ndarray  # (N, F) float32, or int8 on the wire grid
+    # (N, F) float32, int8 on the wire grid, or uint16 bf16 bits
+    features: np.ndarray
     target: np.ndarray    # (N, H) float32
     weight: np.ndarray    # (N, 1) float32
 
@@ -59,26 +66,221 @@ class TabularDataset:
                               self.weight[idx])
 
 
-def _load_one(item: tuple[int, str], schema: DataSchema, data: DataConfig,
-              feature_dtype: str) -> tuple[dict, np.ndarray]:
-    """Parse + project + quantize + split one file."""
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> the uint16 bits of bfloat16, rounded to nearest even (the
+    port's bf16 features: numpy has no bfloat16, and these are the bits
+    the JAX package's `ml_dtypes.bfloat16` cast stores)."""
+    import torch
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def features_f32(f: np.ndarray) -> np.ndarray:
+    """Features as float32: uint16 (bf16 bits) widen exactly, anything
+    else casts."""
+    if f.dtype == np.uint16:
+        return (np.asarray(f).astype(np.uint32) << 16).view(np.float32)
+    return np.asarray(f, np.float32)
+
+
+def resolved_cache_format(data: DataConfig) -> int:
+    """The cache entry format generation this job writes and keys by:
+    DataConfig.cache_format, 0 meaning the current CACHE_FORMAT_VERSION."""
+    from . import cache as cache_lib
+    return int(data.cache_format) or cache_lib.CACHE_FORMAT_VERSION
+
+
+def _ingest_seconds():
+    return obs.counter("ingest_seconds_total",
+                       "cold-ingest wall seconds by phase")
+
+
+def _write_projected(writer, cache_dir: str, name: str, arrays: dict,
+                     source: str, delimiter: str, version: int,
+                     rec: Optional[dict],
+                     supersedes: Optional[str] = None) -> None:
+    """One v2 entry write, through the async writer (cold ingest: the next
+    file's parse overlaps this write) or inline; either way its wall lands
+    in the ingest report's per-file write_s and the `write` phase."""
+    from . import cache as cache_lib
+    wsec = _ingest_seconds()
+
+    def record(dt: float) -> None:
+        wsec.inc(dt, phase="write")
+        if rec is not None:
+            rec["write_s"] = rec.get("write_s", 0.0) + dt
+
+    if writer is not None:
+        writer.submit(cache_dir, name, arrays, source=source,
+                      delimiter=delimiter, version=version,
+                      supersedes=supersedes, record=record)
+        return
+    t0 = time.perf_counter()
+    cache_lib.write_projected_entry(cache_dir, name, arrays, source=source,
+                                    delimiter=delimiter, version=version,
+                                    supersedes=supersedes)
+    record(time.perf_counter() - t0)
+
+
+def _load_one_projected(item: tuple[int, str], schema: DataSchema,
+                        data: DataConfig, feature_dtype: str,
+                        threaded: bool, parser_threads: Optional[int] = None,
+                        stats: Optional[list] = None, writer=None
+                        ) -> tuple[dict, np.ndarray]:
+    """Parse + project + split + wire-cast one file, the cache tier first.
+
+    With a cache dir, a hit on the file's projected v2 entry replaces the
+    parse, projection, split and cast with one mmap-backed load; a v1
+    entry under the old key serves once and is rewritten as v2.  A miss
+    parses (the raw matrix dies here) and writes the entry.  `stats`
+    collects the per-file ingest-report record; `writer` (an
+    AsyncEntryWriter) overlaps entry writes with the pool's parses."""
+    from . import cache as cache_lib
+    if feature_dtype not in ("float32", "bfloat16") \
+            and not feature_dtype.startswith("int8"):
+        raise ValueError(f"feature_dtype {feature_dtype!r} not supported; "
+                         "expected float32, bfloat16 or int8c<clip>")
     file_idx, path = item
-    cols = reader.project_columns(reader.read_file(path, data.delimiter),
-                                  schema)
-    if feature_dtype.startswith("int8"):
+    cache_dir = cache_lib.resolve_cache_dir(data.cache_dir)
+    version = resolved_cache_format(data)
+    rec = {"file": os.path.basename(path), "tier": "parse", "rows": 0,
+           "inflate_s": 0.0, "parse_s": 0.0, "write_s": 0.0}
+    if stats is not None:
+        stats.append(rec)
+    isec = _ingest_seconds()
+    name = None
+    if cache_dir is not None:
+        name = cache_lib.projected_entry_name(
+            path, data.delimiter, file_idx, schema, data.valid_ratio,
+            data.split_seed, feature_dtype, version=version)
+        if name is not None:
+            t_load = time.perf_counter()
+            hit = cache_lib.load_projected_entry(cache_dir, name)
+            upgraded = False
+            v1name = None
+            if hit is None and version >= 2:
+                v1name = cache_lib.projected_entry_name(
+                    path, data.delimiter, file_idx, schema, data.valid_ratio,
+                    data.split_seed, feature_dtype, version=1)
+                if v1name is not None:
+                    hit = cache_lib.load_projected_entry(cache_dir, v1name)
+                    upgraded = hit is not None
+            if hit is not None:
+                isec.inc(time.perf_counter() - t_load, phase="cache_load")
+                mask = hit.pop("valid_mask")
+                rec.update(tier="cache_v1" if upgraded else "cache",
+                           rows=int(hit["features"].shape[0]))
+                obs.counter("data_cache_hits_total",
+                            "projected-cache hits (one entry load "
+                            "replaced parse+project+split+cast)").inc()
+                obs.counter("data_rows_read_total",
+                            "rows ingested into datasets").inc(
+                    int(hit["features"].shape[0]), source="cache")
+                if upgraded:
+                    obs.counter("data_cache_upgraded_total",
+                                "legacy v1 projected entries rewritten "
+                                "as v2").inc()
+                    _write_projected(writer, cache_dir, name,
+                                     {**hit, "valid_mask": mask}, path,
+                                     data.delimiter, version, rec,
+                                     supersedes=v1name)
+                return hit, mask
+        obs.counter("data_cache_misses_total",
+                    "projected-cache misses (full parse path taken)").inc()
+    t_parse = time.perf_counter()
+    if parser_threads is None and threaded:
+        parser_threads = 1
+    # a raw-entry hit skips read_file: this sentinel tells it apart from a
+    # stale record of this thread's previous parse
+    reader._note_io("raw_cache", 0.0, 0.0, 0)
+    # write=False when a projected entry will land: the v2 entry is the
+    # warm-start intermediate, a raw f32 copy beside it would cost 4x its
+    # bytes again
+    rows = cache_lib.read_file_cached(
+        path, data.delimiter, cache_dir=data.cache_dir,
+        parser_threads=parser_threads, write=(name is None))
+    parse_wall = time.perf_counter() - t_parse
+    io_stats = reader.last_io_stats()
+    rec["rows"] = int(rows.shape[0])
+    if io_stats.get("tier") == "raw_cache":
+        rec["tier"] = "raw_cache"
+        isec.inc(parse_wall, phase="cache_load")
+    else:
+        inflate_s = min(max(io_stats.get("inflate_s", 0.0), 0.0),
+                        parse_wall)
+        rec["parse_s"] = round(parse_wall - inflate_s, 6)
+        rec["inflate_s"] = round(inflate_s, 6)
+        rec["bytes"] = int(io_stats.get("source_bytes", 0))
+        rec["parser"] = io_stats.get("tier")
+        isec.inc(inflate_s, phase="inflate")
+        isec.inc(parse_wall - inflate_s, phase="parse")
+        obs.counter("ingest_source_bytes_total",
+                    "source (compressed) bytes cold ingest read").inc(
+            int(io_stats.get("source_bytes", 0)))
+    obs.histogram("data_file_parse_seconds",
+                  "per-file parse (or raw-cache load) latency").observe(
+        parse_wall)
+    obs.counter("data_files_read_total", "data files parsed").inc()
+    obs.counter("data_rows_read_total",
+                "rows ingested into datasets").inc(
+        int(rows.shape[0]), source="parse")
+    obs.counter("data_bytes_read_total",
+                "parsed matrix bytes produced by ingest").inc(
+        int(rows.nbytes))
+    cols = reader.project_columns(rows, schema)
+    if feature_dtype == "bfloat16":
+        cols["features"] = bf16_bits(cols["features"])
+    elif feature_dtype.startswith("int8"):
         # quantize once at load: the grid is static (wire_params), so this
         # equals quantizing at every batch, at a quarter of the host RAM
         scale, offset = wire_params(schema, data)
         cols["features"] = wire_quantize(cols["features"], scale, offset)
-    elif feature_dtype != "float32":
-        raise ValueError(f"feature_dtype {feature_dtype!r} not supported by "
-                         "the port's loader; expected float32 or int8c<clip>")
     n = cols["features"].shape[0]
     row_ids = ((np.uint64(file_idx) << np.uint64(40))
                + np.arange(n, dtype=np.uint64))
     _, valid_mask = split.train_valid_mask(row_ids, data.valid_ratio,
                                            data.split_seed)
+    if cache_dir is not None and name is not None:
+        _write_projected(writer, cache_dir, name,
+                         {**cols, "valid_mask": valid_mask}, path,
+                         data.delimiter, version, rec)
     return cols, valid_mask
+
+
+def _emit_ingest_report(stats: list, pool_width: int, wall_s: float,
+                        mode: str) -> None:
+    """One `ingest_report` journal event per completed ingest (the JAX
+    package's keys): the pool width, the per-phase cost split, which tier
+    served each file and a per-file table of at most 32 (each parsed
+    file's `parser` tier beside the JAX package's fields).  When the numpy
+    tier parsed because the native parser could not be built,
+    `native_parser_unavailable` journals the reason.  Never raises."""
+    try:
+        from . import native_parser
+        files = sorted(stats, key=lambda r: r["file"])
+        tiers: dict[str, int] = {}
+        for r in files:
+            tiers[r["tier"]] = tiers.get(r["tier"], 0) + 1
+        per_file = [
+            {k: (round(v, 6) if isinstance(v, float) else v)
+             for k, v in r.items()} for r in files[:32]]
+        obs.event(
+            "ingest_report", mode=mode, files=len(files),
+            pool_width=int(pool_width), wall_s=round(wall_s, 6),
+            rows=int(sum(r["rows"] for r in files)),
+            parse_s=round(sum(r["parse_s"] for r in files), 6),
+            inflate_s=round(sum(r["inflate_s"] for r in files), 6),
+            write_s=round(sum(r["write_s"] for r in files), 6),
+            source_bytes=int(sum(r.get("bytes", 0) for r in files)),
+            host_index=0, tiers=tiers, per_file=per_file,
+            per_file_truncated=len(files) > 32)
+        reason = native_parser.unavailable_reason()
+        if reason is not None and any(r.get("parser") == "numpy"
+                                      for r in files):
+            # the numpy tier served: say why the native one could not
+            obs.event("native_parser_unavailable", reason=str(reason)[:500])
+    except Exception:
+        pass  # telemetry must never fail the ingest it measures
 
 
 def source_files(data: DataConfig) -> list[tuple[int, str]]:
@@ -90,26 +292,48 @@ def source_files(data: DataConfig) -> list[tuple[int, str]]:
 
 def ingest_pool_width(data: DataConfig, n_files: int) -> int:
     """Files parsed at once: ingest_workers, else read_threads, else one
-    thread per file."""
-    width = data.ingest_workers or data.read_threads or n_files
-    return max(1, min(width, n_files))
+    worker per file capped at cpu_count (the JAX package's rule)."""
+    if n_files <= 0:
+        return 1
+    width = data.ingest_workers or data.read_threads \
+        or min(n_files, os.cpu_count() or 1)
+    return max(1, min(int(width), n_files))
 
 
-def _run_ingest(files: list[tuple[int, str]], schema: DataSchema,
-                data: DataConfig, feature_dtype: str,
-                on_result: Callable[[tuple], None]) -> None:
-    """Parse `files` on a pool and hand each (cols, valid_mask) to
-    `on_result` in file order, as soon as it is ready (a streaming
-    consumer starts before the pool drains)."""
+def _run_ingest_pool(files: list[tuple[int, str]], schema: DataSchema,
+                     data: DataConfig, feature_dtype: str, width: int,
+                     on_result: Callable[[tuple], None]) -> list:
+    """Parse `files` on a pool of `width` and hand each (cols, valid_mask)
+    to `on_result` in file order as soon as it is ready (a streaming
+    consumer starts before the pool drains).  Each native parse gets its
+    share of the cores (`native_parser.pool_parser_threads`), and v2
+    entry writes run on one writer thread, closed (every entry durable)
+    before this returns or raises.  Returns the per-file ingest stats."""
     from concurrent.futures import ThreadPoolExecutor
 
-    if not files:
-        return
-    with ThreadPoolExecutor(
-            max_workers=ingest_pool_width(data, len(files))) as pool:
-        for res in pool.map(
-                lambda it: _load_one(it, schema, data, feature_dtype), files):
-            on_result(res)
+    from . import cache as cache_lib, native_parser
+    stats: list = []
+    writer = (cache_lib.AsyncEntryWriter()
+              if cache_lib.resolve_cache_dir(data.cache_dir) else None)
+    threaded = width > 1 and len(files) > 1
+    pt = native_parser.pool_parser_threads(width) if threaded else None
+    try:
+        def load_one(item):
+            return _load_one_projected(item, schema, data, feature_dtype,
+                                       threaded, parser_threads=pt,
+                                       stats=stats, writer=writer)
+
+        if threaded:
+            with ThreadPoolExecutor(max_workers=width) as pool:
+                for res in pool.map(load_one, files):
+                    on_result(res)
+        else:
+            for item in files:
+                on_result(load_one(item))
+    finally:
+        if writer is not None:
+            writer.close()
+    return stats
 
 
 def _assemble(results: list, schema: DataSchema, data: DataConfig
@@ -139,15 +363,68 @@ def _assemble(results: list, schema: DataSchema, data: DataConfig
 def load_datasets(schema: DataSchema, data: DataConfig,
                   feature_dtype: str = "float32"
                   ) -> tuple[TabularDataset, TabularDataset]:
-    """Load (train, valid) from `data.paths` on one host, no cache.
+    """Load (train, valid) from `data.paths` on one host, through the
+    parse-once cache when `data.cache_dir` (or SHIFU_TPU_DATA_CACHE) is
+    set, and out of core (memory-mapped consolidated arrays,
+    `outofcore.py`) when `data.out_of_core` is.
 
     Rows split train/valid by the stable hash of (file index, row index)
     (`split.train_valid_mask`); the training partition then gets one global
-    row shuffle seeded by `split_seed ^ 0xC0FFEE`, as in the JAX package."""
+    row shuffle seeded by `split_seed ^ 0xC0FFEE`, as in the JAX package.
+    `feature_dtype` "bfloat16" stores the features as bf16 bits, "int8c…"
+    on the int8 wire grid."""
+    if data.out_of_core:
+        from .outofcore import load_datasets_out_of_core
+        return load_datasets_out_of_core(schema, data,
+                                         feature_dtype=feature_dtype)
+    files = source_files(data)
+    t_ingest = time.perf_counter()
+    width = ingest_pool_width(data, len(files))
     results: list = []
-    _run_ingest(source_files(data), schema, data, feature_dtype,
-                results.append)
+    stats = _run_ingest_pool(files, schema, data, feature_dtype, width,
+                             results.append)
+    _emit_ingest_report(stats, width, time.perf_counter() - t_ingest,
+                        mode="load")
     return _assemble(results, schema, data)
+
+
+def projected_cache_complete(schema: DataSchema, data: DataConfig,
+                             feature_dtype: str = "float32") -> bool:
+    """True when every input file has a projected-cache entry (the current
+    format, or a v1 or legacy `.npz` one the loader serves and upgrades):
+    the ingest then runs at `np.load` speed, so the streamed first epoch
+    has no parse left to hide and the loaded tiers are faster.  One stat
+    per source file and one exists per entry; False on any miss, a file
+    with no key, or no cache dir."""
+    from . import cache as cache_lib
+    cache_dir = cache_lib.resolve_cache_dir(data.cache_dir)
+    if cache_dir is None or not os.path.isdir(cache_dir):
+        return False
+    try:
+        files = source_files(data)
+        if not files:
+            return False
+        version = resolved_cache_format(data)
+        for file_idx, path in files:
+            versions = (version, 1) if version >= 2 else (version,)
+            hot = False
+            for v in versions:
+                name = cache_lib.projected_entry_name(
+                    path, data.delimiter, file_idx, schema, data.valid_ratio,
+                    data.split_seed, feature_dtype, version=v)
+                if name is None:
+                    return False
+                entry = os.path.join(cache_dir, name)
+                if (os.path.exists(entry)
+                        or os.path.exists(cache_lib.legacy_projected_path(
+                            entry))):
+                    hot = True
+                    break
+            if not hot:
+                return False
+        return True
+    except OSError:
+        return False
 
 
 def wire_mode(schema: DataSchema, data: DataConfig,
@@ -344,8 +621,8 @@ class StreamingLoader:
     """Background-parse loader for the streamed first epoch.
 
     Parses the files on a background pool (the same per-file parse,
-    projection and split as `load_datasets`) and exposes the results two
-    ways:
+    projection and split as `load_datasets`, writing v2 cache entries as
+    it parses when a cache dir is set) and exposes the results two ways:
 
     - `first_epoch_blocks(batch_size, block_batches)`: stacked (nb, B, ...)
       train blocks as soon as enough rows have parsed, in file order (the
@@ -372,12 +649,18 @@ class StreamingLoader:
         self._thread.start()
 
     def _produce(self) -> None:
+        t_ingest = time.perf_counter()
+        width = ingest_pool_width(self._data, len(self._items))
         try:
-            _run_ingest(self._items, self._schema, self._data,
-                        self._feature_dtype, self._q.put)
+            # the pool's writer is closed (entries durable) before the
+            # stats return, before the hot-cache probe can run
+            stats = _run_ingest_pool(self._items, self._schema, self._data,
+                                     self._feature_dtype, width, self._q.put)
         except BaseException as e:  # surface parse errors to the consumer
             self._q.put(e)
             return
+        _emit_ingest_report(stats, width, time.perf_counter() - t_ingest,
+                            mode="stream")
         self._q.put(None)
 
     def first_epoch_blocks(self, batch_size: int, block_batches: int,
@@ -738,10 +1021,14 @@ class EpochFeeder:
         return False
 
     def _assemble(self) -> None:
+        from .. import chaos
         try:
             for ep in self._epochs:
                 if self._abort.is_set():
                     return
+                # chaos site "data.feeder": the feeder thread boundary; a
+                # raise here must fail the epoch in the consumer
+                chaos.maybe_fail("data.feeder", epoch=ep)
                 prod = 0.0
                 t0 = time.perf_counter()
                 for item in self._source(ep):

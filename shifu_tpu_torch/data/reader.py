@@ -1,12 +1,18 @@
-"""Gzip and plain pipe-delimited normalized-data reader (port of the local
-text path of shifu_tpu/data/reader.py).
+"""Gzip and plain pipe-delimited normalized-data reader, and parquet (port
+of shifu_tpu/data/reader.py).
 
-Parsing is vectorized: the whole decompressed text is split by numpy in
-newline-aligned slabs and reshaped by the column count; rows with a
-non-numeric cell fall back to a per-line parse that keeps every row (bad
-cells become NaN, imputed at projection).  Parquet, remote file systems, the
-native C++ parser and the parse-once cache wait for a later slice
-(ROADMAP.md queue A).
+`read_file` takes the JAX package's tiers in its order: parquet by
+extension (through a lazy `pyarrow.parquet` import); else the native C++
+parser (`native_parser`: zlib + from_chars, multi-threaded) when g++ could
+build it; else the numpy tier here, which splits the whole decompressed
+text in newline-aligned slabs and reshapes by the column count, with a
+per-line fallback that keeps every row (bad cells become NaN, imputed at
+projection).  Both text tiers give the same arrays bit for bit.  Each read
+records its tier and cost split for this thread (`last_io_stats`), which
+the ingest report reads.  `read_files` can put the parse-once cache
+(`data/cache.py`) in front.  A remote path (gs://, hdfs://, ...) raises
+NotImplementedError: the remote half of `data/fsio.py` is ROADMAP.md queue
+A item (a)4.
 """
 
 from __future__ import annotations
@@ -14,12 +20,32 @@ from __future__ import annotations
 import gzip
 import io
 import os
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
 import numpy as np
 
 from ..config.schema import DataSchema
+
+# Per-thread record of the most recent read_file call's cost split —
+# {tier, inflate_s, parse_s, source_bytes} — so the ingest pool's
+# concurrent parses never mix records.  The native tier fuses inflate and
+# parse in C++, so its whole wall lands in parse_s.
+_io_local = threading.local()
+
+
+def _note_io(tier: str, inflate_s: float, parse_s: float,
+             source_bytes: int) -> None:
+    _io_local.stats = {"tier": tier, "inflate_s": inflate_s,
+                       "parse_s": parse_s, "source_bytes": source_bytes}
+
+
+def last_io_stats() -> dict:
+    """This thread's cost split for its most recent `read_file`; an empty
+    dict before the first read."""
+    return dict(getattr(_io_local, "stats", {}))
 
 
 def open_maybe_gzip(path: str) -> io.BufferedReader:
@@ -91,38 +117,151 @@ def _parse_ragged(text: str, delimiter: str, ncols: int) -> np.ndarray:
     return np.stack(rows)
 
 
-def read_file(path: str, delimiter: str = "|") -> np.ndarray:
-    """Read one local gzip or plain delimited file into (N, C) float32."""
-    with open_maybe_gzip(path) as f:
-        raw = f.read()
+def _parse_bytes(raw: bytes, delimiter: str,
+                 parser_threads: Optional[int] = None) -> np.ndarray:
+    """Tier selection for an in-memory buffer: the native parse when
+    available, the numpy tier otherwise (identical outputs)."""
+    from . import native_parser
+    if len(delimiter.encode()) == 1 and native_parser.available():
+        try:
+            return native_parser.parse_buffer(raw, delimiter,
+                                              threads=parser_threads)
+        except RuntimeError:
+            pass
     return parse_rows(raw, delimiter)
 
 
+_PARQUET_EXTS = (".parquet", ".pq")
+
+
+def is_parquet(path: str) -> bool:
+    return path.lower().endswith(_PARQUET_EXTS)
+
+
+def _read_parquet(path: str) -> np.ndarray:
+    """One parquet file -> the same (N, C) float32 matrix the text parsers
+    produce; column positions (file order) take the place of the text
+    column indices ColumnConfig refers to.  A non-numeric column is a data
+    error, reported by name and position."""
+    from . import fsio
+    fsio._local_only(path)
+    import pyarrow.parquet as pq
+
+    table = pq.ParquetFile(path).read()
+    cols = []
+    for i in range(table.num_columns):
+        arr = table.column(i).to_numpy(zero_copy_only=False)
+        try:
+            cols.append(np.asarray(arr, dtype=np.float32))
+        except (ValueError, TypeError) as e:
+            field = table.schema.field(i)
+            raise ValueError(
+                f"{path}: parquet column {i} ({field.name!r}) is not "
+                f"numeric (dtype {field.type}); normalized training data "
+                "must be numeric") from e
+    if not cols:
+        return np.zeros((0, 0), dtype=np.float32)
+    return np.ascontiguousarray(np.column_stack(cols))
+
+
+def _local_size(path: str) -> int:
+    try:
+        return os.path.getsize(path)
+    except OSError:
+        return 0
+
+
+def read_file(path: str, delimiter: str = "|",
+              parser_threads: Optional[int] = None) -> np.ndarray:
+    """Read one data file into (N, C) float32: gzip or plain delimited
+    text, or parquet (by its .parquet/.pq extension).
+
+    Text takes the native C++ parser when it builds, else the numpy tier;
+    an engine failure in the native parser falls back to numpy, while IO
+    errors (FileNotFoundError, OSError) propagate.  `parser_threads` caps
+    the native parse's threads (a file-level pool passes its share, so the
+    parallelism stays ~cores, not cores^2)."""
+    from . import fsio, native_parser
+    if is_parquet(path):
+        t0 = time.perf_counter()
+        arr = _read_parquet(path)
+        _note_io("parquet", 0.0, time.perf_counter() - t0, _local_size(path))
+        return arr
+    fsio._local_only(path)
+    if len(delimiter.encode()) == 1 and native_parser.available():
+        try:
+            t0 = time.perf_counter()
+            arr = native_parser.parse_file(path, delimiter,
+                                           threads=parser_threads)
+            _note_io("native", 0.0, time.perf_counter() - t0,
+                     _local_size(path))
+            return arr
+        except RuntimeError:
+            pass  # engine-internal failure: the numpy tier serves
+    t0 = time.perf_counter()
+    with open_maybe_gzip(path) as f:
+        raw = f.read()
+    t1 = time.perf_counter()
+    arr = parse_rows(raw, delimiter)
+    _note_io("numpy", t1 - t0, time.perf_counter() - t1, _local_size(path))
+    return arr
+
+
 def read_files(paths: Sequence[str], delimiter: str = "|",
+               cache_dir: Optional[str] = None,
                num_threads: Optional[int] = None) -> list[np.ndarray]:
-    """Read many files concurrently (inflate and parse release the GIL in
-    part), preserving input order."""
+    """Read many files concurrently (inflate and parse release the GIL),
+    preserving input order; each parse then runs on one thread.  With
+    `cache_dir` each file goes through the parse-once cache
+    (`cache.read_file_cached`)."""
+    from .cache import read_file_cached
+
     if num_threads is None:
         num_threads = min(len(paths), os.cpu_count() or 1)
-    if num_threads <= 1 or len(paths) <= 1:
-        return [read_file(p, delimiter) for p in paths]
+    threaded = num_threads > 1 and len(paths) > 1
+
+    def one(p: str) -> np.ndarray:
+        return read_file_cached(p, delimiter, cache_dir=cache_dir,
+                                parser_threads=1 if threaded else None)
+
+    if not threaded:
+        return [one(p) for p in paths]
     with ThreadPoolExecutor(max_workers=num_threads) as pool:
-        return list(pool.map(lambda p: read_file(p, delimiter), paths))
+        return list(pool.map(one, paths))
+
+
+def count_rows(paths: Sequence[str]) -> int:
+    """Total non-blank data rows across files, gzip-aware (the reference's
+    getFileLineCount): parquet from its metadata, text through the native
+    counter, else a streamed count."""
+    from . import fsio, native_parser
+    use_native = native_parser.available()
+    total = 0
+    for p in paths:
+        if is_parquet(p):
+            fsio._local_only(p)
+            import pyarrow.parquet as pq
+            total += pq.ParquetFile(p).metadata.num_rows
+            continue
+        fsio._local_only(p)
+        if use_native:
+            try:
+                total += native_parser.count_rows(p)
+                continue
+            except RuntimeError:
+                pass  # engine-internal failure: count in Python
+        with open_maybe_gzip(p) as f:
+            for line in f:
+                if line.strip():  # non-blank data lines only (= parser rows)
+                    total += 1
+    return total
 
 
 def list_data_files(root: str) -> list[str]:
     """Data files under a local directory, skipping '.'/'_' prefixed names
     (the reference's HDFS listing filter); a file path lists itself."""
-    if os.path.isfile(root):
-        return [root]
-    out = []
-    for name in sorted(os.listdir(root)):
-        if name.startswith(".") or name.startswith("_"):
-            continue
-        full = os.path.join(root, name)
-        if os.path.isfile(full):
-            out.append(full)
-    return out
+    from . import fsio
+    return fsio.list_files(root)
 
 
 def project_columns(rows: np.ndarray, schema: DataSchema,

@@ -17,7 +17,7 @@ from __future__ import annotations
 from . import devprof, goodput, journal, metrics, spans  # noqa: F401
 from ._sinks import (ENV_METRICS_DIR, SCRAPE_FILE, configure,  # noqa: F401
                      configure_from_env, event, flush, get_journal,
-                     reset_for_tests, shutdown)
+                     reset_for_tests, resolve_metrics_dir, shutdown)
 from .journal import RunJournal, read_journal, tail_journal  # noqa: F401
 from .metrics import (MetricsRegistry, counter, default_registry,  # noqa: F401
                       gauge, histogram)

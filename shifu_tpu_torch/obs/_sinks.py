@@ -25,6 +25,11 @@ _journal: Optional[journal_mod.RunJournal] = None
 _scrape_path: Optional[str] = None
 
 
+def resolve_metrics_dir(explicit: Optional[str] = None) -> Optional[str]:
+    """Explicit argument wins; else SHIFU_TPU_METRICS_DIR; else None."""
+    return explicit or os.environ.get(ENV_METRICS_DIR) or None
+
+
 def configure(metrics_dir: str, scrape: bool = True,
               flush_every: int = 16,
               journal_name: str = journal_mod.JOURNAL_FILE

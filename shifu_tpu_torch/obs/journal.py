@@ -7,7 +7,8 @@ object per line: grep-able, tail-able, no runtime needed to read it.  A
 local path appends through a line-buffered handle; `path=None` keeps the
 events in memory (`records`).  A remote journal (the JAX package rewrites
 the whole object on a cadence) waits for the remote half of
-`data/fsio.py`, ROADMAP.md queue A item (a)4, and raises.
+`data/fsio.py`, ROADMAP.md queue A item (a)4, and raises.  `flush`
+carries the chaos site `journal.flush`.
 
 `tail_journal` follows a journal, yielding decoded events.
 """
@@ -74,6 +75,11 @@ class RunJournal:
         with self._lock:
             if self._fh is not None:
                 try:
+                    # chaos site "journal.flush": the sink's disk failing;
+                    # the journal is observability, so the failure is
+                    # absorbed, never the job's
+                    from .. import chaos
+                    chaos.maybe_fail("journal.flush", path=self.path)
                     self._fh.flush()
                 except Exception:
                     pass  # the journal is observability, never the job

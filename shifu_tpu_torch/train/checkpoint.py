@@ -39,7 +39,7 @@ from typing import Any, Iterable, Optional
 
 import torch
 
-from .. import obs
+from .. import chaos, obs
 from ..data import fsio
 
 PROGRESS_MARKER = "PROGRESS"
@@ -234,9 +234,16 @@ def verify_manifest(directory: str, step: int) -> Optional[bool]:
 def _finalize_durable(directory: str, step: int, extra: Optional[dict],
                       tree_spec: Optional[list] = None) -> None:
     """After a save is durable: the manifest first (the marker must never
-    advertise progress whose integrity record is missing), then PROGRESS."""
+    advertise progress whose integrity record is missing), then PROGRESS,
+    then the "checkpoint.post_save" chaos probe, the injection point that
+    models silent damage to a committed checkpoint."""
     write_manifest(directory, step, tree_spec)
     _write_progress_marker(directory, step, extra)
+    try:
+        chaos.maybe_fail("checkpoint.post_save", step=int(step),
+                         path=os.path.join(directory, str(int(step))))
+    except chaos.ChaosError:
+        pass  # post-save actions model data damage, not process failure
 
 
 def _flush_pending_marker(manager: CheckpointManager) -> None:
@@ -309,6 +316,7 @@ def save(manager: CheckpointManager, step: int, state,
         step += 1
     payload = _host_copy(state_payload(state))
     tree_spec = _tree_spec(payload)
+    chaos.maybe_fail("checkpoint.save", step=int(step))
     if block:
         _write_step(manager, step, payload, extra)
         _finalize_durable(manager.directory, step, extra, tree_spec)
@@ -428,6 +436,9 @@ def restore_latest(manager: CheckpointManager, state,
     first_err: Optional[Exception] = None
     for i, step in enumerate(steps):
         try:
+            # probe before the verify: an injected read failure costs this
+            # rung even when the bytes underneath are intact
+            chaos.maybe_fail("checkpoint.restore", step=int(step))
             if (os.environ.get("SHIFU_TPU_CKPT_VERIFY", "1") != "0"
                     and verify_manifest(directory, step) is False):
                 raise CheckpointCorruptError(

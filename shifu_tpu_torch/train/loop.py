@@ -9,8 +9,11 @@ device-resident tier when the training partition, in its in-card format
 all ones), fits `data.device_resident_bytes`; else the staged tier, host-fed
 (nb, B, ...) blocks when `data.staged` and `data.drop_remainder` are set;
 else the per-batch tier.  A job given files streams its first epoch from
-the parse (`data.stream_first_epoch`; the port has no cache, so a cache is
-never hot) and loads the retained dataset for the later epochs.
+the parse (`data.stream_first_epoch`) and loads the retained dataset for
+the later epochs, unless the projected cache is hot for every file
+(`pipeline.projected_cache_complete`): then it loads at once, as the JAX
+loop does.  `data.out_of_core` trains from memory-mapped consolidated
+arrays (`data/outofcore.py`) on the staged tier.
 
 With `data.overlap_epochs` one persistent `EpochFeeder` feeds the staged
 and per-batch tiers: its assembly thread gathers, dedups (under a sparse
@@ -28,9 +31,11 @@ events, spans, `StepTimer` histograms and the metrics scrape file.  Chunk
 boundaries are save points too (`save_every_seconds`, and the SIGTERM
 drain: save, then `SystemExit(75)`).
 
-Differences from the JAX package, kept on purpose until later slices
-(ROADMAP.md): no chaos sites, no device flight recorder, no drift
-baseline, no multi-host paths.
+The chaos sites `train.epoch_start` (each epoch's boundary, before any
+work) and `train.chunk` (each chunk's save point) sit where the JAX
+loop's do.  Differences from the JAX package, kept on purpose until later
+slices (ROADMAP.md): no device flight recorder, no drift baseline, no
+multi-host paths.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from .. import obs
+from .. import chaos, obs
 from ..config.schema import JobConfig
 from ..data import pipeline as pipe
 from ..device import DeviceLike, resolve_device
@@ -140,16 +145,36 @@ def _bf16_wire(job: JobConfig) -> bool:
                           job.model.compute_dtype) == "bfloat16"
 
 
+def _host_tensor(v: np.ndarray) -> torch.Tensor:
+    """A host array as a tensor; uint16 (the bf16 bits the loader stores)
+    travels as int16 and is viewed as bfloat16 where it lands."""
+    v = np.ascontiguousarray(v)
+    if v.dtype == np.uint16:
+        return torch.from_numpy(v.view(np.int16))
+    return torch.from_numpy(v)
+
+
+def _features_dtype(out: dict, bf16: bool, bits: bool) -> None:
+    """bf16 bits viewed back as bfloat16; f32 features under a bf16 wire
+    cast on the card (round to nearest even, as the JAX host cast)."""
+    f = out.get("features")
+    if f is None:
+        return
+    if bits:
+        out["features"] = f.view(torch.bfloat16)
+    elif f.dtype == torch.float32 and bf16:
+        out["features"] = f.to(torch.bfloat16)
+
+
 def to_device(batch: dict[str, np.ndarray], job: JobConfig,
               device: torch.device) -> dict[str, torch.Tensor]:
-    """Host arrays -> tensors on `device`.  A bfloat16 wire casts the f32
-    features on the card (numpy has no bfloat16; round to nearest even, as
-    the JAX package's host cast)."""
-    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-           for k, v in batch.items()}
-    f = out.get("features")
-    if f is not None and f.dtype == torch.float32 and _bf16_wire(job):
-        out["features"] = f.to(torch.bfloat16)
+    """Host arrays -> tensors on `device`.  A bfloat16 wire casts f32
+    features on the card (numpy has no bfloat16); bf16 bits (uint16) are
+    viewed as bfloat16."""
+    out = {k: _host_tensor(v).to(device) for k, v in batch.items()}
+    f = batch.get("features")
+    _features_dtype(out, _bf16_wire(job),
+                    f is not None and f.dtype == np.uint16)
     return out
 
 
@@ -190,14 +215,13 @@ def make_placer(job: JobConfig, device: torch.device):
         out = {}
         with torch.cuda.stream(stream):
             for k, v in batch.items():
-                host = torch.from_numpy(np.ascontiguousarray(v))
+                host = _host_tensor(v)
                 pinned = torch.empty(host.shape, dtype=host.dtype,
                                      pin_memory=True)
                 pinned.copy_(host)
                 out[k] = pinned.to(device, non_blocking=True)
-            f = out.get("features")
-            if f is not None and f.dtype == torch.float32 and bf16:
-                out["features"] = f.to(torch.bfloat16)
+            f = batch.get("features")
+            _features_dtype(out, bf16, f is not None and f.dtype == np.uint16)
             event = torch.cuda.Event()
             event.record(stream)
         return _Placed(out, event)
@@ -330,8 +354,10 @@ def train(job: JobConfig,
     # the streamed epoch's cast detects the compact target/weight per
     # block (content-driven, so a resume replays identical formats)
     wcast_stream = pipe.wire_cast_fn(job.schema, job.data, cdt, compact=True)
-    feature_dtype = (f"int8c{job.data.wire_int8_clip:g}"
-                     if wmode == "int8" else "float32")
+    # the loaders store the features in the wire dtype; the int8 grid's
+    # clip rides in the cache key, so a changed grid never reuses entries
+    feature_dtype = {"int8": f"int8c{job.data.wire_int8_clip:g}",
+                     "bfloat16": "bfloat16"}.get(wmode, "float32")
 
     # streamed first epoch: train on parsed blocks while the rest of the
     # files parse in the background
@@ -343,10 +369,19 @@ def train(job: JobConfig,
                        and not job.data.out_of_core
                        and job.data.staged and job.data.drop_remainder
                        and not (0.0 < rate < 1.0))
+        if want_stream and pipe.projected_cache_complete(
+                job.schema, job.data, feature_dtype):
+            # a hot cache loads at np.load speed: no parse left to hide,
+            # and the loaded tiers beat training in file order
+            console("Projected cache is hot for every input file: "
+                    "skipping the streamed first epoch")
+            want_stream = False
         if want_stream:
             stream_loader = pipe.StreamingLoader(job.schema, job.data,
                                                  feature_dtype)
         else:
+            # blocking ingest (hot cache, loaded tiers, out of core),
+            # charged to the first epoch's input bucket below
             t_ingest = time.perf_counter()
             train_ds, valid_ds = pipe.load_datasets(
                 job.schema, job.data, feature_dtype=feature_dtype)
@@ -452,6 +487,8 @@ def train(job: JobConfig,
                 feat_row_bytes //= 4
             elif rfmt == "bfloat16":
                 feat_row_bytes //= 2
+        elif train_ds.features.dtype == np.uint16 and rfmt == "int8":
+            feat_row_bytes //= 2
         tgt_row_bytes = train_ds.target.nbytes // max(n, 1)
         if label_ok:
             tgt_row_bytes //= 4
@@ -473,8 +510,8 @@ def train(job: JobConfig,
                 # raw features once on the same static grid
                 scale, offset = pipe.wire_params(job.schema, job.data)
                 host_blocks = dict(host_blocks)
-                host_blocks["features"] = pipe.wire_quantize(raw_features,
-                                                             scale, offset)
+                host_blocks["features"] = pipe.wire_quantize(
+                    pipe.features_f32(raw_features), scale, offset)
             resident_blocks = to_device(host_blocks, job, dev)
             device_epoch_step = make_device_epoch_step(job)
         elif not use_staged:
@@ -514,6 +551,9 @@ def train(job: JobConfig,
         drain.  A mid-epoch save records the current epoch, so a resume
         replays that epoch from its start."""
         nonlocal last_save
+        # chaos site "train.chunk": dying between a chunk's compute and
+        # its save
+        chaos.maybe_fail("train.chunk", echo=console, epoch=epoch)
         if term_flag["hit"]:
             if manager is not None:
                 cur = int(state.step)
@@ -572,6 +612,10 @@ def train(job: JobConfig,
     pending_assembly: dict = {}
     try:
         for epoch in range(start_epoch, job.train.epochs):
+            # chaos site "train.epoch_start": the epoch boundary before any
+            # work (the previous epoch's save has landed); distinct from
+            # the CLI's post-epoch "train.epoch"
+            chaos.maybe_fail("train.epoch_start", echo=console, epoch=epoch)
             t0 = time.perf_counter()
             led_open = obs.goodput.begin_epoch()
             # the blocking load before the loop is charged to the first

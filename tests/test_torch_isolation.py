@@ -56,3 +56,26 @@ def test_scan_catches_a_forbidden_import():
         "shifu_tpu"]
     assert _IMPORT.findall("from shifu_tpu_torch.ops import x\n") == []
     assert _IMPORT.findall("from . import jaxlike\n") == []
+
+
+@pytest.mark.parametrize("sub", ["launcher", "chaos", "runtime", "utils"])
+def test_the_launcher_slice_is_scanned_and_imports_alone(sub):
+    """The operator's command and what it needs (the launcher, the chaos
+    plane, the native parser's build, the XML overlay): the import scan
+    covers their files, and each subpackage imports no JAX by itself."""
+    mine = [p for p in _sources()
+            if p.startswith(os.path.join(_PKG, sub) + os.sep)]
+    assert mine
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"pkg = importlib.import_module('shifu_tpu_torch.{sub}')\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{_FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
