@@ -188,6 +188,31 @@ stderr, and no result line is printed):
 19. train   — Wide&Deep on the 1000-column schema (bench.py:507: 50
                categorical, vocab 1000), batch 8192, 16 steps, dense update:
                #5 launches steps + eval batches.
+20a. flight  — the headline MLP (full width, int8 wire, resident tier, 10
+    recorder   batches an epoch, 2 epochs) with `obs.trace_epochs="first"`
+               into a journal: epoch 0's capture holds #4 as many times as
+               its counter moved inside the window, less what the profiler
+               lost (at most half, `device_ms`'s rule; else it is retaken,
+               and the phase fails after 4; the count lost is printed), its
+               kernels' device time within the window, every share
+               (`flops_frac`, `hbm_frac`) in (0, 1.05]; an `hbm_watermark`
+               a epoch from `memory_stats` between the state's and resident
+               rows' bytes and the limit; every `goodput` with
+               `achieved_tflops` and `mfu` in (0, 1.05].  Prints each
+               epoch's MFU and TFLOP/s, the HBM peak and the top kernels.
+20b.        — the fused FT-Transformer at full width on the serving schema
+               (24 numeric + 6 categorical, vocab 1000; dropout 0, so #1 and
+               #5 both run), one traced epoch, held as in 20a for #1 and #5.
+20c. FLOPs  — one train step of every trained path (MLP, FT fused, unfused,
+               flash, DeepFM with the sparse update, Wide&Deep) at 64 rows,
+               counted by obs.flops on the card and on the CPU: the FLOPs
+               equal (the bytes within FLOPS_BYTES_RTOL), the MLP's its
+               closed form.
+20d. drills — a chaos delay in the step of the chunk one past
+               `anomaly_min_chunks` journals one `anomaly` and a one-shot
+               `device_profile` (trigger "anomaly"); an `obs.trace` fault
+               journals `trace_fallback` and the losses are bitwise an
+               untraced twin's.  No `trace_fallback` in 20a-20c.
 20. a JSON line {"kernels": [...]} with each kernel's launches on its
    training path (FT fused for #1, FT unfused for #2 and #3, the headline
    MLP for #4, DeepFM for #5 and #6, FT flash for #7 and #8), its error
@@ -214,10 +239,19 @@ import time
 import numpy as np
 
 SEED = 20261016
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_F32_FLOPS = 67e12       # CUDA cores, f32
-PEAK_16BIT_FLOPS = 989e12    # tensor cores, bf16 and f16
-PEAK_HBM_BYTES = 3.35e12
+# H100 SXM f32 peak on the CUDA cores (NVIDIA data sheet, dense, at the
+# 700 W limit); the tensor-core and memory peaks are the package's
+# (obs/goodput.PEAK_BF16_TFLOPS, obs/devprof.PEAK_HBM_GBPS), which the MFU
+# and the flight recorder's roofline read too: `peaks()`
+PEAK_F32_FLOPS = 67e12
+
+
+def peaks() -> tuple[float, float]:
+    """(bf16/f16 tensor-core FLOP/s, HBM bytes/s) of the H100 from the
+    package's tables (not their environment overrides)."""
+    from shifu_tpu_torch.obs import devprof, goodput
+    return (dict(goodput.PEAK_BF16_TFLOPS)["h100"] * 1e12,
+            dict(devprof.PEAK_HBM_GBPS)["h100"] * 1e9)
 
 # f32 kernel against f32 plain: only the summation order differs
 F32_ATOL, F32_RTOL = 1e-4, 1e-4
@@ -375,9 +409,10 @@ def bound_ms(n_bytes: float, n_ops: float, dtype,
     arithmetic-instruction throughput table, compute capability 9.0) x the
     maximum SM clock that `read_sm_clock` read."""
     import torch
-    peak = (PEAK_16BIT_FLOPS if dtype in (torch.bfloat16, torch.float16)
+    peak_16bit, peak_hbm = peaks()
+    peak = (peak_16bit if dtype in (torch.bfloat16, torch.float16)
             else PEAK_F32_FLOPS)
-    terms = [(n_bytes / PEAK_HBM_BYTES * 1e3, "bytes"),
+    terms = [(n_bytes / peak_hbm * 1e3, "bytes"),
              (n_ops / peak * 1e3, "operations")]
     if n_exp:
         if not SFU["clock_hz"]:
@@ -387,15 +422,24 @@ def bound_ms(n_bytes: float, n_ops: float, dtype,
     return max(terms, key=lambda t: t[0])
 
 
+# the step programs' record_function ranges (obs/flops.instrument): their
+# mirror on the device lane spans the program's kernels and is no kernel
+STEP_PROGRAMS = ("train_step", "device_epoch_step", "epoch_scan_step",
+                 "eval_step")
+
+
 def device_events(prof) -> list:
     """(name, device µs, count) of the device-side events of a profile:
     kernels, copies, memsets.  A CPU op's self device time repeats the
-    time of the kernels it launched, so CPU ops are left out."""
+    time of the kernels it launched, so CPU ops are left out, and so are
+    the device-lane mirrors of `record_function` ranges."""
     from torch.autograd import DeviceType
     return [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in STEP_PROGRAMS]
 
 
 # device events the profiler dropped and saw, over every device_ms profile
@@ -514,18 +558,6 @@ def block_params(d: int, r: int, gen, device):
     return {k: v.to(device) for k, v in p.items()}
 
 
-def ft_block_ops(b: int, s: int, d: int, h: int,
-                 r: int) -> tuple[float, float]:
-    """Operations of one block on these shapes: (the four products, the
-    rest: the attention products and the elementwise work, LayerNorm
-    ~8/elt, gelu ~10/elt, softmax ~4 per score, residual adds)."""
-    m = b * s
-    products = 2 * m * (3 * d * d + d * d + 2 * r * d * d)
-    attention = 4 * b * h * s * s * (d // h)
-    elementwise = 2 * 8 * m * d + 10 * m * r * d + 4 * b * h * s * s + 2 * m * d
-    return float(products), float(attention + elementwise)
-
-
 # the tensor-core passes a product of #1 takes: each f32 operand as bf16
 # hi + lo, three mma (hi hi, hi lo, lo hi), the cheapest split that
 # tests/test_torch_ft_block_numerics.py finds within F32_ATOL/F32_RTOL at
@@ -584,10 +616,11 @@ def check_ft_block(device, gen) -> dict:
     # time is that of forward + backward less the kernel's forward
     bwd_ms = device_ms(forward_backward) - ms
     call_ms, plain_call_ms = time_ms(kernel), time_ms(plain)
-    n_bytes = 2 * x.numel() * 4 + sum(t.numel() for t in p.values()) * 4
-    products, rest = ft_block_ops(b, s, d, h, r)
-    terms = [(n_bytes / PEAK_HBM_BYTES * 1e3, "bytes"),
-             (FT_SPLIT_PASSES * products / PEAK_16BIT_FLOPS * 1e3,
+    n_bytes = ft_block.cost(b, s, d, h, r)[1]
+    products, rest = ft_block.block_ops(b, s, d, h, r)
+    peak_16bit, peak_hbm = peaks()
+    terms = [(n_bytes / peak_hbm * 1e3, "bytes"),
+             (FT_SPLIT_PASSES * products / peak_16bit * 1e3,
               f"products on the tensor cores, {FT_SPLIT_PASSES} bf16 passes"),
              (rest / PEAK_F32_FLOPS * 1e3, "the rest at the f32 rate")]
     bnd, term = max(terms)
@@ -680,9 +713,7 @@ def check_small_attention(device, gen) -> dict:
     call_ms, plain_call_ms, library_call_ms = (time_ms(kernel),
                                                time_ms(plain),
                                                time_ms(library))
-    n_bytes = 4 * q.numel() * q.element_size()
-    n_ops = 4.0 * b * h * s * s * d + 4.0 * b * h * s * s
-    n_exp = float(b * h) * s * s
+    n_ops, n_bytes, n_exp = sa.cost(b, h, s, d, q.dtype)
     bnd, by = bound_ms(n_bytes, n_ops, q.dtype, n_exp)
     say(f"kernels: small_attention B={b} H={h} S={s} D={d} bf16 max|err| "
         f"{err:.3e} (tol {BF16_ATOL:g}+2^-7*|ref|: one bf16 ulp); edge shapes "
@@ -779,9 +810,7 @@ def check_small_attention_bwd(device, gen) -> dict:
     ms, plain_ms = device_ms(kernel), device_ms(plain)
     sdpa_fwd_ms, library_ms = sdpa_times(q, k, v, g, scale)
     call_ms, plain_call_ms = time_ms(kernel), time_ms(plain)
-    n_bytes = 7 * q.numel() * q.element_size()
-    n_ops = 10.0 * b * h * s * s * d
-    n_exp = float(b * h) * s * s
+    n_ops, n_bytes, n_exp = sa.cost_bwd(b, h, s, d, q.dtype)
     bnd, by = bound_ms(n_bytes, n_ops, q.dtype, n_exp)
     say(f"kernels: small_attention_bwd B={b} H={h} S={s} D={d} bf16 max|err| "
         f"{err:.3e} over dq, dk, dv (tol {grad_tolerance(q.dtype)[2]}: one "
@@ -1002,8 +1031,6 @@ def check_flash(device, gen) -> list:
     sdpa_names = {}
     sdpa_fwd_ms, sdpa_grad_ms = sdpa_times(q, k, v, g, scale, sdpa_names)
     sdpa_bwd_ms = sdpa_grad_ms - sdpa_fwd_ms
-    elt = q.element_size()
-    bh_s = b * h * s
     pairs = float(b * h) * s * s
     tol_text = (f"out one bf16 ulp (2^-7*|ref|+1e-6), lse {F32_ATOL:g}+"
                 f"{F32_RTOL:g}*|ref|, grads {grad_tolerance(q.dtype)[2]}")
@@ -1011,20 +1038,21 @@ def check_flash(device, gen) -> list:
         ("flash_fwd", "fwd", "shifu_tpu/ops/pallas_attention.py:198",
          lambda: fa.flash_fwd(q, k, v, scale),
          lambda: fa.flash_fwd_plain(q, k, v, scale),
-         4 * q.numel() * elt + bh_s * 4, 4.0 * pairs * d, sdpa_fwd_ms),
+         fa.cost_fwd(b, h, s, d, q.dtype), sdpa_fwd_ms),
         ("flash_bwd_dq", "dq", "shifu_tpu/ops/pallas_attention.py:243",
          lambda: fa.flash_bwd_dq(q, k, v, g, lse, dres, scale),
          lambda: fa.flash_bwd_dq_plain(q, k, v, g, lse, dres, scale),
-         5 * q.numel() * elt + 2 * bh_s * 4, 6.0 * pairs * d, sdpa_grad_ms),
+         fa.cost_bwd_dq(b, h, s, d, q.dtype), sdpa_grad_ms),
         ("flash_bwd_dkv", "dkv", "shifu_tpu/ops/pallas_attention.py:258",
          lambda: fa.flash_bwd_dkv(q, k, v, g, lse, dres, scale),
          lambda: fa.flash_bwd_dkv_plain(q, k, v, g, lse, dres, scale),
-         6 * q.numel() * elt + 2 * bh_s * 4, 8.0 * pairs * d, sdpa_grad_ms))
+         fa.cost_bwd_dkv(b, h, s, d, q.dtype), sdpa_grad_ms))
     entries = []
-    for name, key, replaces, kernel, plain, n_bytes, n_ops, lib_ms in specs:
+    for name, key, replaces, kernel, plain, cost, lib_ms in specs:
         ms = queued_ms(kernel)
         plain_ms = time_ms(plain, reps=3, warmup=1)
-        bnd, by = bound_ms(n_bytes, n_ops, q.dtype, pairs)
+        n_ops, n_bytes, n_exp = cost
+        bnd, by = bound_ms(n_bytes, n_ops, q.dtype, n_exp)
         if key == "fwd":
             vs = (f"sdpa forward {lib_ms:.4f} ms, kernel/sdpa "
                   f"{ms / lib_ms:.3f}x")
@@ -1160,8 +1188,8 @@ def check_int8_matmul(device, gen) -> dict:
 
     ms, plain_ms = device_ms(kernel), device_ms(plain)
     call_ms, plain_call_ms = time_ms(kernel), time_ms(plain)
-    n_bytes = m * f + f * n * 4 + n * 4 + f * 4 + m * n * 2
-    bnd, by = bound_ms(n_bytes, 2.0 * m * f * n, torch.bfloat16)
+    n_ops, n_bytes, _ = i8.cost(m, f, n, torch.bfloat16, w.dtype)
+    bnd, by = bound_ms(n_bytes, n_ops, torch.bfloat16)
     say(f"kernels: int8_matmul M={m} F={f} N={n} bf16 max|err| {err:.3e} "
         f"(tol {INT8_TOL_TEXT}: summation order and a rounding flip before "
         f"and after the bias add); {len(INT8_EDGE_SHAPES)} edge shapes "
@@ -1255,8 +1283,8 @@ def check_embedding_lookup(device, gen) -> dict:
     # the casts read f32 and write bf16, the concatenation reads and
     # writes bf16
     feed_bytes = nc * v * d * (4 + 2 + 2 * table.element_size())
-    n_bytes = 2 * b * nc * d * table.element_size() + ids.numel() * 4
-    bnd, by = bound_ms(n_bytes, 0.0, table.dtype)
+    n_ops, n_bytes, _ = emb.lookup_cost(b, nc, d, table.dtype)
+    bnd, by = bound_ms(n_bytes, n_ops, table.dtype)
     say(f"kernels: embedding_lookup B={b} Nc={nc} V={v} D={d} bf16 bitwise "
         f"equal to its plain version (and at edge shapes: D 1..128, "
         f"f32/bf16/f16, Nc 50, 16-byte rows, ragged last runs, ids "
@@ -1426,14 +1454,16 @@ def check_rows_update(device, gen) -> dict:
     ms_d1 = device_ms(lambda: emb.fused_rows_update(t1, s1, g1, ids,
                                                     "adadelta", 3e-3,
                                                     unique=True))
-    n_bytes = touched * 7 * d * 4 + ids.numel() * 4
-    bnd, by = bound_ms(n_bytes, 0.0, torch.float32)
-    bnd_d1, _ = bound_ms(touched * 7 * 4 + ids.numel() * 4, 0.0,
-                         torch.float32)
+    n_ops, n_bytes, _ = emb.rows_update_cost(u, nc, d, torch.float32,
+                                             touched)
+    bnd, by = bound_ms(n_bytes, n_ops, torch.float32)
+    _, d1_bytes, _ = emb.rows_update_cost(u, nc, 1, torch.float32, touched)
+    bnd_d1, _ = bound_ms(d1_bytes, 0.0, torch.float32)
     # the raw batch's bound counts its distinct rows once: the touched rows
     # of its deduped batch
-    bnd_raw, _ = bound_ms(touched * 7 * d * 4 + raw.numel() * 4, 0.0,
-                          torch.float32)
+    _, raw_bytes, _ = emb.rows_update_cost(raw.shape[0], nc, d,
+                                           torch.float32, touched)
+    bnd_raw, _ = bound_ms(raw_bytes, 0.0, torch.float32)
     say(f"kernels: rows_update adadelta U={u} Nc={nc} V={v} D={d} f32 "
         f"({touched} touched rows of {u * nc}, the rest the sentinel) max|err| "
         f"{err:.3e} (tol {ROWS_TOL_TEXT}); bitwise equal to its plain "
@@ -3227,6 +3257,413 @@ def embedding_training_phases(device, tmp: str, kernels: list,
     lap("train Wide&Deep 1000 columns")
 
 
+# -- phases 20a to 20d: the flight recorder, FLOPs and MFU ---------------------
+
+# the device kernels each wrapper launches, by a substring of their names in
+# a torch.profiler trace (csrc/*.cu's __global__ functions)
+KERNEL_SYMBOLS = {"ft_block": ("ft_block_kernel",),
+                  "small_attention": ("sa_fwd_kernel",),
+                  "small_attention_bwd": ("sa_bwd_kernel",),
+                  "int8_matmul": ("panel_kernel", "tiled_kernel"),
+                  "embedding_lookup": ("lookup_kernel",),
+                  "rows_update": ("rows_update_kernel",),
+                  "flash_fwd": ("flash_fwd_kernel",),
+                  "flash_bwd_dq": ("flash_dq_kernel",),
+                  "flash_bwd_dkv": ("flash_dkv_kernel",)}
+# 20a's headline MLP: the full width, depth cut to 10 batches an epoch
+FR_TRAIN_ROWS = 10 * TRAIN_BATCH
+FR_VALID_ROWS = 65_536
+# 20d's anomaly drill: the headline MLP on the per-batch tier, a chunk a
+# step, the chaos delay in the step one chunk past anomaly_min_chunks
+DRILL_BATCH = 16_384
+DRILL_STEPS = 24
+DRILL_MIN_CHUNKS = 8
+DRILL_DELAY_S = 1.0
+# 20c: one step of each trained path, counted on the card and on the CPU
+FLOPS_BATCH = 64
+
+
+def kernel_calls(rollup: dict, kernel: str) -> dict:
+    """Calls of `kernel`'s device functions in a rollup, by module."""
+    out: dict = {}
+    for k in rollup["kernels"]:
+        if any(s in k["name"] for s in KERNEL_SYMBOLS[kernel]):
+            out[k["module"]] = out.get(k["module"], 0) + k["calls"]
+    return out
+
+
+class WindowLaunches:
+    """The launch counters at the start and stop of every flight-recorder
+    capture (DeviceProfiler._start_trace / _stop_and_journal wrapped), so a
+    window's launches can be held against its rollup."""
+
+    def __init__(self):
+        from shifu_tpu_torch.obs import devprof
+        self.cls = devprof.DeviceProfiler
+        self.orig = (self.cls._start_trace, self.cls._stop_and_journal)
+        self.windows: list = []
+        start, stop = self.orig
+        me = self
+
+        def _start(prof, log_dir, epoch):
+            ok = start(prof, log_dir, epoch)
+            if ok:
+                me.windows.append({"start": read_launches()})
+            return ok
+
+        def _stop(prof, log_dir, epoch, trigger, window_s=None):
+            if me.windows and "stop" not in me.windows[-1]:
+                import torch
+                torch.cuda.synchronize()
+                me.windows[-1]["stop"] = read_launches()
+            return stop(prof, log_dir, epoch, trigger, window_s)
+
+        self.cls._start_trace, self.cls._stop_and_journal = _start, _stop
+
+    def launches(self, i: int = 0) -> dict:
+        w = self.windows[i]
+        return {k: w["stop"][k] - w["start"][k] for k in w["start"]}
+
+    def close(self) -> None:
+        self.cls._start_trace, self.cls._stop_and_journal = self.orig
+
+
+def check_window(label: str, rollup: dict, launched: dict) -> bool:
+    """A device_profile against the launches inside its window: its
+    kernels' calls are counted over the whole capture (the window's trace
+    rolled up again with no top-K cut), and equal to the launches, or the
+    profile lost events; False when a kernel lost more than half of them
+    (the caller retakes, as `device_ms` does).  Fails on a share over 1.05
+    or kernels longer than the window."""
+    from shifu_tpu_torch.obs import tracefmt
+    if rollup["device_us_total"] > rollup["window_us"] * rollup["lanes"] \
+            * (1 + 1e-6):
+        fail(f"{label}: kernels' device time {rollup['device_us_total']} us "
+             f"exceeds the window {rollup['window_us']} us x "
+             f"{rollup['lanes']} lanes")
+    for k in rollup["kernels"]:
+        for key in ("flops_frac", "hbm_frac"):
+            if k.get(key) is not None and not 0 < k[key] <= 1.05:
+                fail(f"{label}: {k['name'][:60]} {key} {k[key]} outside "
+                     "(0, 1.05]: a counting fault")
+    full = tracefmt.rollup_trace_dir(rollup["trace_dir"], top_k=1 << 30)
+    ok = True
+    for name, n in launched.items():
+        if not n:
+            continue
+        by_module = kernel_calls(full, name)
+        got = sum(by_module.values())
+        PROFILE_EVENTS["lost"] += n - got
+        say(f"{label}: {name}: {n} launches in the window, {got} calls in "
+            f"the capture (by module {by_module}; "
+            f"{full['kernel_count']} distinct kernels)")
+        ok = ok and 0 <= n - got and 2 * (n - got) <= n
+    return ok
+
+
+def traced_run(label: str, job, train_ds, valid_ds, device, tmp: str,
+               name: str) -> tuple:
+    """Train `job` with its sinks in `tmp/name`; retake while the profiler
+    lost a kernel's events (fail after PROFILE_ATTEMPTS).  Returns (the
+    journal's events, the result, the first window's launches)."""
+    from shifu_tpu_torch.train.loop import train
+    for attempt in range(PROFILE_ATTEMPTS):
+        out = os.path.join(tmp, f"{name}-{attempt}")
+        configure_obs(out)
+        job_a = job.replace(obs=dataclasses.replace(
+            job.obs, trace_dir=os.path.join(out, "trace")))
+        windows = WindowLaunches()
+        try:
+            reset_launches()
+            res = train(job_a, train_ds, valid_ds, console=lambda ln: None,
+                        device=device)
+        finally:
+            windows.close()
+        events = journal(out)
+        profiles = [e for e in events if e["kind"] == "device_profile"]
+        if not profiles or not windows.windows:
+            fail(f"{label}: no device_profile journaled")
+        launched = windows.launches(0)
+        if check_window(label, profiles[0], launched):
+            return events, res, launched
+        say(f"{label}: retake {attempt + 1} (the profiler lost events)")
+    fail(f"{label}: the profiler lost events in {PROFILE_ATTEMPTS} windows")
+
+
+def report_flight(label: str, events: list) -> None:
+    """The traced epochs' MFU and TFLOP/s, the watermarks, the top kernels;
+    fails on a goodput without numbers or an MFU outside (0, 1.05]."""
+    for e in events:
+        if e["kind"] == "trace_fallback":
+            fail(f"{label}: trace_fallback {e}: the profiler failed")
+        if e["kind"] == "goodput":
+            mfu, tf = e.get("mfu"), e.get("achieved_tflops")
+            if mfu is None or tf is None or not 0 < mfu <= 1.05:
+                fail(f"{label}: goodput of epoch {e['epoch']} has mfu {mfu} "
+                     f"and achieved_tflops {tf}")
+            say(f"{label}: epoch {e['epoch']}: mfu {mfu:.6g}, achieved "
+                f"{tf:.6g} TFLOP/s of {e['peak_tflops']} (goodput "
+                f"{e['goodput_fraction']}, wall {e['wall_s']:.4f} s)")
+        if e["kind"] == "hbm_watermark":
+            say(f"{label}: epoch {e['epoch']}: hbm_watermark {e['source']}: "
+                f"peak {e['peak_bytes'] / 2 ** 30:.3f} GiB, in use "
+                f"{e['bytes_in_use'] / 2 ** 30:.3f} GiB of "
+                f"{e['bytes_limit'] / 2 ** 30:.3f} GiB")
+    for e in events:
+        if e["kind"] != "device_profile":
+            continue
+        say(f"{label}: device_profile epoch {e['epoch']} ({e['trigger']}): "
+            f"window {e['window_us'] / 1e3:.3f} ms, device "
+            f"{e['device_us_total'] / 1e3:.3f} ms (fraction "
+            f"{e['device_fraction']}), {e['kernel_count']} kernels; modules "
+            f"{e['modules']}")
+        for k in e["kernels"][:8]:
+            say(f"{label}:   {k['device_us'] / 1e3:9.3f} ms {k['calls']:6d}x "
+                f"{100 * (k['fraction'] or 0):6.2f}%  flops_frac "
+                f"{k.get('flops_frac')} hbm_frac {k.get('hbm_frac')} bound "
+                f"{k.get('bound')}  {k['name'][:70]}")
+
+
+def state_and_data_bytes(state, n_rows: int, row_bytes: int) -> int:
+    """Bytes the training needs on the card at least: parameters,
+    optimizer slots, table slots, and the resident rows."""
+    from shifu_tpu_torch.train.loop import _tensor_bytes
+    return (_tensor_bytes(state.model.state_dict())
+            + _tensor_bytes(state.optimizer.state_dict())
+            + _tensor_bytes(state.table_slots) + n_rows * row_bytes)
+
+
+def flight_mlp(device, tmp: str) -> None:
+    """20a: the headline MLP, resident tier, 2 epochs, the first traced."""
+    import torch
+    torch.cuda.reset_peak_memory_stats(device)
+    job = headline_job(epochs=2)
+    job = job.replace(obs=dataclasses.replace(job.obs, trace_epochs="first",
+                                              trace_top_k=64))
+    tr, va = synthetic_datasets(job.schema, FR_TRAIN_ROWS, FR_VALID_ROWS,
+                                SEED + 20)
+    events, res, launched = traced_run("20a MLP", job, tr, va, device, tmp,
+                                       "fr_mlp")
+    if res.tier != "resident":
+        fail(f"20a MLP: trained on the {res.tier!r} tier")
+    nb = FR_TRAIN_ROWS // TRAIN_BATCH
+    if launched.get("int8_matmul") != nb:
+        fail(f"20a MLP: #4 launched {launched} in epoch 0's window, "
+             f"expected {nb}")
+    # the resident rows: int8 features, u8 targets, the weights elided
+    need = state_and_data_bytes(res.state, nb * TRAIN_BATCH,
+                                job.schema.feature_count + 1)
+    marks = [e for e in events if e["kind"] == "hbm_watermark"]
+    if len(marks) != 2:
+        fail(f"20a MLP: {len(marks)} hbm_watermark events, expected 2")
+    for m in marks:
+        if m["source"] != "memory_stats" or not (
+                need <= m["peak_bytes"] <= m["bytes_limit"]):
+            fail(f"20a MLP: hbm_watermark {m}: expected memory_stats with "
+                 f"{need} <= peak <= limit")
+    say(f"20a MLP: the state and the resident rows need {need} bytes")
+    report_flight("20a MLP", events)
+
+
+def flight_ft(device, tmp: str) -> None:
+    """20b: the fused FT-Transformer at full width, one epoch traced.  On
+    the serving schema (24 numeric + 6 categorical, vocab 1000) with
+    dropout 0, so #1 and #5 both run (phase 11's 30 numeric features give
+    no lookup)."""
+    from shifu_tpu_torch.data import synthetic
+    schema = synthetic.make_schema(num_features=30, num_categorical=6,
+                                   vocab_size=1000)
+    job = ft_job(schema, FT_BATCH, 1)
+    job = job.replace(obs=dataclasses.replace(job.obs, trace_epochs="first",
+                                              trace_top_k=64))
+    tr, va = synthetic_datasets(schema, 8 * FT_BATCH, FT_BATCH, SEED + 21)
+    events, _res, launched = traced_run("20b FT fused", job, tr, va, device,
+                                        tmp, "fr_ft")
+    for name in ("ft_block", "embedding_lookup"):
+        if not launched.get(name):
+            fail(f"20b FT fused: {name} did not launch in the window "
+                 f"({launched})")
+    report_flight("20b FT fused", events)
+
+
+def count_step(job, dev, rows) -> dict:
+    """obs.flops' count of one train step of `job` on `dev` at the first
+    batch of `rows` (as the loop casts it), from the job's init."""
+    from shifu_tpu_torch.obs import flops
+    from shifu_tpu_torch.train.loop import init_state, to_device
+    from shifu_tpu_torch.train.step import _train_step_fn
+    (batch,) = lockstep_batches(job, rows, 1)
+    state = init_state(job, job.schema.feature_count, dev)
+    _, got = flops.count(_train_step_fn(job), state,
+                         to_device(batch, job, dev))
+    return got
+
+
+# 20c's bytes: autograd steals a gradient into .grad, or clones it (an
+# empty + copy_ the count sees), by the gradient's reference count at the
+# time, which moves from one run to the next (the fused block's recompute
+# backward showed it on the CPU alone); the FLOPs do not move
+FLOPS_BYTES_RTOL = 5e-3
+
+
+def flops_equal(device) -> None:
+    """20c: one step of every trained path counted on the card and on the
+    CPU at FLOPS_BATCH rows: the FLOPs must be equal, the bytes within
+    FLOPS_BYTES_RTOL, and the MLP's FLOPs its closed form."""
+    from shifu_tpu_torch.data import synthetic
+    deepfm = dlrm_job("deepfm", deepfm_schema(DEEPFM_VOCAB), FLOPS_BATCH,
+                      staged=False)
+    wd_schema = synthetic.make_schema(num_features=1000, num_categorical=50,
+                                      vocab_size=1000)
+    paths = {"MLP": headline_job()}
+    for label, (job, *_rest) in ft_paths_jobs().items():
+        paths[label] = job
+    paths["DeepFM sparse"] = deepfm
+    paths["Wide&Deep"] = dlrm_job("wide_deep", wd_schema, FLOPS_BATCH)
+    for label, job in paths.items():
+        job = with_batch(job, FLOPS_BATCH)
+        rows, _ = synthetic_datasets(job.schema, FLOPS_BATCH, 8, SEED + 22)
+        card, cpu = count_step(job, device, rows), count_step(job, "cpu",
+                                                              rows)
+        db = abs(card["bytes_accessed"] - cpu["bytes_accessed"])
+        if (card["flops"] != cpu["flops"]
+                or card["exponentials"] != cpu["exponentials"]
+                or db > FLOPS_BYTES_RTOL * cpu["bytes_accessed"]):
+            fail(f"20c {label}: the card counts {card}, the CPU {cpu}")
+        say(f"20c {label}: one step at {FLOPS_BATCH} rows: "
+            f"{card['flops']:.6g} FLOPs on the card and on the CPU; bytes "
+            f"{card['bytes_accessed']:.6g} and {cpu['bytes_accessed']:.6g}")
+        if label == "MLP":
+            widths = (job.schema.feature_count, *job.model.hidden_nodes, 1)
+            later = sum(a * b for a, b in zip(widths[1:], widths[2:]))
+            closed = (6 * later + 4 * widths[0] * widths[1]) * FLOPS_BATCH
+            if card["flops"] != closed:
+                fail(f"20c MLP: {card['flops']} FLOPs, the closed form "
+                     f"(6 x the later layers + 4 x layer 0, which takes no "
+                     f"dX) x {FLOPS_BATCH} = {closed}")
+
+
+def ft_paths_jobs() -> dict:
+    """The three FT training paths' jobs (ft_paths without its data)."""
+    from shifu_tpu_torch.data import synthetic
+    wide = synthetic.make_schema(num_features=1000, num_categorical=50,
+                                 vocab_size=1000)
+    return {"FT fused": (ft_job(synthetic.make_schema(num_features=30),
+                                FT_BATCH, FT_EPOCHS),),
+            "FT unfused": (ft_unfused_job(),),
+            "FT flash": (ft_job(wide, FLASH_BATCH, 1,
+                                attention_impl="flash"),)}
+
+
+def anomaly_drill(device, tmp: str) -> None:
+    """20d: a chaos delay inside the step of the chunk one past
+    anomaly_min_chunks journals one anomaly and a device_profile with
+    trigger "anomaly" (a one-shot capture of the next chunk)."""
+    from shifu_tpu_torch import chaos
+    from shifu_tpu_torch.train import loop as loop_mod
+
+    job = headline_job(epochs=1)
+    job = job.replace(
+        data=dataclasses.replace(job.data, batch_size=DRILL_BATCH,
+                                 staged=False),
+        # tracing on, but no scheduled window: only the one-shot fires; a
+        # chunk must run 3x the median (a traced chunk does not)
+        obs=dataclasses.replace(job.obs, trace_epochs="99",
+                                anomaly_min_chunks=DRILL_MIN_CHUNKS,
+                                anomaly_min_ratio=2.0))
+    tr, va = synthetic_datasets(job.schema, DRILL_STEPS * DRILL_BATCH,
+                                DRILL_BATCH, SEED + 23)
+    out = os.path.join(tmp, "drill_anomaly")
+    configure_obs(out)
+    job = job.replace(obs=dataclasses.replace(
+        job.obs, trace_dir=os.path.join(out, "trace")))
+    orig = loop_mod.make_train_step
+
+    def delayed(j):
+        step = orig(j)
+
+        def run(state, batch):
+            chaos.maybe_fail("chip_smoke.step")
+            return step(state, batch)
+        return run
+
+    chaos.configure(chaos.parse_plan({"faults": [
+        {"site": "chip_smoke.step", "at_call": DRILL_MIN_CHUNKS + 1,
+         "action": "delay", "delay_s": DRILL_DELAY_S}]}))
+    loop_mod.make_train_step = delayed
+    try:
+        loop_mod.train(job, tr, va, console=lambda ln: None, device=device)
+    finally:
+        loop_mod.make_train_step = orig
+        chaos.reset_for_tests()
+    events = journal(out)
+    anomalies = [e for e in events if e["kind"] == "anomaly"]
+    shots = [e for e in events if e["kind"] == "device_profile"]
+    if len(anomalies) != 1 or anomalies[0]["chunk"] != DRILL_MIN_CHUNKS + 1:
+        fail(f"20d anomaly: {len(anomalies)} anomaly events "
+             f"{[(a['chunk'], a['step_s']) for a in anomalies]}, expected "
+             f"one at chunk {DRILL_MIN_CHUNKS + 1}")
+    if len(shots) != 1 or shots[0]["trigger"] != "anomaly":
+        fail(f"20d anomaly: device_profile events {[(s['trigger']) for s in shots]}, "
+             "expected one with trigger 'anomaly'")
+    a = anomalies[0]
+    say(f"20d anomaly: chunk {a['chunk']} step {a['step_s']} s against the "
+        f"median {a['median_s']} s (z {a['zscore']}); one-shot "
+        f"device_profile of the next chunk: {shots[0]['kernel_count']} "
+        f"kernels, {shots[0]['device_us_total'] / 1e3:.3f} ms on the card")
+
+
+def trace_fault_drill(device, tmp: str) -> None:
+    """20d: an `obs.trace` fault journals trace_fallback; the losses are
+    bitwise those of an untraced twin."""
+    from shifu_tpu_torch import chaos
+    from shifu_tpu_torch.train.loop import train
+
+    job = headline_job(epochs=2)
+    tr, va = synthetic_datasets(job.schema, 4 * TRAIN_BATCH, FR_VALID_ROWS,
+                                SEED + 24)
+    losses = {}
+    for name, spec in (("faulted", "first"), ("untraced", "off")):
+        out = os.path.join(tmp, f"drill_trace_{name}")
+        configure_obs(out)
+        if name == "faulted":
+            chaos.configure(chaos.parse_plan({"faults": [
+                {"site": "obs.trace", "every": 1, "action": "raise"}]}))
+        try:
+            res = train(job.replace(obs=dataclasses.replace(
+                job.obs, trace_epochs=spec,
+                trace_dir=os.path.join(out, "trace"))), tr, va,
+                console=lambda ln: None, device=device)
+        finally:
+            chaos.reset_for_tests()
+        losses[name] = [m.train_error for m in res.history]
+        events = journal(out)
+        falls = [e for e in events if e["kind"] == "trace_fallback"]
+        if name == "faulted" and (len(falls) != 1
+                                  or falls[0]["stage"] != "start"):
+            fail(f"20d trace fault: trace_fallback events {falls}, expected "
+                 "one at stage 'start'")
+        if any(e["kind"] == "device_profile" for e in events):
+            fail(f"20d trace fault ({name}): a device_profile was journaled")
+    if losses["faulted"] != losses["untraced"]:
+        fail(f"20d trace fault: losses {losses['faulted']} differ from the "
+             f"untraced twin's {losses['untraced']}")
+    say(f"20d trace fault: trace_fallback at stage start; losses "
+        f"{losses['faulted']} bitwise the untraced twin's")
+
+
+def flight_recorder_phases(device, tmp: str) -> None:
+    flight_mlp(device, tmp)
+    lap("20a flight recorder, MLP")
+    flight_ft(device, tmp)
+    lap("20b flight recorder, FT fused")
+    flops_equal(device)
+    lap("20c FLOPs on the card and the CPU")
+    anomaly_drill(device, tmp)
+    trace_fault_drill(device, tmp)
+    lap("20d flight recorder drills")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3348,6 +3785,8 @@ def main() -> None:
         ft_training_phases(device, tmp, kernels, cpu_refs)
         # phases 14 to 19: train and serve Wide&Deep and DeepFM
         embedding_training_phases(device, tmp, kernels, cpu_refs)
+        # phases 20a to 20d: the flight recorder, FLOPs and MFU
+        flight_recorder_phases(device, tmp)
 
     missing = [kr["name"] for kr in kernels if not kr.get("launches")]
     if missing:

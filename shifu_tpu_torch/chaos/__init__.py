@@ -10,7 +10,7 @@ port's sites sit where their JAX twins do: `launcher.start` and
 `checkpoint.post_save` and `checkpoint.restore` (train/checkpoint.py),
 `data.cache` (data/cache.py), `data.feeder` (data/pipeline.py),
 `fsio.read_bytes`, `fsio.write_bytes` and `fsio.list_files`
-(data/fsio.py) and `journal.flush` (obs/journal.py).  A probe is a no-op
+(data/fsio.py, on its remote branch) and `journal.flush` (obs/journal.py).  A probe is a no-op
 until a chaos plan (chaos/plan.py) is active, so the cost in a healthy run
 is one attribute check.
 

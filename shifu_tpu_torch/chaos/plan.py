@@ -3,8 +3,7 @@
 environment variables, the same messages).
 
 A plan is JSON — inline in SHIFU_TPU_CHAOS_PLAN / `--chaos-plan`, or a path
-to a local JSON file (a remote path waits for the remote half of
-data/fsio.py, ROADMAP.md queue A item (a)4):
+to a JSON file, local or remote (read through data/fsio.py):
 
     {
       "seed": 7,

@@ -404,9 +404,8 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class ObsConfig:
-    """The JAX package's device-profiling knobs, carried so a JAX job dict
-    parses and checked as the JAX package checks them; the port has no
-    flight recorder yet."""
+    """The device flight recorder's knobs (obs/devprof.py), checked as the
+    JAX package checks them."""
 
     trace_epochs: str = "off"
     trace_dir: str = ""
@@ -503,8 +502,7 @@ class MeshConfig:
 class CheckpointConfig:
     """Checkpoint settings, read by `train/loop.train` and
     `train/checkpoint.py` as in the JAX package; a remote `directory`
-    waits for the remote half of `data/fsio.py` (ROADMAP.md queue A item
-    (a)4)."""
+    (gs:// hdfs:// mock://) goes through `data/fsio.py`."""
 
     directory: str = ""
     save_every_epochs: int = 1

@@ -71,12 +71,17 @@ def _sha1(text: str) -> str:
 
 
 def _source_info(path: str):
-    """(size, mtime_ns, path_part) for keying.  A remote source raises
-    NotImplementedError until the remote half of data/fsio.py (ROADMAP.md
-    queue A item (a)4), which keys on the filesystem's metadata."""
+    """(size, mtime_ns, path_part) for keying, or (None, None, None) when
+    a remote filesystem reports no trustworthy metadata (keying on a
+    constant would serve stale entries after an in-place overwrite).  A
+    remote URI keys on the filesystem's metadata and on the URI itself."""
     from . import fsio
 
-    fsio._local_only(path)
+    if fsio.is_remote(path):
+        size, mtime_ns = fsio.file_info(path)
+        if size is None or mtime_ns is None:
+            return None, None, None
+        return size, mtime_ns, _sha1(path)[:16]
     st = os.stat(path)
     return st.st_size, st.st_mtime_ns, _sha1(os.path.abspath(path))[:16]
 

@@ -10,9 +10,10 @@ per-line fallback that keeps every row (bad cells become NaN, imputed at
 projection).  Both text tiers give the same arrays bit for bit.  Each read
 records its tier and cost split for this thread (`last_io_stats`), which
 the ingest report reads.  `read_files` can put the parse-once cache
-(`data/cache.py`) in front.  A remote path (gs://, hdfs://, ...) raises
-NotImplementedError: the remote half of `data/fsio.py` is ROADMAP.md queue
-A item (a)4.
+(`data/cache.py`) in front.  A remote URI (hdfs:// gs:// s3:// file://
+mock://) is fetched whole through `data/fsio.py`, decompressed by its gzip
+magic and parsed by the same tiers from the buffer; remote parquet opens a
+seekable pyarrow file, and a remote count streams.
 """
 
 from __future__ import annotations
@@ -138,16 +139,32 @@ def is_parquet(path: str) -> bool:
     return path.lower().endswith(_PARQUET_EXTS)
 
 
+def _parquet_source(path: str):
+    """A local path, or a seekable pyarrow file for a remote URI (parquet
+    readers need random access)."""
+    from . import fsio
+    return fsio.open_input_file(path) if fsio.is_remote(path) else path
+
+
+def _fetch_decompressed(path: str) -> tuple[bytes, int]:
+    """A remote file's bytes, gunzipped when they start with the gzip
+    magic, and the fetched (source) byte count."""
+    from . import fsio
+    raw = fsio.read_bytes(path)
+    fetched = len(raw)
+    if raw[:2] == b"\x1f\x8b":
+        raw = gzip.decompress(raw)
+    return raw, fetched
+
+
 def _read_parquet(path: str) -> np.ndarray:
     """One parquet file -> the same (N, C) float32 matrix the text parsers
     produce; column positions (file order) take the place of the text
     column indices ColumnConfig refers to.  A non-numeric column is a data
     error, reported by name and position."""
-    from . import fsio
-    fsio._local_only(path)
     import pyarrow.parquet as pq
 
-    table = pq.ParquetFile(path).read()
+    table = pq.ParquetFile(_parquet_source(path)).read()
     cols = []
     for i in range(table.num_columns):
         arr = table.column(i).to_numpy(zero_copy_only=False)
@@ -187,7 +204,13 @@ def read_file(path: str, delimiter: str = "|",
         arr = _read_parquet(path)
         _note_io("parquet", 0.0, time.perf_counter() - t0, _local_size(path))
         return arr
-    fsio._local_only(path)
+    if fsio.is_remote(path):
+        t0 = time.perf_counter()
+        raw, fetched = _fetch_decompressed(path)
+        t1 = time.perf_counter()
+        arr = _parse_bytes(raw, delimiter, parser_threads)
+        _note_io("remote", t1 - t0, time.perf_counter() - t1, fetched)
+        return arr
     if len(delimiter.encode()) == 1 and native_parser.available():
         try:
             t0 = time.perf_counter()
@@ -239,11 +262,12 @@ def count_rows(paths: Sequence[str]) -> int:
     total = 0
     for p in paths:
         if is_parquet(p):
-            fsio._local_only(p)
             import pyarrow.parquet as pq
-            total += pq.ParquetFile(p).metadata.num_rows
+            total += pq.ParquetFile(_parquet_source(p)).metadata.num_rows
             continue
-        fsio._local_only(p)
+        if fsio.is_remote(p):
+            total += fsio.count_data_lines(p)  # streaming, constant memory
+            continue
         if use_native:
             try:
                 total += native_parser.count_rows(p)
@@ -258,8 +282,9 @@ def count_rows(paths: Sequence[str]) -> int:
 
 
 def list_data_files(root: str) -> list[str]:
-    """Data files under a local directory, skipping '.'/'_' prefixed names
-    (the reference's HDFS listing filter); a file path lists itself."""
+    """Data files under a directory or remote URI, skipping '.'/'_'
+    prefixed names (the reference's HDFS listing filter); a file path
+    lists itself."""
     from . import fsio
     return fsio.list_files(root)
 

@@ -16,7 +16,9 @@ precedence, writes `ModelConfig.json`, `ColumnConfig.json`,
 `cuda:0` (or `--device`; the CPU only when asked), streams the epoch lines
 to `console.board`, and at the end writes `final_model` (the artifact
 `ScoringDaemon(engine="torch")` serves), `metrics.jsonl` and the
-`telemetry/` journal and scrape file.  It returns a Shifu-style exit
+`telemetry/` journal and scrape file.  A remote --output (gs:// hdfs://
+mock://) writes the same tree through `data/fsio.py`; the artifact is
+built locally and uploaded.  It returns a Shifu-style exit
 status: 0 success, 1 failure, 3 timeout; a SIGTERM drain exits 75.
 `--supervise` runs the same command as a child under the restart
 supervisor (`launcher/supervisor.py`), which restarts it on 75 or any
@@ -37,8 +39,11 @@ import math
 import os
 import shutil
 import sys
+import tempfile
 import time
 from typing import Optional, Sequence
+
+from ..data import fsio
 
 EXIT_OK = 0
 EXIT_FAIL = 1
@@ -128,7 +133,9 @@ def _assemble_job(args, write_files: bool = True):
         job = xmlconfig.apply_to_job(job, merged_xml)
 
     out_dir = _resolve_out_dir(args)
-    os.makedirs(out_dir, exist_ok=True)
+    remote_out = fsio.is_remote(out_dir)
+    if not remote_out:
+        os.makedirs(out_dir, exist_ok=True)
 
     # overrides, highest precedence (the reference's programmatic layer)
     train = job.train
@@ -146,18 +153,21 @@ def _assemble_job(args, write_files: bool = True):
         runtime = dataclasses.replace(
             runtime, checkpoint=dataclasses.replace(
                 runtime.checkpoint,
-                directory=os.path.join(out_dir, "tmp_model")))
+                directory=fsio.join(out_dir, "tmp_model")))
     if not runtime.final_model_path:
         runtime = dataclasses.replace(
-            runtime, final_model_path=os.path.join(out_dir, "final_model"))
+            runtime, final_model_path=fsio.join(out_dir, "final_model"))
     job = job.replace(train=train, data=data, runtime=runtime)
 
     if write_files:
         # the raw Shifu inputs beside the derived configs: the job dir
-        # alone reproduces the run
+        # alone reproduces the run (a remote job dir writes through fsio)
         for src in (args.modelconfig, args.columnconfig):
-            dst = os.path.join(out_dir, os.path.basename(src))
-            if os.path.realpath(src) != os.path.realpath(dst):
+            dst = fsio.join(out_dir, os.path.basename(src))
+            if remote_out:
+                with open(src, "rb") as f:
+                    fsio.write_bytes(dst, f.read())
+            elif os.path.realpath(src) != os.path.realpath(dst):
                 shutil.copyfile(src, dst)
         final_conf = {**merged_xml,
                       "shifu.application.epochs": str(job.train.epochs),
@@ -165,10 +175,16 @@ def _assemble_job(args, write_files: bool = True):
                           job.runtime.final_model_path,
                       "shifu.application.tmp-model-path":
                           job.runtime.checkpoint.directory}
-        xmlconfig.write_configuration_xml(
-            final_conf, os.path.join(out_dir, "global-final.xml"))
-        with open(os.path.join(out_dir, "job-config.json"), "w") as f:
-            f.write(job.to_json())
+        if remote_out:
+            fsio.write_bytes(fsio.join(out_dir, "global-final.xml"),
+                             xmlconfig.configuration_xml_bytes(final_conf))
+            fsio.write_bytes(fsio.join(out_dir, "job-config.json"),
+                             job.to_json().encode())
+        else:
+            xmlconfig.write_configuration_xml(
+                final_conf, os.path.join(out_dir, "global-final.xml"))
+            with open(os.path.join(out_dir, "job-config.json"), "w") as f:
+                f.write(job.to_json())
     return job, out_dir
 
 
@@ -220,14 +236,22 @@ def _activate_chaos(args) -> int:
     if chaos.ENV_CHAOS_STATE not in os.environ:
         out_dir = _resolve_out_dir(args)
         args.output = out_dir  # pin: a re-resolve could timestamp anew
-        os.makedirs(out_dir, exist_ok=True)
-        os.environ[chaos.ENV_CHAOS_STATE] = os.path.join(
-            out_dir, "chaos_state.json")
-        try:
-            with open(os.path.join(out_dir, "chaos_plan.json"), "w") as f:
-                f.write(plan.to_json())
-        except OSError:
-            pass
+        if not fsio.is_remote(out_dir):
+            os.makedirs(out_dir, exist_ok=True)
+            os.environ[chaos.ENV_CHAOS_STATE] = os.path.join(
+                out_dir, "chaos_state.json")
+            try:
+                with open(os.path.join(out_dir, "chaos_plan.json"),
+                          "w") as f:
+                    f.write(plan.to_json())
+            except OSError:
+                pass
+        else:
+            try:  # the audit trail persists through fsio; no state file
+                fsio.write_bytes(fsio.join(out_dir, "chaos_plan.json"),
+                                 plan.to_json().encode())
+            except Exception:
+                pass
     return EXIT_OK
 
 
@@ -271,14 +295,15 @@ def run_train(args) -> int:
         from .supervisor import supervise
         out_dir = _resolve_out_dir(args)
         args.output = out_dir  # pin: a second resolve could timestamp anew
-        os.makedirs(out_dir, exist_ok=True)
+        if not fsio.is_remote(out_dir):
+            os.makedirs(out_dir, exist_ok=True)
         sup_job = _assemble_job(args, write_files=False)[0]
         _check_job_ported(sup_job, args)
         max_restarts = (args.max_restarts if args.max_restarts >= 0
                         else sup_job.runtime.max_restarts)
         return supervise(_child_train_args(args, out_dir),
                          max_restarts=max_restarts,
-                         board_path=os.path.join(out_dir, "console.board"),
+                         board_path=fsio.join(out_dir, "console.board"),
                          liveness_seconds=sup_job.runtime.liveness_seconds,
                          checkpoint_dir=sup_job.runtime.checkpoint.directory,
                          timeout_seconds=sup_job.runtime.timeout_seconds)
@@ -303,7 +328,6 @@ def run_train(args) -> int:
         return EXIT_FAIL
 
     from .. import obs
-    from ..export.artifact import save_artifact
     from ..train.loop import train
     from .console import ConsoleBoard
     from .supervisor import JobDeadline
@@ -312,11 +336,11 @@ def run_train(args) -> int:
     # telemetry: SHIFU_TPU_METRICS_DIR wins, else <job dir>/telemetry
     try:
         obs.configure(obs.resolve_metrics_dir()
-                      or os.path.join(out_dir, "telemetry"))
+                      or fsio.join(out_dir, "telemetry"))
     except Exception:
         pass  # telemetry must never block the job
     obs.counter("launcher_runs_total", "train runs started").inc()
-    board = ConsoleBoard(os.path.join(out_dir, "console.board"))
+    board = ConsoleBoard(fsio.join(out_dir, "console.board"))
     board(f"shifu_tpu_torch train: {job.runtime.app_name} device={dev} "
           f"model={job.model.model_type} epochs={job.train.epochs} "
           f"batch={job.data.batch_size}")
@@ -362,18 +386,37 @@ def run_train(args) -> int:
         board.close()
         return _finish(EXIT_FAIL)
 
-    export_dir = job.runtime.final_model_path
-    with obs.span("export", journal=False):
-        save_artifact(result.state.model, job.model, job.schema, export_dir)
-    obs.event("export", dest=export_dir)
+    export_dir = _export(result, job)
     board(f"model exported to {export_dir}")
-    _write_metrics_jsonl(result, os.path.join(out_dir, "metrics.jsonl"))
+    _write_metrics_jsonl(result, fsio.join(out_dir, "metrics.jsonl"))
     if result.history:
         last = result.history[-1]
         board(f"final: valid_error={last.valid_error:.6f} "
               f"valid_auc={last.valid_auc:.4f}")
     board.close()
     return _finish(EXIT_OK)
+
+
+def _export(result, job) -> str:
+    """The artifact at `runtime.final_model_path`; a remote destination
+    is built in a local temporary directory and uploaded through fsio."""
+    from .. import obs
+    from ..export.artifact import save_artifact
+
+    dest = job.runtime.final_model_path
+    with obs.span("export", journal=False):
+        if fsio.is_remote(dest):
+            local_dir = tempfile.mkdtemp(prefix="shifu_tpu_torch_export_")
+            try:
+                save_artifact(result.state.model, job.model, job.schema,
+                              local_dir)
+                fsio.upload_dir(local_dir, dest)
+            finally:
+                shutil.rmtree(local_dir, ignore_errors=True)
+        else:
+            save_artifact(result.state.model, job.model, job.schema, dest)
+    obs.event("export", dest=dest)
+    return dest
 
 
 def _write_metrics_jsonl(result, path: str) -> None:
@@ -386,10 +429,14 @@ def _write_metrics_jsonl(result, path: str) -> None:
     lines = [json.dumps({k: _clean(v) for k, v in
                          dataclasses.asdict(m).items()}, allow_nan=False)
              for m in result.history]
+    payload = ("\n".join(lines) + "\n") if lines else ""
     try:
-        with open(path, "w") as f:
-            f.write(("\n".join(lines) + "\n") if lines else "")
-    except OSError:
+        if fsio.is_remote(path):
+            fsio.write_bytes(path, payload.encode())
+        else:
+            with open(path, "w") as f:
+                f.write(payload)
+    except Exception:
         pass  # best-effort; the board already has the lines
 
 

@@ -43,11 +43,16 @@ CHILD_MODULE = "shifu_tpu_torch.launcher.cli"
 
 
 def _marker_epoch(ckpt_dir: str) -> int:
-    """Epoch of the `PROGRESS` marker (-1 if absent or unreadable)."""
+    """Epoch of the `PROGRESS` marker (-1 if absent or unreadable), local
+    or remote (through fsio)."""
     from ..train.checkpoint import PROGRESS_MARKER
     try:
-        with open(os.path.join(ckpt_dir, PROGRESS_MARKER), "rb") as f:
-            return int(json.loads(f.read()).get("epoch", -1))
+        if fsio.is_remote(ckpt_dir):
+            raw = fsio.read_bytes(fsio.join(ckpt_dir, PROGRESS_MARKER))
+        else:
+            with open(os.path.join(ckpt_dir, PROGRESS_MARKER), "rb") as f:
+                raw = f.read()
+        return int(json.loads(raw).get("epoch", -1))
     except Exception:
         return -1
 
@@ -72,15 +77,47 @@ def _committed_step_epoch(ckpt_dir: str) -> int:
     return -1
 
 
+def _committed_step_epoch_remote(ckpt_dir: str) -> int:
+    """_committed_step_epoch for gs:// hdfs:// mock:// checkpoint dirs: one
+    listing and small reads per probe.  A remote step tree is committed
+    once its `extra.json` exists (the save writes it last).  Without this
+    probe a remote-checkpoint job whose attempts each commit one async save
+    before a kill (marker pending) would look like no progress and exhaust
+    the restart budget."""
+    from ..train.checkpoint import EXTRA_FILE
+    try:
+        from pyarrow import fs as pafs
+        filesystem, fs_path = fsio._filesystem(ckpt_dir)
+        base = fs_path.rstrip("/")
+        infos = filesystem.get_file_info(
+            pafs.FileSelector(base, recursive=False))
+        steps = sorted((int(i.base_name) for i in infos
+                        if i.type == pafs.FileType.Directory
+                        and i.base_name.isdigit()), reverse=True)
+        for s in steps:
+            try:
+                with filesystem.open_input_stream(
+                        f"{base}/{s}/{EXTRA_FILE}") as f:
+                    return int((json.loads(f.read()) or {}).get("epoch",
+                                                                 -1))
+            except Exception:
+                continue  # uncommitted (no extra.json yet) or unreadable
+    except Exception:
+        return -1
+    return -1
+
+
 def checkpoint_progress(ckpt_dir: Optional[str]) -> int:
-    """Durable progress of a checkpoint dir: the larger of the `PROGRESS`
-    marker's epoch and the newest committed step's (-1 if neither).  The
-    epoch, not the step: a mid-epoch resume replays its epoch, so a crash
-    loop there would look like progress by steps."""
+    """Durable progress of a checkpoint dir, local or remote: the larger
+    of the `PROGRESS` marker's epoch and the newest committed step's (-1
+    if neither).  The epoch, not the step: a mid-epoch resume replays its
+    epoch, so a crash loop there would look like progress by steps."""
     if not ckpt_dir:
         return -1
-    fsio._local_only(ckpt_dir)
-    return max(_marker_epoch(ckpt_dir), _committed_step_epoch(ckpt_dir))
+    committed = (_committed_step_epoch_remote(ckpt_dir)
+                 if fsio.is_remote(ckpt_dir)
+                 else _committed_step_epoch(ckpt_dir))
+    return max(_marker_epoch(ckpt_dir), committed)
 
 
 class ProgressProbe:
@@ -119,16 +156,25 @@ def _telemetry_dir(board_path: Optional[str]) -> Optional[str]:
         return d
     if not board_path:
         return None
+    if fsio.is_remote(board_path):
+        return fsio.join(board_path.rsplit("/", 1)[0], "telemetry")
     return os.path.join(os.path.dirname(os.path.abspath(board_path)),
                         "telemetry")
 
 
 def _board_size(path: str) -> int:
-    """The liveness monitor's progress signature: the board's size, -1
-    when it is missing."""
+    """The liveness monitor's progress signature, -1 when the board is
+    missing: its size locally; on a remote job dir its size plus its
+    mtime, since once the board's line cap engages a rewrite drops one
+    line and adds one, and the size alone would stop moving."""
     try:
+        if fsio.is_remote(path):
+            size, mtime_ns = fsio.file_info(path)
+            if size is None and mtime_ns is None:
+                return -1
+            return int(size or 0) + int(mtime_ns or 0)
         return os.path.getsize(path)
-    except OSError:
+    except Exception:
         return -1
 
 
@@ -202,10 +248,16 @@ def supervise(child_argv: Sequence[str],
     and the supervisor's own deadline are terminal (exit 3)."""
     from .. import chaos, obs
 
-    # the journal only (scrape=False): the child owns the scrape file
+    # the journal only (scrape=False): the child owns the scrape file.  A
+    # local dir shares the child's journal (O_APPEND tolerates two
+    # writers); a remote one gets a sidecar object, since a remote journal
+    # is a whole-object rewrite of its writer's own lines
     tele_dir = _telemetry_dir(board_path)
     if tele_dir:
-        obs.configure(tele_dir, scrape=False, flush_every=1)
+        obs.configure(tele_dir, scrape=False, flush_every=1,
+                      journal_name=("journal-supervisor.jsonl"
+                                    if fsio.is_remote(tele_dir)
+                                    else "journal.jsonl"))
     obs.event("supervisor_start", max_restarts=max_restarts,
               liveness_seconds=liveness_seconds,
               timeout_seconds=timeout_seconds)

@@ -23,6 +23,7 @@ SCRAPE_FILE = "metrics.prom"
 _lock = threading.RLock()
 _journal: Optional[journal_mod.RunJournal] = None
 _scrape_path: Optional[str] = None
+_metrics_dir: Optional[str] = None
 
 
 def resolve_metrics_dir(explicit: Optional[str] = None) -> Optional[str]:
@@ -34,14 +35,15 @@ def configure(metrics_dir: str, scrape: bool = True,
               flush_every: int = 16,
               journal_name: str = journal_mod.JOURNAL_FILE
               ) -> journal_mod.RunJournal:
-    """Point this process's telemetry at `metrics_dir` (a local directory):
-    the journal at <dir>/<journal_name>, the scrape file at
+    """Point this process's telemetry at `metrics_dir` (a local directory
+    or a remote URI): the journal at <dir>/<journal_name>, the scrape file at
     <dir>/metrics.prom (unless `scrape=False`).  Reconfiguring closes the
     previous journal."""
-    global _journal, _scrape_path
+    global _journal, _scrape_path, _metrics_dir
     with _lock:
         if _journal is not None:
             _journal.close()
+        _metrics_dir = metrics_dir
         _journal = journal_mod.RunJournal(
             fsio.join(metrics_dir, journal_name), flush_every=flush_every)
         _scrape_path = fsio.join(metrics_dir, SCRAPE_FILE) if scrape else None
@@ -63,6 +65,12 @@ def configure_from_env() -> bool:
             return True
         except Exception:
             return False
+
+
+def metrics_dir() -> Optional[str]:
+    """The directory the sinks were configured at (None until then); the
+    device-trace dir (obs/devprof.py) anchors beside it."""
+    return _metrics_dir
 
 
 def get_journal() -> Optional[journal_mod.RunJournal]:
@@ -102,7 +110,7 @@ def shutdown() -> None:
 
 def reset_for_tests() -> None:
     """Tear down all global telemetry state (tests only)."""
-    global _journal, _scrape_path
+    global _journal, _scrape_path, _metrics_dir
     with _lock:
         if _journal is not None:
             try:
@@ -111,6 +119,8 @@ def reset_for_tests() -> None:
                 pass
         _journal = None
         _scrape_path = None
+        _metrics_dir = None
         metrics_mod.default_registry().clear()
-        from . import goodput
+        from . import flops, goodput
+        flops.reset_for_tests()
         goodput.reset_for_tests()

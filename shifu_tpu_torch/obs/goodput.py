@@ -8,16 +8,16 @@
   port compiles nothing inside an epoch (its kernels are built before
   training), so `compile` stays 0 unless a caller notes some.
 - **Goodput fraction** = step seconds / wall.
-- **MFU** = achieved FLOP/s / the card's peak.  The JAX package reads the
-  achieved FLOPs from XLA's cost analysis (`obs/introspect.py`), which the
-  port has no counterpart of yet (ROADMAP.md queue A item (a)4): the
-  record's `achieved_tflops` and `mfu` stay null until FLOPs are counted,
-  never guessed.  Its `peak_tflops` comes from the port's own peak table
-  below.
+- **MFU** = achieved FLOP/s / the card's peak.  The achieved FLOPs are
+  the step programs' counts (`obs/flops.py`: torch.utils.flop_counter's
+  formulas over the aten ops, plus each hand-written kernel's `cost`),
+  credited through `note_flops` on every dispatch; the peak comes from the
+  table below, overridable with `SHIFU_TPU_PEAK_TFLOPS`.  On the CPU the
+  peak is unknown, so `mfu` is null and `achieved_tflops` a number.
 
 Every epoch journals one `goodput` event (the JAX package's keys) and
 feeds the `goodput_bucket_seconds_total{bucket=...}` counter and the
-`goodput_fraction` gauge.
+`goodput_fraction` and `mfu` gauges.
 """
 
 from __future__ import annotations
@@ -66,12 +66,13 @@ def peak_tflops(device_kind: Optional[str] = None) -> Optional[float]:
 
 
 class GoodputLedger:
-    """One epoch's wall-time classification; threads may `add`
-    concurrently."""
+    """One epoch's wall-time classification; threads may `add` and
+    `add_flops` concurrently."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._seconds: dict[str, float] = {}
+        self._flops = 0.0
         self._compiles = 0
 
     def add(self, bucket: str, seconds: float) -> None:
@@ -84,12 +85,18 @@ class GoodputLedger:
             if bucket == "compile":
                 self._compiles += 1
 
+    def add_flops(self, flops: float) -> None:
+        if flops > 0 and flops != float("inf"):  # NaN > 0 is False
+            with self._lock:
+                self._flops += float(flops)
+
     def summary(self, wall_s: float) -> dict:
         """The goodput record for an epoch of `wall_s` seconds.  Compile
         time happens inside the timed step/eval calls, so it is subtracted
         from `step` first, then `eval`; `other` absorbs the residue."""
         with self._lock:
             b = dict(self._seconds)
+            flops = self._flops
             compiles = self._compiles
         compile_s = b.get("compile", 0.0)
         overlap = min(compile_s, b.get("step", 0.0))
@@ -99,16 +106,24 @@ class GoodputLedger:
                    if k != "other"}
         classified = sum(buckets.values())
         buckets["other"] = round(max(wall_s - classified, 0.0), 6)
-        return {
+        out = {
             "wall_s": round(wall_s, 6),
             "buckets": buckets,
             "goodput_fraction": round(buckets["step"] / wall_s, 4)
             if wall_s > 0 else None,
             "compiles": compiles,
-            "achieved_tflops": None,  # no FLOP count yet (module docstring)
-            "peak_tflops": peak_tflops(),
-            "mfu": None,
         }
+        peak = peak_tflops()
+        achieved = (flops / wall_s / 1e12) if wall_s > 0 and flops > 0 \
+            else None
+        # significant digits, not fixed decimals: CPU-scale TFLOP/s (and
+        # the MFU they imply) are tiny and must not round to 0.0
+        out["achieved_tflops"] = (float(f"{achieved:.6g}")
+                                  if achieved is not None else None)
+        out["peak_tflops"] = peak
+        out["mfu"] = (float(f"{achieved / peak:.6g}")
+                      if achieved is not None and peak else None)
+        return out
 
 
 _lock = threading.Lock()
@@ -138,6 +153,16 @@ def note(bucket: str, seconds: float) -> None:
             pass
 
 
+def note_flops(flops: float) -> None:
+    """Credit `flops` to the active ledger; no-op between epochs."""
+    led = _current
+    if led is not None:
+        try:
+            led.add_flops(flops)
+        except Exception:
+            pass
+
+
 def end_epoch(epoch: int, wall_s: float) -> Optional[dict]:
     """Close the active ledger: journal the `goodput` event, feed the
     registry, return the record (None when no ledger is open)."""
@@ -161,6 +186,9 @@ def end_epoch(epoch: int, wall_s: float) -> Optional[dict]:
                 "goodput_fraction",
                 "last epoch's device-step fraction of wall time",
             ).set(rec["goodput_fraction"])
+        if rec["mfu"] is not None:
+            metrics_mod.gauge(
+                "mfu", "last epoch's model FLOP utilization").set(rec["mfu"])
         _sinks.event("goodput", **rec)
         return rec
     except Exception:

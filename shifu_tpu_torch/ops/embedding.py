@@ -37,6 +37,7 @@ from typing import Sequence
 
 import torch
 
+from ..obs import flops as flops_lib
 from . import _build
 
 # TF 1.4 Adadelta constants (train/optimizers.py uses the same)
@@ -47,6 +48,27 @@ RULES = ("sgd", "adadelta")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _count_lock = threading.Lock()
+
+
+def lookup_cost(b: int, nc: int, d: int, dtype) -> tuple:
+    """(flops, bytes, exponentials) of the lookup of (B, Nc) ids: each
+    gathered row read and written once, the ids read as int32; no
+    operations."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    return 0.0, float(2 * b * nc * d * elt + b * nc * 4), 0.0
+
+
+def rows_update_cost(u: int, nc: int, d: int, dtype, touched: int,
+                     rule: str = "adadelta") -> tuple:
+    """(flops, bytes, exponentials) of the rows-touched update of (U, Nc)
+    ids, `touched` of them in range: a touched row's table entry read and
+    written, its f32 gradient row read, and under adadelta its two f32
+    slots read and written (7 x D x 4 bytes for an f32 table); the ids
+    read as int32.  The count follows this call's ids, not the most they
+    could touch."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    per_row = d * (2 * elt + 4 + (16 if rule == "adadelta" else 0))
+    return 0.0, float(touched * per_row + u * nc * 4), 0.0
 
 
 def _check_device(name: str, t: torch.Tensor) -> None:
@@ -120,10 +142,12 @@ def _launch_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def _lookup_forward(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    if table.device.type == "cpu":
-        return lookup_reference(table, ids)
-    _check_device("embedding_lookup", table)
-    return _launch_lookup(table, ids)
+    with flops_lib.kernel(lambda: lookup_cost(ids.shape[0], table.shape[0],
+                                              table.shape[-1], table.dtype)):
+        if table.device.type == "cpu":
+            return lookup_reference(table, ids)
+        _check_device("embedding_lookup", table)
+        return _launch_lookup(table, ids)
 
 
 def scatter_grad(ids: torch.Tensor, table_shape: Sequence[int],
@@ -339,11 +363,19 @@ def fused_rows_update(table: torch.Tensor, slots: tuple,
     (table, slots)."""
     _check_rule(rule)
     slots = tuple(slots)
-    if table.device.type == "cpu":
-        rows_update_plain(table, slots, g_rows, ids, rule, lr)
-    else:
-        _check_device("fused_rows_update", table)
-        _launch_rows_update(table, slots, g_rows, ids, rule, lr, unique)
+
+    def cost() -> tuple:
+        nc, v, d = table.shape
+        touched = int(((ids >= 0) & (ids < v)).sum())
+        return rows_update_cost(ids.shape[0], nc, d, table.dtype, touched,
+                                rule)
+
+    with flops_lib.kernel(cost):
+        if table.device.type == "cpu":
+            rows_update_plain(table, slots, g_rows, ids, rule, lr)
+        else:
+            _check_device("fused_rows_update", table)
+            _launch_rows_update(table, slots, g_rows, ids, rule, lr, unique)
     return table, slots
 
 

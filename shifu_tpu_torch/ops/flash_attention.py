@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ..obs import flops as flops_lib
 from . import _build
 
 MAX_D = 128
@@ -39,6 +40,37 @@ _count_lock = threading.Lock()
 # would be 33 GB at once) in few launches; on the CPU 4 MB, which stays in
 # cache (2.5x faster than 512 MB at S = 1001 on an 8-core host)
 _PLAIN_CHUNK_BYTES = {"cuda": 1 << 29, "cpu": 1 << 22}
+
+
+def _costs(b: int, h: int, s: int, d: int, dtype) -> dict:
+    elt = torch.empty((), dtype=dtype).element_size()
+    numel, bh_s, pairs = b * h * s * d, b * h * s, float(b * h) * s * s
+    return {"fwd": (4.0 * pairs * d, float(4 * numel * elt + bh_s * 4),
+                    pairs),
+            "dq": (6.0 * pairs * d, float(5 * numel * elt + 2 * bh_s * 4),
+                   pairs),
+            "dkv": (8.0 * pairs * d, float(6 * numel * elt + 2 * bh_s * 4),
+                    pairs)}
+
+
+def cost_fwd(b: int, h: int, s: int, d: int, dtype) -> tuple:
+    """(flops, bytes, exponentials) of the forward on (B, H, S, D): the
+    two products; q, k, v read, the output and the f32 lse written; one
+    exponential a (query, key) pair."""
+    return _costs(b, h, s, d, dtype)["fwd"]
+
+
+def cost_bwd_dq(b: int, h: int, s: int, d: int, dtype) -> tuple:
+    """(flops, bytes, exponentials) of the dq kernel: the scores, dP and
+    dq products; q, k, v, dO, lse and Dres read, dq written."""
+    return _costs(b, h, s, d, dtype)["dq"]
+
+
+def cost_bwd_dkv(b: int, h: int, s: int, d: int, dtype) -> tuple:
+    """(flops, bytes, exponentials) of the dk/dv kernel: the scores, dP,
+    dk and dv products; q, k, v, dO, lse and Dres read, dk and dv
+    written."""
+    return _costs(b, h, s, d, dtype)["dkv"]
 
 
 def _chunks(n_rows: int, s: int, device: torch.device):
@@ -205,16 +237,17 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) of the forward.  CUDA tensors launch the kernel (and
     count in `flash_fwd.launches`); CPU tensors run `flash_fwd_plain`."""
-    if not _route("flash_fwd", q):
-        return flash_fwd_plain(q, k, v, scale)
-    _check("flash_fwd", q, k, v)
-    out = torch.empty_like(q)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    if q.numel():
-        _run("flash_fwd", flash_fwd, q,
-             [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              lse.data_ptr()], scale)
-    return out, lse
+    with flops_lib.kernel(lambda: cost_fwd(*q.shape, q.dtype)):
+        if not _route("flash_fwd", q):
+            return flash_fwd_plain(q, k, v, scale)
+        _check("flash_fwd", q, k, v)
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        if q.numel():
+            _run("flash_fwd", flash_fwd, q,
+                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  lse.data_ptr()], scale)
+        return out, lse
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -223,16 +256,17 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """dq from the saved lse and Dres.  CUDA tensors launch the dq kernel
     (and count in `flash_bwd_dq.launches`); CPU tensors run
     `flash_bwd_dq_plain`."""
-    if not _route("flash_bwd_dq", q):
-        return flash_bwd_dq_plain(q, k, v, g, lse, dres, scale)
-    _check("flash_bwd_dq", q, k, v, g)
-    _check_vec("flash_bwd_dq", q, lse, dres)
-    dq = torch.empty_like(q)
-    if q.numel():
-        _run("flash_bwd_dq", flash_bwd_dq, q,
-             [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-              lse.data_ptr(), dres.data_ptr(), dq.data_ptr()], scale)
-    return dq
+    with flops_lib.kernel(lambda: cost_bwd_dq(*q.shape, q.dtype)):
+        if not _route("flash_bwd_dq", q):
+            return flash_bwd_dq_plain(q, k, v, g, lse, dres, scale)
+        _check("flash_bwd_dq", q, k, v, g)
+        _check_vec("flash_bwd_dq", q, lse, dres)
+        dq = torch.empty_like(q)
+        if q.numel():
+            _run("flash_bwd_dq", flash_bwd_dq, q,
+                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                  lse.data_ptr(), dres.data_ptr(), dq.data_ptr()], scale)
+        return dq
 
 
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -241,29 +275,36 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dk, dv) from the saved lse and Dres.  CUDA tensors launch the dk/dv
     kernel (and count in `flash_bwd_dkv.launches`); CPU tensors run
     `flash_bwd_dkv_plain`."""
-    if not _route("flash_bwd_dkv", q):
-        return flash_bwd_dkv_plain(q, k, v, g, lse, dres, scale)
-    _check("flash_bwd_dkv", q, k, v, g)
-    _check_vec("flash_bwd_dkv", q, lse, dres)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if q.numel():
-        _run("flash_bwd_dkv", flash_bwd_dkv, q,
-             [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-              lse.data_ptr(), dres.data_ptr(), dk.data_ptr(), dv.data_ptr()],
-             scale)
-    return dk, dv
+    with flops_lib.kernel(lambda: cost_bwd_dkv(*q.shape, q.dtype)):
+        if not _route("flash_bwd_dkv", q):
+            return flash_bwd_dkv_plain(q, k, v, g, lse, dres, scale)
+        _check("flash_bwd_dkv", q, k, v, g)
+        _check_vec("flash_bwd_dkv", q, lse, dres)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        if q.numel():
+            _run("flash_bwd_dkv", flash_bwd_dkv, q,
+                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                  lse.data_ptr(), dres.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr()], scale)
+        return dk, dv
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
               scale: float
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv): on CUDA Dres as a torch op, then the dq kernel and the
-    dk/dv kernel; on the CPU `flash_bwd_plain`."""
-    if not _route("flash_bwd", q):
-        return flash_bwd_plain(q, k, v, out, lse, g, scale)
+    """(dq, dk, dv): Dres as a torch op, then on CUDA the dq kernel and
+    the dk/dv kernel, on the CPU their plain math in one pass (counted as
+    the two kernels' costs)."""
     g = g.contiguous()
     dres = flash_dres(out, g)
+    if not _route("flash_bwd", q):
+        with flops_lib.kernel(lambda: flops_lib.add_costs(
+                cost_bwd_dq(*q.shape, q.dtype),
+                cost_bwd_dkv(*q.shape, q.dtype))):
+            got = _bwd_plain(q, k, v, g, lse, dres, scale,
+                             ("dq", "dk", "dv"))
+        return got["dq"], got["dk"], got["dv"]
     dq = flash_bwd_dq(q, k, v, g, lse, dres, scale)
     dk, dv = flash_bwd_dkv(q, k, v, g, lse, dres, scale)
     return dq, dk, dv

@@ -29,6 +29,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from ..obs import flops as flops_lib
 from . import _build
 
 MAX_TOKENS = 64
@@ -112,6 +113,30 @@ def _param_shapes(d: int, r: int) -> dict:
             "mlp_out_kernel": (r * d, d), "mlp_out_bias": (d,)}
 
 
+def block_ops(b: int, s: int, d: int, h: int,
+              r: int) -> tuple[float, float]:
+    """Operations of one block on these shapes: (the four products, the
+    rest: the attention products and the elementwise work, LayerNorm
+    ~8/elt, gelu ~10/elt, softmax ~4 per score, residual adds)."""
+    m = b * s
+    products = 2 * m * (3 * d * d + d * d + 2 * r * d * d)
+    attention = 4 * b * h * s * s * (d // h)
+    elementwise = (2 * 8 * m * d + 10 * m * r * d + 4 * b * h * s * s
+                   + 2 * m * d)
+    return float(products), float(attention + elementwise)
+
+
+def cost(b: int, s: int, d: int, h: int, r: int) -> tuple:
+    """(flops, bytes, exponentials) of one forward call: `block_ops`
+    summed; x read and the output written in f32, every parameter read
+    once.  (Its bound weighs the products and the rest at their own rates,
+    chip_smoke.check_ft_block.)"""
+    products, rest = block_ops(b, s, d, h, r)
+    params = sum(int(torch.Size(shape).numel())
+                 for shape in _param_shapes(d, r).values())
+    return products + rest, float(2 * b * s * d * 4 + params * 4), 0.0
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ft_block")
     if not getattr(lib, "_shifu_typed", False):
@@ -155,9 +180,11 @@ class _FusedBlock(torch.autograd.Function):
     def forward(ctx, xf, heads, ratio, *flat):
         ctx.save_for_backward(xf, *flat)
         ctx.heads = heads
-        if xf.device.type == "cpu":
-            return block_math(xf, dict(zip(_PARAM_ORDER, flat)), heads)
-        return _launch(xf, list(flat), heads, ratio)
+        b, s, d = xf.shape
+        with flops_lib.kernel(lambda: cost(b, s, d, heads, ratio)):
+            if xf.device.type == "cpu":
+                return block_math(xf, dict(zip(_PARAM_ORDER, flat)), heads)
+            return _launch(xf, list(flat), heads, ratio)
 
     @staticmethod
     def backward(ctx, dy):

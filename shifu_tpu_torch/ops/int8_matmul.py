@@ -33,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from ..obs import flops as flops_lib
 from . import _build
 
 # the JAX gate's shape limits (`pallas_int8_matmul.fused_available`)
@@ -47,6 +48,19 @@ def int8_available(n_features: int, n_out: int) -> bool:
     """The shape gate: 0 < F <= 4096 and 0 < N <= 4096.  Shape only -- on
     the card every admitted shape launches the kernel."""
     return 0 < n_features <= MAX_FEATURES and 0 < n_out <= MAX_OUT
+
+
+def cost(m: int, f: int, n: int, out_dtype=torch.bfloat16,
+         w_dtype=torch.float32, offset: bool = False) -> tuple:
+    """(flops, bytes, exponentials) of one call on (M, F) int8 q: the
+    product's 2 M F N; q, w, the bias, scale (and offset) read once, the
+    (M, N) output written once."""
+    w_elt = torch.empty((), dtype=w_dtype).element_size()
+    out_elt = torch.empty((), dtype=out_dtype).element_size()
+    n_bytes = (m * f + f * n * w_elt + n * w_elt + f * 4 * (2 if offset
+                                                              else 1)
+               + m * n * out_elt)
+    return 2.0 * m * f * n, float(n_bytes), 0.0
 
 
 def dequant_plain(q: torch.Tensor, scale: torch.Tensor,
@@ -130,11 +144,14 @@ def _launch(q: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _forward(q, w, b, scale, offset, compute_dtype) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return int8_matmul_plain(q, w, b, scale, offset, compute_dtype)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_matmul_dequant: unsupported device {q.device}")
-    return _launch(q, w, b, scale, offset, compute_dtype)
+    with flops_lib.kernel(lambda: cost(q.shape[0], q.shape[1], w.shape[1],
+                                       compute_dtype, w.dtype,
+                                       offset is not None)):
+        if q.device.type == "cpu":
+            return int8_matmul_plain(q, w, b, scale, offset, compute_dtype)
+        return _launch(q, w, b, scale, offset, compute_dtype)
 
 
 class Int8MatmulFn(torch.autograd.Function):

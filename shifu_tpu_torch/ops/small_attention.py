@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from ..obs import flops as flops_lib
 from . import _build
 
 # the JAX gate's envelope, so both packages route the same shapes
@@ -46,6 +47,24 @@ def small_attention_applicable(s: int, d: int, h: int = 1) -> bool:
     vmem_estimate = 8 * h * d * s_pad * LANES * 4
     return (s <= MAX_S and d <= MAX_D
             and vmem_estimate <= 48 * 1024 * 1024)
+
+
+def cost(b: int, h: int, s: int, d: int, dtype) -> tuple:
+    """(flops, bytes, exponentials) of the forward on (B, H, S, D): the
+    two products and ~4 operations a score; q, k, v read and the output
+    written once; one exponential a score."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    n_ops = 4.0 * b * h * s * s * d + 4.0 * b * h * s * s
+    return n_ops, float(4 * b * h * s * d * elt), float(b * h) * s * s
+
+
+def cost_bwd(b: int, h: int, s: int, d: int, dtype) -> tuple:
+    """(flops, bytes, exponentials) of the backward: the five products
+    (the scores recomputed, dP, dq, dk, dv); q, k, v and dO read, dq, dk
+    and dv written; the scores' exponentials again."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    return (10.0 * b * h * s * s * d, float(7 * b * h * s * d * elt),
+            float(b * h) * s * s)
 
 
 def small_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -174,10 +193,11 @@ def small_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float) -> torch.Tensor:
     """The forward: CUDA tensors launch the kernel (and count in
     `small_token_attention.launches`); CPU tensors run the plain version."""
-    if not _route(q):
-        return small_attention_plain(q, k, v, scale)
-    _check_cuda(q, k, v)
-    return _launch(q, k, v, scale)
+    with flops_lib.kernel(lambda: cost(*q.shape, q.dtype)):
+        if not _route(q):
+            return small_attention_plain(q, k, v, scale)
+        _check_cuda(q, k, v)
+        return _launch(q, k, v, scale)
 
 
 def small_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -186,13 +206,14 @@ def small_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) for the output gradient g: CUDA tensors launch the
     backward kernel (and count in `small_attention_bwd.launches`); CPU
     tensors run `small_attention_bwd_plain`."""
-    if not _route(q):
-        return small_attention_bwd_plain(q, k, v, g, scale)
-    _check_cuda(q, k, v)
-    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
-        raise ValueError(f"small_attention_bwd: g must match q; got "
-                         f"{tuple(g.shape)} {g.dtype} {g.device}")
-    return _launch_bwd(q, k, v, g.contiguous(), scale)
+    with flops_lib.kernel(lambda: cost_bwd(*q.shape, q.dtype)):
+        if not _route(q):
+            return small_attention_bwd_plain(q, k, v, g, scale)
+        _check_cuda(q, k, v)
+        if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+            raise ValueError(f"small_attention_bwd: g must match q; got "
+                             f"{tuple(g.shape)} {g.dtype} {g.device}")
+        return _launch_bwd(q, k, v, g.contiguous(), scale)
 
 
 class _SmallAttention(torch.autograd.Function):

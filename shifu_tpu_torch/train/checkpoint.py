@@ -24,12 +24,19 @@ A save on an existing step bumps its key instead of deleting first: the
 key only orders the saves, the true step is in the state.  With
 `block=False` the state is copied to the host first and written on one
 background thread; at most one save is in flight, and `finalize` makes it
-durable.  Remote directories wait for the remote half of `data/fsio.py`.
+durable.
+
+A remote directory (gs:// hdfs:// mock://) holds the same files through
+`data/fsio.py`.  Object stores have no directory rename, so a remote save
+writes `state.pt` into the step tree and `extra.json` last: a remote step
+tree is committed once its `extra.json` exists, and listings skip the
+others.
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -64,16 +71,20 @@ class CheckpointManager:
     background writer."""
 
     def __init__(self, directory: str, max_to_keep: int = 3):
-        fsio._local_only(directory)
-        self.directory = os.path.abspath(directory)
+        self.remote = fsio.is_remote(directory)
+        self.directory = (directory.rstrip("/") if self.remote
+                          else os.path.abspath(directory))
         self.max_to_keep = max(int(max_to_keep), 1)
-        os.makedirs(self.directory, exist_ok=True)
+        if not self.remote:
+            os.makedirs(self.directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         # (step, extra, tree_spec) of an async save not yet known durable
         self._pending: Optional[tuple] = None
 
     def all_steps(self) -> list[int]:
+        if self.remote:
+            return _remote_committed_steps(self.directory)
         try:
             names = os.listdir(self.directory)
         except FileNotFoundError:
@@ -99,6 +110,30 @@ def make_manager(directory: str, max_to_keep: int = 3) -> CheckpointManager:
     return CheckpointManager(directory, max_to_keep)
 
 
+def _remote_committed_steps(directory: str) -> list[int]:
+    """Digit-named step trees of a remote directory that hold their
+    `extra.json` (the commit mark a remote save writes last), ascending."""
+    from pyarrow import fs as pafs
+    filesystem, fs_path = fsio._filesystem(directory)
+    base = fs_path.rstrip("/")
+    infos = fsio._retry_transient(
+        lambda: filesystem.get_file_info(
+            pafs.FileSelector(base, recursive=False, allow_not_found=True)),
+        op_name="checkpoint_list")
+    steps = [int(i.base_name) for i in infos
+             if i.type == pafs.FileType.Directory and i.base_name.isdigit()]
+    return sorted(s for s in steps
+                  if fsio.exists(fsio.join(directory, str(s), EXTRA_FILE)))
+
+
+def _remote_delete_tree(directory: str, step: int) -> None:
+    filesystem, fs_path = fsio._filesystem(fsio.join(directory, str(step)))
+    try:
+        filesystem.delete_dir(fs_path.rstrip("/"))
+    except Exception:
+        pass
+
+
 def _write_progress_marker(directory: str, step: int,
                            extra: Optional[dict]) -> None:
     """`<dir>/PROGRESS` ({"epoch": E, "step": S}), rewritten on every
@@ -108,7 +143,7 @@ def _write_progress_marker(directory: str, step: int,
     payload = json.dumps({"epoch": int((extra or {}).get("epoch", -1)),
                           "step": int(step)}).encode()
     try:
-        fsio.write_bytes(os.path.join(directory, PROGRESS_MARKER), payload)
+        fsio.write_bytes(fsio.join(directory, PROGRESS_MARKER), payload)
     except Exception:
         pass
 
@@ -165,19 +200,42 @@ def _tree_spec(payload: dict) -> list:
 # -- integrity: digest manifests ----------------------------------------------
 
 def manifest_path(directory: str, step: int) -> str:
-    return os.path.join(str(directory), f"{MANIFEST_PREFIX}{int(step)}.json")
+    return fsio.join(str(directory), f"{MANIFEST_PREFIX}{int(step)}.json")
 
 
 def _tree_files(root: str) -> Iterable[tuple[str, int]]:
+    prefix = root.rstrip("/")
+    remote = fsio.is_remote(root)
     for full, size in fsio.walk_files(root):
-        yield os.path.relpath(full, root), size
+        rel = (full[len(prefix):].lstrip("/") if remote
+               else os.path.relpath(full, root))
+        yield rel, size
 
 
 def _digest_file(root: str, rel: str) -> str:
-    """Streaming blake2b of one file, in 1 MiB chunks."""
+    """Streaming blake2b of one file, in 1 MiB chunks.  A remote read
+    retries a transient error over the whole file (a fresh hash each
+    attempt): a network blip during a verify must read as a retry, never
+    as a corrupt checkpoint."""
+    chunk_bytes = 1 << 20
+    if fsio.is_remote(root):
+        def op() -> str:
+            h = hashlib.blake2b(digest_size=16)
+            f = fsio.open_input_file(fsio.join(root, rel))
+            try:
+                while True:
+                    chunk = f.read(chunk_bytes)
+                    if not chunk:
+                        break
+                    h.update(bytes(chunk))
+            finally:
+                f.close()
+            return h.hexdigest()
+
+        return fsio._retry_transient(op, op_name="digest_file")
     h = hashlib.blake2b(digest_size=16)
     with open(os.path.join(root, rel), "rb") as f:
-        for chunk in iter(lambda: f.read(1 << 20), b""):
+        for chunk in iter(lambda: f.read(chunk_bytes), b""):
             h.update(chunk)
     return h.hexdigest()
 
@@ -187,7 +245,7 @@ def write_manifest(directory: str, step: int,
     """Hash every file of the committed step tree into
     `<dir>/manifest-<step>.json`, once the save is durable.  Best-effort:
     restore treats a missing manifest as unverified."""
-    step_dir = os.path.join(str(directory), str(int(step)))
+    step_dir = fsio.join(str(directory), str(int(step)))
     try:
         files = {rel: [_digest_file(step_dir, rel), size]
                  for rel, size in _tree_files(step_dir)}
@@ -216,7 +274,7 @@ def verify_manifest(directory: str, step: int) -> Optional[bool]:
     manifest = read_manifest(directory, step)
     if manifest is None or not isinstance(manifest.get("files"), dict):
         return None
-    step_dir = os.path.join(str(directory), str(int(step)))
+    step_dir = fsio.join(str(directory), str(int(step)))
     have = dict(_tree_files(step_dir))
     for rel, entry in manifest["files"].items():
         digest, size = (entry[0], entry[1]) if isinstance(entry, list) \
@@ -241,7 +299,7 @@ def _finalize_durable(directory: str, step: int, extra: Optional[dict],
     _write_progress_marker(directory, step, extra)
     try:
         chaos.maybe_fail("checkpoint.post_save", step=int(step),
-                         path=os.path.join(directory, str(int(step))))
+                         path=fsio.join(directory, str(int(step))))
     except chaos.ChaosError:
         pass  # post-save actions model data damage, not process failure
 
@@ -257,7 +315,7 @@ def _flush_pending_marker(manager: CheckpointManager) -> None:
 
 def _step_size(directory: str, step: int) -> int:
     return sum(size for _, size in
-               _tree_files(os.path.join(directory, str(step))))
+               _tree_files(fsio.join(directory, str(step))))
 
 
 def _gc(manager: CheckpointManager) -> None:
@@ -267,12 +325,21 @@ def _gc(manager: CheckpointManager) -> None:
     drop, kept = steps[:-manager.max_to_keep], steps[-manager.max_to_keep:]
     for step in drop:
         size = _step_size(manager.directory, step)
-        shutil.rmtree(os.path.join(manager.directory, str(step)),
-                      ignore_errors=True)
-        try:
-            os.unlink(manifest_path(manager.directory, step))
-        except OSError:
-            pass
+        if manager.remote:
+            _remote_delete_tree(manager.directory, step)
+            try:
+                filesystem, fs_path = fsio._filesystem(
+                    manifest_path(manager.directory, step))
+                filesystem.delete_file(fs_path)
+            except Exception:
+                pass
+        else:
+            shutil.rmtree(os.path.join(manager.directory, str(step)),
+                          ignore_errors=True)
+            try:
+                os.unlink(manifest_path(manager.directory, step))
+            except OSError:
+                pass
         obs.counter("checkpoint_gc_total",
                     "checkpoint steps garbage-collected").inc()
         obs.counter("checkpoint_gc_bytes_total",
@@ -283,8 +350,18 @@ def _gc(manager: CheckpointManager) -> None:
 
 def _write_step(manager: CheckpointManager, step: int, payload: dict,
                 extra: Optional[dict]) -> None:
-    """The step tree in a temporary directory, renamed into place; then
-    retention."""
+    """The step tree in a temporary directory, renamed into place (on a
+    remote directory: the state, then `extra.json` as the commit mark);
+    then retention."""
+    if manager.remote:
+        step_dir = fsio.join(manager.directory, str(int(step)))
+        buf = io.BytesIO()
+        torch.save(payload, buf)
+        fsio.write_bytes(fsio.join(step_dir, STATE_FILE), buf.getvalue())
+        fsio.write_bytes(fsio.join(step_dir, EXTRA_FILE),
+                         json.dumps(extra).encode())
+        _gc(manager)
+        return
     final = os.path.join(manager.directory, str(int(step)))
     tmp = os.path.join(manager.directory, f".tmp-{int(step)}-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
@@ -399,13 +476,14 @@ def restore(manager: CheckpointManager, step: int, state,
     """Restore the state saved at `step` into `state` (built the same way
     as at save time), in place; returns it (and the extra)."""
     t0 = time.perf_counter()
-    step_dir = os.path.join(manager.directory, str(int(step)))
-    payload = torch.load(os.path.join(step_dir, STATE_FILE),
-                         map_location="cpu", weights_only=True)
+    step_dir = fsio.join(manager.directory, str(int(step)))
+    source = fsio.join(step_dir, STATE_FILE)
+    if manager.remote:
+        source = io.BytesIO(fsio.read_bytes(source))
+    payload = torch.load(source, map_location="cpu", weights_only=True)
     extra = None
     if with_extra:
-        with open(os.path.join(step_dir, EXTRA_FILE)) as f:
-            extra = json.load(f)
+        extra = json.loads(fsio.read_bytes(fsio.join(step_dir, EXTRA_FILE)))
     _load_into(state, payload)
     dur = time.perf_counter() - t0
     obs.counter("checkpoint_restores_total", "checkpoint restores").inc()

@@ -31,11 +31,19 @@ events, spans, `StepTimer` histograms and the metrics scrape file.  Chunk
 boundaries are save points too (`save_every_seconds`, and the SIGTERM
 drain: save, then `SystemExit(75)`).
 
+The device flight recorder (obs/devprof.py) rides the loop as in the JAX
+package: scheduled torch.profiler windows (`obs.trace_epochs`) rolled into
+`device_profile` events, the per-chunk anomaly ring fed through
+StepTimer's hook, and an `hbm_watermark` at every epoch boundary (on the
+CPU, the training state's and resident batches' bytes).  The legacy
+SHIFU_TPU_PROFILE_DIR dump takes the first epoch's capture over the
+schedule, and says so.  The profiler never stays open, however the loop
+exits.
+
 The chaos sites `train.epoch_start` (each epoch's boundary, before any
 work) and `train.chunk` (each chunk's save point) sit where the JAX
 loop's do.  Differences from the JAX package, kept on purpose until later
-slices (ROADMAP.md): no device flight recorder, no drift baseline, no
-multi-host paths.
+slices (ROADMAP.md): no drift baseline, no multi-host paths.
 """
 
 from __future__ import annotations
@@ -138,6 +146,17 @@ def init_state(job: JobConfig, num_features: int,
         model=model, optimizer=Optimizer(dense, job.train.optimizer),
         table_slots=(sparse_embed.init_table_slots(model, plan)
                      if tables else None))
+
+
+def _tensor_bytes(obj) -> int:
+    """Bytes of the tensors in nested dicts, lists and tuples."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(_tensor_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in obj)
+    return 0
 
 
 def _bf16_wire(job: JobConfig) -> bool:
@@ -529,6 +548,19 @@ def train(job: JobConfig,
         _prepare_tiers()
     eval_step = make_eval_step(job)
     profile_dir = os.environ.get("SHIFU_TPU_PROFILE_DIR")
+
+    def state_bytes() -> int:
+        """The CPU watermark: parameters, optimizer and table slots, and
+        the resident batches (obs/devprof.py)."""
+        return (_tensor_bytes(state.model.state_dict())
+                + _tensor_bytes(state.optimizer.state_dict())
+                + _tensor_bytes(state.table_slots)
+                + _tensor_bytes(resident_blocks))
+
+    # device flight recorder: scheduled trace windows, the anomaly ring and
+    # the epoch-boundary watermarks
+    devprof = obs.devprof.DeviceProfiler(job.obs, start_epoch=start_epoch,
+                                         state_bytes=state_bytes)
     timing_on = (bool(os.environ.get("SHIFU_TPU_TIMING"))
                  or job.train.log_every_steps > 0)
 
@@ -638,10 +670,16 @@ def train(job: JobConfig,
                 pending_loader = None
                 _prepare_tiers()
             loss_acc, loss_n = None, 0
-            timer = prof_lib.StepTimer()
+            timer = prof_lib.StepTimer(on_chunk=devprof.chunk_hook(epoch))
             timer.start()
-            trace_ctx = prof_lib.maybe_trace(
-                profile_dir if epoch == start_epoch else None)
+            # the legacy SHIFU_TPU_PROFILE_DIR first-epoch dump keeps its
+            # raw-trace semantics; otherwise the recorder's schedule
+            # decides (a scheduled epoch closes into a device_profile)
+            if profile_dir and epoch == start_epoch:
+                devprof.note_superseded(epoch)
+                trace_ctx = prof_lib.trace(profile_dir)
+            else:
+                trace_ctx = devprof.epoch_capture(epoch)
             with trace_ctx, obs.span("epoch/train", epoch=epoch):
                 streamed_this_epoch = False
                 if stream_loader is not None and epoch == start_epoch:
@@ -826,6 +864,9 @@ def train(job: JobConfig,
                 led.add("eval", valid_time)
                 obs.goodput.end_epoch(
                     epoch, time.perf_counter() - t0 + ingest_wall_s)
+            # close a one-shot anomaly capture still open and journal the
+            # watermark beside the goodput record
+            devprof.end_epoch(epoch)
 
             # overlap report: the input wait the card still saw (exposed)
             # against the host seconds the epoch's items cost (production)
@@ -876,6 +917,8 @@ def train(job: JobConfig,
             if early_stop_now:
                 break
     finally:
+        # never leave torch.profiler capturing, however the loop exits
+        devprof.close()
         if feeder is not None:
             # however the loop exits: abort the feeder, drop its run-ahead
             feeder.close()

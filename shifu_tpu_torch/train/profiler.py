@@ -1,9 +1,15 @@
 """Step timing and tracing (port of shifu_tpu/train/profiler.py).
 
 - `StepTimer`: cheap per-chunk wall timing with percentile summaries: the
-  host-side input wait against the step's dispatch-to-done time.
-- `trace` / `maybe_trace`: a `torch.profiler` capture of the CPU and the
-  card, written as a Chrome trace into a directory.
+  host-side input wait against the step's dispatch-to-done time; its
+  `on_chunk` hook feeds the flight recorder (obs/devprof.py).
+- `start_trace` / `stop_trace`: the capture seam the flight recorder
+  opens and closes: one `torch.profiler` capture of the CPU and, where
+  present, the card, written on stop as a Chrome trace
+  (`<host>_<pid>.trace.json`) into the capture's directory.  One capture
+  may be active at a time, as with `jax.profiler`.
+- `trace` / `maybe_trace`: the same as a context (the legacy
+  SHIFU_TPU_PROFILE_DIR dump).
 
 The JAX package's `straggler_line` reads `obs/aggregate` across hosts; it
 waits for multi-GPU training (ROADMAP.md queue A item (f)).
@@ -13,21 +19,29 @@ from __future__ import annotations
 
 import contextlib
 import os
+import socket
+import threading
 import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
 
 class StepTimer:
-    """Accumulates per-chunk host/device timings for one epoch.  (The JAX
-    timer's `on_chunk` hook feeds its flight recorder, which the port has
-    not ported yet.)"""
+    """Accumulates per-chunk host/device timings for one epoch.
 
-    def __init__(self) -> None:
+    `on_chunk(input_s, step_s)`, when given, is called at every
+    mark_step_done with the chunk's input wait and dispatch-to-done time
+    (the flight recorder's feed, obs/devprof.py).  It must be cheap;
+    its exceptions are swallowed (timing must not fail the chunk it
+    times)."""
+
+    def __init__(self, on_chunk: Optional[Callable[[float, float],
+                                                   None]] = None) -> None:
         self.input_times: list[float] = []
         self.step_times: list[float] = []
         self._t: Optional[float] = None
+        self._on_chunk = on_chunk
 
     def start(self) -> None:
         self._t = time.perf_counter()
@@ -43,6 +57,13 @@ class StepTimer:
         if self._t is not None:
             self.step_times.append(now - self._t)
         self._t = now
+        if self._on_chunk is not None and self.step_times:
+            try:
+                self._on_chunk(
+                    self.input_times[-1] if self.input_times else 0.0,
+                    self.step_times[-1])
+            except Exception:
+                pass
 
     def emit(self, prefix: str = "train", **labels) -> None:
         """Feed this epoch's timings into the registry:
@@ -99,24 +120,62 @@ class StepTimer:
                 f"input fraction {s.get('input_fraction', 0):.1%}")
 
 
-@contextlib.contextmanager
-def trace(log_dir: str) -> Iterator[None]:
-    """torch.profiler capture of the CPU and, where present, the card;
-    the Chrome trace lands in `log_dir/trace.json` on exit."""
+_trace_lock = threading.Lock()
+# (profile, log_dir) of the one active capture
+_active: Optional[tuple] = None
+
+
+def trace_active() -> bool:
+    return _active is not None
+
+
+def start_trace(log_dir: str) -> None:
+    """Start a torch.profiler capture of the CPU and, where CUDA is
+    initialized, the card; raises RuntimeError if one is already active."""
+    global _active
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    os.makedirs(log_dir, exist_ok=True)
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.start()
+    with _trace_lock:
+        if _active is not None:
+            raise RuntimeError("only one torch.profiler capture may be "
+                               f"active at a time ({_active[1]} is)")
+        os.makedirs(log_dir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        _active = (prof, log_dir)
+
+
+def stop_trace() -> str:
+    """Stop the active capture and write its Chrome trace; returns the
+    file's path.  Raises RuntimeError when no capture is active."""
+    global _active
+    with _trace_lock:
+        if _active is None:
+            raise RuntimeError("no torch.profiler capture is active")
+        prof, log_dir = _active
+        _active = None
+    import torch
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()  # the window's kernels end inside it
+    prof.stop()
+    path = os.path.join(log_dir, f"{socket.gethostname()}_{os.getpid()}"
+                                 ".trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """A capture around the block (`start_trace` / `stop_trace`)."""
+    start_trace(log_dir)
     try:
         yield
     finally:
-        prof.stop()
-        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        stop_trace()
 
 
 def maybe_trace(log_dir: Optional[str]):

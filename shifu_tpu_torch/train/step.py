@@ -21,6 +21,15 @@ sparse embedding plan the dense optimizer on every parameter but the
 tables and the rows-touched update on the tables (train/sparse_embed.py),
 which reads the batch's ids.
 
+Each builder's function is wrapped by `obs.flops.instrument` under the
+name of its JAX program (`train_step`, `device_epoch_step`,
+`epoch_scan_step`, `eval_step`), as the JAX package wraps them in
+`instrument_jit`: its dispatches run inside a `record_function` range of
+that name (the module the flight recorder's rollup attributes device time
+to), are tallied, and credit their FLOP count to the goodput ledger.  The
+epoch programs call the train step unwrapped, so a batch inside them is
+neither named nor credited twice.
+
 Waits for later slices: local SGD across replicas (on one device the
 window's average is the identity).
 """
@@ -36,6 +45,7 @@ from ..config.schema import JobConfig
 from ..data import pipeline as pipe
 from ..models.base import Wire, set_dropout_generator
 from ..ops import losses as losses_lib
+from ..obs.flops import instrument
 from ..ops.int8_matmul import int8_available
 from .train_state import TrainState
 
@@ -166,6 +176,10 @@ def make_apply_gradients(job: JobConfig
 def make_train_step(job: JobConfig
                     ) -> Callable[[TrainState, Batch], tuple[TrainState, dict]]:
     """(state, batch) -> (state, {"loss"}): forward, backward, one update."""
+    return instrument(_train_step_fn(job), "train_step")
+
+
+def _train_step_fn(job: JobConfig):
     loss_fn = make_loss_fn(job)
     apply_grads = make_apply_gradients(job)
 
@@ -186,7 +200,7 @@ def make_device_epoch_step(job: JobConfig):
     sum on the card).  `blocks` holds the training partition on the card
     as (nb, B, ...) tensors; `order` is the epoch's block permutation.
     Each block is a view of the resident tensors (no copy)."""
-    train_step = make_train_step(job)
+    train_step = _train_step_fn(job)
 
     def epoch_step(state: TrainState, blocks: Batch, order):
         acc = None
@@ -196,7 +210,7 @@ def make_device_epoch_step(job: JobConfig):
             acc = m["loss"] if acc is None else acc + m["loss"]
         return state, acc
 
-    return epoch_step
+    return instrument(epoch_step, "device_epoch_step")
 
 
 def make_epoch_scan_step(job: JobConfig):
@@ -205,7 +219,7 @@ def make_epoch_scan_step(job: JobConfig):
     holds nb host-fed batches on the card as (nb, B, ...) tensors; the
     batches train in their order in the block, each a view (no copy), and
     nothing is read back to the host inside the block."""
-    train_step = make_train_step(job)
+    train_step = _train_step_fn(job)
 
     def scan_step(state: TrainState, block: Batch):
         acc = None
@@ -214,7 +228,7 @@ def make_epoch_scan_step(job: JobConfig):
             acc = m["loss"] if acc is None else acc + m["loss"]
         return state, acc
 
-    return scan_step
+    return instrument(scan_step, "epoch_scan_step")
 
 
 def make_eval_step(job: JobConfig) -> Callable[[TrainState, Batch],
@@ -236,4 +250,4 @@ def make_eval_step(job: JobConfig) -> Callable[[TrainState, Batch],
         finally:
             model.train(was_training)
 
-    return score
+    return instrument(score, "eval_step")

@@ -272,11 +272,14 @@ def test_train_and_checkpoint_sites_fire_where_jax_fires(tmp_path, data_kw,
         assert "data.feeder" in kinds
 
 
-def test_board_journal_and_fsio_sites(tmp_path):
+def test_board_journal_and_fsio_sites(tmp_path, monkeypatch):
     """board.flush fires per board line in both packages; journal.flush on
-    a local journal's flush in both.  The port's fsio sites fire on every
-    call (its fsio is the local half); the JAX package's only on its remote
-    branch."""
+    a local journal's flush in both.  The fsio sites fire on the remote
+    branch only, in both packages: the same calls on pyarrow's mock://
+    filesystem probe the same sequence, and the local calls probe none."""
+    from pyarrow import fs as pafs
+
+    from shifu_tpu.data import fsio as jax_fsio
     from shifu_tpu.launcher.console import ConsoleBoard as JaxBoard
     from shifu_tpu_torch.data import fsio
     from shifu_tpu_torch.launcher.console import ConsoleBoard
@@ -296,16 +299,24 @@ def test_board_journal_and_fsio_sites(tmp_path):
         mod.reset_for_tests()
     assert counts["port"] == counts["jax"] == [("board.flush", None,
                                                None)] * 3
-    _record_sites(chaos, obs, tmp_path / "t_fs",
-                  ("fsio.write_bytes", "fsio.read_bytes", "fsio.list_files"))
-    fsio.write_bytes(str(tmp_path / "f"), b"x")
-    assert fsio.read_bytes(str(tmp_path / "f")) == b"x"
-    assert str(tmp_path / "f") in fsio.list_files(str(tmp_path))
-    got = _sites(obs, tmp_path / "t_fs",
-                 ("fsio.write_bytes", "fsio.read_bytes", "fsio.list_files"))
-    # (then the scrape write and journal read of _sites itself)
-    assert [s for s, _e, _st in got][:3] == [
-        "fsio.write_bytes", "fsio.read_bytes", "fsio.list_files"]
+    sites = ("fsio.write_bytes", "fsio.read_bytes", "fsio.list_files")
+    fired = {}
+    for name, mod, fs_mod, obs_mod in (("port", chaos, fsio, obs),
+                                       ("jax", jax_chaos, jax_fsio, jax_obs)):
+        mock, _ = pafs.FileSystem.from_uri("mock://seed")
+        monkeypatch.setitem(fs_mod._fs_cache, ("mock", ""), mock)
+        tele = tmp_path / f"fs_{name}"
+        _record_sites(mod, obs_mod, tele, sites)
+        local = str(tmp_path / f"{name}.f")
+        with open(local, "wb") as f:
+            f.write(b"x")
+        assert fs_mod.read_bytes(local) == b"x"   # no probe: local
+        fs_mod.write_bytes("mock://b/d/f", b"x")
+        assert fs_mod.read_bytes("mock://b/d/f") == b"x"
+        assert fs_mod.list_files("mock://b/d") == ["mock://b/d/f"]
+        fired[name] = [s for s, _e, _st in _sites(obs_mod, tele, sites)]
+        mod.reset_for_tests()
+    assert fired["port"] == fired["jax"] == list(sites)
     chaos.configure(chaos.parse_plan({"faults": [
         {"site": "journal.flush", "every": 1, "action": "raise"}]}))
     obs.flush()  # the fault is absorbed: the journal is observability

@@ -1,6 +1,6 @@
 """The port's telemetry (shifu_tpu_torch/obs: metrics, journal, sinks,
-spans, goodput), train/profiler.py and the local half of data/fsio.py on
-the CPU, against the JAX package's on the same inputs.
+spans, goodput, the flight recorder's events), train/profiler.py and
+data/fsio.py on the CPU, against the JAX package's on the same inputs.
 
 Held exactly: the Prometheus text of the same instrument operations, the
 goodput summary of the same bucket seconds, StepTimer summaries of the
@@ -8,7 +8,9 @@ same timings, and the fsio answers on the same paths.  For one small job
 run by each package with its sinks configured, the journal's event types
 and each type's keys are the same sets (values are not compared), and so
 are the scrape file's metric names, except what comes from JAX modules
-the port has not ported yet (`_JAX_ONLY_*`, ROADMAP.md queue A).
+the port has not ported yet (`_JAX_ONLY_*`, ROADMAP.md queue A); both
+jobs trace their first epoch, so `device_profile` and `hbm_watermark` are
+held too (`anomaly` and `trace_fallback`: tests/test_torch_devprof.py).
 """
 
 import collections
@@ -29,17 +31,11 @@ from shifu_tpu_torch.obs import goodput, metrics
 from shifu_tpu_torch.train import profiler
 
 # journal events and metric names of JAX modules the port has not ported:
-# obs/introspect.py (XLA cost capture), obs/sketch.py (the drift baseline)
-# and obs/devprof.py (the flight recorder: HBM watermarks, and the anomaly
-# detector, which fires on a slow chunk when the host is loaded)
+# obs/introspect.py (XLA compiles; its FLOPs are obs/flops.py's) and
+# obs/sketch.py (the drift baseline)
 _JAX_ONLY_EVENTS = {"xla_compile": "obs/introspect.py",
-                    "baseline_profile": "obs/sketch.py",
-                    "hbm_watermark": "obs/devprof.py",
-                    "anomaly": "obs/devprof.py",
-                    "device_profile": "obs/devprof.py",
-                    "trace_fallback": "obs/devprof.py"}
-_JAX_ONLY_METRIC_PREFIXES = ("xla_", "hbm_", "anomaly_", "device_profiles_",
-                             "device_trace_", "trace_fallback_")
+                    "baseline_profile": "obs/sketch.py"}
+_JAX_ONLY_METRIC_PREFIXES = ("xla_",)
 
 
 @pytest.fixture(autouse=True)
@@ -144,15 +140,31 @@ def test_journal_memory_mode_partial_lines_and_tail(tmp_path):
     assert [next(tail)["kind"], next(tail)["kind"]] == ["first", "second"]
 
 
-def test_remote_paths_are_refused_naming_the_roadmap(tmp_path):
-    for fn in (lambda: obs.RunJournal("gs://bucket/j.jsonl"),
-               lambda: obs.configure("hdfs://nn/tele"),
-               lambda: fsio.read_bytes("s3://b/k"),
-               lambda: fsio.write_bytes("gs://b/k", b""),
-               lambda: fsio.walk_files("gs://b/"),
-               lambda: fsio.file_info("gs://b/k")):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.*\(a\)4"):
-            fn()
+def test_remote_paths_are_refused_naming_the_roadmap(tmp_path,
+                                                    monkeypatch):
+    """The call sites that raised NotImplementedError before the remote
+    half of fsio work on pyarrow's in-memory mock:// filesystem; without
+    pyarrow a remote URI raises the JAX module's clear error and falls
+    back to nothing."""
+    from pyarrow import fs as pafs
+    mock, _ = pafs.FileSystem.from_uri("mock://seed")
+    monkeypatch.setitem(fsio._fs_cache, ("mock", ""), mock)
+    j = obs.RunJournal("mock://bucket/j.jsonl", flush_every=1)
+    j.event("first", n=1)
+    assert [r["kind"] for r in obs.read_journal("mock://bucket/j.jsonl")] \
+        == ["first"]
+    obs.configure("mock://bucket/tele", flush_every=1)
+    obs.event("hello")
+    obs.flush()
+    assert obs.read_journal("mock://bucket/tele/journal.jsonl")
+    fsio.write_bytes("mock://bucket/k", b"abc")
+    assert fsio.read_bytes("mock://bucket/k") == b"abc"
+    assert ("mock://bucket/k", 3) in fsio.walk_files("mock://bucket/")
+    assert fsio.file_info("mock://bucket/k")[0] == 3
+    monkeypatch.setitem(__import__("sys").modules, "pyarrow", None)
+    monkeypatch.setattr(fsio, "_fs_cache", {})
+    with pytest.raises(RuntimeError, match="needs pyarrow"):
+        fsio.read_bytes("mock://bucket/k")
 
 
 def test_spans_nest_and_feed_the_histogram(tmp_path):
@@ -248,8 +260,18 @@ def test_trace_writes_a_torch_profiler_trace(tmp_path):
         pass
     with profiler.maybe_trace(str(tmp_path / "tr")):
         torch.ones(4).sum()
-    trace = json.load(open(tmp_path / "tr" / "trace.json"))
+    (name,) = os.listdir(tmp_path / "tr")
+    assert name.endswith(".trace.json")
+    trace = json.load(open(tmp_path / "tr" / name))
     assert trace["traceEvents"]
+    # one capture at a time, as with jax.profiler
+    profiler.start_trace(str(tmp_path / "a"))
+    try:
+        with pytest.raises(RuntimeError, match="one torch.profiler"):
+            profiler.start_trace(str(tmp_path / "b"))
+    finally:
+        profiler.stop_trace()
+    assert not profiler.trace_active()
 
 
 def test_fsio_local_half_equals_jax(tmp_path):
@@ -322,7 +344,12 @@ def test_one_job_journals_the_same_events_and_keys_as_jax(tmp_path, data_kw):
                     name="adam", learning_rate=1e-2)),
             runtime=jax_schema.RuntimeConfig(
                 checkpoint=jax_schema.CheckpointConfig(
-                    directory=d))).validate()
+                    directory=d)),
+            # trace the first epoch; no anomaly (a slow chunk on a loaded
+            # host would fire one in one package and not the other)
+            obs=jax_schema.ObsConfig(
+                trace_epochs="first", trace_dir=f"{d}-trace",
+                anomaly_min_chunks=10_000)).validate()
 
     rows = jax_synth.make_rows(1024, schema, seed=5)
     cols = jax_reader.project_columns(rows, schema)
@@ -359,4 +386,5 @@ def test_one_job_journals_the_same_events_and_keys_as_jax(tmp_path, data_kw):
               if not n.startswith(_JAX_ONLY_METRIC_PREFIXES)}
     assert pnames == jnames
     assert {"epoch", "goodput", "overlap_report", "checkpoint_save",
-            "train_start", "train_end", "span"} <= set(pkeys)
+            "train_start", "train_end", "span", "device_profile",
+            "hbm_watermark"} <= set(pkeys)

@@ -486,17 +486,33 @@ def test_early_stopping_restores_the_best_params(monkeypatch):
         assert not torch.equal(v, snapshots[3][k])
 
 
-def test_checkpoint_directory_is_refused(tmp_path):
-    """A local checkpoint directory trains, saves and resumes
-    (tests/test_torch_checkpoint.py); a remote one is refused, naming the
-    ROADMAP item of the remote filesystems, before anything trains."""
+def test_checkpoint_directory_is_refused(tmp_path, monkeypatch):
+    """A checkpoint directory trains, saves and resumes, local
+    (tests/test_torch_checkpoint.py) or remote: here pyarrow's mock://
+    filesystem, through data/fsio.py (the remote half, ROADMAP (a)4.3)."""
+    from pyarrow import fs as pafs
+
+    from shifu_tpu_torch.data import fsio
+    from shifu_tpu_torch.train import checkpoint as ckpt_lib
+
+    mock, _ = pafs.FileSystem.from_uri("mock://seed")
+    monkeypatch.setitem(fsio._fs_cache, ("mock", ""), mock)
     _, pjob = _jobs("float32")
     job = dataclasses.replace(pjob, runtime=dataclasses.replace(
         pjob.runtime, checkpoint=dataclasses.replace(
-            pjob.runtime.checkpoint, directory="gs://bucket/ckpt")))
+            pjob.runtime.checkpoint, directory="mock://bucket/ckpt")))
     (_, _), (ptr, pva) = _datasets()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.train(job, ptr, pva, device="cpu")
+    first = loop.train(job, ptr, pva, console=lambda s: None, device="cpu")
+    manager = ckpt_lib.make_manager("mock://bucket/ckpt")
+    assert manager.all_steps()[-1] == int(first.state.step)
+    assert ckpt_lib.verify_manifest(manager.directory,
+                                    manager.latest_step()) is True
+    lines = []
+    again = loop.train(job.replace(train=dataclasses.replace(
+        job.train, epochs=job.train.epochs + 1)), ptr, pva,
+        console=lines.append, device="cpu")
+    assert any(line.startswith("Resumed from checkpoint") for line in lines)
+    assert again.resumed_from_epoch == job.train.epochs
 
 
 def test_files_load_first_where_jax_would_stream(tmp_path, monkeypatch):
