@@ -213,12 +213,44 @@ stderr, and no result line is printed):
                `device_profile` (trigger "anomaly"); an `obs.trace` fault
                journals `trace_fallback` and the losses are bitwise an
                untraced twin's.  No `trace_fallback` in 20a-20c.
-20. a JSON line {"kernels": [...]} with each kernel's launches on its
+21a. multitask — the multitask rung at full width (bench.py:511-515: 30
+               features, hidden (100, 100) relu, 2 heads on 2 targets,
+               bf16, weighted_mse, Adadelta 0.003, batch 32768, 32 batches
+               = 1,048,576 rows, int8 wire) 2 epochs on the resident tier:
+               samples/s; no kernel launches (its products are torch
+               matmuls, as the JAX model's are XLA's); the 8-step
+               card-vs-CPU lockstep at batch 8192 within the lockstep
+               bounds; one step's FLOPs equal on the card and the CPU; the
+               artifact (with its v2 op-list program and
+               baseline_profile.json) scored on 4096 probe rows by
+               TorchScorer on the card, the numpy op-list Scorer on the
+               host and the ScoringDaemon on the card, (N, 2) each, within
+               SERVE_ATOL of one another on every head.
+21b. MoE     — the same for the moe_mlp rung (bench.py:516-518: 8
+               experts, one head).
+21c. wire    — phase 4's fused FT artifact served on the card; the
+               open-loop loadtest (runtime/loadtest.py) for WIRE_SECONDS at
+               a fixed offered rate, in process through the daemon's
+               on_batch hook and over the socket (8 senders) to
+               `serve_forever`'s wire server: achieved rows/s and exact
+               p50/p99 of each mode with the card's name and power limit,
+               0 errors, #1 launched 3 x and #5 once per dispatched batch
+               (and no other kernel); 4096 probe rows in an f32 frame
+               within SERVE_ATOL of the CPU scorer.
+21d. drift, SLO — phase 9's trained headline artifact (its
+               baseline_profile.json from the training loop) served with
+               drift on: training-distribution frames, then frames with one
+               feature shifted by 3 sigma: one feature_psi alert naming
+               that feature alone; labelled feedback on held-out rows: the
+               live AUC within 0.02 of `evaluate` on them.  Then a p99
+               objective under 21c's measured p99: one firing p99
+               slo_alert and one device_profile with trigger "slo".
+22. a JSON line {"kernels": [...]} with each kernel's launches on its
    training path (FT fused for #1, FT unfused for #2 and #3, the headline
    MLP for #4, DeepFM for #5 and #6, FT flash for #7 and #8), its error
    against the plain version, its times and its bound; every kernel must
    have launched there.
-21. the last line: {"ok": true, "device": {...}}.
+23. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -2860,7 +2892,8 @@ def training_phases(device, tmp: str, kernels: list) -> None:
     cli_phases(tmp, device)
 
     export_dir = save_artifact(res.state.model, job.model, job.schema,
-                               f"{tmp}/trained_mlp")
+                               f"{tmp}/trained_mlp",
+                               baseline_profile=res.baseline_profile)
     served = serve_phase("trained", export_dir, job.schema,
                          np.random.default_rng(SEED), device)
     report_serve("trained", served)
@@ -3664,6 +3697,427 @@ def flight_recorder_phases(device, tmp: str) -> None:
     lap("20d flight recorder drills")
 
 
+# -- phases 21a to 21d: multitask and MoE, the wire path, drift and SLO --------
+
+# the multitask and MoE rungs of bench.py (:511-518): 30 features, hidden
+# (100, 100) relu, bf16, batch 32768, 32 batches, weighted_mse, Adadelta
+# 0.003; two heads for multitask (two targets), 8 experts for the MoE
+LADDER_BATCH = 32768
+LADDER_TRAIN_ROWS = 32 * LADDER_BATCH
+LADDER_VALID_ROWS = 65_536
+LADDER_EPOCHS = 2
+LADDER_LOCKSTEP_BATCH = 8192
+PROBE_ROWS = 4096
+# 21c: the fixed offered rates (requests/s) and seconds of each mode; the
+# socket's senders run in a process of their own, off the server's GIL
+WIRE_INPROC_RATE = 20_000.0
+WIRE_SOCKET_RATE = 1_000.0
+WIRE_SECONDS = 10.0
+WIRE_SENDERS = 8
+# 21d: the drift and SLO drills' windows, rows and shifted feature
+DRIFT_FAST_S = 1.0
+DRIFT_SLOW_S = 2.0
+DRIFT_FRAME_ROWS = 1024
+DRIFT_HEALTHY_S = 2.5
+DRIFT_SHIFTED_S = 3.0
+DRIFT_FEATURE = 7
+DRIFT_FEEDBACK_ROWS = 65_536
+DRIFT_TRAFFIC_ROWS = 262_144
+SLO_DRILL_S = 8.0
+# the p99 targets (ms) an SLO objective may take: bounds of the serving
+# latency buckets, so the violation count is bucket-exact
+SLO_TARGETS_MS = (0.25, 0.5, 1.0, 2.5)
+
+
+def ladder_job(model_type: str, batch: int = 0):
+    from shifu_tpu_torch.config.schema import (DataConfig, JobConfig,
+                                               ModelSpec, OptimizerConfig,
+                                               TrainConfig)
+    from shifu_tpu_torch.data import synthetic
+    heads = 2 if model_type == "multitask" else 1
+    spec = ModelSpec(model_type=model_type, hidden_nodes=(100, 100),
+                     activations=("relu", "relu"), compute_dtype="bfloat16",
+                     num_heads=heads,
+                     head_names=tuple(f"shifu_output_{h}"
+                                      for h in range(heads)),
+                     num_experts=8 if model_type == "moe_mlp" else 4)
+    return JobConfig(
+        schema=synthetic.make_schema(num_features=30, num_targets=heads),
+        data=DataConfig(batch_size=batch or LADDER_BATCH, wire_dtype="int8"),
+        model=spec,
+        train=TrainConfig(epochs=LADDER_EPOCHS, loss="weighted_mse",
+                          optimizer=OptimizerConfig(name="adadelta",
+                                                    learning_rate=0.003)),
+    ).validate()
+
+
+def score_three_ways(label: str, export_dir: str, rows: np.ndarray,
+                     heads: int, device) -> None:
+    """The probe rows through TorchScorer on the card, the numpy op-list
+    Scorer on the host and the daemon on the card (single-row submits and
+    one frame): (N, H) everywhere, all within SERVE_ATOL of one another on
+    every head."""
+    from shifu_tpu_torch.config.schema import ServingConfig
+    from shifu_tpu_torch.export.scorer import Scorer, TorchScorer
+    from shifu_tpu_torch.runtime.serve import ScoringDaemon
+    card = TorchScorer(export_dir, device=device).compute_batch(rows)
+    host = Scorer(export_dir).compute_batch(rows)
+    daemon = ScoringDaemon(export_dir, config=ServingConfig(
+        report_every_s=0.0), device=device).start()
+    try:
+        futs = [daemon.submit(r) for r in rows[:256]]
+        singles = np.stack([f.result(timeout=120) for f in futs])
+        frame = daemon.score_batch(rows)
+    finally:
+        daemon.stop()
+    outs = {"TorchScorer": card, "numpy Scorer": host, "daemon frame": frame,
+            "daemon rows": singles}
+    for name, out in outs.items():
+        n = 256 if name == "daemon rows" else rows.shape[0]
+        if out.shape != (n, heads) or not np.isfinite(out).all():
+            fail(f"{label}: {name} scores have shape {out.shape} (want "
+                 f"({n}, {heads})) or are not finite")
+    worst = 0.0
+    for a in outs:
+        for b in outs:
+            n = min(outs[a].shape[0], outs[b].shape[0])
+            worst = max(worst, float(np.abs(outs[a][:n] - outs[b][:n]).max()))
+    if worst > SERVE_ATOL:
+        fail(f"{label}: the three scorers disagree by {worst:.3e} > "
+             f"{SERVE_ATOL}")
+    say(f"{label}: {rows.shape[0]} probe rows scored by TorchScorer on the "
+        f"card, the numpy op-list Scorer and the daemon ({heads} heads): "
+        f"max pairwise |diff| {worst:.3e} (tol {SERVE_ATOL:g})")
+
+
+def ladder_phase(label: str, model_type: str, device, tmp: str) -> None:
+    """21a / 21b: the rung trained 2 epochs on the resident tier (no
+    kernel on its path), the 8-step lockstep, one step's FLOPs on the
+    card and the CPU, the artifact scored three ways."""
+    from shifu_tpu_torch.export.artifact import save_artifact
+    job = ladder_job(model_type)
+    t0 = time.perf_counter()
+    train_ds, valid_ds = synthetic_datasets(job.schema, LADDER_TRAIN_ROWS,
+                                            LADDER_VALID_ROWS, SEED + 40)
+    say(f"{label}: {train_ds.num_rows} + {valid_ds.num_rows} rows made in "
+        f"{time.perf_counter() - t0:.2f} s; {model_type}, hidden "
+        f"{job.model.hidden_nodes} relu, {job.model.num_heads} heads, "
+        f"{job.model.num_experts if model_type == 'moe_mlp' else 0} "
+        f"experts, bf16, batch {job.data.batch_size}, wire int8")
+    res, _ = run_training(label, job, train_ds, valid_ds, device,
+                          want_tier="resident",
+                          want_launches=lambda steps, evals: {})
+    lockstep(with_batch(job, LADDER_LOCKSTEP_BATCH), train_ds, device,
+             label=f"{label} lockstep")
+    small = with_batch(job, FLOPS_BATCH)
+    rows, _ = synthetic_datasets(small.schema, FLOPS_BATCH, 8, SEED + 41)
+    card, cpu = count_step(small, device, rows), count_step(small, "cpu",
+                                                            rows)
+    if card["flops"] != cpu["flops"] or card["flops"] <= 0:
+        fail(f"{label}: one step counts {card['flops']} FLOPs on the card, "
+             f"{cpu['flops']} on the CPU")
+    say(f"{label}: one step at {FLOPS_BATCH} rows: {card['flops']:.6g} "
+        "FLOPs on the card and on the CPU")
+    out = save_artifact(res.state.model, job.model, job.schema,
+                        f"{tmp}/{model_type}",
+                        baseline_profile=res.baseline_profile)
+    score_three_ways(label, out, valid_ds.features[:PROBE_ROWS],
+                     job.model.num_heads, device)
+
+
+def serve_in_thread(export_dir: str, config, device):
+    """`serve_forever` on a thread of this process; returns (port, stop
+    event, thread, exit codes)."""
+    from shifu_tpu_torch.runtime.serve import serve_forever
+    lines: list = []
+    stop = threading.Event()
+    rc: list = []
+    th = threading.Thread(target=lambda: rc.append(serve_forever(
+        export_dir, config, echo=lines.append, device=device,
+        stop_event=stop)), daemon=True, name="serve-forever")
+    th.start()
+    t_end = time.monotonic() + 120
+    while not lines and th.is_alive() and time.monotonic() < t_end:
+        time.sleep(0.02)
+    if not lines:
+        fail("21c: serve_forever did not start within 120 s")
+    say(f"21c: {lines[0]}")
+    port = int(lines[0].split(" on ")[1].split()[0].rsplit(":", 1)[1])
+    return port, stop, th, rc
+
+
+def socket_loadtest(port: int, **kw) -> dict:
+    """21c's socket loadtest, in a spawned process: its senders' threads
+    hold that process's GIL, not the server's."""
+    from shifu_tpu_torch.runtime import loadtest
+    return loadtest.run_loadtest(connect=f"127.0.0.1:{port}", **kw)
+
+
+def check_ft_launches(label: str, launches: dict, dispatched: int,
+                      layers: int) -> None:
+    want = {"ft_block": layers * dispatched, "embedding_lookup": dispatched}
+    if dispatched <= 0 or launches != {k: want.get(k, 0) for k in launches}:
+        fail(f"{label}: launches {launches}, expected {want} ({dispatched} "
+             "batches dispatched) and no other kernel")
+
+
+def report_load(label: str, rep: dict, smi_line: str) -> None:
+    if rep["errors"] or rep["rejected"] or not rep["completed"]:
+        fail(f"{label}: {rep['errors']} errors, {rep['rejected']} rejected, "
+             f"{rep['completed']} completed")
+    stages = rep.get("stages") or {}
+    say(f"{label}: offered {rep['offered_rate']:.1f}/s for "
+        f"{rep['duration_s']} s, {rep['senders']} senders: "
+        f"{rep['completed']} rows, achieved "
+        f"{rep['achieved_scores_per_sec']} rows/s, exact p50 "
+        f"{rep['p50_ms']} ms p99 {rep['p99_ms']} ms max {rep['max_ms']} ms, "
+        f"0 errors; stages mean/p99 ms "
+        + ", ".join(f"{s} {v['mean_ms']}/{v['p99_ms']}"
+                    for s, v in stages.items())
+        + f"; {smi_line}")
+
+
+def wire_phase(fused_dir: str, device, smi_line: str) -> dict:
+    """21c: phase 4's fused FT artifact served on the card; the loadtest
+    in process (the daemon's on_batch) and over the socket to
+    serve_forever's wire server from a spawned process (ended before 21d's
+    profile); #1 and #5 counted in each; the probe rows over the wire
+    against the CPU scorer.  Returns the in-process report."""
+    from shifu_tpu_torch.config.schema import ServingConfig
+    from shifu_tpu_torch.export.scorer import TorchScorer
+    from shifu_tpu_torch.runtime import loadtest, serve_wire
+    from shifu_tpu_torch.runtime.serve import ScoringDaemon
+    layers = ft_serving_spec().num_layers
+    cfg = ServingConfig(report_every_s=0.0)
+    daemon = ScoringDaemon(fused_dir, config=cfg, device=device).start()
+    try:
+        reset_launches()
+        inproc = loadtest.run_loadtest(daemon=daemon, rate=WIRE_INPROC_RATE,
+                                       duration=WIRE_SECONDS,
+                                       senders=2, seed=SEED)
+        launches = read_launches()
+        st = daemon.stats()
+    finally:
+        daemon.stop()
+    check_ft_launches("21c in-process", launches,
+                      st["batches"] + st["direct_batches"], layers)
+    report_load("21c in-process", inproc, smi_line)
+    say(f"21c in-process: launches {launches}")
+
+    port, stop, th, rc = serve_in_thread(
+        fused_dir, ServingConfig(port=0, report_every_s=0.0), device)
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        pool.apply(time.sleep, (0,))  # the child's start-up, off the clock
+        reset_launches()
+        sock = pool.apply_async(socket_loadtest, (port,), dict(
+            rate=WIRE_SOCKET_RATE, duration=WIRE_SECONDS,
+            senders=WIRE_SENDERS, seed=SEED + 1)).get(
+                timeout=WIRE_SECONDS + 300)
+        pool.close()
+        pool.join()
+        with serve_wire.ServeClient("127.0.0.1", port, timeout=120) as c:
+            st = c.stats()
+            launches = read_launches()
+            probe = make_rows(PROBE_ROWS, serving_schema(),
+                              np.random.default_rng(SEED + 42))
+            got = c.score_rows(probe, dtype=serve_wire.DTYPE_F32)
+    finally:
+        pool.terminate()
+        stop.set()
+        th.join(timeout=120)
+    if rc != [0]:
+        fail(f"21c: serve_forever returned {rc}")
+    check_ft_launches("21c socket", launches,
+                      st["batches"] + st["direct_batches"], layers)
+    report_load("21c socket", sock, smi_line)
+    want = TorchScorer(fused_dir, device="cpu").compute_batch(probe)
+    err = float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float("inf")
+    if err > SERVE_ATOL:
+        fail(f"21c: wire scores vs CPU: shape {got.shape}, max |diff| "
+             f"{err:.3e} > {SERVE_ATOL}")
+    say(f"21c socket: launches {launches}; {PROBE_ROWS} probe rows in one "
+        f"f32 frame over the wire vs the CPU scorer: max |diff| {err:.3e} "
+        f"(tol {SERVE_ATOL:g})")
+    return inproc
+
+
+def drift_phase(export_dir: str, job, device, tmp: str) -> None:
+    """21d drift: the trained headline MLP (its baseline_profile.json
+    from phase 9) served with drift on; training-distribution frames,
+    then frames with feature DRIFT_FEATURE shifted by 3 sigma: exactly
+    one feature_psi alert, naming that feature alone; labelled feedback
+    on held-out rows gives the live AUC `evaluate` gives on them."""
+    import torch
+    from shifu_tpu_torch.config.schema import DriftConfig, ServingConfig
+    from shifu_tpu_torch.export.artifact import (load_artifact,
+                                                 params_from_jax)
+    from shifu_tpu_torch.runtime.serve import ScoringDaemon
+    from shifu_tpu_torch.train.loop import evaluate, init_state
+    from shifu_tpu_torch.train.step import make_eval_step
+    obs_dir = f"{tmp}/drift_obs"
+    configure_obs(obs_dir)
+    if not os.path.exists(os.path.join(export_dir, "baseline_profile.json")):
+        fail("21d: the trained artifact carries no baseline_profile.json")
+    traffic, held = synthetic_datasets(job.schema, DRIFT_TRAFFIC_ROWS,
+                                       DRIFT_FEEDBACK_ROWS, SEED + 43)
+    cfg = ServingConfig(report_every_s=0.0, drift=DriftConfig(
+        fast_window_s=DRIFT_FAST_S, slow_window_s=DRIFT_SLOW_S,
+        min_rows=200, psi_threshold=0.25, score_kl_threshold=0.0))
+    daemon = ScoringDaemon(export_dir, config=cfg, device=device).start()
+    rng = np.random.default_rng(SEED + 44)
+    feats = traffic.features
+    try:
+        for shifted, seconds in ((False, DRIFT_HEALTHY_S),
+                                 (True, DRIFT_SHIFTED_S)):
+            t_end = time.monotonic() + seconds
+            while time.monotonic() < t_end:
+                x = feats[rng.integers(0, feats.shape[0], DRIFT_FRAME_ROWS)]
+                if shifted:
+                    x = x.copy()
+                    x[:, DRIFT_FEATURE] += 3.0
+                daemon.score_batch(x)
+                time.sleep(0.01)
+            if not shifted:
+                healthy = [e for e in journal(obs_dir)
+                           if e["kind"] == "drift_alert"]
+        scores = daemon.score_batch(held.features)[:, 0]
+        daemon.feedback(scores, held.target[:, 0], held.weight[:, 0])
+        daemon.drift_flush()
+        state_d = daemon.stats()["drift"]
+    finally:
+        daemon.stop()
+    events = journal(obs_dir)
+    fired = [e for e in events if e["kind"] == "drift_alert"
+             and e["state"] == "firing"]
+    names = [[f["feature"] for f in e.get("features", [])] for e in fired]
+    want_name = f"f{DRIFT_FEATURE}"
+    if healthy or [e["objective"] for e in fired] != ["feature_psi"] \
+            or names != [[want_name]]:
+        fail(f"21d drift: alerts on healthy traffic {healthy}; firing "
+             f"{[(e['objective'], n) for e, n in zip(fired, names)]}, "
+             f"expected one feature_psi alert naming {want_name} alone")
+    state = init_state(job, job.schema.feature_count, device)
+    state.model.load_state_dict(params_from_jax(
+        load_artifact(export_dir).weights, state.model))
+    _, auc = evaluate(state, held, job, make_eval_step(job),
+                      torch.device(device))
+    reports = [e for e in events if e["kind"] == "drift_report"]
+    live = reports[-1]["auc_live"] if reports else None
+    if live is None or abs(live - auc) > 0.02:
+        fail(f"21d drift: live AUC from feedback {live}, evaluate's "
+             f"{auc:.6f}: more than 0.02 apart")
+    ev = fired[0]["features"][0]
+    say(f"21d drift: healthy traffic for {DRIFT_HEALTHY_S} s, then "
+        f"{want_name} shifted by 3 sigma for {DRIFT_SHIFTED_S} s (frames of "
+        f"{DRIFT_FRAME_ROWS} rows; windows {DRIFT_FAST_S}/{DRIFT_SLOW_S} s): "
+        f"one feature_psi alert on {want_name} alone, psi fast "
+        f"{ev['psi_fast']} slow {ev['psi_slow']}; live AUC from "
+        f"{DRIFT_FEEDBACK_ROWS} labelled rows {live:.6f}, evaluate "
+        f"{auc:.6f} (tol 0.02); drift state rows {state_d['rows']}")
+
+
+def slo_phase(export_dir: str, p99_ms: float, device, tmp: str) -> None:
+    """21d SLO: the same artifact with a p99 objective under 21c's
+    measured p99; single-row traffic from 4 threads until the alert's
+    one-shot trace lands: one firing p99 slo_alert and one
+    device_profile with trigger "slo" that holds the card's device events
+    of the dispatch's range, after at most MAX_CAPTURES captures (each
+    empty capture of the card journals a trace_fallback and is retaken on
+    the next dispatch)."""
+    from shifu_tpu_torch.config.schema import ServingConfig
+    from shifu_tpu_torch.obs.slo import ServeTraceTrigger
+    from shifu_tpu_torch.runtime.serve import ScoringDaemon
+    obs_dir = f"{tmp}/slo_obs"
+    configure_obs(obs_dir)
+    below = [t for t in SLO_TARGETS_MS if t < p99_ms and t <= 1.0]
+    if not below:
+        fail(f"21d SLO: 21c's p99 {p99_ms} ms is under every target")
+    target = below[-1]
+    cfg = ServingConfig(report_every_s=0.0, slo_p99_ms=target,
+                        slo_fast_window_s=0.5, slo_slow_window_s=1.0,
+                        slo_burn_threshold=2.0)
+    rows = np.random.default_rng(SEED + 45).normal(
+        size=(4096, 30)).astype(np.float32)
+    daemon = ScoringDaemon(export_dir, config=cfg, device=device).start()
+    stop = threading.Event()
+
+    def sender(k: int) -> None:
+        i = k
+        while not stop.is_set():
+            daemon.score(rows[i % 4096], timeout=60)
+            i += 4
+
+    threads = [threading.Thread(target=sender, args=(k,), daemon=True)
+               for k in range(4)]
+    t0 = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        while time.perf_counter() - t0 < SLO_DRILL_S:
+            if any(e["kind"] == "device_profile"
+                   for e in journal(obs_dir)):
+                break
+            time.sleep(0.1)
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+        time.sleep(1.0)  # the trace's parse and journal finish off-path
+        stats = daemon.stats()
+    finally:
+        stop.set()
+        daemon.stop()
+    events = journal(obs_dir)
+    alerts = [e for e in events if e["kind"] == "slo_alert"
+              and e["state"] == "firing"]
+    profs = [e for e in events if e["kind"] == "device_profile"]
+    retakes = [e for e in events if e["kind"] == "trace_fallback"]
+    if [a["objective"] for a in alerts] != ["p99_latency"] \
+            or [p.get("trigger") for p in profs] != ["slo"]:
+        fail(f"21d SLO: firing alerts {alerts}, device_profiles "
+             f"{[p.get('trigger') for p in profs]}, trace_fallback events "
+             f"{retakes}: expected one p99 alert and one slo-triggered "
+             "profile")
+    p = profs[0]
+    # a capture of the card rolls up its device events only (kernels and
+    # copies, never host ops), attributed to the dispatch's range
+    if not p.get("kernel_count") or "serve_dispatch" not in (
+            p.get("modules") or {}):
+        fail(f"21d SLO: the slo profile holds no device event of the "
+             f"serve_dispatch range: {p}")
+    if [(r["stage"], r.get("attempt")) for r in retakes] \
+            != [("parse", n + 1) for n in range(p["attempt"] - 1)]:
+        fail(f"21d SLO: trace_fallback events {retakes} before the "
+             f"profile's capture {p['attempt']}: expected one empty "
+             "capture of the card per retake")
+    top = ", ".join(f"{k['name'][:40]} {k['device_us']} us"
+                    for k in p["kernels"][:3])
+    say(f"21d SLO: p99 objective {target} ms (21c's in-process p99 "
+        f"{p99_ms} ms): alert observed p99 "
+        f"{alerts[0].get('observed_p99_ms')} ms, burn fast "
+        f"{alerts[0]['burn_fast']} slow {alerts[0]['burn_slow']}; "
+        f"{stats['requests']} requests, daemon p99 {stats['p99_ms']:.3f} "
+        f"ms; one device_profile (trigger slo, capture {p['attempt']} of "
+        f"at most {ServeTraceTrigger.MAX_CAPTURES}: {p['attempt'] - 1} "
+        f"captures of the card held no device event) of "
+        f"{p['kernel_count']} kernels, "
+        f"{p['device_us_total']} us on the device: {top}")
+
+
+def serving_plane_phases(device, tmp: str, smi_line: str) -> None:
+    ladder_phase("21a multitask", "multitask", device, tmp)
+    lap("21a multitask")
+    ladder_phase("21b MoE", "moe_mlp", device, tmp)
+    lap("21b MoE")
+    inproc = wire_phase(f"{tmp}/fused", device, smi_line)
+    lap("21c wire")
+    job = headline_job()
+    drift_phase(f"{tmp}/trained_mlp", job, device, tmp)
+    slo_phase(f"{tmp}/trained_mlp", inproc["p99_ms"], device, tmp)
+    lap("21d drift and SLO")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3787,11 +4241,13 @@ def main() -> None:
         embedding_training_phases(device, tmp, kernels, cpu_refs)
         # phases 20a to 20d: the flight recorder, FLOPs and MFU
         flight_recorder_phases(device, tmp)
+        # phases 21a to 21d: multitask and MoE, the wire path, drift, SLO
+        serving_plane_phases(device, tmp, smi_line)
 
     missing = [kr["name"] for kr in kernels if not kr.get("launches")]
     if missing:
         fail(f"kernels not launched on their training path: {missing}")
-    # phase 20: the kernels line; phase 21: the result line
+    # phase 22: the kernels line; phase 23: the result line
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

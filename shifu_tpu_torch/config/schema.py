@@ -89,9 +89,9 @@ class ModelSpec:
     The port reads `model_type`, the MLP fields (with `dropout_rate` and
     `l2_scale` in training), the FT-Transformer fields (`attention_impl`
     "local" or "flash", `remat`), `fused_block`, `embedding_dim` and
-    `num_heads` (Wide&Deep, DeepFM), and the dtypes.  The rest
-    (ring and Ulysses attention, `pipeline_*`, `num_experts`) belong to
-    model types or modes that later slices port; they are kept so that any
+    `num_heads` (Wide&Deep, DeepFM, multitask), `num_experts` (moe_mlp),
+    and the dtypes.  The rest (ring and Ulysses attention, `pipeline_*`)
+    belong to modes that later slices port; they are kept so that any
     artifact's `model_spec` parses.
     """
 
@@ -161,10 +161,71 @@ class ModelSpec:
 
 
 @dataclass(frozen=True)
+class DriftConfig:
+    """Drift-detection knobs (`shifu.drift.*` XML keys, obs/drift.py);
+    every field of the JAX `DriftConfig`, same defaults and checks.
+
+    Nested under ServingConfig so it threads unchanged through the daemon
+    and the loadtest.  Drift only engages when the served artifact carries
+    a `baseline_profile.json`; `enabled` is the kill switch on top."""
+
+    # kill switch: False silences the whole drift plane — no sketch
+    # accumulation, no tick thread, zero drift events (the overhead
+    # guard's contract).
+    enabled: bool = True
+    # fast/slow trailing windows (seconds): an alert objective must
+    # violate in BOTH to fire (transient bursts don't page) and the
+    # fast window alone resolves it (recovery is quick).
+    fast_window_s: float = 60.0
+    slow_window_s: float = 300.0
+    # per-feature PSI threshold on the int8 wire grid, folded to 17
+    # groups; conventional reading: < 0.1 stable, 0.1-0.25 moderate,
+    # > 0.25 significant.  0 disables the feature_psi objective.
+    psi_threshold: float = 0.25
+    # KL(baseline || live) threshold for the score distribution;
+    # 0 disables the score_kl objective.
+    score_kl_threshold: float = 0.1
+    # how many worst features a drift_report / drift_alert names
+    top_k: int = 5
+    # fast window must hold at least this many rows before any
+    # judgment (quiet traffic never pages; idle unlatch below this).
+    min_rows: int = 200
+    # labeled-feedback path (wire FEEDBACK frame -> live AUC /
+    # auc_decay); off rejects FEEDBACK frames with STATUS_ERROR.
+    feedback: bool = True
+    # score-bin resolution of the feedback AUC accumulator
+    feedback_bins: int = 1024
+
+    def validate(self) -> None:
+        if self.fast_window_s <= 0 \
+                or self.slow_window_s < self.fast_window_s:
+            raise ConfigError(
+                "drift windows need 0 < fast_window_s <= slow_window_s: "
+                f"{self.fast_window_s}/{self.slow_window_s}")
+        if self.psi_threshold < 0:
+            raise ConfigError(
+                f"drift.psi-threshold must be >= 0: {self.psi_threshold}")
+        if self.score_kl_threshold < 0:
+            raise ConfigError("drift.score-kl-threshold must be >= 0: "
+                              f"{self.score_kl_threshold}")
+        if self.top_k < 1:
+            raise ConfigError(f"drift.top-k must be >= 1: {self.top_k}")
+        if self.min_rows < 1:
+            raise ConfigError(
+                f"drift.min-rows must be >= 1: {self.min_rows}")
+        if self.feedback_bins < 2:
+            raise ConfigError("drift.feedback-bins must be >= 2: "
+                              f"{self.feedback_bins}")
+
+
+@dataclass(frozen=True)
 class ServingConfig:
-    """Knobs for the port's scoring daemon (runtime/serve.py); the serving
-    fields of the JAX `ServingConfig` that the daemon uses, same defaults
-    except `engine`, whose one value here is "torch"."""
+    """Knobs for the port's scoring daemon (runtime/serve.py) and its wire
+    server (runtime/serve_wire.py); the fields of the JAX `ServingConfig`
+    with the same defaults and checks, except `engine` ("torch", the
+    default, or "numpy", the op-list interpreter on the host) and the AOT
+    pack (`aot_pack`, ROADMAP.md queue A item (e)4), which the port has
+    not."""
 
     engine: str = "torch"
     # a lone request is dispatched after at most this budget (ms); under
@@ -177,12 +238,35 @@ class ServingConfig:
     # admission bound: beyond this queue depth submit() raises ServeOverload
     queue_limit: int = 100_000
     workers: int = 1
+    # `serving_report` journal cadence (seconds); 0 disables the reporter
+    report_every_s: float = 10.0
+    # the wire server's TCP port (0 = ephemeral) and bind host
+    port: int = 8571
+    host: str = "127.0.0.1"
+    # journal one sampled `request_trace` (the lifecycle stage chain) for
+    # every Nth admitted request; 0 disables sampling
+    trace_sample: int = 0
+    # how many slowest sampled traces a loadtest report names
+    trace_exemplars: int = 5
+    # SLO objectives (0 disables each): p99 target in ms (pick a value on
+    # the latency bucket grid), error rate and availability as fractions
+    slo_p99_ms: float = 0.0
+    slo_error_rate: float = 0.0
+    slo_availability: float = 0.0
+    # multiwindow burn-rate alerting: both windows must burn the budget at
+    # >= slo_burn_threshold x the sustainable rate to fire one slo_alert
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 300.0
+    slo_burn_threshold: float = 2.0
+    # drift detection (`shifu.drift.*`); engages only when the artifact
+    # carries a baseline_profile.json
+    drift: DriftConfig = field(default_factory=DriftConfig)
     # warm every bucket of the ladder before a load becomes visible
     prewarm_ladder: bool = True
 
     def validate(self) -> None:
-        if self.engine != "torch":
-            raise ConfigError(f"serving.engine must be 'torch': "
+        if self.engine not in ("torch", "numpy"):
+            raise ConfigError(f"serving.engine must be 'torch' or 'numpy': "
                               f"{self.engine!r}")
         if self.latency_budget_ms <= 0:
             raise ConfigError("serving.latency_budget_ms must be > 0: "
@@ -198,6 +282,35 @@ class ServingConfig:
             raise ConfigError("serving.queue_limit must be >= 1")
         if self.workers < 1:
             raise ConfigError("serving.workers must be >= 1")
+        if self.report_every_s < 0:
+            raise ConfigError("serving.report_every_s must be >= 0")
+        if not (0 <= self.port <= 65535):
+            raise ConfigError(f"serving.port out of range: {self.port}")
+        if self.trace_sample < 0:
+            raise ConfigError("serving.trace_sample must be >= 0 "
+                              f"(0 = off, N = 1-in-N): {self.trace_sample}")
+        if self.trace_exemplars < 0:
+            raise ConfigError("serving.trace-exemplars must be >= 0: "
+                              f"{self.trace_exemplars}")
+        if self.slo_p99_ms < 0:
+            raise ConfigError(
+                f"serving.slo.p99-ms must be >= 0: {self.slo_p99_ms}")
+        if not (0 <= self.slo_error_rate < 1):
+            raise ConfigError("serving.slo.error-rate must be in [0, 1): "
+                              f"{self.slo_error_rate}")
+        if not (0 <= self.slo_availability < 1):
+            raise ConfigError("serving.slo.availability must be in [0, 1): "
+                              f"{self.slo_availability}")
+        if self.slo_fast_window_s <= 0 \
+                or self.slo_slow_window_s < self.slo_fast_window_s:
+            raise ConfigError(
+                "serving SLO windows need 0 < slo_fast_window_s <= "
+                f"slo_slow_window_s: {self.slo_fast_window_s}/"
+                f"{self.slo_slow_window_s}")
+        if self.slo_burn_threshold < 1:
+            raise ConfigError("serving.slo.burn-threshold must be >= 1: "
+                              f"{self.slo_burn_threshold}")
+        self.drift.validate()
 
     def replace(self, **kw) -> "ServingConfig":
         return dataclasses.replace(self, **kw)
@@ -442,7 +555,7 @@ class EmbedConfig:
     """The JAX package's sparse-embedding engine knobs.  The port reads
     `dedup` ("off" turns the per-batch id compaction off); the tiering
     fields are carried so a JAX job dict parses (tiering is ROADMAP.md
-    queue A item (e))."""
+    queue A item (e)6)."""
 
     dedup: str = "auto"
     tiering: str = "off"

@@ -5,12 +5,17 @@ An artifact is plain files, written and read the same way by both packages:
 
     <export_dir>/
       GenericModelConfig.json   # the Shifu sidecar
-      topology.json             # format v1: model_spec, schema, metadata
+      topology.json             # format v1: the op-list program (v2),
+                                # model_spec, schema, metadata
       weights.npz               # params under `/`-joined Flax key names
+      baseline_profile.json     # the frozen drift baseline, when given
+      sync_manifest.json        # blake2b digests of the files above
 
-The port writes `"program": null`: porting the op-list program
-(shifu_tpu/export/program.py) waits for a later slice, so the JAX package's
-numpy and native scorers cannot score an artifact the port wrote yet.
+The program (export/program.py) is the JAX package's for the same spec and
+schema, so the numpy `Scorer` and the native C++ scorer of either package
+score the port's artifacts.  The StableHLO files (`scoring.mlir`,
+`scoring.jaxexport`) and the AOT pack are the JAX package's own; their
+port (a `torch.export` tier) is ROADMAP.md queue A item (e)4.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ FORMAT_VERSION = 1
 SIDE_CAR = "GenericModelConfig.json"
 TOPOLOGY = "topology.json"
 WEIGHTS = "weights.npz"
+BASELINE_PROFILE = "baseline_profile.json"
 
 
 @dataclasses.dataclass
@@ -95,20 +101,34 @@ def flat_params(model: nn.Module) -> dict[str, np.ndarray]:
 
 
 def save_artifact(model: nn.Module, spec: ModelSpec, schema: DataSchema,
-                  export_dir: str, algorithm: str = "tensorflow") -> str:
-    """Write the scoring artifact in the JAX package's format (with
-    `"program": null`); returns export_dir."""
+                  export_dir: str, algorithm: str = "tensorflow",
+                  baseline_profile: Optional[dict] = None) -> str:
+    """Write the scoring artifact in the JAX package's format; returns
+    export_dir.  `baseline_profile` (obs/sketch.build_profile, the train
+    loop's frozen stats epoch) is validated and written as
+    `baseline_profile.json`.  `sync_manifest.json` comes last, so its
+    digests cover every other file; a failure to write it raises."""
+    from ..runtime.fleet import write_sync_manifest
+    from .program import PROGRAM_VERSION, build_program_v2, weight_keys
+
     os.makedirs(export_dir, exist_ok=True)
-    np.savez(os.path.join(export_dir, WEIGHTS), **flat_params(model))
+    flat = flat_params(model)
+    program = build_program_v2(spec, schema)
+    if program is not None:
+        missing = [k for k in weight_keys(program) if k not in flat]
+        if missing:
+            raise ValueError(f"program references missing weights: "
+                             f"{missing}; have {sorted(flat)}")
+    np.savez(os.path.join(export_dir, WEIGHTS), **flat)
     topology = {
         "format_version": FORMAT_VERSION,
-        "program_version": None,
+        "program_version": PROGRAM_VERSION if program is not None else None,
         "model_type": spec.model_type,
         "num_features": schema.feature_count,
         "num_heads": spec.num_heads,
         "head_names": list(spec.head_names),
         "selected_indices": list(schema.selected_indices),
-        "program": None,
+        "program": program,
         "model_spec": dataclasses.asdict(spec),
         "schema": dataclasses.asdict(schema),
     }
@@ -125,4 +145,10 @@ def save_artifact(model: nn.Module, spec: ModelSpec, schema: DataSchema,
     }
     with open(os.path.join(export_dir, SIDE_CAR), "w") as f:
         json.dump(sidecar, f, indent=4)
+    if baseline_profile is not None:
+        from ..obs import sketch
+        sketch.validate_profile(baseline_profile)
+        with open(os.path.join(export_dir, BASELINE_PROFILE), "w") as f:
+            json.dump(baseline_profile, f)
+    write_sync_manifest(export_dir)
     return export_dir

@@ -398,8 +398,10 @@ def run_train(args) -> int:
 
 
 def _export(result, job) -> str:
-    """The artifact at `runtime.final_model_path`; a remote destination
-    is built in a local temporary directory and uploaded through fsio."""
+    """The artifact at `runtime.final_model_path`, with the training
+    loop's frozen drift baseline (`baseline_profile.json`) when the run
+    evaluated; a remote destination is built in a local temporary
+    directory and uploaded through fsio."""
     from .. import obs
     from ..export.artifact import save_artifact
 
@@ -409,12 +411,14 @@ def _export(result, job) -> str:
             local_dir = tempfile.mkdtemp(prefix="shifu_tpu_torch_export_")
             try:
                 save_artifact(result.state.model, job.model, job.schema,
-                              local_dir)
+                              local_dir,
+                              baseline_profile=result.baseline_profile)
                 fsio.upload_dir(local_dir, dest)
             finally:
                 shutil.rmtree(local_dir, ignore_errors=True)
         else:
-            save_artifact(result.state.model, job.model, job.schema, dest)
+            save_artifact(result.state.model, job.model, job.schema, dest,
+                          baseline_profile=result.baseline_profile)
     obs.event("export", dest=dest)
     return dest
 

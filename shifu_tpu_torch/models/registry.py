@@ -1,5 +1,5 @@
 """Model factory: ModelSpec.model_type -> torch module (port of
-shifu_tpu/models/registry.py for the model types ported so far)."""
+shifu_tpu/models/registry.py): every model of the JAX ladder."""
 
 from __future__ import annotations
 
@@ -11,12 +11,6 @@ from torch import nn
 from ..config.schema import DataSchema, ModelSpec
 from ..device import DeviceLike, resolve_device
 from .base import Wire
-
-# model types of the JAX ladder that later slices port (ROADMAP.md)
-_NOT_PORTED = {
-    "multitask": "queue A item (e)",
-    "moe_mlp": "queue A item (e)",
-}
 
 
 def build_model(spec: ModelSpec, schema: DataSchema,
@@ -37,6 +31,12 @@ def build_model(spec: ModelSpec, schema: DataSchema,
     if spec.model_type == "mlp":
         from .mlp import ShifuMLP
         model = ShifuMLP(spec, schema.feature_count, generator, wire)
+    elif spec.model_type == "multitask":
+        from .multitask import MultiTask
+        model = MultiTask(spec, schema.feature_count, generator)
+    elif spec.model_type == "moe_mlp":
+        from .moe import MoEMLP
+        model = MoEMLP(spec, schema.feature_count, generator)
     elif spec.model_type in ("ft_transformer", "wide_deep", "deepfm"):
         from .deepfm import DeepFM
         from .embedding import field_layout
@@ -45,10 +45,6 @@ def build_model(spec: ModelSpec, schema: DataSchema,
         cls = {"ft_transformer": FTTransformer, "wide_deep": WideDeep,
                "deepfm": DeepFM}[spec.model_type]
         model = cls(spec, field_layout(schema), generator)
-    elif spec.model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {spec.model_type!r} is not ported yet (ROADMAP.md, "
-            f"{_NOT_PORTED[spec.model_type]})")
     else:
         raise KeyError(f"unknown model_type {spec.model_type!r}")
     return model.to(dev).train(train)

@@ -1,9 +1,10 @@
 """Telemetry of the port (the JAX package's `shifu_tpu/obs/`, in part):
 the metrics registry (`metrics`), the run journal (`journal`), nested span
 timing (`spans`), the per-epoch goodput ledger (`goodput`), the step
-programs' FLOP and byte counts (`flops`) and the device flight recorder
-(`devprof`, with the trace rollups of `tracefmt`), with the
-process-global sinks of `_sinks`.
+programs' FLOP and byte counts (`flops`), the device flight recorder
+(`devprof`, with the trace rollups of `tracefmt`), the serving plane's
+drift sketches and engine (`sketch`, `drift`), SLO engine (`slo`) and
+trace context (`tracing`), with the process-global sinks of `_sinks`.
 
 Until `configure(metrics_dir)` (or SHIFU_TPU_METRICS_DIR through
 `configure_from_env`) the registry still collects in memory and `event()`
@@ -14,8 +15,8 @@ later slices (ROADMAP.md queue A).
 
 from __future__ import annotations
 
-from . import (devprof, flops, goodput, journal, metrics,  # noqa: F401
-               spans, tracefmt)
+from . import (devprof, drift, flops, goodput, journal,  # noqa: F401
+               metrics, sketch, slo, spans, tracefmt, tracing)
 from ._sinks import (ENV_METRICS_DIR, SCRAPE_FILE, configure,  # noqa: F401
                      configure_from_env, event, flush, get_journal,
                      metrics_dir, reset_for_tests, resolve_metrics_dir,

@@ -418,6 +418,7 @@ class DeviceProfiler:
         self.state_bytes = state_bytes
         self._lock = threading.Lock()
         self._trace_active = False   # one torch.profiler capture at a time
+        self._trace_on_card = False  # the active capture traces the card
         self._oneshot: Optional[dict] = None
         # obs/flops dispatch tallies at the active capture's start: the
         # delta at stop scales per-dispatch cost to the window's work
@@ -435,7 +436,7 @@ class DeviceProfiler:
             chaos.maybe_fail(CHAOS_SITE, epoch=epoch, path=log_dir)
             os.makedirs(log_dir, exist_ok=True)
             self._disp0 = flops.dispatch_counts()
-            prof_lib.start_trace(log_dir)
+            self._trace_on_card = prof_lib.start_trace(log_dir)
             self._trace_active = True
             return True
         except Exception as e:
@@ -461,8 +462,14 @@ class DeviceProfiler:
             return None
         self._trace_active = False
         try:
-            rollup = tracefmt.rollup_trace_dir(log_dir,
-                                               top_k=self.cfg.trace_top_k)
+            rollup = tracefmt.rollup_trace_dir(
+                log_dir, top_k=self.cfg.trace_top_k,
+                on_card=self._trace_on_card)
+            if rollup is None and self._trace_on_card:
+                # the JAX rollup drops an empty window without a word; on
+                # the card the port says so
+                raise RuntimeError("no device events in a capture of the "
+                                   "card")
         except Exception as e:
             rollup = None
             _sinks.event("trace_fallback", epoch=int(epoch), stage="parse",

@@ -3,9 +3,11 @@ shifu_tpu/obs/metrics.py, the same instruments, names and text format).
 
 Every subsystem writes into one process-local registry, which exports a
 Prometheus text-format scrape file (`metrics.prom`, written atomically
-beside the journal).  The JAX module's bulk observation, quantiles and
-structured snapshots serve its serving plane and cross-host aggregation,
-which the port has not ported yet.
+beside the journal).  The serving plane bins its per-request latencies in
+bulk (`Histogram.merge_counts`), windows the cumulative histograms by
+differencing `counts()` snapshots and reads quantiles off them
+(`quantile_from_counts`).  The JAX module's structured snapshots serve its
+cross-host aggregation, which the port has not ported yet.
 
 Dependency-free by design: stdlib + nothing.  Instruments are cheap enough
 for per-batch call sites (one dict update under a lock); per-row call sites
@@ -139,6 +141,140 @@ class Histogram:
             s = self._series.get(_label_key(labels))
             return 0.0 if s is None else float(s[1])
 
+    def merge_counts(self, counts, total: float, n: int, **labels) -> None:
+        """Merge a pre-bucketed batch (len(buckets)+1 counts in bound
+        order, +Inf last) in one lock acquisition: the bulk path for the
+        serving daemon's per-request latencies, binned with numpy by the
+        caller."""
+        counts = list(counts)
+        if len(counts) != len(self.buckets) + 1:
+            raise ValueError(
+                f"merge_counts: got {len(counts)} buckets, histogram "
+                f"{self.name} has {len(self.buckets) + 1}")
+        key = _label_key(labels)
+        with self._lock:
+            s = self._series.get(key)
+            if s is None:
+                s = self._series[key] = [[0] * (len(self.buckets) + 1),
+                                         0.0, 0]
+            for i, c in enumerate(counts):
+                if c:
+                    s[0][i] += int(c)
+            s[1] += float(total)
+            s[2] += int(n)
+
+    def counts(self, **labels) -> Optional[tuple[list, float, int]]:
+        """Snapshot of one series: (per-bucket counts incl. +Inf, sum,
+        n), or None when empty; two snapshots difference into a window."""
+        key = _label_key(labels)
+        with self._lock:
+            s = self._series.get(key)
+            if s is None:
+                return None
+            return list(s[0]), float(s[1]), int(s[2])
+
+    def _render(self, out: list[str]) -> None:
+        for key in sorted(self._values):
+            out.append(f"{self.name}{_fmt_labels(key)} "
+                       f"{_fmt_value(self._values[key])}")
+
+
+class Gauge(Counter):
+    """Last-write-wins value; `inc` may go either direction."""
+
+    kind = "gauge"
+
+    def set(self, value: float, **labels) -> None:
+        with self._lock:
+            self._values[_label_key(labels)] = float(value)
+
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        key = _label_key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+
+class Histogram:
+    """Cumulative-bucket histogram (Prometheus semantics) per label set."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str, lock: threading.RLock,
+                 buckets: Iterable[float] = DEFAULT_BUCKETS):
+        self.name = name
+        self.help = help
+        self.buckets = tuple(sorted(buckets))
+        self._lock = lock
+        # key -> [counts per bucket + inf, sum, count]
+        self._series: dict[tuple, list] = {}
+
+    def observe(self, value: float, **labels) -> None:
+        key = _label_key(labels)
+        with self._lock:
+            s = self._series.get(key)
+            if s is None:
+                s = self._series[key] = [[0] * (len(self.buckets) + 1),
+                                         0.0, 0]
+            counts, _sum, _n = s
+            for i, bound in enumerate(self.buckets):
+                if value <= bound:
+                    counts[i] += 1
+                    break
+            else:
+                counts[-1] += 1
+            s[1] = _sum + float(value)
+            s[2] = _n + 1
+
+    def count(self, **labels) -> int:
+        with self._lock:
+            s = self._series.get(_label_key(labels))
+            return 0 if s is None else int(s[2])
+
+    def sum(self, **labels) -> float:
+        with self._lock:
+            s = self._series.get(_label_key(labels))
+            return 0.0 if s is None else float(s[1])
+
+    def merge_counts(self, counts, total: float, n: int, **labels) -> None:
+        """Merge a pre-bucketed batch (len(buckets)+1 counts in bound
+        order, +Inf last) in one lock acquisition: the bulk path for the
+        serving daemon's per-request latencies, binned with numpy by the
+        caller."""
+        counts = list(counts)
+        if len(counts) != len(self.buckets) + 1:
+            raise ValueError(
+                f"merge_counts: got {len(counts)} buckets, histogram "
+                f"{self.name} has {len(self.buckets) + 1}")
+        key = _label_key(labels)
+        with self._lock:
+            s = self._series.get(key)
+            if s is None:
+                s = self._series[key] = [[0] * (len(self.buckets) + 1),
+                                         0.0, 0]
+            for i, c in enumerate(counts):
+                if c:
+                    s[0][i] += int(c)
+            s[1] += float(total)
+            s[2] += int(n)
+
+    def counts(self, **labels) -> Optional[tuple[list, float, int]]:
+        """Snapshot of one series: (per-bucket counts incl. +Inf, sum,
+        n), or None when empty; two snapshots difference into a window."""
+        key = _label_key(labels)
+        with self._lock:
+            s = self._series.get(key)
+            if s is None:
+                return None
+            return list(s[0]), float(s[1]), int(s[2])
+
+    def quantile(self, q: float, **labels) -> Optional[float]:
+        """Histogram-estimated quantile (linear interpolation inside the
+        owning bucket); None for an empty series."""
+        snap = self.counts(**labels)
+        if snap is None or snap[2] == 0:
+            return None
+        return quantile_from_counts(self.buckets, snap[0], snap[2], q)
+
     def _render(self, out: list[str]) -> None:
         for key in sorted(self._series):
             counts, total, n = self._series[key]
@@ -155,6 +291,26 @@ class Histogram:
             out.append(f"{self.name}_sum{_fmt_labels(key)} "
                        f"{_fmt_value(total)}")
             out.append(f"{self.name}_count{_fmt_labels(key)} {n}")
+
+
+def quantile_from_counts(buckets, counts, n: int, q: float
+                         ) -> Optional[float]:
+    """The quantile of an explicit (buckets, counts, n) triple, linearly
+    interpolated inside the owning bucket (Prometheus histogram_quantile
+    semantics; values past the last finite bound clamp to it)."""
+    if n <= 0:
+        return None
+    rank = q * n
+    cum = 0.0
+    lo = 0.0
+    for i, bound in enumerate(buckets):
+        prev = cum
+        cum += counts[i]
+        if cum >= rank and counts[i] > 0:
+            frac = (rank - prev) / counts[i]
+            return lo + (bound - lo) * min(max(frac, 0.0), 1.0)
+        lo = bound
+    return buckets[-1] if buckets else None
 
 
 class MetricsRegistry:

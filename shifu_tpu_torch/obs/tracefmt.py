@@ -20,7 +20,9 @@ a device event is not, since a torch.profiler trace carries no
   range (a step program's dispatch), on their (pid, tid) lane, with that
   range's name as their module; so a CPU run still journals a
   `device_profile`, as the JAX package's CPU run does.  The rule applies
-  only to a trace with no device-category event.
+  only to a trace with no device-category event, and never to a capture
+  of the card (`on_card=True`): host ops there are not device time, so
+  such a capture with no device event rolls up to None.
 
 Device events are normalized to the JAX shape (`ph`, `pid`, `tid`, `ts`,
 `dur`, `name`, `args.hlo_op`, `args.hlo_module`) so `kernel_rollup`
@@ -177,14 +179,18 @@ def _cpu_events(events: list[dict]) -> list[dict]:
     return out
 
 
-def device_events(events: Iterable[dict]) -> list[dict]:
+def device_events(events: Iterable[dict],
+                  on_card: bool = False) -> list[dict]:
     """The device events of one capture, normalized to the JAX shape (see
-    the module docstring for the card's rule and the CPU's)."""
+    the module docstring for the card's rule and the CPU's); a capture of
+    the card (`on_card`) keeps its device-category events only."""
     events = [e for e in events if isinstance(e, dict)]
     devs = [e for e in events
             if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
     if devs:
         return _card_events(events, devs)
+    if on_card:
+        return []
     # an already-normalized (or JAX-tagged) list passes through
     tagged = [e for e in events if e.get("ph") == "X"
               and isinstance(e.get("args"), dict) and e["args"].get("hlo_op")]
@@ -284,15 +290,15 @@ def kernel_rollup(events: Iterable[dict],
     }
 
 
-def rollup_trace_dir(log_dir: str,
-                     top_k: int = DEFAULT_TOP_K) -> Optional[dict]:
+def rollup_trace_dir(log_dir: str, top_k: int = DEFAULT_TOP_K,
+                     on_card: bool = False) -> Optional[dict]:
     """Rollup over every trace file under `log_dir`; each file is filtered
-    to its device events as it is read.  None when no file yields device
-    events; a torn file is skipped."""
+    to its device events as it is read (`on_card`: see device_events).
+    None when no file yields device events; a torn file is skipped."""
     merged: list[dict] = []
     for path in find_trace_files(log_dir):
         try:
-            merged.extend(device_events(load_trace_events(path)))
+            merged.extend(device_events(load_trace_events(path), on_card))
         except (OSError, ValueError):
             continue  # a torn capture must not hide the readable ones
     return kernel_rollup(merged, top_k=top_k)

@@ -42,8 +42,11 @@ exits.
 
 The chaos sites `train.epoch_start` (each epoch's boundary, before any
 work) and `train.chunk` (each chunk's save point) sit where the JAX
-loop's do.  Differences from the JAX package, kept on purpose until later
-slices (ROADMAP.md): no drift baseline, no multi-host paths.
+loop's do.  Every evaluated epoch also sketches the valid scores and (once)
+the training features on the int8 wire grid, and journals the frozen drift
+baseline as a `baseline_profile` event; the last one rides
+`TrainResult.baseline_profile` into the artifact (obs/sketch.py).  The
+multi-host paths are ROADMAP.md queue A item (f).
 """
 
 from __future__ import annotations
@@ -77,7 +80,8 @@ from .train_state import TrainState
 
 Console = Callable[[str], None]
 
-_TRAINABLE = ("mlp", "ft_transformer", "wide_deep", "deepfm")
+_TRAINABLE = ("mlp", "ft_transformer", "wide_deep", "deepfm", "multitask",
+              "moe_mlp")
 
 # the exit code of a SIGTERM drain (EX_TEMPFAIL: restart the job)
 PREEMPTED_EXIT = 75
@@ -114,6 +118,11 @@ class TrainResult:
     dedup: Optional[dict] = None
     # the epoch the run resumed at (0 for a fresh run)
     resumed_from_epoch: int = 0
+    # the frozen stats epoch (obs/sketch.build_profile): the training
+    # features' and the last evaluated epoch's score sketches, which
+    # save_artifact writes as baseline_profile.json; None when the run
+    # never evaluated or its features were not held
+    baseline_profile: Optional[dict] = None
 
 
 def init_state(job: JobConfig, num_features: int,
@@ -123,14 +132,11 @@ def init_state(job: JobConfig, num_features: int,
     than the JAX package's init from the same seed).  When int8 features
     reach the model natively its layer 0 carries the wire grid.  Under a
     sparse embedding plan the optimizer leaves the embedding tables out and
-    their slots go on `table_slots`.  The MLP, the FT-Transformer,
-    Wide&Deep and DeepFM train; multitask and moe_mlp wait for a later
-    slice (ROADMAP.md queue A item (e))."""
+    their slots go on `table_slots`.  Every model of the JAX ladder
+    trains."""
     if job.model.model_type not in _TRAINABLE:
-        raise NotImplementedError(
-            f"training model_type {job.model.model_type!r} is not ported "
-            "yet (ROADMAP.md queue A item (e)); the port trains "
-            + ", ".join(_TRAINABLE))
+        raise KeyError(f"unknown model_type {job.model.model_type!r}; the "
+                       "port trains " + ", ".join(_TRAINABLE))
     if num_features != job.schema.feature_count:
         raise ValueError(f"dataset has {num_features} features, the schema "
                          f"selects {job.schema.feature_count}")
@@ -268,11 +274,15 @@ def eval_batch_size(job: JobConfig, num_rows: int) -> int:
 
 def evaluate(state: TrainState, ds: pipe.TabularDataset, job: JobConfig,
              eval_step, device: torch.device,
-             batch_size: Optional[int] = None) -> tuple[float, float]:
+             batch_size: Optional[int] = None,
+             score_sink: Optional[Callable[[np.ndarray], None]] = None
+             ) -> tuple[float, float]:
     """(weighted_error, auc) over the whole dataset: every row counted, the
-    last batch padded with zero-weight rows.  Scores are fetched a window
-    of 8 batches behind the launches, so the card is not drained after
-    every batch."""
+    last batch padded with zero-weight rows.  A multi-head model is scored
+    on head 0 against target column 0, as in the JAX package.  Scores are
+    fetched a window of 8 batches behind the launches, so the card is not
+    drained after every batch.  `score_sink` gets each batch's head-0
+    scores of the rows with nonzero weight (the baseline score sketch)."""
     if ds.num_rows == 0:
         return float("nan"), float("nan")
     bs = batch_size or eval_batch_size(job, ds.num_rows)
@@ -286,7 +296,10 @@ def evaluate(state: TrainState, ds: pipe.TabularDataset, job: JobConfig,
 
     def fetch(entry) -> None:
         s, n, tgt, wgt = entry
-        sm.update(s.cpu().numpy()[:n, 0], tgt, wgt)
+        scores = s.cpu().numpy()[:n, 0]
+        sm.update(scores, tgt, wgt)
+        if score_sink is not None:
+            score_sink(scores[np.asarray(wgt) > 0])
         lat.observe(time.perf_counter() - t0[0])
         rows.inc(int(np.count_nonzero(wgt)))
         t0[0] = time.perf_counter()
@@ -304,6 +317,31 @@ def evaluate(state: TrainState, ds: pipe.TabularDataset, job: JobConfig,
     while pend:
         fetch(pend.popleft())
     return sm.weighted_error(), sm.auc()
+
+
+def _baseline_feature_sketch(job: JobConfig, ds, cap: int = 1 << 18):
+    """FeatureSketch of the training partition on the int8 wire grid: the
+    feature half of the frozen baseline profile, stride-sampled to at most
+    `cap` rows.  bf16 features (uint16 bits) widen to f32 first.  None
+    when the features are not held (a streamed epoch)."""
+    feats = getattr(ds, "features", None)
+    if feats is None or feats.shape[0] == 0:
+        return None
+    scale, offset = pipe.wire_params(job.schema, job.data)
+    sk = obs.sketch.FeatureSketch(feats.shape[1], scale=scale, offset=offset)
+    step = max(1, -(-int(feats.shape[0]) // int(cap)))
+    sample = np.asarray(feats[::step][:cap])
+    sk.update(sample if sample.dtype == np.int8
+              else pipe.features_f32(sample))
+    return sk
+
+
+def _baseline_feature_names(schema, num_features: int):
+    """Selected-column names for the profile (None when the schema does
+    not name every selected column)."""
+    by_index = {c.index: c.name for c in schema.columns}
+    names = [by_index.get(i, f"f{i}") for i in schema.selected_indices]
+    return names if len(names) == num_features else None
 
 
 def _stack_blocks(ds: pipe.TabularDataset, nb: int, bs: int) -> dict:
@@ -636,6 +674,10 @@ def train(job: JobConfig,
         return xs["features"].shape[0]
 
     history: list[EpochMetrics] = []
+    # the drift baseline: the feature sketch is built once, the score
+    # sketch at every evaluated epoch
+    feat_sketch = None
+    baseline_profile: Optional[dict] = None
     best_valid = float("inf")
     evals_since_best = 0
     best_params: Optional[dict[str, Any]] = None
@@ -773,10 +815,13 @@ def train(job: JobConfig,
             tv0 = time.perf_counter()
             if (epoch % job.train.eval_every_epochs == 0
                     or epoch == job.train.epochs - 1):
+                score_sketch = obs.sketch.ScoreSketch()
                 with obs.span("epoch/eval", epoch=epoch):
-                    valid_error, valid_auc = evaluate(state, valid_ds, job,
-                                                      eval_step, dev)
+                    valid_error, valid_auc = evaluate(
+                        state, valid_ds, job, eval_step, dev,
+                        score_sink=score_sketch.update)
             else:
+                score_sketch = None
                 valid_error, valid_auc = float("nan"), float("nan")
             valid_time = time.perf_counter() - tv0
 
@@ -801,6 +846,21 @@ def train(job: JobConfig,
                 obs.gauge("valid_auc", "last evaluated valid AUC").set(
                     valid_auc)
             obs.event("epoch", **dataclasses.asdict(m))
+            if score_sketch is not None and score_sketch.n > 0:
+                # the frozen stats epoch: a summary every evaluated epoch;
+                # the last one rides the artifact (obs/drift.py diffs live
+                # traffic against it)
+                if feat_sketch is None:
+                    feat_sketch = _baseline_feature_sketch(job, train_ds)
+                if feat_sketch is not None:
+                    baseline_profile = obs.sketch.build_profile(
+                        feat_sketch, score_sketch,
+                        feature_names=_baseline_feature_names(
+                            job.schema, feat_sketch.num_features),
+                        train_auc=valid_auc, train_error=m.train_error,
+                        epoch=epoch)
+                    obs.event("baseline_profile",
+                              **obs.sketch.profile_summary(baseline_profile))
             obs.flush()
             if timing_on:
                 console(timer.console_line())
@@ -938,4 +998,5 @@ def train(job: JobConfig,
                              "resident" if use_resident else
                              "staged" if use_staged else "batch"),
                        dedup=dict(dedup.dedup_state) if dedup else None,
-                       resumed_from_epoch=start_epoch)
+                       resumed_from_epoch=start_epoch,
+                       baseline_profile=baseline_profile)

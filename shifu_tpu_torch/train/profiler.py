@@ -129,9 +129,10 @@ def trace_active() -> bool:
     return _active is not None
 
 
-def start_trace(log_dir: str) -> None:
+def start_trace(log_dir: str) -> bool:
     """Start a torch.profiler capture of the CPU and, where CUDA is
-    initialized, the card; raises RuntimeError if one is already active."""
+    initialized, the card; True when the card is traced.  Raises
+    RuntimeError if a capture is already active."""
     global _active
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -147,6 +148,7 @@ def start_trace(log_dir: str) -> None:
         prof = profile(activities=acts)
         prof.start()
         _active = (prof, log_dir)
+        return len(acts) > 1
 
 
 def stop_trace() -> str:

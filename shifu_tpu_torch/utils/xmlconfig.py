@@ -7,12 +7,14 @@ JAX package's names, defaults and messages; `configuration_xml_bytes` /
 `write_configuration_xml` serialize the merged view (the job dir's
 `global-final.xml`).  Unknown keys are kept for forward compatibility.
 
-The drift (`shifu.drift.*`) and fleet (`shifu.fleet.*`) keys belong to
-configs the port does not have yet (ROADMAP.md queue A items (e)3 and
-(e)7): such a key raises NotImplementedError, never silently does
-nothing.  So does a serving key whose `ServingConfig` field the port's
-daemon lacks (the wire server, SLO and tracing knobs, (e)3; the AOT pack,
-(e)4).
+The serving keys (`shifu.serving.*`, with the wire server's, the SLO
+engine's and tracing's) and the drift keys (`shifu.drift.*`) map onto the
+port's `ServingConfig` and `DriftConfig` (`serving_config_from_conf`,
+`drift_config_from_conf`) as the JAX overlay's do.  The fleet keys
+(`shifu.fleet.*`, ROADMAP.md queue A item (e)7) belong to a config the
+port does not have yet, and `shifu.serving.aot-pack` to the AOT pack
+((e)4): such a key raises NotImplementedError, never silently does
+nothing.
 """
 
 from __future__ import annotations
@@ -291,32 +293,19 @@ def write_configuration_xml(config: Mapping[str, str], path: str) -> None:
         f.write(configuration_xml_bytes(config))
 
 
-_NOT_PORTED_PREFIXES = (("shifu.drift.", "queue A item (e)3, with the drift "
-                                          "observatory"),
-                        ("shifu.fleet.", "queue A item (e)7, with the "
-                                         "serving fleet"))
+_NOT_PORTED_PREFIXES = (("shifu.fleet.", "queue A item (e)7, with the "
+                                         "serving fleet"),)
 
-# serving keys whose ServingConfig field the port's daemon lacks
+# serving keys whose ServingConfig field the port lacks
 _SERVING_NOT_PORTED = {
-    KEY_SERVING_REPORT_EVERY_S: "queue A item (e)3",
-    KEY_SERVING_PORT: "queue A item (e)3 (the wire server)",
-    KEY_SERVING_HOST: "queue A item (e)3 (the wire server)",
-    KEY_SERVING_TRACE_SAMPLE: "queue A item (e)3 (tracing)",
-    KEY_SERVING_TRACE_EXEMPLARS: "queue A item (e)3 (tracing)",
-    KEY_SERVING_SLO_P99_MS: "queue A item (e)3 (the SLO engine)",
-    KEY_SERVING_SLO_ERROR_RATE: "queue A item (e)3 (the SLO engine)",
-    KEY_SERVING_SLO_AVAILABILITY: "queue A item (e)3 (the SLO engine)",
-    KEY_SERVING_SLO_FAST_WINDOW_S: "queue A item (e)3 (the SLO engine)",
-    KEY_SERVING_SLO_SLOW_WINDOW_S: "queue A item (e)3 (the SLO engine)",
-    KEY_SERVING_SLO_BURN_THRESHOLD: "queue A item (e)3 (the SLO engine)",
     KEY_SERVING_AOT_PACK: "queue A item (e)4 (the AOT pack)",
 }
 
 
 def check_ported(conf: Mapping[str, str]) -> None:
-    """Raise NotImplementedError for a drift or fleet key: their configs
-    are not ported yet, and a key the port cannot honour must not be
-    dropped without a word."""
+    """Raise NotImplementedError for a fleet key: its config is not
+    ported yet, and a key the port cannot honour must not be dropped
+    without a word."""
     for key in sorted(conf):
         for prefix, item in _NOT_PORTED_PREFIXES:
             if key.startswith(prefix):
@@ -326,10 +315,10 @@ def check_ported(conf: Mapping[str, str]) -> None:
 
 
 def serving_config_from_conf(conf: Mapping[str, str], base: Any = None) -> Any:
-    """ServingConfig from `shifu.serving.*` keys over `base` (default: the
-    dataclass defaults) — the serving-plane sibling of apply_to_job.  The
-    port's ServingConfig carries the daemon's knobs; a key for a field it
-    lacks, or a drift or fleet key, raises NotImplementedError."""
+    """ServingConfig from `shifu.serving.*` and `shifu.drift.*` keys over
+    `base` (default: the dataclass defaults), the serving-plane sibling of
+    apply_to_job.  A fleet key, or `shifu.serving.aot-pack`, raises
+    NotImplementedError."""
 
     from ..config.schema import ServingConfig
 
@@ -353,14 +342,71 @@ def serving_config_from_conf(conf: Mapping[str, str], base: Any = None) -> Any:
         kw["queue_limit"] = int(conf[KEY_SERVING_QUEUE_LIMIT])
     if KEY_SERVING_WORKERS in conf:
         kw["workers"] = int(conf[KEY_SERVING_WORKERS])
+    if KEY_SERVING_REPORT_EVERY_S in conf:
+        kw["report_every_s"] = float(conf[KEY_SERVING_REPORT_EVERY_S])
+    if KEY_SERVING_PORT in conf:
+        kw["port"] = int(conf[KEY_SERVING_PORT])
+    if KEY_SERVING_HOST in conf:
+        kw["host"] = conf[KEY_SERVING_HOST].strip()
+    if KEY_SERVING_TRACE_SAMPLE in conf:
+        kw["trace_sample"] = int(conf[KEY_SERVING_TRACE_SAMPLE])
+    if KEY_SERVING_TRACE_EXEMPLARS in conf:
+        kw["trace_exemplars"] = int(conf[KEY_SERVING_TRACE_EXEMPLARS])
+    if KEY_SERVING_SLO_P99_MS in conf:
+        kw["slo_p99_ms"] = float(conf[KEY_SERVING_SLO_P99_MS])
+    if KEY_SERVING_SLO_ERROR_RATE in conf:
+        kw["slo_error_rate"] = float(conf[KEY_SERVING_SLO_ERROR_RATE])
+    if KEY_SERVING_SLO_AVAILABILITY in conf:
+        kw["slo_availability"] = float(conf[KEY_SERVING_SLO_AVAILABILITY])
+    if KEY_SERVING_SLO_FAST_WINDOW_S in conf:
+        kw["slo_fast_window_s"] = float(conf[KEY_SERVING_SLO_FAST_WINDOW_S])
+    if KEY_SERVING_SLO_SLOW_WINDOW_S in conf:
+        kw["slo_slow_window_s"] = float(conf[KEY_SERVING_SLO_SLOW_WINDOW_S])
+    if KEY_SERVING_SLO_BURN_THRESHOLD in conf:
+        kw["slo_burn_threshold"] = float(
+            conf[KEY_SERVING_SLO_BURN_THRESHOLD])
     if KEY_SERVING_PREWARM_LADDER in conf:
         kw["prewarm_ladder"] = parse_bool(conf[KEY_SERVING_PREWARM_LADDER])
+    drift = drift_config_from_conf(conf, base.drift)
+    if drift is not base.drift:
+        kw["drift"] = drift
+    return dataclasses.replace(base, **kw) if kw else base
+
+
+def drift_config_from_conf(conf: Mapping[str, str], base: Any = None) -> Any:
+    """DriftConfig from `shifu.drift.*` keys over `base` (default: the
+    dataclass defaults); serving_config_from_conf calls it, so the daemon
+    and the loadtest see the same drift knobs."""
+    from ..config.schema import DriftConfig
+
+    base = base or DriftConfig()
+    kw: dict[str, Any] = {}
+    _float_keys = {KEY_DRIFT_FAST_WINDOW_S: "fast_window_s",
+                   KEY_DRIFT_SLOW_WINDOW_S: "slow_window_s",
+                   KEY_DRIFT_PSI_THRESHOLD: "psi_threshold",
+                   KEY_DRIFT_SCORE_KL_THRESHOLD: "score_kl_threshold"}
+    _int_keys = {KEY_DRIFT_TOP_K: "top_k",
+                 KEY_DRIFT_MIN_ROWS: "min_rows",
+                 KEY_DRIFT_FEEDBACK_BINS: "feedback_bins"}
+    _bool_keys = {KEY_DRIFT_ENABLED: "enabled",
+                  KEY_DRIFT_FEEDBACK: "feedback"}
+    for key, name in _float_keys.items():
+        if key in conf:
+            kw[name] = float(conf[key])
+    for key, name in _int_keys.items():
+        if key in conf:
+            kw[name] = int(conf[key])
+    for key, name in _bool_keys.items():
+        if key in conf:
+            kw[name] = parse_bool(conf[key])
     return dataclasses.replace(base, **kw) if kw else base
 
 
 def apply_to_job(job: Any, conf: Mapping[str, str]) -> Any:
     """Overlay `shifu.*` keys onto a JobConfig (returns a new JobConfig).
-    A drift or fleet key raises NotImplementedError (`check_ported`)."""
+    Serving and drift keys are the daemon's (`serving_config_from_conf`)
+    and leave the job alone, as in the JAX overlay; a fleet key raises
+    NotImplementedError (`check_ported`)."""
     check_ported(conf)
     train = job.train
     data = job.data

@@ -221,6 +221,31 @@ def test_cpu_rule_takes_the_outermost_ops_in_step_ranges():
     assert tracefmt.kernel_rollup([events[-1]]) is None
 
 
+def test_a_capture_of_the_card_never_takes_the_cpu_rule(tmp_path):
+    """Host ops are device time only in a capture of the CPU: a capture of
+    the card with no device-category event has no device events at all,
+    so its rollup is None (the recorder then journals trace_fallback)."""
+    events = [
+        {"ph": "X", "cat": "user_annotation", "pid": 1, "tid": 1,
+         "ts": 0.0, "dur": 100.0, "name": "serve_dispatch"},
+        {"ph": "X", "cat": "cpu_op", "pid": 1, "tid": 1, "ts": 1.0,
+         "dur": 40.0, "name": "aten::matmul"},
+    ]
+    assert [e["name"] for e in tracefmt.device_events(events)] \
+        == ["aten::matmul"]
+    assert tracefmt.device_events(events, on_card=True) == []
+    d = tmp_path / "cap"
+    d.mkdir()
+    (d / "host_1.trace.json").write_text(json.dumps({"traceEvents": events}))
+    assert tracefmt.rollup_trace_dir(str(d))["kernel_count"] == 1
+    assert tracefmt.rollup_trace_dir(str(d), on_card=True) is None
+    # a device event keeps the card's rule either way
+    kernel = {"ph": "X", "cat": "kernel", "pid": 0, "tid": 7, "ts": 5.0,
+              "dur": 3.0, "name": "gemm", "args": {"correlation": 1}}
+    assert tracefmt.device_events(events + [kernel], on_card=True) \
+        == tracefmt.device_events(events + [kernel])
+
+
 # --------------------------------------------------------- profiler legs
 
 def test_step_timer_feeds_chunk_hook_as_jax():
@@ -282,6 +307,40 @@ def test_anomaly_journals_jax_keys_and_a_oneshot_capture(tmp_path):
             assert {k["module"] for k in shots[0]["kernels"]} \
                 == {"train_step"}
     assert keys["port"] == keys["jax"]
+    assert not profiler.trace_active()
+
+
+def test_a_card_window_without_device_events_journals_trace_fallback(
+        tmp_path, monkeypatch):
+    """Where the JAX rollup drops an empty window without a word, a
+    capture of the card that recorded no device event journals
+    `trace_fallback` (stage "parse") and no `device_profile`: the
+    one-shot anomaly capture, with the card's capture stood in for by a
+    CPU capture that reports itself as one."""
+    import torch
+
+    from shifu_tpu_torch.obs import flops
+
+    real = profiler.start_trace
+    monkeypatch.setattr(profiler, "start_trace",
+                        lambda log_dir: real(log_dir) or True)
+    step = flops.instrument(lambda x: (x @ x).relu().sum(), "train_step")
+    obs.configure(str(tmp_path))
+    dp = devprof.DeviceProfiler(ObsConfig(
+        trace_epochs="first", trace_dir=str(tmp_path / "tr"),
+        anomaly_window=8, anomaly_min_chunks=4))
+    for _ in range(6):
+        dp.note_chunk(0, 0.001, 0.010)
+    dp.note_chunk(0, 0.001, 0.500)
+    step(torch.ones(32, 32))
+    dp.note_chunk(0, 0.001, 0.010)
+    dp.end_epoch(0)
+    dp.close()
+    recs = _journal(tmp_path)
+    assert not [r for r in recs if r["kind"] == "device_profile"]
+    falls = [r for r in recs if r["kind"] == "trace_fallback"]
+    assert [f["stage"] for f in falls] == ["parse"]
+    assert "no device events in a capture of the card" in falls[0]["error"]
     assert not profiler.trace_active()
 
 
@@ -352,19 +411,35 @@ def _port_run(tmp_path, name, **obs_kw):
     return res, events
 
 
+def _jax_capture_report(root, jevents) -> str:
+    """What the JAX run's flight recorder did: its trace_fallback events
+    and the files of each capture dir (printed when it falls short)."""
+    falls = [e for e in jevents if e["kind"] == "trace_fallback"]
+    dirs = {}
+    for dirpath, _dirs, files in os.walk(root / "trace"):
+        dirs[os.path.relpath(dirpath, root)] = sorted(files)
+    return f"JAX trace_fallback events: {falls}; capture dirs: {dirs}"
+
+
 def test_cpu_job_journals_a_profile_and_a_watermark_every_epoch(tmp_path):
+    """The port traces every epoch; the JAX reference traces its first
+    epoch only.  Its CPU rollup drops a capture with no device events
+    without a word (no device_profile, no trace_fallback), which a loaded
+    host made happen to its second window, so the reference's field sets
+    come from one traced epoch and two watermarks."""
     from shifu_tpu.data import pipeline as jax_pipe
     from shifu_tpu.train import loop as jax_loop
     res, events = _port_run(tmp_path, "port", trace_epochs="every:1")
-    jjob, _ = _jobs(tmp_path / "jax", trace_epochs="every:1")
+    jjob, _ = _jobs(tmp_path / "jax", trace_epochs="first")
     jax_obs.configure(str(tmp_path / "jax"), flush_every=1)
     jax_loop.train(jjob, *_parts(jax_pipe), console=lambda s: None)
     jevents = jax_obs.read_journal(str(tmp_path / "jax" / "journal.jsonl"))
-    for kind in ("device_profile", "hbm_watermark"):
+    for kind, n_jax in (("device_profile", 1), ("hbm_watermark", 2)):
         mine = [e for e in events if e["kind"] == kind]
         theirs = [e for e in jevents if e["kind"] == kind]
         assert [e["epoch"] for e in mine] == [0, 1]
-        assert len(theirs) == 2
+        assert len(theirs) == n_jax, _jax_capture_report(tmp_path / "jax",
+                                                         jevents)
         assert {k for e in mine for k in e} == {k for e in theirs for k in e}
     prof = [e for e in events if e["kind"] == "device_profile"]
     for p in prof:

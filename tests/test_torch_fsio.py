@@ -28,7 +28,12 @@ from shifu_tpu_torch.data import fsio, reader
 
 
 @pytest.fixture(autouse=True)
-def _clean():
+def _clean(monkeypatch):
+    # a chaos plan a `train` command of an earlier test file exported into
+    # os.environ would fire in this file's commands
+    for var in ("SHIFU_TPU_CHAOS_PLAN", "SHIFU_TPU_CHAOS_STATE",
+                "SHIFU_TPU_METRICS_DIR"):
+        monkeypatch.delenv(var, raising=False)
     for m in (obs, jax_obs, chaos, jax_chaos):
         m.reset_for_tests()
     yield

@@ -58,11 +58,15 @@ def test_scan_catches_a_forbidden_import():
     assert _IMPORT.findall("from . import jaxlike\n") == []
 
 
-@pytest.mark.parametrize("sub", ["launcher", "chaos", "runtime", "utils"])
+@pytest.mark.parametrize("sub", ["launcher", "chaos", "runtime", "utils",
+                                 "export", "obs", "models"])
 def test_the_launcher_slice_is_scanned_and_imports_alone(sub):
     """The operator's command and what it needs (the launcher, the chaos
-    plane, the native parser's build, the XML overlay): the import scan
-    covers their files, and each subpackage imports no JAX by itself."""
+    plane, the native parser's build, the XML overlay), and the serving
+    plane (the artifact and its program, the telemetry with drift, SLO
+    and tracing, the daemon, wire server and loadtest, every model): the
+    import scan covers their files, and each subpackage imports no JAX by
+    itself."""
     mine = [p for p in _sources()
             if p.startswith(os.path.join(_PKG, sub) + os.sep)]
     assert mine

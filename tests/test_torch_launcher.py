@@ -26,16 +26,24 @@ XML = {"shifu.data.device-resident-bytes": "0",
        "shifu.liveness.seconds": "0"}
 
 
+# what a `train` command exports into os.environ (a chaos plan and its
+# state file, among others): cleared before each test and after it, so no
+# later test file in the same worker inherits a plan
+_CLI_ENV = ("SHIFU_TPU_CHAOS_PLAN", "SHIFU_TPU_CHAOS_STATE",
+            "SHIFU_TPU_METRICS_DIR", "SHIFU_TPU_DATA_CACHE",
+            "SHIFU_TPU_PDEATHSIG")
+
+
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
-    for var in ("SHIFU_TPU_CHAOS_PLAN", "SHIFU_TPU_CHAOS_STATE",
-                "SHIFU_TPU_METRICS_DIR", "SHIFU_TPU_DATA_CACHE",
-                "SHIFU_TPU_PDEATHSIG"):
+    for var in _CLI_ENV:
         monkeypatch.delenv(var, raising=False)
     for m in (obs, jax_obs):
         m.reset_for_tests()
     chaos.reset_for_tests()
     yield
+    for var in _CLI_ENV:
+        os.environ.pop(var, None)
     for m in (obs, jax_obs):
         m.reset_for_tests()
     chaos.reset_for_tests()

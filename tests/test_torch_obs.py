@@ -30,11 +30,10 @@ from shifu_tpu_torch.data import fsio
 from shifu_tpu_torch.obs import goodput, metrics
 from shifu_tpu_torch.train import profiler
 
-# journal events and metric names of JAX modules the port has not ported:
-# obs/introspect.py (XLA compiles; its FLOPs are obs/flops.py's) and
-# obs/sketch.py (the drift baseline)
-_JAX_ONLY_EVENTS = {"xla_compile": "obs/introspect.py",
-                    "baseline_profile": "obs/sketch.py"}
+# journal events and metric names of the JAX module the port has no
+# counterpart of: obs/introspect.py (XLA compiles; its FLOPs are
+# obs/flops.py's)
+_JAX_ONLY_EVENTS = {"xla_compile": "obs/introspect.py"}
 _JAX_ONLY_METRIC_PREFIXES = ("xla_",)
 
 
@@ -387,4 +386,4 @@ def test_one_job_journals_the_same_events_and_keys_as_jax(tmp_path, data_kw):
     assert pnames == jnames
     assert {"epoch", "goodput", "overlap_report", "checkpoint_save",
             "train_start", "train_end", "span", "device_profile",
-            "hbm_watermark"} <= set(pkeys)
+            "hbm_watermark", "baseline_profile"} <= set(pkeys)

@@ -117,7 +117,9 @@ def test_save_load_round_trip_is_exact(tmp_path):
         f.name: getattr(art.spec, f.name)
         for f in dataclasses.fields(ModelSpec)})
     assert art.schema == _port_schema()
-    assert art.topology["program"] is None
+    from shifu_tpu_torch.export.program import build_program_v2
+    assert art.topology["program"] == build_program_v2(art.spec, art.schema)
+    assert art.topology["program_version"] == 2
     want = flat_params(model)
     assert sorted(art.weights) == sorted(want)
     for k, v in want.items():
@@ -303,3 +305,47 @@ def test_serving_config_validates():
                dict(latency_budget_ms=0), dict(queue_limit=0)):
         with pytest.raises(ConfigError):
             ServingConfig(**kw).validate()
+
+
+def test_stats_percentiles_read_the_slo_engines_histogram():
+    """`stats()` p50/p99 come from the one latency record the daemon
+    keeps, as in the JAX daemon: the shared `score_latency_seconds`
+    histogram (admission to reply) windowed to this daemon, the series the
+    SLO engine reads.  One batch of 100 requests whose scheduled arrivals
+    are 1 ms apart."""
+    from shifu_tpu_torch.export.scorer import SCORE_LATENCY_BUCKETS
+    from shifu_tpu_torch.obs.metrics import quantile_from_counts
+    reg = ModelRegistry(loader=lambda d, e: _Stub())
+    reg.load("unused", warm=False)
+    cfg = ServingConfig(max_batch=100, min_batch_bucket=4,
+                        latency_budget_ms=60_000.0, report_every_s=0.0)
+    daemon = ScoringDaemon(registry=reg, config=cfg).start()
+    try:
+        base = time.perf_counter()
+        futs = [daemon.submit(np.zeros(N_FEAT, np.float32),
+                              t_arrival=base - k * 1e-3) for k in range(100)]
+        for f in futs:
+            f.result(timeout=30)
+        deadline = time.monotonic() + 10
+        while (sum(daemon._windowed_latency_counts() or []) < 100
+               and time.monotonic() < deadline):
+            time.sleep(0.01)  # the histogram is fed after the reply
+        counts = daemon._windowed_latency_counts()
+        stats = daemon.stats()
+    finally:
+        daemon.stop()
+    assert stats["batches"] == 1 and sum(counts) == 100
+    assert (stats["p50_ms"], stats["p99_ms"]) == tuple(
+        round(quantile_from_counts(SCORE_LATENCY_BUCKETS, counts, 100, q)
+              * 1e3, 3) for q in (0.50, 0.99))
+    # latencies of 0-99 ms plus the dispatch: the median lies past the
+    # 25 ms bound, and the 99th percentile in a later bucket
+    assert 25 < stats["p50_ms"] < stats["p99_ms"]
+
+
+class _Stub(BatchScorer):
+    engine = "stub"
+    num_features = N_FEAT
+
+    def _score_batch(self, x):
+        return np.zeros((x.shape[0], 1), np.float32)

@@ -146,12 +146,12 @@ def test_validation_rejects_alike(conf):
 
 
 @pytest.mark.parametrize("key,item", [
-    (jax_xml.KEY_DRIFT_ENABLED, "(e)3"),
-    (jax_xml.KEY_DRIFT_PSI_THRESHOLD, "(e)3"),
     (jax_xml.KEY_FLEET_N_DAEMONS, "(e)7"),
     (jax_xml.KEY_FLEET_HOSTS, "(e)7"),
 ])
 def test_a_drift_or_fleet_key_raises_not_ported(key, item):
+    """The fleet keys still raise; the drift keys apply
+    (`test_drift_and_serving_keys_apply_like_jax`)."""
     conf = {xml.KEY_EPOCHS: "3", key: "1"}
     jjob, pjob = _jobs()
     jax_xml.apply_to_job(jjob, conf)  # the JAX overlay has no such field
@@ -173,12 +173,76 @@ def test_serving_keys_match_jax_where_the_port_has_the_field():
     assert got.engine == "torch"
 
 
-@pytest.mark.parametrize("key", [xml.KEY_SERVING_PORT,
-                                 xml.KEY_SERVING_SLO_P99_MS,
-                                 xml.KEY_SERVING_AOT_PACK])
+@pytest.mark.parametrize("key", [xml.KEY_SERVING_AOT_PACK])
 def test_a_serving_key_without_a_port_field_raises(key):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match=r"not ported yet.*\(e\)4"):
         xml.serving_config_from_conf({key: "1"})
+
+
+# the keys of the wire server, tracing, the reporter, the SLO engine and
+# drift, each set away from its default
+WIRE_SLO_DRIFT_KEYS = {
+    xml.KEY_SERVING_ENGINE: "numpy",
+    xml.KEY_SERVING_REPORT_EVERY_S: "2.5",
+    xml.KEY_SERVING_PORT: "0",
+    xml.KEY_SERVING_HOST: " 0.0.0.0 ",
+    xml.KEY_SERVING_TRACE_SAMPLE: "16",
+    xml.KEY_SERVING_TRACE_EXEMPLARS: "3",
+    xml.KEY_SERVING_SLO_P99_MS: "5",
+    xml.KEY_SERVING_SLO_ERROR_RATE: "0.001",
+    xml.KEY_SERVING_SLO_AVAILABILITY: "0.999",
+    xml.KEY_SERVING_SLO_FAST_WINDOW_S: "1.5",
+    xml.KEY_SERVING_SLO_SLOW_WINDOW_S: "600",
+    xml.KEY_SERVING_SLO_BURN_THRESHOLD: "3",
+    xml.KEY_DRIFT_ENABLED: "false",
+    xml.KEY_DRIFT_FAST_WINDOW_S: "2",
+    xml.KEY_DRIFT_SLOW_WINDOW_S: "600",
+    xml.KEY_DRIFT_PSI_THRESHOLD: "0.2",
+    xml.KEY_DRIFT_SCORE_KL_THRESHOLD: "0.05",
+    xml.KEY_DRIFT_TOP_K: "3",
+    xml.KEY_DRIFT_MIN_ROWS: "50",
+    xml.KEY_DRIFT_FEEDBACK: "no",
+    xml.KEY_DRIFT_FEEDBACK_BINS: "256",
+}
+
+
+@pytest.mark.parametrize("key", sorted(WIRE_SLO_DRIFT_KEYS))
+def test_drift_and_serving_keys_apply_like_jax(key):
+    """Each wire, tracing, SLO and drift key gives the JAX overlay's
+    ServingConfig (and DriftConfig) field for field; the job overlay
+    leaves the job alone in both packages."""
+    import dataclasses as dc
+    from shifu_tpu.config.schema import ServingConfig as JaxServing
+    conf = {key: WIRE_SLO_DRIFT_KEYS[key]}
+    got = xml.serving_config_from_conf(conf)
+    # the port's default engine is "torch", the JAX package's "auto"
+    want = jax_xml.serving_config_from_conf(conf, JaxServing(engine="torch"))
+    want_d = dc.asdict(want)
+    want_d.pop("aot_pack")
+    assert dc.asdict(got) == want_d
+    assert got != port_schema.ServingConfig()
+    got.validate()
+    jjob, pjob = _jobs()
+    assert xml.apply_to_job(pjob, conf) == pjob
+    assert jax_xml.apply_to_job(jjob, conf) == jjob
+
+
+def test_all_serving_and_drift_keys_together_validate_alike():
+    import dataclasses as dc
+    got = xml.serving_config_from_conf(WIRE_SLO_DRIFT_KEYS)
+    want = jax_xml.serving_config_from_conf(WIRE_SLO_DRIFT_KEYS)
+    assert got.engine == want.engine == "numpy"
+    want_d = dc.asdict(want)
+    want_d.pop("aot_pack")
+    assert dc.asdict(got) == want_d
+    got.validate()
+    want.validate()
+    bad = {xml.KEY_DRIFT_FAST_WINDOW_S: "9", xml.KEY_DRIFT_SLOW_WINDOW_S: "3"}
+    with pytest.raises(port_schema.ConfigError) as err:
+        xml.serving_config_from_conf(bad).validate()
+    with pytest.raises(jax_schema.ConfigError) as jerr:
+        jax_xml.serving_config_from_conf(bad).validate()
+    assert str(err.value) == str(jerr.value)
 
 
 def test_serialization_is_byte_identical(tmp_path):
