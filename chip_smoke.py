@@ -245,12 +245,47 @@ stderr, and no result line is printed):
                live AUC within 0.02 of `evaluate` on them.  Then a p99
                objective under 21c's measured p99: one firing p99
                slo_alert and one device_profile with trigger "slo".
-22. a JSON line {"kernels": [...]} with each kernel's launches on its
+22a. engines — phase 4's fused and unfused FT artifacts and phase 9's
+               trained headline MLP, 4096 probe rows each through every
+               engine tier of `runtime/serve.load_engine`: numpy and native
+               (the C++ scorer) on the host, torch, export (scoring.pt2)
+               and aot (the AOT pack: the fused artifact's at the default
+               ladder, 22b's, the others' at the 4096 rung) on the card;
+               native within 1e-5 of numpy, every pair within SERVE_ATOL;
+               one call launches #1 3 x (#2 3 x unfused) and #5 once in
+               each card tier, nothing in the host engines, no kernel for
+               the MLP; rows/s of each tier at 4096-row batches (the
+               card tiers in rounds torch, export, aot, aot, export,
+               torch), and each card tier's enqueue and synced ms of a
+               call on features already on the card.
+22b. cold start — the fused pack's build seconds and bytes; fresh
+               processes to their first score of the fused artifact:
+               torch and export on this checkout's built kernels, aot on
+               a copy of the package with an empty _build/, no nvcc on
+               PATH and CUDA_HOME empty: it loads #1's and #5's libraries
+               from the pack (their paths) and launches them; there the
+               bare artifact raises KernelBuildError, and a copy with a
+               damaged bucket file journals aot_fallback and serves
+               through the export tier on the card.  Prints each tier's
+               seconds from spawn to the first score.
+22c. commands — `python -m shifu_tpu_torch.launcher.cli` on phase 8a's
+               job: `export --checkpoint-dir` reproduces final_model
+               (weights bitwise, scoring.pt2 scores equal); `score
+               --engine torch`, `--engine export` and `--native` agree
+               (torch and export equal); `eval --engine torch`'s AUC
+               within 1e-3 of `evaluate`'s on the same rows; `serve --port
+               0` under `loadtest --connect` for 3 s: rows/s, p50/p99, 0
+               errors; and `score` with its default flags on phase 4's
+               fused FT artifact, in this process: `auto` on the card is
+               the aot tier, #1 3 x and #5 once, the aot engine's scores.
+23. a JSON line {"kernels": [...]} with each kernel's launches on its
    training path (FT fused for #1, FT unfused for #2 and #3, the headline
    MLP for #4, DeepFM for #5 and #6, FT flash for #7 and #8), its error
    against the plain version, its times and its bound; every kernel must
    have launched there.
-23. the last line: {"ok": true, "device": {...}}.
+24. the card's name and power limit, then the last line: {"ok": true,
+   "device": {...}}.  Every phase prints its wall seconds (`time:`), and
+   the script its total.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -348,7 +383,8 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-_LAP = [time.perf_counter()]
+_T0 = time.perf_counter()
+_LAP = [_T0]
 
 
 def lap(label: str) -> None:
@@ -949,7 +985,7 @@ def build_report(src: str) -> tuple[str, dict]:
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if os.path.exists(tool):
-        out = subprocess.run([tool, "-sass", _build._target(src)],
+        out = subprocess.run([tool, "-sass", _build.library_path(src)],
                              capture_output=True, text=True, timeout=300)
         for fn in out.stdout.split("Function : ")[1:]:
             counts[_instantiation(fn.splitlines()[0])] = {
@@ -4117,6 +4153,548 @@ def serving_plane_phases(device, tmp: str, smi_line: str) -> None:
     slo_phase(f"{tmp}/trained_mlp", inproc["p99_ms"], device, tmp)
     lap("21d drift and SLO")
 
+# -- phases 22a to 22c: the scoring tiers and the operator's artifact commands
+
+ENGINE_TIERS = ("numpy", "native", "torch", "export", "aot")
+CARD_TIERS = ("torch", "export", "aot")
+TIER_REPS = 5           # timed calls of a card tier a round (host: one)
+NATIVE_ATOL = 1e-5      # native against numpy, as the demo asserts
+COLD_TIMEOUT_S = 300
+CLI_SCORE_PARTS = 1     # gzip parts of phase 8's data scored by 22c
+CLI_EVAL_PARTS = 2
+CLI_LOAD_RATE = 1_000.0
+CLI_LOAD_SECONDS = 3.0
+EVAL_AUC_ATOL = 1e-3
+
+
+def tier_launches(label: str, engine: str, launches: dict,
+                  per_call: dict) -> None:
+    """The torch tiers launch `per_call` on one call; the host engines
+    launch nothing."""
+    want = per_call if engine in CARD_TIERS else {}
+    if launches != {k: want.get(k, 0) for k in launches}:
+        fail(f"{label} {engine}: launches {launches}, expected {want} on "
+             "one 4096-row call and no other kernel")
+
+
+def tier_phase(tmp: str, device, smi_line: str) -> dict:
+    """22a: three artifacts (phase 4's fused and unfused FT, phase 9's
+    trained headline MLP), each scored on PROBE_ROWS rows by every engine
+    tier through `load_engine`: the numpy and native engines on the host,
+    torch, export and aot on the card.  Native within NATIVE_ATOL of
+    numpy, every pair within SERVE_ATOL; the launch counts of one call;
+    rows/s of the card tiers over rounds of TIER_REPS calls in the order
+    A B C C B A, and each one's enqueue and synced ms on features already
+    on the card (`graph_split`).  The fused artifact's pack holds the
+    default ladder (22b's), the others' the 4096 rung alone.  Returns the
+    fused pack's build seconds and bytes."""
+    from shifu_tpu_torch.data import reader, synthetic
+    from shifu_tpu_torch.export import aot
+    from shifu_tpu_torch.runtime.serve import load_engine
+    layers = ft_serving_spec().num_layers
+    t0 = time.perf_counter()
+    manifest = aot.build_aot_pack(f"{tmp}/fused", aot.default_buckets(),
+                                  device=device)
+    pack_s = time.perf_counter() - t0
+    if manifest is None:
+        fail("22b: the AOT pack of the fused FT artifact was not built")
+    lib_bytes = sum(os.path.getsize(f"{tmp}/fused/aot/{rel}")
+                    for rel in manifest["libraries"].values())
+    pack = {"seconds": pack_s, "bytes": aot.pack_bytes(f"{tmp}/fused"),
+            "buckets": manifest["buckets"],
+            "libraries": sorted(manifest["libraries"])}
+    if device.type == "cuda" and pack["libraries"] != ["embedding_lookup",
+                                                       "ft_block"]:
+        fail(f"22b: the fused pack carries {pack['libraries']}, expected "
+             "the libraries of #1 and #5")
+    say(f"22b pack: the fused FT artifact's AOT pack at the default ladder "
+        f"{pack['buckets']} built in {pack_s:.2f} s, {pack['bytes']} bytes: "
+        f"the {pack['libraries']} libraries {lib_bytes}, the programs and "
+        f"the manifest {pack['bytes'] - lib_bytes}; {smi_line}")
+    rng = np.random.default_rng(SEED + 50)
+    ft_rows = make_rows(PROBE_ROWS, serving_schema(), rng)
+    mlp_schema = headline_job().schema
+    mlp_rows = reader.project_columns(synthetic.make_rows(
+        PROBE_ROWS, mlp_schema, seed=SEED + 51), mlp_schema)["features"]
+    arts = (("22a fused FT", "fused", ft_rows,
+             {"ft_block": layers, "embedding_lookup": 1}),
+            ("22a unfused FT", "unfused", ft_rows,
+             {"small_attention": layers, "embedding_lookup": 1}),
+            ("22a trained MLP", "trained_mlp", mlp_rows, {}))
+    for label, name, rows, per_call in arts:
+        d = f"{tmp}/{name}"
+        if name != "fused" and aot.build_aot_pack(
+                d, (PROBE_ROWS,), device=device) is None:
+            fail(f"{label}: the AOT pack was not built")
+        outs, rates, card = {}, {}, {}
+        for engine in ENGINE_TIERS:
+            scorer = load_engine(d, engine, device=device)
+            if scorer.engine != engine:
+                fail(f"{label}: load_engine({engine!r}) gave the "
+                     f"{scorer.engine!r} engine")
+            on_card = engine in CARD_TIERS
+            if on_card:
+                scorer.compute_batch(rows)  # warm: first-call set-up
+                card[engine] = scorer
+            reset_launches()
+            t1 = time.perf_counter()
+            out = scorer.compute_batch(rows)  # returns host arrays: synced
+            # the host engines take seconds on the FT: timed once
+            rates[engine] = PROBE_ROWS / (time.perf_counter() - t1)
+            tier_launches(label, engine, read_launches(), per_call)
+            if out.shape != (PROBE_ROWS, 1) or not np.isfinite(out).all():
+                fail(f"{label} {engine}: scores of shape {out.shape}, or "
+                     "not finite")
+            outs[engine] = out
+        # the card tiers timed in rounds A B C C B A, so that no tier owes
+        # its rate to its place in the order
+        rounds: dict = {e: [] for e in card}
+        for engine in [*card, *reversed(card)]:
+            t1 = time.perf_counter()
+            for _ in range(TIER_REPS):
+                card[engine].compute_batch(rows)
+            rounds[engine].append(
+                PROBE_ROWS * TIER_REPS / (time.perf_counter() - t1))
+        rates.update({e: sum(r) / len(r) for e, r in rounds.items()})
+        split = {e: graph_split(e, s, rows) for e, s in card.items()} \
+            if device.type == "cuda" else {}
+        native_err = float(np.abs(outs["native"] - outs["numpy"]).max())
+        worst = max(float(np.abs(outs[a] - outs[b]).max())
+                    for a in outs for b in outs)
+        if native_err > NATIVE_ATOL or worst > SERVE_ATOL:
+            fail(f"{label}: native against numpy {native_err:.3e} (tol "
+                 f"{NATIVE_ATOL:g}), worst pair {worst:.3e} (tol "
+                 f"{SERVE_ATOL:g})")
+        say(f"{label}: {PROBE_ROWS} rows through {', '.join(ENGINE_TIERS)}: "
+            f"native vs numpy {native_err:.3e} (tol {NATIVE_ATOL:g}), max "
+            f"pairwise {worst:.3e} (tol {SERVE_ATOL:g}); launches of one "
+            f"call on the card tiers {per_call or 'none'}; rows/s at "
+            f"{PROBE_ROWS}-row batches "
+            + ", ".join(f"{e} {r:.1f}" for e, r in rates.items())
+            + " (card tiers: the mean of rounds "
+            + ", ".join(f"{e} {'/'.join(f'{r:.1f}' for r in v)}"
+                        for e, v in rounds.items())
+            + "); a call on features already on the card, enqueue / "
+            "synced ms: "
+            + ", ".join(f"{e} {q:.3f} / {t:.3f}"
+                        for e, (q, t) in split.items())
+            + f"; {smi_line}")
+    return pack
+
+
+def device_call(engine: str, scorer):
+    """The card tier's scoring graph on features already on the card,
+    without the copies in and out: the model and its sigmoid (torch), the
+    exported program (export), the 4096 rung's program on the pack's
+    weights (aot)."""
+    import functools
+
+    import torch
+    if engine == "torch":
+        return lambda xd: torch.sigmoid(scorer.model(xd).float())
+    if engine == "export":
+        return scorer._module
+    return functools.partial(scorer._modules[PROBE_ROWS], scorer._leaves)
+
+
+def graph_split(engine: str, scorer, rows: np.ndarray) -> tuple:
+    """(ms to enqueue one call, ms of one call synced) of `device_call`
+    over TIER_REPS calls: the host's share of a 4096-row call against the
+    whole."""
+    import torch
+    fn = device_call(engine, scorer)
+    xd = torch.from_numpy(rows).to(scorer.device)
+    with torch.inference_mode():
+        fn(xd)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(TIER_REPS):
+            fn(xd)
+        enqueue = (time.perf_counter() - t1) / TIER_REPS
+        torch.cuda.synchronize()
+        synced = (time.perf_counter() - t1) / TIER_REPS
+    return enqueue * 1e3, synced * 1e3
+
+
+def cold_child(engine: str, export_dir: str, out_path: str,
+               corrupt_dir: str = "", device: str = "cuda:0") -> None:
+    """22b's fresh process: score PROBE_ROWS rows once through `engine`
+    on the card and write what happened to `out_path` (the wall clock at
+    the first score, the launches, the kernel libraries loaded, or the
+    error).  `engine="aot"` then loads `corrupt_dir` (a copy with one
+    bucket file damaged) through the aot tier too."""
+    import torch
+    from shifu_tpu_torch import obs
+    from shifu_tpu_torch.ops import _build
+    from shifu_tpu_torch.runtime.serve import load_engine
+    obs.configure(f"{out_path}.tele")
+    rows = make_rows(PROBE_ROWS, serving_schema(),
+                     np.random.default_rng(SEED + 52))
+    rec: dict = {"engine": engine}
+    try:
+        scorer = load_engine(export_dir, engine, device=device)
+        reset_launches()
+        out = scorer.compute_batch(rows)
+        rec.update(first_score_wall=time.time(), scorer=scorer.engine,
+                   launches=read_launches(),
+                   finite=bool(np.isfinite(out).all()))
+    except Exception as e:  # noqa: BLE001 - reported to the parent
+        rec["error"] = f"{type(e).__name__}: {e}"[:600]
+    rec["libraries"] = {n: lib._name for n, lib in _build._libs.items()}
+    if corrupt_dir and "error" not in rec:
+        reset_launches()
+        scorer = load_engine(corrupt_dir, "aot", device=device)
+        out = scorer.compute_batch(rows)
+        rec["corrupt"] = {"scorer": scorer.engine,
+                          "launches": read_launches(),
+                          "finite": bool(np.isfinite(out).all())}
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    obs.flush()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def start_cold_child(root: str, engine: str, export_dir: str,
+                     out_path: str, env: dict, device,
+                     corrupt_dir: str = "") -> tuple:
+    """`cold_child` in a fresh interpreter with `root` as its working
+    directory (the package it imports is `root`'s); returns the process
+    and its spawn time."""
+    t_spawn = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.cold_child("
+         f"{engine!r}, {export_dir!r}, {out_path!r}, {corrupt_dir!r}, "
+         f"{str(device)!r})"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, t_spawn, engine, out_path
+
+
+def join_cold_child(started: tuple) -> dict:
+    """The child's record, with the seconds from its spawn to its first
+    score."""
+    proc, t_spawn, engine, out_path = started
+    try:
+        _, err = proc.communicate(timeout=COLD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"22b {engine}: no exit within {COLD_TIMEOUT_S} s")
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        fail(f"22b {engine}: the child exited {proc.returncode}: "
+             f"{err[-2000:]}")
+    with open(out_path) as f:
+        rec = json.load(f)
+    if "first_score_wall" in rec:
+        rec["seconds"] = rec["first_score_wall"] - t_spawn
+    return rec
+
+
+def nvcc_free_env(tmp: str) -> dict:
+    """The environment with no nvcc on PATH and CUDA_HOME at an empty
+    directory: `ops/_build` can build nothing there."""
+    import shutil
+    empty = f"{tmp}/no_cuda_home"
+    os.makedirs(empty, exist_ok=True)
+    path = [d for d in os.environ.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc"))]
+    env = dict(os.environ, PATH=os.pathsep.join(path), CUDA_HOME=empty)
+    old = os.environ.get("PATH")
+    try:
+        os.environ["PATH"] = env["PATH"]
+        if shutil.which("nvcc") is not None:
+            fail("22b: nvcc is still on the pruned PATH")
+    finally:
+        os.environ["PATH"] = old
+    return env
+
+
+def cold_start_phase(tmp: str, device, smi_line: str) -> None:
+    """22b: fresh processes to a first score of phase 4's fused FT
+    artifact.  torch and export run on this checkout, whose kernels phase
+    2 built.  aot runs on a copy of the package with an empty `_build/`
+    and no nvcc (`nvcc_free_env`): it must load the pack's libraries and
+    launch #1; there the bare artifact's export tier must raise
+    KernelBuildError, and a copy of the artifact with a damaged bucket
+    file must journal aot_fallback and serve through the export tier on
+    the card."""
+    import shutil
+    root = os.path.dirname(os.path.abspath(__file__))
+    fused = f"{tmp}/fused"
+    copy = f"{tmp}/cold_pkg"
+    shutil.copytree(os.path.join(root, "shifu_tpu_torch"),
+                    f"{copy}/shifu_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copyfile(os.path.join(root, "chip_smoke.py"),
+                    f"{copy}/chip_smoke.py")
+    corrupt = f"{tmp}/fused_corrupt"
+    shutil.copytree(fused, corrupt)
+    bucket = f"{corrupt}/aot/bucket-{PROBE_ROWS:06d}.pt2"
+    with open(bucket, "r+b") as f:
+        f.seek(os.path.getsize(bucket) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    env = dict(os.environ)
+    bare_env = nvcc_free_env(tmp)
+    per_call = {"ft_block": ft_serving_spec().num_layers,
+                "embedding_lookup": 1}
+    # the tiers one after another, each alone on the host but for the
+    # bare artifact's child, which shares the first one's start-up
+    bare = start_cold_child(copy, "export", fused, f"{tmp}/cold_bare.json",
+                            bare_env, device)
+    recs = {"torch": join_cold_child(start_cold_child(
+        root, "torch", fused, f"{tmp}/cold_torch.json", env, device))}
+    bare = join_cold_child(bare)
+    recs["export"] = join_cold_child(start_cold_child(
+        root, "export", fused, f"{tmp}/cold_export.json", env, device))
+    recs["aot"] = join_cold_child(start_cold_child(
+        copy, "aot", fused, f"{tmp}/cold_aot.json", bare_env, device,
+        corrupt_dir=corrupt))
+    for engine, rec in recs.items():
+        if rec.get("error") or rec.get("scorer") != engine \
+                or not rec.get("finite"):
+            fail(f"22b {engine}: {rec}")
+        tier_launches("22b", engine, rec["launches"], per_call)
+    pack_libs = recs["aot"]["libraries"]
+    if sorted(pack_libs) != ["embedding_lookup", "ft_block"] or not all(
+            p.startswith(f"{fused}/aot/lib/") for p in pack_libs.values()):
+        fail(f"22b aot: the kernel libraries loaded {pack_libs}, expected "
+             f"the pack's under {fused}/aot/lib/")
+    corrupt_rec = recs["aot"].get("corrupt") or {}
+    fallbacks = [e for e in journal(f"{tmp}/cold_aot.json.tele")
+                 if e["kind"] == "aot_fallback"]
+    if corrupt_rec.get("scorer") != "export" or not corrupt_rec.get(
+            "finite") or len(fallbacks) != 1 \
+            or "digest mismatch" not in fallbacks[0]["reason"]:
+        fail(f"22b aot: the damaged pack gave {corrupt_rec}, fallbacks "
+             f"{fallbacks}: expected one aot_fallback (digest mismatch) "
+             "and the export tier on the card")
+    tier_launches("22b damaged pack", "export", corrupt_rec["launches"],
+                  per_call)
+    if "KernelBuildError" not in bare.get("error", ""):
+        fail(f"22b: the bare artifact without nvcc gave {bare}, expected "
+             "KernelBuildError")
+    say("22b cold start: seconds from a fresh process's spawn to its first "
+        f"{PROBE_ROWS}-row score of the fused FT artifact on the card: "
+        + ", ".join(f"{e} {r['seconds']:.2f}" for e, r in recs.items())
+        + " (torch and export on this checkout's built kernels; aot on a "
+        "copy of the package with an empty _build/ and no nvcc, loading "
+        f"{sorted(pack_libs)} from the pack); there the bare artifact "
+        f"raised {bare['error'][:80]}...; a damaged bucket journaled "
+        f"aot_fallback ({fallbacks[0]['reason'][:60]}) and the export tier "
+        f"served on the card with {corrupt_rec['launches']['ft_block']} "
+        f"ft_block launches; {smi_line}")
+
+
+def cli_cmd(args: list, device, **kw) -> subprocess.Popen:
+    """`python -m shifu_tpu_torch.launcher.cli <args>` in a child process;
+    on the card the default device, as an operator runs it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "shifu_tpu_torch.launcher.cli", *args]
+    if device.type == "cpu":
+        argv += ["--device", "cpu"]
+    return subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, **kw)
+
+
+def cli_wait(label: str, proc: subprocess.Popen) -> str:
+    try:
+        out, err = proc.communicate(timeout=COLD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{label}: no exit within {COLD_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        fail(f"{label}: exit {proc.returncode}: {err[-2000:]}")
+    return out
+
+
+def read_scores(path: str) -> np.ndarray:
+    with open(path) as f:
+        return np.array([[float(v) for v in ln.split("|")] for ln in f
+                         if ln.strip()], dtype=np.float64)
+
+
+def serve_port(label: str, proc: subprocess.Popen) -> int:
+    """The port of a `serve --port 0` child, from its first echo line."""
+    import select
+    deadline = time.monotonic() + COLD_TIMEOUT_S
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            fail(f"{label}: serve exited {proc.returncode}: "
+                 f"{proc.stderr.read()[-2000:]}")
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if ready:
+            line = proc.stdout.readline()
+            if line.startswith("serve: model="):
+                say(f"{label}: {line.strip()}")
+                return int(line.split(" on ")[1].split()[0].rsplit(":",
+                                                                 1)[1])
+    fail(f"{label}: serve printed no address within {COLD_TIMEOUT_S} s")
+
+
+def default_score(tmp: str, device) -> str:
+    """22c's `score` with its default flags (`--engine auto`, `--device
+    cuda:0`) on phase 4's fused FT artifact, whose pack 22a built:
+    `launcher.cli.main` in this process, the launch counts set to 0 just
+    before and read just after.  `auto` on the card must be the aot tier:
+    #1 launched once a layer and #5 once on the 4096 rows, the scores those
+    of `load_engine(..., "auto")` called directly."""
+    from shifu_tpu_torch.launcher import cli
+    from shifu_tpu_torch.runtime.serve import load_engine
+    fused = f"{tmp}/fused"
+    rows = make_rows(PROBE_ROWS, serving_schema(),
+                     np.random.default_rng(SEED + 53))
+    path, out = f"{tmp}/cli_ft_rows.txt", f"{tmp}/cli_scores_default.txt"
+    np.savetxt(path, rows, delimiter="|", fmt="%.9g")
+    argv = ["score", "--model", fused, "--input", path, "--output", out]
+    if device.type == "cpu":
+        argv += ["--device", "cpu"]
+    reset_launches()
+    code = cli.main(argv)
+    launches = read_launches()
+    if code != 0:
+        fail(f"22c score (default flags): exit {code}")
+    if device.type == "cuda":
+        tier_launches("22c score (default flags)", "aot", launches,
+                      {"ft_block": ft_serving_spec().num_layers,
+                       "embedding_lookup": 1})
+    auto = load_engine(fused, "auto", device=device)
+    if device.type == "cuda" and auto.engine != "aot":
+        fail(f"22c: auto on the card gave the {auto.engine!r} engine")
+    want = auto.compute_batch(rows)
+    got = read_scores(out)
+    err = float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float("inf")
+    if err > 1e-6:  # the command writes 6 decimals
+        fail(f"22c score (default flags): scores of shape {got.shape} "
+             f"against the aot engine's {want.shape}, max |diff| {err:.3e}")
+    return (f"score with its default flags on the fused FT artifact: "
+            f"launches {launches}, within {err:.1e} of the aot engine")
+
+
+def cli_tier_phase(tmp: str, device, smi_line: str) -> None:
+    """22c: the operator's artifact commands, each `python -m
+    shifu_tpu_torch.launcher.cli` in a child process, on phase 8a's job:
+    `export --checkpoint-dir` against its final_model (weights bitwise,
+    the scoring.pt2 programs' scores equal); `score --engine torch`,
+    `--engine export` and `--native` on a data part (within SERVE_ATOL;
+    torch and export equal); `eval --engine torch` against `evaluate` on
+    the same rows (AUC within EVAL_AUC_ATOL); `serve --port 0` under
+    `loadtest --connect` (0 errors).  Meanwhile `default_score`: `score`
+    with no `--engine` on the fused FT artifact, on the card through
+    the aot tier."""
+    import dataclasses as dc
+    import signal
+
+    import torch
+    from shifu_tpu_torch.config import job_config_from_shifu
+    from shifu_tpu_torch.data import pipeline as pipe
+    from shifu_tpu_torch.data import reader
+    from shifu_tpu_torch.export.artifact import load_artifact, params_from_jax
+    from shifu_tpu_torch.export.scorer import ExportScorer
+    from shifu_tpu_torch.train.loop import evaluate, init_state
+    from shifu_tpu_torch.train.step import make_eval_step
+    final = f"{tmp}/cli_cold/final_model"
+    mc, cc = f"{tmp}/cli_ModelConfig.json", f"{tmp}/cli_ColumnConfig.json"
+    parts = sorted(reader.list_data_files(f"{tmp}/cli_data"))
+    # five commands together: export, three scores and eval
+    t0 = time.perf_counter()
+    export = cli_cmd(
+        ["export", "--modelconfig", mc, "--columnconfig", cc,
+         "--checkpoint-dir", f"{tmp}/cli_cold/tmp_model",
+         "--output", f"{tmp}/cli_reexport",
+         "--globalconfig", f"{tmp}/cli_cache.xml"], device)
+    procs = {}
+    for name, flags in (("torch", ["--engine", "torch"]),
+                        ("export", ["--engine", "export"]),
+                        ("native", ["--native"])):
+        procs[name] = cli_cmd(
+            ["score", "--model", final, "--input", parts[0], "--output",
+             f"{tmp}/cli_scores_{name}.txt", *flags], device)
+    ev = cli_cmd(["eval", "--model", final, "--columnconfig", cc,
+                  "--modelconfig", mc, "--engine", "torch",
+                  "--data", *parts[:CLI_EVAL_PARTS]], device)
+    default = default_score(tmp, device)
+    cli_wait("22c export", export)
+    export_s = time.perf_counter() - t0
+    for name, proc in procs.items():
+        cli_wait(f"22c score {name}", proc)
+    summary = json.loads(cli_wait("22c eval", ev).strip().splitlines()[-1])
+    cmds_s = time.perf_counter() - t0
+    with np.load(f"{final}/weights.npz") as a, \
+            np.load(f"{tmp}/cli_reexport/weights.npz") as b:
+        same = sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files)
+    probe = reader.read_file(parts[0])[:PROBE_ROWS, 1:]
+    got = ExportScorer(f"{tmp}/cli_reexport", device).compute_batch(probe)
+    want = ExportScorer(final, device).compute_batch(probe)
+    if not same or not np.array_equal(got, want):
+        fail(f"22c export: weights bitwise equal {same}; scoring.pt2 "
+             f"scores max |diff| {np.abs(got - want).max():.3e}")
+    scores = {n: read_scores(f"{tmp}/cli_scores_{n}.txt") for n in procs}
+    n_rows = reader.read_file(parts[0]).shape[0]
+    worst = max(float(np.abs(scores[a] - scores[b]).max())
+                for a in scores for b in scores)
+    if any(v.shape != (n_rows, 1) for v in scores.values()) \
+            or worst > SERVE_ATOL \
+            or not np.array_equal(scores["torch"], scores["export"]):
+        fail(f"22c score: shapes {[v.shape for v in scores.values()]} "
+             f"(want ({n_rows}, 1)), max pairwise {worst:.3e}; torch and "
+             "export must write the same scores")
+    job = job_config_from_shifu(mc, cc)
+    job = job.replace(data=dc.replace(job.data, wire_dtype="float32"))
+    cols = reader.project_columns(np.concatenate(
+        [reader.read_file(p) for p in parts[:CLI_EVAL_PARTS]]), job.schema)
+    held = pipe.TabularDataset(cols["features"], cols["target"],
+                               cols["weight"])
+    state = init_state(job, job.schema.feature_count, device)
+    state.model.load_state_dict(params_from_jax(
+        load_artifact(final).weights, state.model))
+    _, auc = evaluate(state, held, job, make_eval_step(job),
+                      torch.device(device))
+    if summary["rows"] != held.num_rows \
+            or abs(summary["auc"] - auc) > EVAL_AUC_ATOL:
+        fail(f"22c eval: {summary}, evaluate's AUC {auc:.6f} on "
+             f"{held.num_rows} rows (tol {EVAL_AUC_ATOL:g})")
+    server = cli_cmd(["serve", final, "--port", "0"], device)
+    try:
+        port = serve_port("22c serve", server)
+        out = cli_wait("22c loadtest", cli_cmd(
+            ["loadtest", "--connect", f"127.0.0.1:{port}", "--rate",
+             str(CLI_LOAD_RATE), "--duration", str(CLI_LOAD_SECONDS),
+             "--senders", str(WIRE_SENDERS), "--json"], device))
+        rep = json.loads(out.strip().splitlines()[-1])
+    finally:
+        server.send_signal(signal.SIGTERM)
+        try:
+            server.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.communicate()
+    if server.returncode != 0:
+        fail(f"22c serve: exit {server.returncode} after SIGTERM")
+    report_load("22c loadtest --connect", rep, smi_line)
+    say(f"22c: export --checkpoint-dir reproduced final_model (weights "
+        f"bitwise, scoring.pt2 scores equal on {PROBE_ROWS} rows); score "
+        f"--engine torch / --engine export / --native on {n_rows} rows and "
+        f"eval --engine torch on {held.num_rows} rows; the five processes "
+        f"together in {cmds_s:.2f} s (export's {export_s:.2f} s): "
+        f"max pairwise {worst:.3e} (tol {SERVE_ATOL:g}), torch and export "
+        f"equal; eval AUC {summary['auc']} against evaluate's {auc:.6f} "
+        f"(tol {EVAL_AUC_ATOL:g}); {default}; {smi_line}")
+
+
+def artifact_tier_phases(device, tmp: str, smi_line: str) -> None:
+    tier_phase(tmp, device, smi_line)
+    lap("22a engines (and 22b's pack)")
+    cold_start_phase(tmp, device, smi_line)
+    lap("22b cold start")
+    cli_tier_phase(tmp, device, smi_line)
+    lap("22c commands")
+
 
 def main() -> None:
     import torch
@@ -4243,11 +4821,14 @@ def main() -> None:
         flight_recorder_phases(device, tmp)
         # phases 21a to 21d: multitask and MoE, the wire path, drift, SLO
         serving_plane_phases(device, tmp, smi_line)
+        # phases 22a to 22c: the scoring tiers, cold start, the commands
+        artifact_tier_phases(device, tmp, smi_line)
 
     missing = [kr["name"] for kr in kernels if not kr.get("launches")]
     if missing:
         fail(f"kernels not launched on their training path: {missing}")
-    # phase 22: the kernels line; phase 23: the result line
+    say(f"time: total {time.perf_counter() - _T0:.1f} s")
+    # phase 23: the kernels line; phase 24: the result line
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -13,10 +13,14 @@ datasets) of the MLP, on the int8 wire, of the FT-Transformer, with local
 or flash attention, and of Wide&Deep and DeepFM; and the operator's
 command, `python -m shifu_tpu_torch.launcher.cli train` (the Shifu XML
 overlay, the restart supervisor, the chaos plan), with its data plane:
-the native C++ parser, the parse-once cache and out-of-core ingest.
-Nine hand-written CUDA kernels for Hopper, in eight sources under `csrc/`,
-replace the JAX package's TPU kernels; each has a plain PyTorch twin in
-its wrapper module that serves CPU tensors only.
+the native C++ parser, the parse-once cache and out-of-core ingest; every
+scoring tier of an artifact (`runtime/serve.load_engine`: torch, the
+`torch.export` program, the AOT pack, the numpy op list and the native C++
+scorer) and the commands `score`, `eval`, `export`, `serve` and
+`loadtest`.  Nine hand-written CUDA kernels for Hopper, in eight sources
+under `csrc/`, replace the JAX package's TPU kernels; each has a plain
+PyTorch twin in its wrapper module that serves CPU tensors only, and the
+scoring path's forwards are `shifu_tpu_torch::` operators.
 
 Entry points run on `cuda:0` unless the caller passes `device="cpu"`
 (`device.resolve_device`).

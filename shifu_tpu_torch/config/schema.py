@@ -218,15 +218,21 @@ class DriftConfig:
                               f"{self.feedback_bins}")
 
 
+# the scoring engine tiers (runtime/serve.load_engine)
+ENGINES = ("torch", "export", "aot", "numpy", "native", "auto")
+
+
 @dataclass(frozen=True)
 class ServingConfig:
     """Knobs for the port's scoring daemon (runtime/serve.py) and its wire
     server (runtime/serve_wire.py); the fields of the JAX `ServingConfig`
-    with the same defaults and checks, except `engine` ("torch", the
-    default, or "numpy", the op-list interpreter on the host) and the AOT
-    pack (`aot_pack`, ROADMAP.md queue A item (e)4), which the port has
-    not."""
+    with the same defaults and checks, except `engine`: the port's tiers
+    are torch (the default), export, aot, numpy, native and auto, its
+    "torch" and "export" standing in for the JAX package's "jax" and
+    "stablehlo"."""
 
+    # scoring engine tier (runtime/serve.load_engine's ladder, the same as
+    # the `score --engine` flag's)
     engine: str = "torch"
     # a lone request is dispatched after at most this budget (ms); under
     # load batches fill to max_batch and dispatch at once
@@ -263,11 +269,18 @@ class ServingConfig:
     drift: DriftConfig = field(default_factory=DriftConfig)
     # warm every bucket of the ladder before a load becomes visible
     prewarm_ladder: bool = True
+    # export-time opt-in (`shifu.serving.aot-pack` / `export --aot-pack`):
+    # the AOT pack of the bucket ladder's programs and their kernels
+    # inside the artifact (export/aot.py), so a new daemon starts without
+    # tracing or building
+    aot_pack: bool = False
 
     def validate(self) -> None:
-        if self.engine not in ("torch", "numpy"):
-            raise ConfigError(f"serving.engine must be 'torch' or 'numpy': "
-                              f"{self.engine!r}")
+        if self.engine not in ENGINES:
+            raise ConfigError(
+                f"serving.engine must be one of {'/'.join(ENGINES)} (the "
+                "port's torch and export stand in for the JAX package's "
+                f"jax and stablehlo): {self.engine!r}")
         if self.latency_budget_ms <= 0:
             raise ConfigError("serving.latency_budget_ms must be > 0: "
                               f"{self.latency_budget_ms}")

@@ -9,13 +9,23 @@ An artifact is plain files, written and read the same way by both packages:
                                 # model_spec, schema, metadata
       weights.npz               # params under `/`-joined Flax key names
       baseline_profile.json     # the frozen drift baseline, when given
+      scoring.pt2               # the torch.export scoring program
+      aot/                      # the AOT pack, when asked (export/aot.py)
       sync_manifest.json        # blake2b digests of the files above
 
 The program (export/program.py) is the JAX package's for the same spec and
 schema, so the numpy `Scorer` and the native C++ scorer of either package
-score the port's artifacts.  The StableHLO files (`scoring.mlir`,
-`scoring.jaxexport`) and the AOT pack are the JAX package's own; their
-port (a `torch.export` tier) is ROADMAP.md queue A item (e)4.
+score the port's artifacts.  `scoring.pt2` is the port's counterpart of
+the JAX package's StableHLO files (`scoring.mlir`, `scoring.jaxexport`):
+the model rebuilt from the written files, in eval mode, then the sigmoid
+(JAX `make_forward_fn`), traced by `torch.export` on the CPU with a
+symbolic batch.  The hand-written kernels sit in it as `shifu_tpu_torch::`
+operators, so the dispatcher picks the kernel or its plain version from
+the device the program runs on (`export/scorer.ExportScorer`).  Where the
+JAX export is best-effort, a failed `scoring.pt2` raises.  `model.bin`,
+the native engine's packing of the program, comes from
+`runtime/native_scorer.pack_native` (the train command's export sequence
+packs it).
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ SIDE_CAR = "GenericModelConfig.json"
 TOPOLOGY = "topology.json"
 WEIGHTS = "weights.npz"
 BASELINE_PROFILE = "baseline_profile.json"
+EXPORT_PROGRAM = "scoring.pt2"
 
 
 @dataclasses.dataclass
@@ -100,14 +111,105 @@ def flat_params(model: nn.Module) -> dict[str, np.ndarray]:
             for k, v in model.state_dict().items()}
 
 
+class _Scoring(nn.Module):
+    """The scoring function: the model, then the sigmoid on its f32
+    logits (JAX `make_forward_fn`)."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(self.model(features).float())
+
+
+def scoring_module(export_dir: str) -> nn.Module:
+    """The artifact's model rebuilt on the CPU from its own files (spec,
+    schema, weights), in eval mode, wrapped with the sigmoid: what the
+    torch engine scores, as one module."""
+    from ..models.registry import build_model
+
+    art = load_artifact(export_dir)
+    model = build_model(art.spec, art.schema, "cpu")
+    model.load_state_dict(params_from_jax(art.weights, model))
+    return _Scoring(model).eval().requires_grad_(False)
+
+
+def device_literals(program) -> list[str]:
+    """The nodes of an exported program's graph that name a device (a
+    `device=` argument or a torch.device operand): a program must carry
+    none, or it would pin the device it was traced on."""
+    found = []
+    for node in program.graph.nodes:
+        vals = list(node.args) + list(node.kwargs.values())
+        if any(isinstance(v, torch.device) for v in vals):
+            found.append(f"{node.name}: {node.target}")
+    return found
+
+
+def export_program(export_dir: str):
+    """`torch.export` the artifact's scoring function (`scoring_module`),
+    traced on the CPU with a symbolic batch dimension (traced at 2 rows:
+    export specialises sizes 0 and 1).  Raises if the graph names a
+    device."""
+    module = scoring_module(export_dir)
+    n_feat = int(load_artifact(export_dir).topology["num_features"])
+    example = torch.zeros((2, n_feat), dtype=torch.float32)
+    with torch.no_grad():
+        program = torch.export.export(
+            module, (example,),
+            dynamic_shapes=({0: torch.export.Dim("batch")},))
+    return finish_program(program)
+
+
+def finish_program(program):
+    """Drop the trace's own checks that a tensor has the dtype and device
+    it had while tracing (one per `.to(dtype)`): they compute nothing, and
+    their device would pin the program to the CPU it was traced on.  Then
+    raise if any other node names a device."""
+    graph = program.graph_module.graph
+    for node in list(graph.nodes):
+        if node.target is torch.ops.aten._assert_tensor_metadata.default:
+            graph.erase_node(node)
+    program.graph_module.recompile()
+    bad = device_literals(program)
+    if bad:
+        raise ValueError(f"the exported scoring program names a device, "
+                         f"which would pin it there: {bad}")
+    return program
+
+
+def program_operators(program) -> set[str]:
+    """The `shifu_tpu_torch::` operators a program calls, by their
+    overload names (`shifu_tpu_torch.ft_block.default`, ...)."""
+    return {str(n.target) for n in program.graph.nodes
+            if str(n.target).startswith("shifu_tpu_torch.")}
+
+
+def write_export_program(export_dir: str) -> str:
+    """Export the scoring program into `<export_dir>/scoring.pt2`; returns
+    its path."""
+    path = os.path.join(export_dir, EXPORT_PROGRAM)
+    torch.export.save(export_program(export_dir), path)
+    return path
+
+
 def save_artifact(model: nn.Module, spec: ModelSpec, schema: DataSchema,
                   export_dir: str, algorithm: str = "tensorflow",
-                  baseline_profile: Optional[dict] = None) -> str:
+                  baseline_profile: Optional[dict] = None,
+                  aot_pack: bool = False,
+                  aot_buckets: Optional[tuple] = None,
+                  aot_device=None) -> str:
     """Write the scoring artifact in the JAX package's format; returns
     export_dir.  `baseline_profile` (obs/sketch.build_profile, the train
     loop's frozen stats epoch) is validated and written as
-    `baseline_profile.json`.  `sync_manifest.json` comes last, so its
-    digests cover every other file; a failure to write it raises."""
+    `baseline_profile.json`.  Then `scoring.pt2` (`write_export_program`)
+    and, with `aot_pack` (the `shifu.serving.aot-pack` key, the export
+    command's `--aot-pack`), the AOT pack for `aot_device` (default
+    `cuda:0`) at `aot_buckets` (default: the ServingConfig-default
+    ladder), best-effort as in JAX (export/aot.py).
+    `sync_manifest.json` comes last, so its digests cover every other
+    file; a failure to write it raises."""
     from ..runtime.fleet import write_sync_manifest
     from .program import PROGRAM_VERSION, build_program_v2, weight_keys
 
@@ -150,5 +252,10 @@ def save_artifact(model: nn.Module, spec: ModelSpec, schema: DataSchema,
         sketch.validate_profile(baseline_profile)
         with open(os.path.join(export_dir, BASELINE_PROFILE), "w") as f:
             json.dump(baseline_profile, f)
+    write_export_program(export_dir)
+    if aot_pack:
+        from .aot import build_aot_pack, default_buckets
+        build_aot_pack(export_dir, aot_buckets or default_buckets(),
+                       device=aot_device)
     write_sync_manifest(export_dir)
     return export_dir

@@ -1,9 +1,12 @@
 """Scoring engines (port of shifu_tpu/export/scorer.py): the `BatchScorer`
 seam the serving daemon wraps, the port's `TorchScorer` (the `JaxScorer`
 role: the model rebuilt from the artifact, scoring on the card or, when
-asked, the CPU), and the numpy `Scorer`, which interprets the artifact's
-op-list program (export/program.py) on the host with no torch at score
-time.
+asked, the CPU), `ExportScorer` (the `StableHloScorer` role: the
+artifact's `scoring.pt2`, no model classes needed), the numpy `Scorer`,
+which interprets the artifact's op-list program (export/program.py) on the
+host with no torch at score time, and `load_scorer`, the `auto` order.
+The native C++ engine is runtime/native_scorer.py, the AOT pack
+export/aot.py.
 
 Every engine reports one telemetry write per scored batch
 (`observe_scoring`): `score_rows_total` and the `score_latency_seconds`
@@ -142,6 +145,21 @@ def _transformer_block(op: dict, w: dict[str, np.ndarray], x: np.ndarray
     y = _layernorm(x, w[op["ln_mlp_scale"]], w[op["ln_mlp_bias"]])
     y = _act("gelu", y @ w[op["mlp_in_kernel"]] + w[op["mlp_in_bias"]])
     return x + y @ w[op["mlp_out_kernel"]] + w[op["mlp_out_bias"]]
+
+
+def _reject_extra_inputs(sidecar: dict, tier: str) -> None:
+    """Tiers that replay the single-input forward (the model rebuilt, the
+    exported program, the AOT pack) cannot bind sidecar extra inputs; scoring
+    without them would diverge from the numpy and native engines, so they
+    refuse the artifact (the multi-input contract:
+    TensorflowModel.java:74-87)."""
+    extra = sidecar.get("inputnames", ["shifu_input_0"])[1:]
+    if extra:
+        raise ValueError(
+            f"artifact declares extra named inputs {extra} (fed from "
+            f"GenericModelConfig properties); the {tier!r} tier replays the "
+            "single-input traced forward and cannot bind them — score with "
+            "--engine numpy or native")
 
 
 def extra_inputs_from_sidecar(sidecar: dict) -> dict[str, np.ndarray]:
@@ -305,11 +323,7 @@ class TorchScorer(BatchScorer):
 
         self.device = resolve_device(device)
         art = load_artifact(export_dir)
-        extra = art.sidecar.get("inputnames", ["shifu_input_0"])[1:]
-        if extra:
-            raise ValueError(
-                f"artifact declares extra named inputs {extra}; the torch "
-                "engine replays the single-input model and cannot bind them")
+        _reject_extra_inputs(art.sidecar, "torch")
         self.topology = art.topology
         self.spec = art.spec
         self.num_features = int(art.topology["num_features"])
@@ -323,6 +337,56 @@ class TorchScorer(BatchScorer):
             feats = torch.from_numpy(x).to(self.device)
             probs = torch.sigmoid(self.model(feats).float())
             return probs.cpu().numpy()
+
+
+def load_program(path: str, device: torch.device):
+    """An exported scoring program (`torch.export.save`d) as a callable
+    module on `device`: the `shifu_tpu_torch::` operators are registered
+    first (`torch.export.load` cannot read a program that calls an unknown
+    operator), then the program's weights and constants move to `device`.
+    The operators pick the kernel or its plain version from that device
+    when they run."""
+    from torch.export.passes import move_to_device_pass
+
+    from ..ops import register_operators
+
+    register_operators()
+    program = torch.export.load(path)
+    if device.type != "cpu":
+        program = move_to_device_pass(program, device)
+    return program.module()
+
+
+class ExportScorer(BatchScorer):
+    """Scores through the artifact's exported program (`scoring.pt2`,
+    export/artifact.py) on `device` (default `cuda:0`; raises where CUDA is
+    absent unless `device="cpu"`): the compiled-graph tier.  Unlike
+    `TorchScorer` it does not rebuild the model from its classes; it runs
+    the graph traced at export, the model's compute dtype included."""
+
+    engine = "export"
+    static_shapes = True
+
+    def __init__(self, export_dir: str, device: DeviceLike = None):
+        from .artifact import EXPORT_PROGRAM
+
+        self.device = resolve_device(device)
+        with open(os.path.join(export_dir, TOPOLOGY)) as f:
+            self.topology = json.load(f)
+        sidecar_path = os.path.join(export_dir, SIDE_CAR)
+        if os.path.exists(sidecar_path):
+            with open(sidecar_path) as f:
+                _reject_extra_inputs(json.load(f), "export")
+        self.num_features = int(self.topology["num_features"])
+        self._module = load_program(
+            os.path.join(export_dir, EXPORT_PROGRAM), self.device)
+
+    def _score_batch(self, x: np.ndarray) -> np.ndarray:
+        if not x.flags.writeable:
+            x = x.copy()  # a wire frame's buffer is read-only
+        with torch.inference_mode():
+            return self._module(
+                torch.from_numpy(x).to(self.device)).cpu().numpy()
 
 
 class Scorer(BatchScorer):
@@ -360,3 +424,29 @@ class Scorer(BatchScorer):
     def _score_batch(self, x: np.ndarray) -> np.ndarray:
         return run_program(self.program, self.weights, x,
                            extra_inputs=self.extra_inputs)
+
+
+def load_scorer(export_dir: str, device: DeviceLike = None) -> BatchScorer:
+    """The scorer for an artifact, best tier first: the op-list
+    interpreter where the program exists, the AOT pack (export/aot.py)
+    where one is shipped and matches this host, the exported program
+    (`ExportScorer`) where `scoring.pt2` exists, and the model rebuilt from
+    its classes (`TorchScorer`) last.  The torch tiers score on `device`
+    (default `cuda:0`).  That is the JAX package's order on the CPU; on
+    the card the interpreter, a host engine, is skipped, so that `auto`
+    scores where the caller asked (JAX takes it first on any platform)."""
+    from .aot import has_pack, try_load_aot
+    from .artifact import EXPORT_PROGRAM
+
+    dev = resolve_device(device)
+    with open(os.path.join(export_dir, TOPOLOGY)) as f:
+        topo = json.load(f)
+    if dev.type == "cpu" and topo.get("program"):
+        return Scorer(export_dir)
+    if has_pack(export_dir):
+        scorer = try_load_aot(export_dir, dev)
+        if scorer is not None:
+            return scorer  # a mismatch journaled aot_fallback
+    if os.path.exists(os.path.join(export_dir, EXPORT_PROGRAM)):
+        return ExportScorer(export_dir, dev)
+    return TorchScorer(export_dir, dev)

@@ -1,5 +1,6 @@
-"""The operator's command line (the port's copy of the single-host `train`
-and `cache` commands of shifu_tpu/launcher/cli.py).
+"""The operator's command line (the port's copy of the single-host `train`,
+`cache`, `score`, `eval`, `export`, `serve` and `loadtest` commands of
+shifu_tpu/launcher/cli.py).
 
 Usage:
     python -m shifu_tpu_torch.launcher.cli train \\
@@ -8,6 +9,24 @@ Usage:
         [--globalconfig global.xml] [--output out_dir] [--supervise] \\
         [--device cpu]
     python -m shifu_tpu_torch.launcher.cli cache <dir> [--prune] [--json]
+    python -m shifu_tpu_torch.launcher.cli score --model ART --input ROWS \\
+        [--output -] [--native | --engine auto|torch|export|aot|numpy|native]
+    python -m shifu_tpu_torch.launcher.cli eval --model ART \\
+        --columnconfig C.json --data DIR [--scores-output F] [--engine ...]
+    python -m shifu_tpu_torch.launcher.cli export --modelconfig M.json \\
+        --columnconfig C.json --checkpoint-dir JOB/tmp_model --output ART \\
+        [--aot-pack]
+    python -m shifu_tpu_torch.launcher.cli serve ART [--port 0] [--engine ...]
+    python -m shifu_tpu_torch.launcher.cli loadtest (--model ART |
+        --connect HOST:PORT) [--rate R] [--duration S] [--json]
+
+Each command that scores takes `--device` (default `cuda:0`; the torch
+tiers raise where CUDA is absent unless `--device cpu`; the numpy and
+native engines score on the host either way).  The engines are
+runtime/serve.load_engine's; the default, `auto`, is the best tier for
+`--device` (export/scorer.load_scorer): aot, export, torch on the card,
+the op-list interpreter first on the CPU.  `--native` is `--engine
+native` and contradicts any other engine, as in JAX.
 
 `train` assembles the job from the Shifu files, the `shifu.*` keys of the
 --globalconfig XML (`utils/xmlconfig.py`) and the flags, in that order of
@@ -24,10 +43,16 @@ status: 0 success, 1 failure, 3 timeout; a SIGTERM drain exits 75.
 supervisor (`launcher/supervisor.py`), which restarts it on 75 or any
 other failure, and the checkpoint's auto-resume continues it.
 
+The export sequence (`_export_and_pack`, shared by the train tail and the
+`export` command) writes the artifact with its `scoring.pt2`, the AOT pack
+where `shifu.serving.aot-pack` (or `export --aot-pack`) asks, and then
+`model.bin` for the native engine, best-effort, as in JAX.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
 item: `--hosts` and `--num-processes` > 1 (multi-host, queue A item (f)),
-`--detach` (e)5, the AOT serving pack (e)4, and a mesh of more than one
-device (f).  The other subcommands of the JAX CLI are queue A item (e)5.
+`--detach` (e)5, a mesh of more than one device (f), `serve
+--heartbeat-s` (the fleet lease, (e)7), and the JAX CLI's other commands
+(`_NOT_PORTED_COMMANDS`).
 """
 
 from __future__ import annotations
@@ -109,7 +134,178 @@ def build_parser() -> argparse.ArgumentParser:
                          "entries whose source changed or vanished")
     ch.add_argument("--json", action="store_true",
                     help="machine-readable entry list instead of text")
+
+    s = sub.add_parser("score", help="score rows with an exported artifact")
+    s.add_argument("--model", required=True, help="artifact dir")
+    s.add_argument("--input", required=True,
+                   help="rows file (pipe-delimited or .parquet)")
+    s.add_argument("--output", default="-", help="output file (- = stdout)")
+    s.add_argument("--native", action="store_true",
+                   help="use the C++ engine")
+    _add_engine_flag(s, "auto", "scoring engine tier (auto = best "
+                                "tier for --device)")
+    s.add_argument("--globalconfig", default=None,
+                   help="Hadoop-style XML (shifu.security.* for secured "
+                        "HDFS)")
+    _add_device_flag(s)
+
+    sv = sub.add_parser(
+        "serve", help="run the persistent scoring daemon on an exported "
+                      "artifact: admission queue + adaptive micro-batching "
+                      "under a latency budget, hot-swap, TCP wire front-end")
+    sv.add_argument("model", help="artifact dir (the export output)")
+    _add_engine_flag(sv, None, "scoring engine tier (default: "
+                               "serving.engine / torch)")
+    sv.add_argument("--port", type=int, default=-1,
+                    help="TCP port (0 = ephemeral, printed at startup; "
+                         "default: shifu.serving.port / 8571)")
+    sv.add_argument("--host", default=None,
+                    help="bind host (default: shifu.serving.host / "
+                         "127.0.0.1)")
+    sv.add_argument("--budget-ms", type=float, default=0,
+                    help="micro-batcher latency budget in ms (default: "
+                         "shifu.serving.latency-budget-ms / 2)")
+    sv.add_argument("--max-batch", type=int, default=0,
+                    help="largest coalesced batch (default: "
+                         "shifu.serving.max-batch / 4096)")
+    sv.add_argument("--workers", type=int, default=0,
+                    help="scoring worker threads (default: "
+                         "shifu.serving.workers / 1)")
+    sv.add_argument("--globalconfig", default=None,
+                    help="Hadoop-style XML carrying shifu.serving.* keys "
+                         "(flags override)")
+    sv.add_argument("--chaos-plan", default=None,
+                    help="fault-injection plan for serving drills "
+                         "(runtime.serve probe site)")
+    sv.add_argument("--allow-swap", action="store_true",
+                    help="permit wire SWAP frames on a non-loopback bind "
+                         "(hot-loads a filesystem path as the model, an "
+                         "AOT pack's kernel libraries included; loopback "
+                         "binds allow it by default)")
+    sv.add_argument("--heartbeat-s", type=float, default=0.0,
+                    help="fleet membership lease every N seconds (not "
+                         "ported yet beyond 0: ROADMAP.md queue A item "
+                         "(e)7)")
+    sv.add_argument("--heartbeat-misses", type=int, default=3,
+                    help="missed beats before the fleet marks this "
+                         "daemon DOWN (with --heartbeat-s)")
+    _add_device_flag(sv)
+
+    lt = sub.add_parser(
+        "loadtest", help="open-loop (Poisson-arrival) load harness for "
+                         "the scoring plane: reports scores/s and "
+                         "p50/p99 latency (runtime/loadtest.py)")
+    lt.add_argument("--model", default=None,
+                    help="artifact dir: in-process mode, a daemon driven "
+                         "directly")
+    lt.add_argument("--connect", default=None,
+                    help="host:port of a running `serve` daemon: socket "
+                         "mode")
+    lt.add_argument("--rate", type=float, default=50_000,
+                    help="offered request rate per second (Poisson "
+                         "arrivals; default 50000)")
+    lt.add_argument("--duration", type=float, default=5.0,
+                    help="seconds of offered load (default 5)")
+    _add_engine_flag(lt, "auto", "engine tier for --model mode (auto = "
+                                 "best tier for --device)")
+    lt.add_argument("--senders", type=int, default=2,
+                    help="open-loop sender threads (default 2)")
+    lt.add_argument("--budget-ms", type=float, default=0,
+                    help="daemon latency budget for --model mode "
+                         "(default: serving default)")
+    lt.add_argument("--capacity", action="store_true",
+                    help="ramp the offered rate to find the highest one "
+                         "meeting the p99 target instead of a single run")
+    lt.add_argument("--p99-target-ms", type=float, default=10.0,
+                    help="p99 target for --capacity (default 10ms)")
+    lt.add_argument("--trace-sample", type=int, default=0,
+                    help="trace 1-in-N requests and report the trace ids "
+                         "of the slowest sampled ones (0 = off)")
+    lt.add_argument("--trace-exemplars", type=int, default=5,
+                    help="how many slowest-trace exemplars to report")
+    lt.add_argument("--drift-after", type=float, default=0.0,
+                    help="drift drill: after this many seconds, shift the "
+                         "--drift-features columns by --drift-shift "
+                         "(0 = off)")
+    lt.add_argument("--drift-shift", type=float, default=2.0,
+                    help="feature shift applied after --drift-after")
+    lt.add_argument("--drift-features", default=None,
+                    help="comma-separated feature indices to shift "
+                         "(default: 0,1)")
+    lt.add_argument("--feedback", action="store_true",
+                    help="ship synthetic labeled feedback after the run")
+    lt.add_argument("--json", action="store_true",
+                    help="machine-readable report instead of text")
+    _add_device_flag(lt)
+
+    x = sub.add_parser(
+        "export", help="re-export the scoring artifact from a checkpoint "
+                       "(no retraining; crash-after-train recovery)")
+    x.add_argument("--modelconfig", required=True,
+                   help="Shifu ModelConfig.json")
+    x.add_argument("--columnconfig", required=True,
+                   help="Shifu ColumnConfig.json")
+    x.add_argument("--checkpoint-dir", required=True,
+                   help="checkpoint dir (the job's tmp_model)")
+    x.add_argument("--output", required=True, help="artifact output dir")
+    x.add_argument("--globalconfig", default=None,
+                   help="Hadoop-style XML (same layering as train)")
+    x.add_argument("--aot-pack", action="store_true",
+                   help="also export the serving bucket ladder's programs "
+                        "and their kernel libraries into aot/ "
+                        "(export/aot.py; same opt-in as the "
+                        "shifu.serving.aot-pack key)")
+    _add_device_flag(x, "device the AOT pack is built for")
+
+    e = sub.add_parser(
+        "eval", help="score labeled rows and report AUC/error (the Shifu "
+                     "eval step against this backend's artifacts)")
+    e.add_argument("--model", required=True, help="artifact dir")
+    e.add_argument("--columnconfig", required=True,
+                   help="Shifu ColumnConfig.json (locates target/weight "
+                        "cols)")
+    e.add_argument("--data", nargs="+", required=True,
+                   help="labeled normalized data files/dirs")
+    e.add_argument("--modelconfig", default=None,
+                   help="optional ModelConfig.json (target/weight col "
+                        "names)")
+    e.add_argument("--scores-output", default=None,
+                   help="also write per-row scores to this file")
+    e.add_argument("--native", action="store_true",
+                   help="use the C++ engine")
+    _add_engine_flag(e, "auto", "scoring engine tier (auto = best "
+                                "tier for --device)")
+    e.add_argument("--globalconfig", default=None,
+                   help="Hadoop-style XML (shifu.security.* for secured "
+                        "HDFS)")
+    _add_device_flag(e)
     return p
+
+
+# the JAX CLI's engine names are accepted so that "jax" and "stablehlo"
+# fail with the port's counterparts named (runtime/serve.load_engine)
+_ENGINE_CHOICES = ("auto", "torch", "export", "aot", "numpy", "native",
+                   "jax", "stablehlo")
+
+
+def _add_engine_flag(p, default, help_text: str) -> None:
+    p.add_argument("--engine", default=default, choices=_ENGINE_CHOICES,
+                   help=help_text)
+
+
+def _add_device_flag(p, what: str = "device the torch tiers score on"
+                     ) -> None:
+    p.add_argument("--device", default=None,
+                   help=f"{what} (default cuda:0; 'cpu' only when asked)")
+
+
+# the JAX CLI's commands that the port has not yet, by ROADMAP.md item
+_NOT_PORTED_COMMANDS = {
+    **dict.fromkeys(("metrics", "status", "attach", "kill", "profile",
+                     "trace", "top", "drift", "chaos-verify"), "(e)5"),
+    **dict.fromkeys(("fleet", "fleet-verify", "timeline"), "(e)7"),
+    **dict.fromkeys(("provision", "pod-verify", "data-dryrun"), "(f)"),
+}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -267,17 +463,10 @@ def _check_ported(args) -> None:
                           "(f)")
 
 
-def _check_job_ported(job, args) -> None:
-    from ..utils import xmlconfig
+def _check_job_ported(job) -> None:
     mesh = job.runtime.mesh
     if mesh.data * mesh.model * mesh.seq * mesh.pipe > 1:
         raise _not_ported(f"a mesh of more than one device ({mesh})", "(f)")
-    if args.globalconfig:
-        conf = xmlconfig.parse_configuration_xml(args.globalconfig)
-        if xmlconfig.parse_bool(conf.get(xmlconfig.KEY_SERVING_AOT_PACK,
-                                         "false")):
-            raise _not_ported("the AOT serving pack "
-                              "(shifu.serving.aot-pack)", "(e)4")
 
 
 def run_train(args) -> int:
@@ -298,7 +487,7 @@ def run_train(args) -> int:
         if not fsio.is_remote(out_dir):
             os.makedirs(out_dir, exist_ok=True)
         sup_job = _assemble_job(args, write_files=False)[0]
-        _check_job_ported(sup_job, args)
+        _check_job_ported(sup_job)
         max_restarts = (args.max_restarts if args.max_restarts >= 0
                         else sup_job.runtime.max_restarts)
         return supervise(_child_train_args(args, out_dir),
@@ -317,7 +506,7 @@ def run_train(args) -> int:
         return EXIT_FAIL
 
     job, out_dir = _assemble_job(args)
-    _check_job_ported(job, args)
+    _check_job_ported(job)
 
     from .security import KerberosError, ensure_kerberos_ticket
     try:
@@ -386,8 +575,10 @@ def run_train(args) -> int:
         board.close()
         return _finish(EXIT_FAIL)
 
-    export_dir = _export(result, job)
-    board(f"model exported to {export_dir}")
+    aot_pack, aot_buckets = _export_aot_opts(args)
+    _export_and_pack(result.state.model, job, job.runtime.final_model_path,
+                     board, baseline_profile=result.baseline_profile,
+                     aot_pack=aot_pack, aot_buckets=aot_buckets, device=dev)
     _write_metrics_jsonl(result, fsio.join(out_dir, "metrics.jsonl"))
     if result.history:
         last = result.history[-1]
@@ -397,29 +588,61 @@ def run_train(args) -> int:
     return _finish(EXIT_OK)
 
 
-def _export(result, job) -> str:
-    """The artifact at `runtime.final_model_path`, with the training
-    loop's frozen drift baseline (`baseline_profile.json`) when the run
-    evaluated; a remote destination is built in a local temporary
-    directory and uploaded through fsio."""
+def _export_aot_opts(args) -> tuple:
+    """(aot_pack, aot_buckets) for the export sequence: opt-in through the
+    `shifu.serving.aot-pack` key of --globalconfig or the export command's
+    --aot-pack flag; the rung grid comes from the same XML's serving
+    ladder keys, so the pack matches what the daemons will serve."""
+    from ..utils import xmlconfig
+
+    cfg = None
+    if getattr(args, "globalconfig", None):
+        try:
+            conf = xmlconfig.parse_configuration_xml(args.globalconfig)
+            cfg = xmlconfig.serving_config_from_conf(conf)
+        except Exception:
+            cfg = None
+    if not (getattr(args, "aot_pack", False) or (cfg and cfg.aot_pack)):
+        return False, None
+    from ..config.schema import ServingConfig
+    from ..runtime.serve import bucket_ladder
+
+    sc = cfg or ServingConfig()
+    return True, bucket_ladder(sc.min_batch_bucket, sc.max_batch)
+
+
+def _export_and_pack(model, job, dest: str, console,
+                     baseline_profile=None, aot_pack: bool = False,
+                     aot_buckets=None, device=None) -> str:
+    """The one export sequence, shared by the train tail and the export
+    command: the artifact at `dest` (with `scoring.pt2`, and the AOT pack
+    for `device` when asked), then `model.bin` for the native engine,
+    best-effort as in JAX.  A remote destination is built in a local
+    temporary directory and uploaded through fsio."""
     from .. import obs
     from ..export.artifact import save_artifact
+    from ..runtime.native_scorer import pack_native
 
-    dest = job.runtime.final_model_path
     with obs.span("export", journal=False):
-        if fsio.is_remote(dest):
-            local_dir = tempfile.mkdtemp(prefix="shifu_tpu_torch_export_")
+        remote = fsio.is_remote(dest)
+        local_dir = (tempfile.mkdtemp(prefix="shifu_tpu_torch_export_")
+                     if remote else dest)
+        try:
+            save_artifact(model, job.model, job.schema, local_dir,
+                          baseline_profile=baseline_profile,
+                          aot_pack=aot_pack, aot_buckets=aot_buckets,
+                          aot_device=device)
             try:
-                save_artifact(result.state.model, job.model, job.schema,
-                              local_dir,
-                              baseline_profile=result.baseline_profile)
+                pack_native(local_dir)
+            except Exception as e:  # the native pack is best-effort
+                console(f"native pack skipped: {e}")
+            if remote:
                 fsio.upload_dir(local_dir, dest)
-            finally:
+        finally:
+            if remote:
                 shutil.rmtree(local_dir, ignore_errors=True)
-        else:
-            save_artifact(result.state.model, job.model, job.schema, dest,
-                          baseline_profile=result.baseline_profile)
     obs.event("export", dest=dest)
+    console(f"model exported to {dest}")
     return dest
 
 
@@ -510,6 +733,359 @@ def run_cache(args) -> int:
     return EXIT_OK
 
 
+def _kerberos_from_xml(globalconfig) -> int:
+    """Acquire a Kerberos ticket for score/eval when --globalconfig carries
+    shifu.security.kerberos.* keys (the train command's fail-fast);
+    returns an exit code (EXIT_OK to proceed)."""
+    if not globalconfig:
+        return EXIT_OK
+    from ..utils import xmlconfig
+    from .security import KerberosError, ensure_kerberos_ticket
+
+    conf = xmlconfig.parse_configuration_xml(globalconfig)
+    try:
+        ensure_kerberos_ticket(conf.get(xmlconfig.KEY_KERBEROS_PRINCIPAL, ""),
+                               conf.get(xmlconfig.KEY_KERBEROS_KEYTAB, ""))
+    except KerberosError as e:
+        print(f"kerberos auth failed: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    return EXIT_OK
+
+
+def _load_scorer(model_dir: str, native: bool, engine: str = "auto",
+                 device=None):
+    """The engine for score and eval: `--native` or `--engine native` is
+    the C++ engine, another name that tier of runtime/serve.load_engine,
+    on `device` for the torch tiers.  Raises ValueError on contradictory
+    flags or a tier the artifact cannot serve."""
+    if native and engine not in ("auto", "native"):
+        raise ValueError(
+            f"--native contradicts --engine {engine}; drop one of them")
+    from ..runtime.serve import load_engine
+    return load_engine(model_dir, "native" if native else engine,
+                       device=device)
+
+
+def _project_features(rows, model_dir: str, scorer):
+    """The artifact's feature columns of raw normalized rows: its
+    `topology.json` selected_indices decide (the ColumnConfig on disk may
+    have changed since training); full-width inputs pass through, and
+    NaNs impute to 0 as in training."""
+    import numpy as np
+
+    n_feat = getattr(scorer, "num_features", None) or rows.shape[1]
+    if rows.shape[1] != n_feat:
+        sel = None
+        try:
+            with open(os.path.join(model_dir, "topology.json")) as f:
+                sel = json.load(f).get("selected_indices")
+        except (OSError, ValueError):
+            pass
+        if sel and rows.shape[1] > max(sel):
+            rows = rows[:, sel]
+        else:
+            rows = rows[:, :n_feat]
+    return np.nan_to_num(rows, nan=0.0)
+
+
+def run_score(args) -> int:
+    """`score`: rows of a file through one engine, one line of scores a
+    row ('|'-joined heads, 6 decimals), as the JAX command writes them."""
+    from .. import obs
+    from ..data import reader
+
+    obs.configure_from_env()
+    rc = _kerberos_from_xml(args.globalconfig)
+    if rc != EXIT_OK:
+        return rc
+    rows = reader.read_file(args.input)
+    try:
+        scorer = _load_scorer(args.model, args.native, args.engine,
+                              args.device)
+    except (ValueError, OSError, KeyError, RuntimeError) as e:
+        # a tier the artifact cannot serve, or contradictory flags
+        print(f"scorer: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    feats = _project_features(rows, args.model, scorer)
+    out = sys.stdout if args.output == "-" else open(args.output, "w")
+    try:
+        # chunks bound the memory by the chunk, not the input
+        chunk = 65536
+        for lo in range(0, feats.shape[0], chunk):
+            for row in scorer.compute_batch(feats[lo:lo + chunk]):
+                out.write("|".join(f"{v:.6f}" for v in row) + "\n")
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    obs.event("score_run", rows=int(feats.shape[0]), model=args.model)
+    obs.flush()
+    return EXIT_OK
+
+
+def run_eval(args) -> int:
+    """`eval`: score labelled normalized rows file by file and print one
+    JSON summary (rows, AUC, weighted error, mean score, positive rate,
+    and per head for a multi-head artifact), the Shifu eval step against
+    the port's artifacts."""
+    from .. import obs
+    from ..config.shifu_compat import load_json, parse_column_config
+    from ..data import reader
+    from ..ops.metrics import StreamingMetrics
+
+    obs.configure_from_env()
+    rc = _kerberos_from_xml(args.globalconfig)
+    if rc != EXIT_OK:
+        return rc
+    target_name = weight_name = multi_targets = None
+    if args.modelconfig:
+        dataset = load_json(args.modelconfig).get("dataSet", {}) or {}
+        target_name = dataset.get("targetColumnName")
+        weight_name = dataset.get("weightColumnName")
+        multi_targets = dataset.get("multiTargetColumnNames")
+    schema = parse_column_config(load_json(args.columnconfig),
+                                 target_column_name=target_name,
+                                 weight_column_name=weight_name,
+                                 multi_target_names=multi_targets)
+    paths: list[str] = []
+    for p in args.data:
+        paths.extend(reader.list_data_files(p))
+    if not paths:
+        print("eval: no data files found", file=sys.stderr)
+        return EXIT_FAIL
+    try:
+        scorer = _load_scorer(args.model, args.native, args.engine,
+                              args.device)
+    except (ValueError, OSError, KeyError, RuntimeError) as e:
+        print(f"scorer: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    # file by file: the metrics accumulate out of core (exact weighted
+    # error, binned weighted AUC)
+    accs: list = []
+    n_heads = 0
+    score_sum = 0.0
+    pos_count = 0
+    scores_out = None  # opened lazily: a failure leaves no stray file
+    try:
+        for p in sorted(paths):
+            raw = reader.read_file(p)
+            if raw.shape[0] == 0:
+                continue
+            if args.scores_output and scores_out is None:
+                scores_out = open(args.scores_output, "w")
+            cols = reader.project_columns(raw, schema)
+            scores = scorer.compute_batch(
+                _project_features(raw, args.model, scorer))
+            labels_m, weights = cols["target"], cols["weight"][:, 0]
+            if not accs:
+                if scores.shape[1] != labels_m.shape[1]:
+                    print(f"eval: artifact has {scores.shape[1]} heads but "
+                          f"{labels_m.shape[1]} target columns resolved "
+                          "from the configs — reporting the overlap only",
+                          file=sys.stderr)
+                n_heads = min(scores.shape[1], labels_m.shape[1])
+                accs = [StreamingMetrics() for _ in range(n_heads)]
+            for h in range(n_heads):
+                accs[h].update(scores[:, h], labels_m[:, h], weights)
+            score_sum += float(scores[:, 0].sum())
+            pos_count += int((labels_m[:, 0] > 0.5).sum())
+            if scores_out is not None:
+                for row in scores:
+                    scores_out.write(
+                        "|".join(f"{v:.6f}" for v in row) + "\n")
+    finally:
+        if scores_out is not None:
+            scores_out.close()
+    if not accs:
+        print("eval: no data rows found", file=sys.stderr)
+        return EXIT_FAIL
+
+    def _round_finite(v: float, nd: int = 6):
+        # NaN (a single-class AUC) is not valid JSON: null instead
+        return round(float(v), nd) if math.isfinite(float(v)) else None
+
+    # head names from the schema's resolved target columns, in
+    # target-index order
+    name_by_index = {c.index: c.name for c in schema.columns}
+    resolved = [name_by_index.get(i, f"head_{h}")
+                for h, i in enumerate(schema.all_target_indices)]
+    rows = accs[0].rows
+    heads = [{"name": resolved[h] if h < len(resolved) else f"head_{h}",
+              "auc": _round_finite(accs[h].auc()),
+              "weighted_error": _round_finite(accs[h].weighted_error())}
+             for h in range(n_heads)]
+    summary = {
+        "rows": int(rows),
+        "auc": heads[0]["auc"],
+        "weighted_error": heads[0]["weighted_error"],
+        "mean_score": _round_finite(score_sum / max(rows, 1)),
+        "positive_rate": _round_finite(pos_count / max(rows, 1)),
+    }
+    if n_heads > 1:
+        summary["heads"] = heads
+    print(json.dumps(summary))
+    obs.event("eval_run", rows=int(rows), auc=summary["auc"],
+              weighted_error=summary["weighted_error"], model=args.model)
+    obs.flush()
+    return EXIT_OK
+
+
+def run_export(args) -> int:
+    """`export`: rebuild the scoring artifact from the newest checkpoint
+    (the recovery path when a job trained but died before or during its
+    export), through the train command's export sequence."""
+    from ..config import job_config_from_shifu
+    from ..device import resolve_device
+    from ..train import checkpoint as ckpt_lib
+    from ..train.loop import init_state
+    from ..utils import xmlconfig
+
+    job = job_config_from_shifu(args.modelconfig, args.columnconfig)
+    if args.globalconfig:
+        job = xmlconfig.apply_to_job(
+            job, xmlconfig.parse_configuration_xml(args.globalconfig))
+    if not (fsio.is_remote(args.checkpoint_dir)
+            or os.path.isdir(args.checkpoint_dir)):
+        # restore only: never create a tree at a mistyped location
+        print(f"no checkpoint directory: {args.checkpoint_dir}",
+              file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    aot_pack, aot_buckets = _export_aot_opts(args)
+    dev = resolve_device(args.device) if aot_pack else None
+    state = init_state(job, job.schema.feature_count, "cpu")
+    restored = ckpt_lib.restore_latest(ckpt_lib.make_manager(
+        args.checkpoint_dir), state, with_extra=True)
+    if restored is None:
+        print(f"no checkpoint found under {args.checkpoint_dir}",
+              file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    _, extra, step = restored
+    print(f"exporting checkpoint step {step} "
+          f"(epoch {(extra or {}).get('epoch', '?')})", flush=True)
+    _export_and_pack(state.model, job, args.output,
+                     lambda m: print(m, flush=True),
+                     aot_pack=aot_pack, aot_buckets=aot_buckets, device=dev)
+    return EXIT_OK
+
+
+def _serving_config(args):
+    """ServingConfig from the `shifu.serving.*` keys of --globalconfig
+    with the flags as the top layer (the train command's layering)."""
+    from ..config.schema import ServingConfig
+    from ..utils import xmlconfig
+
+    cfg = ServingConfig()
+    if getattr(args, "globalconfig", None):
+        conf = xmlconfig.parse_configuration_xml(args.globalconfig)
+        cfg = xmlconfig.serving_config_from_conf(conf, cfg)
+    kw = {}
+    if getattr(args, "engine", None):
+        kw["engine"] = args.engine
+    if getattr(args, "port", -1) >= 0:
+        kw["port"] = args.port
+    if getattr(args, "host", None):
+        kw["host"] = args.host
+    if getattr(args, "budget_ms", 0):
+        kw["latency_budget_ms"] = args.budget_ms
+    if getattr(args, "max_batch", 0):
+        kw["max_batch"] = args.max_batch
+    if getattr(args, "workers", 0):
+        kw["workers"] = args.workers
+    if kw:
+        cfg = dataclasses.replace(cfg, **kw)
+    cfg.validate()
+    return cfg
+
+
+def run_serve(args) -> int:
+    """`serve <artifact>`: the scoring daemon behind the wire server
+    (runtime/serve.serve_forever) until SIGINT or SIGTERM.  Telemetry
+    lands like a train job's: SHIFU_TPU_METRICS_DIR wins, else
+    <artifact>/telemetry."""
+    from .. import chaos, obs
+    from ..config.schema import ConfigError
+    from ..runtime.serve import serve_forever
+
+    if args.heartbeat_s > 0:
+        raise _not_ported("serve --heartbeat-s (the fleet lease)", "(e)7")
+    if args.chaos_plan:
+        try:
+            base = chaos.load_plan(args.chaos_plan.strip())
+            os.environ[chaos.ENV_CHAOS_PLAN] = base.to_json(indent=None)
+            chaos.reload_from_env()
+        except chaos.ChaosPlanError as e:
+            print(f"chaos plan: {e}", file=sys.stderr, flush=True)
+            return EXIT_FAIL
+    try:
+        config = _serving_config(args)
+    except (ConfigError, ValueError) as e:
+        print(f"serve: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    try:
+        obs.configure(obs.resolve_metrics_dir()
+                      or fsio.join(args.model, "telemetry"))
+    except Exception:
+        pass  # telemetry must never block serving
+    try:
+        rc = serve_forever(args.model, config,
+                           echo=lambda m: print(m, flush=True),
+                           allow_swap=True if args.allow_swap else None,
+                           device=args.device)
+    except (ValueError, OSError, KeyError, RuntimeError) as e:
+        print(f"serve: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    obs.flush()
+    return rc
+
+
+def run_loadtest(args) -> int:
+    """`loadtest`: the open-loop Poisson harness (runtime/loadtest.py)
+    against an artifact in process (--model, on --device) or a running
+    `serve` daemon (--connect)."""
+    from .. import obs
+    from ..config.schema import ServingConfig
+    from ..runtime import loadtest as lt
+
+    if bool(args.model) == bool(args.connect):
+        print("loadtest: exactly one of --model / --connect",
+              file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    obs.configure_from_env()
+    config = None
+    if args.budget_ms:
+        config = ServingConfig(engine=args.engine,
+                               latency_budget_ms=args.budget_ms,
+                               report_every_s=0.0)
+    try:
+        if args.capacity:
+            if not args.model:
+                print("loadtest: --capacity needs --model",
+                      file=sys.stderr, flush=True)
+                return EXIT_FAIL
+            report = lt.find_capacity(args.model, engine=args.engine,
+                                      device=args.device,
+                                      p99_target_ms=args.p99_target_ms,
+                                      senders=args.senders, config=config)
+        else:
+            feats = args.drift_features
+            if feats:
+                feats = [int(v) for v in str(feats).split(",") if v]
+            report = lt.run_loadtest(
+                args.model, connect=args.connect, engine=args.engine,
+                device=args.device, rate=args.rate,
+                duration=args.duration, senders=args.senders,
+                config=config, trace_sample=args.trace_sample,
+                trace_exemplars=args.trace_exemplars,
+                drift_after=args.drift_after, drift_shift=args.drift_shift,
+                drift_features=feats, feedback=args.feedback)
+    except (ValueError, OSError, KeyError, RuntimeError) as e:
+        print(f"loadtest: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    print(json.dumps(report) if args.json else lt.render_report(report))
+    obs.flush()
+    return EXIT_OK if report.get("completed") \
+        or report.get("capacity_scores_per_sec") else EXIT_FAIL
+
+
 def _arm_pdeathsig() -> None:
     """A supervised child dies with its supervisor.
 
@@ -545,14 +1121,19 @@ def _arm_pdeathsig() -> None:
         pass  # never block start-up
 
 
+_COMMANDS = {"train": run_train, "cache": run_cache, "score": run_score,
+             "eval": run_eval, "export": run_export, "serve": run_serve,
+             "loadtest": run_loadtest}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     _arm_pdeathsig()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in _NOT_PORTED_COMMANDS:
+        raise _not_ported(f"the {argv[0]!r} command",
+                          _NOT_PORTED_COMMANDS[argv[0]])
     args = build_parser().parse_args(argv)
-    if args.command == "train":
-        return run_train(args)
-    if args.command == "cache":
-        return run_cache(args)
-    return EXIT_FAIL
+    return _COMMANDS[args.command](args)
 
 
 if __name__ == "__main__":

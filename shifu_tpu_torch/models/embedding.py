@@ -77,7 +77,7 @@ def split_features(features: torch.Tensor, layout: FieldLayout
         raw = torch.nan_to_num(raw, nan=0.0)
         ids = torch.minimum(raw.clamp(min=0.0), hi).to(torch.int32)
     else:
-        ids = torch.zeros((b, 0), dtype=torch.int32, device=dev)
+        ids = features.new_zeros((b, 0), dtype=torch.int32)
     return num, ids
 
 
@@ -105,8 +105,8 @@ class CategoricalEmbed(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         if self.layout.num_categorical == 0:
-            return torch.zeros((ids.shape[0], 0, self.dim), dtype=self.cdt,
-                               device=ids.device)
+            return ids.new_zeros((ids.shape[0], 0, self.dim),
+                                 dtype=self.cdt)
         return embedding_lookup(self.table(), ids)
 
 
@@ -156,7 +156,7 @@ class NumericEmbed(nn.Module):
 
     def forward(self, numeric: torch.Tensor) -> torch.Tensor:
         if self.layout.num_numeric == 0:
-            return torch.zeros((numeric.shape[0], 0, self.dim),
-                               dtype=self.cdt, device=numeric.device)
+            return numeric.new_zeros((numeric.shape[0], 0, self.dim),
+                                     dtype=self.cdt)
         x = numeric.to(self.cdt)
         return x[:, :, None] * self.weight[None] + self.bias[None]

@@ -9,6 +9,7 @@ source that includes them).  A failed build raises with nvcc's stderr.
 
 Nothing is built when this module is imported; `load(name)` builds on the
 first call and `build_all()` starts one nvcc per source, all at once.
+`adopt(name, path)` loads a library an AOT pack carries instead.
 """
 
 from __future__ import annotations
@@ -56,7 +57,9 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> str:
+def source_hash(name: str) -> str:
+    """The content hash of `csrc/<name>.cu`, the shared headers and the
+    flags: the tag of its library's file name."""
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
     for fname in sorted(os.listdir(CSRC)):
@@ -65,13 +68,18 @@ def _target(name: str) -> str:
             with open(os.path.join(CSRC, fname), "rb") as f:
                 h.update(fname.encode())
                 h.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> str:
+    """Where `csrc/<name>.cu`'s library is built (`build_all`, `load`)."""
+    return os.path.join(BUILD_DIR, f"lib{name}-{source_hash(name)}.so")
 
 
 def _start(name: str) -> Optional[tuple[subprocess.Popen, str, str]]:
     """Start nvcc for `name` unless its library is current; returns the
     process, the temporary output and the final path."""
-    target = _target(name)
+    target = library_path(name)
     if os.path.exists(target):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -112,6 +120,18 @@ def build_all(names: Optional[list[str]] = None) -> float:
     return time.perf_counter() - t0
 
 
+def adopt(name: str, path: str) -> ctypes.CDLL:
+    """Load `csrc/<name>.cu`'s library from `path`, a copy built elsewhere
+    from the same source (an AOT pack's, export/aot.py, whose digest the
+    caller has checked), unless this process has loaded it already; no
+    nvcc runs.  Later `load(name)` calls return it."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(path)
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built first if needed."""
     lib = _libs.get(name)
@@ -123,6 +143,6 @@ def load(name: str) -> ctypes.CDLL:
             started = _start(name)
             if started is not None:
                 _finish(name, started)
-            lib = ctypes.CDLL(_target(name))
+            lib = ctypes.CDLL(library_path(name))
             _libs[name] = lib
     return lib

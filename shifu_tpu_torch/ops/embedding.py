@@ -25,8 +25,10 @@ Port of shifu_tpu/ops/pallas_embedding.py.  Two kernels:
   carries the same gradient row, so one of them, elected through a
   per-row stamp the wrapper keeps, updates the row.
 
-There is no fallback from a kernel to its plain version: a CUDA call the
-kernel cannot take raises.
+The lookup is the operator `shifu_tpu_torch::embedding_lookup`: the
+dispatcher picks its implementation from the device at run time (a
+`torch.export` program holds the operator).  There is no fallback from a
+kernel to its plain version: a CUDA call the kernel cannot take raises.
 """
 
 from __future__ import annotations
@@ -141,13 +143,44 @@ def _launch_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("shifu_tpu_torch::embedding_lookup",
+                         mutates_args=(), device_types="cpu")
+def lookup_op(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The lookup as an operator: the dispatcher picks this CPU
+    implementation (`lookup_reference`) or the CUDA one (the kernel) from
+    the tensors' device at run time."""
+    return lookup_reference(table, ids)
+
+
+@lookup_op.register_kernel("cuda")
+def _lookup_cuda(table, ids):
+    return _launch_lookup(table, ids)
+
+
+@lookup_op.register_fake
+def _lookup_fake(table, ids):
+    return table.new_empty((ids.shape[0], table.shape[0], table.shape[-1]))
+
+
+def _lookup_setup(ctx, inputs, output):
+    table, ids = inputs
+    ctx.save_for_backward(ids)
+    ctx.table_shape, ctx.table_dtype = tuple(table.shape), table.dtype
+
+
+def _lookup_grad(ctx, g):
+    (ids,) = ctx.saved_tensors
+    return scatter_grad(ids, ctx.table_shape, g).to(ctx.table_dtype), None
+
+
+lookup_op.register_autograd(_lookup_grad, setup_context=_lookup_setup)
+
+
 def _lookup_forward(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    _check_device("embedding_lookup", table)
     with flops_lib.kernel(lambda: lookup_cost(ids.shape[0], table.shape[0],
                                               table.shape[-1], table.dtype)):
-        if table.device.type == "cpu":
-            return lookup_reference(table, ids)
-        _check_device("embedding_lookup", table)
-        return _launch_lookup(table, ids)
+        return lookup_op(table, ids)
 
 
 def scatter_grad(ids: torch.Tensor, table_shape: Sequence[int],
@@ -165,25 +198,12 @@ def scatter_grad(ids: torch.Tensor, table_shape: Sequence[int],
     return grad[:nc * v].reshape(nc, v, d)
 
 
-class _EmbeddingLookup(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, table, ids):
-        ctx.save_for_backward(ids)
-        ctx.table_shape, ctx.table_dtype = tuple(table.shape), table.dtype
-        return _lookup_forward(table, ids)
-
-    @staticmethod
-    def backward(ctx, g):
-        (ids,) = ctx.saved_tensors
-        return scatter_grad(ids, ctx.table_shape, g).to(ctx.table_dtype), None
-
-
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """out[b, f, :] = table[f, ids[b, f], :] for a (Nc, V, D) table and
     (B, Nc) integer ids; differentiable in the table (module docstring).
     CUDA tensors launch the kernel (counted in `embedding_lookup.launches`);
     CPU tensors run `lookup_reference`."""
-    return _EmbeddingLookup.apply(table, ids)
+    return _lookup_forward(table, ids)
 
 
 embedding_lookup.launches = 0

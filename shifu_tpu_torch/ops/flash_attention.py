@@ -5,8 +5,10 @@ launches `flash_fwd` and the backward `flash_bwd_dq` and `flash_bwd_dkv`,
 the hand-written kernels of `csrc/flash_fwd.cu`, `csrc/flash_bwd_dq.cu`
 and `csrc/flash_bwd_dkv.cu`; on CPU tensors they
 run `flash_fwd_plain` and `flash_bwd_plain`, the same f32 math in plain
-PyTorch.  There is no fallback from one to the other: a CUDA tensor the
-kernels cannot take raises.
+PyTorch.  The forward is the operator `shifu_tpu_torch::flash_fwd`: the
+dispatcher picks its implementation from the device at run time (a
+`torch.export` program holds the operator).  There is no fallback from one
+to the other: a CUDA tensor the kernels cannot take raises.
 
 Semantics are the Pallas kernels': q, k, v (and dO) are widened to f32;
 the forward keeps a streaming softmax and writes the output, rounded once
@@ -233,21 +235,62 @@ def _route(name: str, q: torch.Tensor) -> bool:
     return True
 
 
+@torch.library.custom_op("shifu_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as an operator: the dispatcher picks this CPU
+    implementation (the plain version) or the CUDA one (the kernel) from
+    the tensors' device at run time."""
+    return flash_fwd_plain(q, k, v, scale)
+
+
+def _launch_fwd(q, k, v, scale):
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if q.numel():
+        _run("flash_fwd", flash_fwd, q,
+             [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              lse.data_ptr()], scale)
+    return out, lse
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, scale):
+    _check("flash_fwd", q, k, v)
+    return _launch_fwd(q, k, v, scale)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, scale):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.scale = scale
+
+
+def _flash_grad(ctx, g, _g_lse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd(q, k, v, out, lse, g, ctx.scale)
+    return dq, dk, dv, None
+
+
+flash_fwd_op.register_autograd(_flash_grad, setup_context=_flash_setup)
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) of the forward.  CUDA tensors launch the kernel (and
-    count in `flash_fwd.launches`); CPU tensors run `flash_fwd_plain`."""
+    """(out, lse) of the forward, differentiable in q, k and v through
+    `flash_bwd`.  CUDA tensors launch the kernel (and count in
+    `flash_fwd.launches`); CPU tensors run `flash_fwd_plain`."""
+    _route("flash_fwd", q)  # raises on a device with neither
     with flops_lib.kernel(lambda: cost_fwd(*q.shape, q.dtype)):
-        if not _route("flash_fwd", q):
-            return flash_fwd_plain(q, k, v, scale)
-        _check("flash_fwd", q, k, v)
-        out = torch.empty_like(q)
-        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-        if q.numel():
-            _run("flash_fwd", flash_fwd, q,
-                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  lse.data_ptr()], scale)
-        return out, lse
+        return flash_fwd_op(q, k, v, float(scale))
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -310,21 +353,6 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_fwd(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, g, ctx.scale)
-        return dq, dk, dv, None
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v on (B, H, S, D), differentiable through the
@@ -333,7 +361,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention expects (B, H, S, D); got "
                          f"{tuple(q.shape)}")
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
-    return _FlashAttention.apply(q, k, v, float(scale))
+    return flash_fwd(q, k, v, float(scale))[0]
 
 
 flash_fwd.launches = 0

@@ -3,8 +3,12 @@
 Port of shifu_tpu/ops/pallas_ft_block.py.  On a CUDA tensor
 `fused_transformer_block` launches the hand-written kernel
 `csrc/ft_block.cu`; on a CPU tensor it runs `block_math`, the same f32 math
-in plain PyTorch.  There is no fallback from one to the other: a CUDA
-tensor the kernel cannot take raises.
+in plain PyTorch.  The forward is the operator `shifu_tpu_torch::ft_block`
+(`torch.library.custom_op`): the dispatcher picks its CPU or CUDA
+implementation from the tensors' device at run time, so a `torch.export`
+program holds the operator and runs the kernel wherever it is loaded on
+the card.  There is no fallback from one to the other: a CUDA tensor the
+kernel cannot take raises.
 
 The backward is the JAX package's `_fused_block_bwd`: no activation is
 stored across the block; the backward pass recomputes `block_math` from
@@ -172,29 +176,52 @@ def _launch(xf: torch.Tensor, flat: list, heads: int,
     return out
 
 
-class _FusedBlock(torch.autograd.Function):
-    """Forward: the kernel on CUDA, `block_math` on the CPU.  Backward: the
-    recompute of JAX's `_fused_block_bwd` (module docstring)."""
+# The forward is the operator `shifu_tpu_torch::ft_block`: the dispatcher
+# picks its CPU implementation (`block_math`) or its CUDA one (the kernel)
+# from the tensors' device at run time, so a program traced by
+# torch.export on either device holds the operator, not one branch.
 
-    @staticmethod
-    def forward(ctx, xf, heads, ratio, *flat):
-        ctx.save_for_backward(xf, *flat)
-        ctx.heads = heads
-        b, s, d = xf.shape
-        with flops_lib.kernel(lambda: cost(b, s, d, heads, ratio)):
-            if xf.device.type == "cpu":
-                return block_math(xf, dict(zip(_PARAM_ORDER, flat)), heads)
-            return _launch(xf, list(flat), heads, ratio)
 
-    @staticmethod
-    def backward(ctx, dy):
-        xf, *flat = ctx.saved_tensors
-        with torch.enable_grad():
-            xr = xf.detach().requires_grad_(True)
-            pr = [t.detach().requires_grad_(True) for t in flat]
-            y = block_math(xr, dict(zip(_PARAM_ORDER, pr)), ctx.heads)
-            grads = torch.autograd.grad(y, [xr, *pr], dy)
-        return (grads[0], None, None, *grads[1:])
+@torch.library.custom_op("shifu_tpu_torch::ft_block", mutates_args=(),
+                         device_types="cpu")
+def ft_block_op(xf: torch.Tensor, flat: list[torch.Tensor], heads: int,
+                ratio: int) -> torch.Tensor:
+    """CPU: `block_math` on f32 tokens and the `_PARAM_ORDER` params."""
+    return block_math(xf, dict(zip(_PARAM_ORDER, flat)), heads)
+
+
+@ft_block_op.register_kernel("cuda")
+def _ft_block_cuda(xf, flat, heads, ratio):
+    for name, t in zip(("x", *_PARAM_ORDER), (xf, *flat)):
+        if not t.is_contiguous():
+            raise ValueError(f"fused_transformer_block: {name} must be "
+                             "contiguous")
+    return _launch(xf, list(flat), heads, ratio)
+
+
+@ft_block_op.register_fake
+def _ft_block_fake(xf, flat, heads, ratio):
+    return torch.empty_like(xf)
+
+
+def _ft_block_setup(ctx, inputs, output):
+    xf, flat, heads, _ratio = inputs
+    ctx.save_for_backward(xf, *flat)
+    ctx.heads = heads
+
+
+def _ft_block_bwd(ctx, dy):
+    """The recompute of JAX's `_fused_block_bwd` (module docstring)."""
+    xf, *flat = ctx.saved_tensors
+    with torch.enable_grad():
+        xr = xf.detach().requires_grad_(True)
+        pr = [t.detach().requires_grad_(True) for t in flat]
+        y = block_math(xr, dict(zip(_PARAM_ORDER, pr)), ctx.heads)
+        grads = torch.autograd.grad(y, [xr, *pr], dy)
+    return grads[0], list(grads[1:]), None, None
+
+
+ft_block_op.register_autograd(_ft_block_bwd, setup_context=_ft_block_setup)
 
 
 def fused_transformer_block(x: torch.Tensor, p: dict,
@@ -225,16 +252,12 @@ def fused_transformer_block(x: torch.Tensor, p: dict,
             raise ValueError(f"fused_transformer_block: {name} is on "
                              f"{t.device}, x on {x.device}")
         flat.append(t.float())
-    xf = x.float()
-    if x.device.type == "cuda":
-        for name, t in zip(("x", *_PARAM_ORDER), (xf, *flat)):
-            if not t.is_contiguous():
-                raise ValueError(f"fused_transformer_block: {name} must be "
-                                 "contiguous")
-    elif x.device.type != "cpu":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_transformer_block: unsupported device "
                          f"{x.device}")
-    return _FusedBlock.apply(xf, heads, ratio, *flat).to(x.dtype)
+    with flops_lib.kernel(lambda: cost(b, s, d, heads, ratio)):
+        out = ft_block_op(x.float(), flat, heads, ratio)
+    return out.to(x.dtype)
 
 
 fused_transformer_block.launches = 0

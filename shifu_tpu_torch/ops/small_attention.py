@@ -4,9 +4,11 @@ Port of shifu_tpu/ops/pallas_small_attention.py, forward and backward.  On
 CUDA tensors `small_token_attention` launches the hand-written kernels of
 `csrc/small_attention.cu`: the forward, and in the backward pass
 `small_attention_bwd`; on CPU tensors they run `small_attention_plain` and
-`small_attention_bwd_plain`, the same f32 math in plain PyTorch.  There is
-no fallback from one to the other: a CUDA tensor the kernels cannot take
-raises.
+`small_attention_bwd_plain`, the same f32 math in plain PyTorch.  The
+forward is the operator `shifu_tpu_torch::small_attention`: the dispatcher
+picks its implementation from the device at run time (a `torch.export`
+program holds the operator).  There is no fallback from one to the other:
+a CUDA tensor the kernels cannot take raises.
 
 Semantics are the Pallas kernels', not `ops/attention.mha`'s: q, k and v
 are widened to f32, scores, softmax and the weighted sum of V are f32, and
@@ -189,15 +191,52 @@ def _route(q: torch.Tensor) -> bool:
     return True
 
 
+@torch.library.custom_op("shifu_tpu_torch::small_attention",
+                         mutates_args=(), device_types="cpu")
+def small_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """The forward as an operator: the dispatcher picks this CPU
+    implementation (the plain version) or the CUDA one (the kernel) from
+    the tensors' device at run time."""
+    return small_attention_plain(q, k, v, scale)
+
+
+@small_attention_op.register_kernel("cuda")
+def _small_attention_cuda(q, k, v, scale):
+    _check_cuda(q, k, v)
+    return _launch(q, k, v, scale)
+
+
+@small_attention_op.register_fake
+def _small_attention_fake(q, k, v, scale):
+    return torch.empty_like(q)
+
+
+def _small_attention_setup(ctx, inputs, output):
+    q, k, v, scale = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.scale = scale
+
+
+def _small_attention_grad(ctx, g):
+    q, k, v = ctx.saved_tensors
+    dq, dk, dv = small_attention_bwd(q, k, v, g, ctx.scale)
+    return dq, dk, dv, None
+
+
+small_attention_op.register_autograd(_small_attention_grad,
+                                     setup_context=_small_attention_setup)
+
+
 def small_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float) -> torch.Tensor:
-    """The forward: CUDA tensors launch the kernel (and count in
-    `small_token_attention.launches`); CPU tensors run the plain version."""
+    """The forward, differentiable through `small_attention_bwd`: CUDA
+    tensors launch the kernel (and count in
+    `small_token_attention.launches`); CPU tensors run the plain
+    version."""
+    _route(q)  # raises on a device with neither
     with flops_lib.kernel(lambda: cost(*q.shape, q.dtype)):
-        if not _route(q):
-            return small_attention_plain(q, k, v, scale)
-        _check_cuda(q, k, v)
-        return _launch(q, k, v, scale)
+        return small_attention_op(q, k, v, float(scale))
 
 
 def small_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -216,20 +255,6 @@ def small_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _launch_bwd(q, k, v, g.contiguous(), scale)
 
 
-class _SmallAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return small_attention_fwd(q, k, v, scale)
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = small_attention_bwd(q, k, v, g, ctx.scale)
-        return dq, dk, dv, None
-
-
 def small_token_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v on (B, H, S, D) with S <= 64, D <= 16;
@@ -241,7 +266,7 @@ def small_token_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)}")
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    return _SmallAttention.apply(q, k, v, float(scale))
+    return small_attention_fwd(q, k, v, float(scale))
 
 
 small_token_attention.launches = 0

@@ -626,6 +626,51 @@ def find_capacity(export_dir: Optional[str] = None, *,
     return out
 
 
+def render_report(report: dict) -> str:
+    """Human text for a loadtest / capacity report, as the `loadtest`
+    command prints it (the JAX package's renderer)."""
+    lines = []
+    if "ramp" in report:
+        for step in report["ramp"]:
+            lines.append(f"  ramp {step['rate']:>12,.0f}/s -> achieved "
+                         f"{step['achieved']:>12,.1f}/s  "
+                         f"p99 {step['p99_ms']} ms  "
+                         f"{'ok' if step['ok'] else 'SATURATED'}")
+        cap = report.get("capacity_scores_per_sec")
+        lines.append(f"capacity: {cap:,.0f} scores/s at p99 <= "
+                     f"{report['p99_target_ms']} ms" if cap
+                     else "capacity: below the starting rate")
+    else:
+        lines.append(
+            f"loadtest [{report['mode']}]: offered "
+            f"{report['offered_rate']:,.0f}/s achieved "
+            f"{report['achieved_scores_per_sec']:,.0f} scores/s  "
+            f"p50 {report['p50_ms']} ms  p99 {report['p99_ms']} ms  "
+            f"(completed {report['completed']:,}, rejected "
+            f"{report.get('rejected', 0):,}, errors "
+            f"{report['errors']:,})")
+    stages = report.get("stages")
+    if stages:
+        from ..obs.slo import STAGES
+        parts = [f"{s} {stages[s]['mean_ms']}/{stages[s]['p99_ms']}ms"
+                 for s in STAGES if s in stages]
+        lines.append("  stages (mean/p99): " + "  ".join(parts))
+    exemplars = report.get("trace_exemplars")
+    if exemplars:
+        lines.append("  slowest traces: " + "  ".join(
+            f"{e['trace_id']}={e['ms']}ms" for e in exemplars))
+    if report.get("drift_after_s"):
+        fb = report.get("feedback_rows")
+        lines.append(
+            f"  drift drill: features {report.get('drift_features')} "
+            f"shifted +{report.get('drift_shift')} after "
+            f"{report['drift_after_s']}s"
+            + (f", {fb:,} labeled feedback rows shipped"
+               if fb is not None else "")
+            + "  (the daemon journals drift_report)")
+    return "\n".join(lines)
+
+
 def _journal(report: dict) -> None:
     try:
         from .. import obs

@@ -22,10 +22,13 @@ shifu_tpu/runtime/serve.py).
 - serve_forever: the daemon behind the wire server (runtime/serve_wire.py)
   until SIGINT or SIGTERM.
 
-Engines: "torch" (`export.scorer.TorchScorer`, on `device`, the card by
-default) and "numpy" (`export.scorer.Scorer`, the op-list interpreter on
-the host).  The native C++ engine and a compiled tier are ROADMAP.md
-queue A item (e)4; the fleet's heartbeat lease is (e)7.
+Engines (`load_engine`): "torch" (`export.scorer.TorchScorer`, the model
+rebuilt, on `device`, the card by default), "export" (`ExportScorer`, the
+artifact's `scoring.pt2`, on `device`), "aot" (the AOT pack,
+`export/aot.py`, on `device`), "numpy" (`export.scorer.Scorer`, the
+op-list interpreter on the host), "native" (`runtime/native_scorer.py`,
+the C++ engine on the host) and "auto" (`export.scorer.load_scorer`'s
+order).  The fleet's heartbeat lease is ROADMAP.md queue A item (e)7.
 """
 
 from __future__ import annotations
@@ -52,8 +55,8 @@ CHAOS_SITE = "runtime.serve"
 # `dispatch` lifecycle stage
 CHAOS_DISPATCH_SITE = "runtime.serve.dispatch"
 
-# engines of the JAX package that later slices port (ROADMAP.md queue A)
-_NOT_PORTED_ENGINES = ("native", "aot", "stablehlo", "jax", "auto")
+# the JAX package's engines whose port goes by another name
+_RENAMED_ENGINES = {"jax": "torch", "stablehlo": "export"}
 
 
 class ServeOverload(RuntimeError):
@@ -63,20 +66,40 @@ class ServeOverload(RuntimeError):
 
 def load_engine(export_dir: str, engine: str = "torch",
                 device: DeviceLike = None):
-    """Build one scoring engine for an artifact: "torch"
-    (`TorchScorer` on `device`, default `cuda:0`) or "numpy" (the op-list
-    interpreter on the host, `Scorer`)."""
+    """Build one scoring engine for an artifact, the tier ladder shared by
+    the `score` and `eval` commands and the daemon's model loads: "torch"
+    (`TorchScorer`), "export" (`ExportScorer`), "aot" (the AOT pack; any
+    mismatch or damage journals `aot_fallback` and serves through
+    `ExportScorer` on the same device), "numpy" (the op-list interpreter),
+    "native" (the C++ engine) or "auto" (`load_scorer`'s order).  The
+    torch tiers score on `device` (default `cuda:0`), the numpy and
+    native engines on the host."""
     if engine == "torch":
         from ..export.scorer import TorchScorer
         return TorchScorer(export_dir, device=device)
+    if engine == "export":
+        from ..export.scorer import ExportScorer
+        return ExportScorer(export_dir, device=device)
+    if engine == "aot":
+        from ..export.aot import try_load_aot
+        from ..export.scorer import ExportScorer
+        scorer = try_load_aot(export_dir, device)
+        if scorer is not None:
+            return scorer
+        return ExportScorer(export_dir, device=device)
     if engine == "numpy":
         from ..export.scorer import Scorer
         return Scorer(export_dir)
-    if engine in _NOT_PORTED_ENGINES:
-        raise NotImplementedError(
-            f"scoring engine {engine!r} is not ported yet (ROADMAP.md, "
-            "queue A item (e)4); the port's engines are 'torch' and "
-            "'numpy'")
+    if engine == "native":
+        from .native_scorer import NativeScorer
+        return NativeScorer(export_dir)
+    if engine == "auto":
+        from ..export.scorer import load_scorer
+        return load_scorer(export_dir, device)
+    if engine in _RENAMED_ENGINES:
+        raise ValueError(
+            f"scoring engine {engine!r} is the JAX package's; the port's "
+            f"counterpart is {_RENAMED_ENGINES[engine]!r}")
     raise ValueError(f"unknown scoring engine {engine!r}")
 
 
@@ -324,7 +347,7 @@ class ScoringDaemon:
       (admission to reply), the lifecycle stages, the SLO and drift
       state.
 
-    The torch engine scores on `device` (default `cuda:0`; pass "cpu" to
+    The torch tiers score on `device` (default `cuda:0`; pass "cpu" to
     serve on the CPU)."""
 
     def __init__(self, export_dir: Optional[str] = None, *,
@@ -1129,8 +1152,8 @@ def serve_forever(export_dir: str, config: ServingConfig,
                   stop_event: Optional[threading.Event] = None) -> int:
     """The daemon behind the wire server (runtime/serve_wire.py) on
     `config.host`:`config.port` until SIGINT or SIGTERM, or until
-    `stop_event` is set; returns a process exit code.  The torch engine
-    scores on `device` (default `cuda:0`).  The fleet's heartbeat lease
+    `stop_event` is set; returns a process exit code.  The torch tiers
+    score on `device` (default `cuda:0`).  The fleet's heartbeat lease
     is ROADMAP.md queue A item (e)7."""
     import signal
 

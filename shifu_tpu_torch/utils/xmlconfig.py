@@ -8,13 +8,12 @@ JAX package's names, defaults and messages; `configuration_xml_bytes` /
 `global-final.xml`).  Unknown keys are kept for forward compatibility.
 
 The serving keys (`shifu.serving.*`, with the wire server's, the SLO
-engine's and tracing's) and the drift keys (`shifu.drift.*`) map onto the
-port's `ServingConfig` and `DriftConfig` (`serving_config_from_conf`,
-`drift_config_from_conf`) as the JAX overlay's do.  The fleet keys
-(`shifu.fleet.*`, ROADMAP.md queue A item (e)7) belong to a config the
-port does not have yet, and `shifu.serving.aot-pack` to the AOT pack
-((e)4): such a key raises NotImplementedError, never silently does
-nothing.
+engine's, tracing's and the AOT pack's) and the drift keys
+(`shifu.drift.*`) map onto the port's `ServingConfig` and `DriftConfig`
+(`serving_config_from_conf`, `drift_config_from_conf`) as the JAX
+overlay's do.  The fleet keys (`shifu.fleet.*`, ROADMAP.md queue A item
+(e)7) belong to a config the port does not have yet: such a key raises
+NotImplementedError, never silently does nothing.
 """
 
 from __future__ import annotations
@@ -296,11 +295,6 @@ def write_configuration_xml(config: Mapping[str, str], path: str) -> None:
 _NOT_PORTED_PREFIXES = (("shifu.fleet.", "queue A item (e)7, with the "
                                          "serving fleet"),)
 
-# serving keys whose ServingConfig field the port lacks
-_SERVING_NOT_PORTED = {
-    KEY_SERVING_AOT_PACK: "queue A item (e)4 (the AOT pack)",
-}
-
 
 def check_ported(conf: Mapping[str, str]) -> None:
     """Raise NotImplementedError for a fleet key: its config is not
@@ -317,17 +311,11 @@ def check_ported(conf: Mapping[str, str]) -> None:
 def serving_config_from_conf(conf: Mapping[str, str], base: Any = None) -> Any:
     """ServingConfig from `shifu.serving.*` and `shifu.drift.*` keys over
     `base` (default: the dataclass defaults), the serving-plane sibling of
-    apply_to_job.  A fleet key, or `shifu.serving.aot-pack`, raises
-    NotImplementedError."""
+    apply_to_job.  A fleet key raises NotImplementedError."""
 
     from ..config.schema import ServingConfig
 
     check_ported(conf)
-    for key in sorted(conf):
-        if key in _SERVING_NOT_PORTED:
-            raise NotImplementedError(
-                f"config key {key!r} is not ported yet (ROADMAP.md, "
-                f"{_SERVING_NOT_PORTED[key]})")
     base = base or ServingConfig()
     kw: dict[str, Any] = {}
     if KEY_SERVING_ENGINE in conf:
@@ -365,6 +353,8 @@ def serving_config_from_conf(conf: Mapping[str, str], base: Any = None) -> Any:
     if KEY_SERVING_SLO_BURN_THRESHOLD in conf:
         kw["slo_burn_threshold"] = float(
             conf[KEY_SERVING_SLO_BURN_THRESHOLD])
+    if KEY_SERVING_AOT_PACK in conf:
+        kw["aot_pack"] = parse_bool(conf[KEY_SERVING_AOT_PACK])
     if KEY_SERVING_PREWARM_LADDER in conf:
         kw["prewarm_ladder"] = parse_bool(conf[KEY_SERVING_PREWARM_LADDER])
     drift = drift_config_from_conf(conf, base.drift)

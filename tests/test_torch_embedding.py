@@ -114,14 +114,37 @@ def _no_plain(*a, **k):
     raise AssertionError("a CUDA tensor reached the plain version")
 
 
+def _fake_card_lookup_args():
+    """(table, ids, out) as FakeTensors on cuda:0: metadata only, no card
+    needed."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        return (torch.empty((NC, V, D), device="cuda"),
+                torch.empty((3, NC), dtype=torch.int32, device="cuda"),
+                torch.empty((3, NC, D), device="cuda"))
+
+
+def _card_dispatch():
+    """Leave out the Python dispatch keys, so the dispatcher routes the
+    FakeTensors by their backend key (CUDA) to the operator's CUDA
+    implementation instead of its fake one."""
+    keys = (torch._C.DispatchKeySet(torch._C.DispatchKey.Python)
+            | torch._C.DispatchKeySet(torch._C.DispatchKey.PythonTLSSnapshot))
+    return torch._C._ExcludeDispatchKeyGuard(keys)
+
+
 def test_cuda_lookup_routes_to_the_kernel(monkeypatch):
+    """The dispatcher, not a branch in Python, sends a CUDA table to the
+    launch of `shifu_tpu_torch::embedding_lookup`."""
     calls = []
+    table, ids, out = _fake_card_lookup_args()
     monkeypatch.setattr(emb, "lookup_reference", _no_plain)
     monkeypatch.setattr(emb, "_launch_lookup",
-                        lambda *a: calls.append(a) or "out")
-    t = _FakeCudaTensor()
-    assert emb._lookup_forward(t, "ids") == "out"
-    assert calls == [(t, "ids")]
+                        lambda *a: calls.append(a) or out)
+    with _card_dispatch():
+        assert emb._lookup_forward(table, ids) is out
+    assert len(calls) == 1
+    assert calls[0][0] is table and calls[0][1] is ids
 
 
 def test_cuda_rows_update_routes_to_the_kernel(monkeypatch):
@@ -150,7 +173,9 @@ def test_cuda_launch_failure_raises(monkeypatch, which):
     monkeypatch.setattr(emb, "_launch_rows_update", refuse)
     with pytest.raises(RuntimeError, match="launch failed"):
         if which == "lookup":
-            emb._lookup_forward(_FakeCudaTensor(), None)
+            table, ids, _ = _fake_card_lookup_args()
+            with _card_dispatch():
+                emb._lookup_forward(table, ids)
         else:
             emb.fused_rows_update(_FakeCudaTensor(), (), None, None, "sgd",
                                   0.1)

@@ -337,9 +337,9 @@ def test_train_output_on_mock_writes_the_jax_job_dir(mock_fs, tmp_path,
     metrics.jsonl, the telemetry and the artifact (built locally, then
     uploaded) land on the remote job dir, in the tree JAX's `train`
     writes: the same top-level files and directories; final_model holds
-    the port's artifact files, each of which JAX's also writes (JAX's
-    adds the op-list program, the StableHLO export and the native pack,
-    ROADMAP (e)2 and (e)4)."""
+    the port's artifact files, each of which JAX's also writes, the native
+    pack included, but for `scoring.pt2`, the port's counterpart of JAX's
+    StableHLO export (`scoring.mlir`, `scoring.jaxexport`)."""
     from shifu_tpu.launcher import cli as jax_cli
     from shifu_tpu_torch.launcher import cli
 
@@ -359,7 +359,11 @@ def test_train_output_on_mock_writes_the_jax_job_dir(mock_fs, tmp_path,
 
     assert top(port) == top(jax)
     pm = {p for p in port if p.startswith("final_model/")}
-    assert pm and pm <= {p for p in jax if p.startswith("final_model/")}
+    jm = {p for p in jax if p.startswith("final_model/")}
+    assert "final_model/scoring.pt2" in pm
+    assert "final_model/scoring.jaxexport" in jm
+    assert pm - {"final_model/scoring.pt2"} <= jm
+    assert "final_model/model.bin" in pm
     board = fsio.read_bytes("mock://bucket/port/console.board").decode()
     assert "Epoch 0:" in board and "model exported" in board
     metrics = fsio.read_bytes("mock://bucket/port/metrics.jsonl").decode()

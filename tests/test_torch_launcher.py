@@ -223,13 +223,34 @@ def test_unported_flags_raise(tmp_path, flags, item):
 
 @pytest.mark.parametrize("xml,item", [
     ({"shifu.mesh.data": "2"}, r"\(f\)"),
-    ({"shifu.serving.aot-pack": "true"}, r"\(e\)4"),
     ({"shifu.fleet.n-daemons": "3"}, r"\(e\)7"),
 ])
 def test_unported_config_raises(tmp_path, xml, item):
     argv = _shifu_files(tmp_path, xml=xml)
     with pytest.raises(NotImplementedError, match="not ported yet.*" + item):
         cli.main(argv + ["--device", "cpu", "--output", str(tmp_path / "j")])
+
+
+def test_the_aot_pack_key_packs_the_final_model(tmp_path):
+    """`shifu.serving.aot-pack` applies as in JAX: the train command's
+    export sequence packs the serving ladder of the same XML into
+    final_model/aot (here on the CPU), beside scoring.pt2 and model.bin
+    (JAX `_export_and_pack`)."""
+    xml = {"shifu.serving.aot-pack": "true",
+           "shifu.serving.min-batch-bucket": "16",
+           "shifu.serving.max-batch": "64"}
+    argv = _shifu_files(tmp_path, xml=xml)
+    out = tmp_path / "j"
+    assert cli.main(argv + ["--device", "cpu", "--output", str(out)]) == 0
+    final = out / "final_model"
+    for name in ("scoring.pt2", "model.bin", "aot/manifest.json"):
+        assert (final / name).exists(), name
+    man = json.loads((final / "aot" / "manifest.json").read_text())
+    assert man["buckets"] == [16, 32, 64] and man["platform"] == "cpu"
+    jargs = jax_cli.build_parser().parse_args(argv)
+    pargs = cli.build_parser().parse_args(argv)
+    assert cli._export_aot_opts(pargs) == jax_cli._export_aot_opts(jargs)
+    assert cli._export_aot_opts(pargs) == (True, (16, 32, 64))
 
 
 @pytest.mark.parametrize("site,want", [("launcher.start", 1),

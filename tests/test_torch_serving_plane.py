@@ -380,14 +380,94 @@ def _cfg(**kw):
 
 
 def test_load_engine_tiers(trained):
+    """Every engine tier of the JAX ladder loads as in JAX: the host
+    engines score the JAX package's bits, the torch tiers agree with them,
+    "auto" on the CPU takes the op-list interpreter (the JAX order), "aot" on an
+    artifact without a pack serves through the export tier, and the JAX
+    package's own engine names point at the port's counterparts."""
+    from shifu_tpu.runtime import serve as jax_serve
+    from shifu_tpu_torch.export import scorer as port_scorer
     out = trained[0]
-    assert serve.load_engine(out, "numpy").engine == "numpy"
-    assert serve.load_engine(out, "torch", device="cpu").engine == "torch"
-    for name in ("native", "aot", "jax"):
-        with pytest.raises(NotImplementedError, match=r"\(e\)4"):
+    x = trained[3].features[:9]
+    for name in ("numpy", "native"):
+        got = serve.load_engine(out, name)
+        assert got.engine == name
+        want = jax_serve.load_engine(out, name).compute_batch(x)
+        np.testing.assert_allclose(got.compute_batch(x), want, rtol=0,
+                                   atol=1e-5 if name == "native" else 0)
+    auto = serve.load_engine(out, "auto", device="cpu")
+    assert isinstance(auto, port_scorer.Scorer)
+    assert type(jax_serve.load_engine(out, "auto")).__name__ == "Scorer"
+    ref = serve.load_engine(out, "numpy").compute_batch(x)
+    for name, want in (("torch", "torch"), ("export", "export"),
+                       ("aot", "export")):
+        got = serve.load_engine(out, name, device="cpu")
+        assert got.engine == want
+        np.testing.assert_allclose(got.compute_batch(x), ref, rtol=0,
+                                   atol=2e-2)
+    for name, twin in (("jax", "torch"), ("stablehlo", "export")):
+        with pytest.raises(ValueError, match=f"counterpart is '{twin}'"):
             serve.load_engine(out, name)
     with pytest.raises(ValueError, match="unknown"):
         serve.load_engine(out, "bogus")
+
+
+class _CardTier:
+    """A stand-in for a torch tier on the card: records its engine and
+    device, scores zeros."""
+
+    made: list = []
+
+    def __init__(self, engine, export_dir, device):
+        self.engine = engine
+        self.num_features = F
+        self.made.append((engine, str(device)))
+
+    def compute_batch(self, x):
+        return np.zeros((len(x), 1), np.float32)
+
+
+def test_auto_on_the_card_skips_the_host_interpreter(trained, monkeypatch,
+                                                     tmp_path):
+    """A deliberate difference from JAX, whose "auto" takes the op-list
+    interpreter first on any platform: the port's takes it only on the
+    CPU.  On the card, the default device, "auto" goes aot, export, torch,
+    each on that card, and so do `score` and `eval` with their default
+    flags (no CUDA here: the tiers are stand-ins, the device check is
+    patched)."""
+    import shutil
+
+    from shifu_tpu_torch.export import aot
+    from shifu_tpu_torch.export import scorer as port_scorer
+    from shifu_tpu_torch.export.artifact import EXPORT_PROGRAM
+    from shifu_tpu_torch.launcher import cli
+    out = trained[0]
+    _CardTier.made = []
+    pack = {"has": True, "loads": True}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(aot, "has_pack", lambda d: pack["has"])
+    monkeypatch.setattr(aot, "try_load_aot", lambda d, dev: _CardTier(
+        "aot", d, dev) if pack["loads"] else None)
+    monkeypatch.setattr(port_scorer, "ExportScorer",
+                        lambda d, dev: _CardTier("export", d, dev))
+    monkeypatch.setattr(port_scorer, "TorchScorer",
+                        lambda d, dev: _CardTier("torch", d, dev))
+    assert serve.load_engine(out, "auto").engine == "aot"
+    pack["loads"] = False  # a mismatch: journaled aot_fallback
+    assert serve.load_engine(out, "auto", device="cuda:0").engine == "export"
+    pack["has"] = False
+    rows = tmp_path / "rows.txt"
+    np.savetxt(rows, trained[3].features[:5], delimiter="|", fmt="%.9g")
+    assert cli.main(["score", "--model", out, "--input", str(rows),
+                     "--output", str(tmp_path / "scores.txt")]) == 0
+    bare = str(tmp_path / "bare")
+    shutil.copytree(out, bare)
+    os.remove(os.path.join(bare, EXPORT_PROGRAM))
+    assert serve.load_engine(bare, "auto").engine == "torch"
+    assert _CardTier.made == [("aot", "cuda:0"), ("export", "cuda:0"),
+                              ("export", "cuda:0"), ("torch", "cuda:0")]
+    assert isinstance(serve.load_engine(out, "auto", device="cpu"),
+                      port_scorer.Scorer)
 
 
 # -- interop: clients and servers of both packages -------------------------------

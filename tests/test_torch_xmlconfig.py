@@ -173,10 +173,15 @@ def test_serving_keys_match_jax_where_the_port_has_the_field():
     assert got.engine == "torch"
 
 
-@pytest.mark.parametrize("key", [xml.KEY_SERVING_AOT_PACK])
-def test_a_serving_key_without_a_port_field_raises(key):
-    with pytest.raises(NotImplementedError, match=r"not ported yet.*\(e\)4"):
-        xml.serving_config_from_conf({key: "1"})
+@pytest.mark.parametrize("value", ["1", "true", "no", "false"])
+def test_the_aot_pack_key_applies_like_jax(value):
+    """`shifu.serving.aot-pack` sets ServingConfig.aot_pack, as the JAX
+    overlay does (the export sequence then packs, export/aot.py)."""
+    from shifu_tpu.config.schema import ServingConfig as JaxServing
+    conf = {xml.KEY_SERVING_AOT_PACK: value}
+    got = xml.serving_config_from_conf(conf)
+    want = jax_xml.serving_config_from_conf(conf, JaxServing(engine="torch"))
+    assert got.aot_pack is want.aot_pack is (value in ("1", "true"))
 
 
 # the keys of the wire server, tracing, the reporter, the SLO engine and
@@ -203,6 +208,7 @@ WIRE_SLO_DRIFT_KEYS = {
     xml.KEY_DRIFT_MIN_ROWS: "50",
     xml.KEY_DRIFT_FEEDBACK: "no",
     xml.KEY_DRIFT_FEEDBACK_BINS: "256",
+    xml.KEY_SERVING_AOT_PACK: "true",
 }
 
 
@@ -217,9 +223,7 @@ def test_drift_and_serving_keys_apply_like_jax(key):
     got = xml.serving_config_from_conf(conf)
     # the port's default engine is "torch", the JAX package's "auto"
     want = jax_xml.serving_config_from_conf(conf, JaxServing(engine="torch"))
-    want_d = dc.asdict(want)
-    want_d.pop("aot_pack")
-    assert dc.asdict(got) == want_d
+    assert dc.asdict(got) == dc.asdict(want)
     assert got != port_schema.ServingConfig()
     got.validate()
     jjob, pjob = _jobs()
@@ -232,9 +236,7 @@ def test_all_serving_and_drift_keys_together_validate_alike():
     got = xml.serving_config_from_conf(WIRE_SLO_DRIFT_KEYS)
     want = jax_xml.serving_config_from_conf(WIRE_SLO_DRIFT_KEYS)
     assert got.engine == want.engine == "numpy"
-    want_d = dc.asdict(want)
-    want_d.pop("aot_pack")
-    assert dc.asdict(got) == want_d
+    assert dc.asdict(got) == dc.asdict(want)
     got.validate()
     want.validate()
     bad = {xml.KEY_DRIFT_FAST_WINDOW_S: "9", xml.KEY_DRIFT_SLOW_WINDOW_S: "3"}
