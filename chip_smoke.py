@@ -278,6 +278,30 @@ stderr, and no result line is printed):
                errors; and `score` with its default flags on phase 4's
                fused FT artifact, in this process: `auto` on the card is
                the aot tier, #1 3 x and #5 once, the aot engine's scores.
+22d. views  — the operator's views as `python -m shifu_tpu_torch.launcher.
+               cli` children on the journals this script wrote: `metrics`,
+               `profile` and `trace` on 20a's traced journal (`trace` lists
+               #4's kernel from the card with its device us), `top --once`
+               on 21d's SLO daemon dir and over both 21d dirs, `drift` on
+               21d's drift dir (the feature_psi alert), `timeline
+               --incident` on the SLO dir (the slo_alert incident),
+               `chaos-verify` on 8d's chaos drill (PASS); each one's exit 0
+               and seconds.
+22e. detach — `train --detach` of 8a's job (2 epochs, the cache hot,
+               both traced) on the card: `status` RUNNING, `attach`
+               to exit 0, `status` FINISHED, #4's kernel in its journal's
+               device profile; a second detached run (3 epochs, epoch 0's
+               checkpoint save held 3 s by a chaos delay) `kill`ed after
+               epoch 0: every process of its tree gone within the 10 s
+               grace (exit 143 after the drain), and a plain `train` on
+               the same --output resumes from its save (`train_resume`).
+               Prints the seconds from submit to exit and from kill to
+               gone.
+22f. tiering — bench.py's 10M-vocab rung on this machine's host
+               (embed/tiering.TieredTable: 10M x 16, hot 2^18 rows, int8
+               cold store, zipf(1.1) ids, batch 4096, 24 steps): build
+               seconds, rows/s, hit rate, cold MB; `profile` renders its
+               tier report.
 23. a JSON line {"kernels": [...]} with each kernel's launches on its
    training path (FT fused for #1, FT unfused for #2 and #3, the headline
    MLP for #4, DeepFM for #5 and #6, FT flash for #7 and #8), its error
@@ -4696,6 +4720,270 @@ def artifact_tier_phases(device, tmp: str, smi_line: str) -> None:
     lap("22c commands")
 
 
+# -- phases 22d to 22f: the operator's views, detached jobs, tiering ----------
+
+VIEW_TIMEOUT_S = 60
+DETACH_EPOCHS = 2
+KILL_EPOCHS = 3
+KILL_SAVE_DELAY_S = 3
+KILL_GRACE_S = 10.0     # launcher/detach.kill's default grace
+# bench.py's 10M-vocab rung (bench.py:428-475)
+TIER_VOCAB, TIER_DIM, TIER_HOT, TIER_BATCH, TIER_STEPS = (
+    10_000_000, 16, 1 << 18, 4096, 24)
+
+
+def cli_child(label: str, args: list, expect_rc: int = 0) -> tuple:
+    """`python -m shifu_tpu_torch.launcher.cli <args>` run to its end:
+    (stdout, seconds); fails on another exit code."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "shifu_tpu_torch.launcher.cli", *args],
+            cwd=root, capture_output=True, text=True,
+            timeout=COLD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"{label}: no exit within {COLD_TIMEOUT_S} s")
+    took = time.perf_counter() - t0
+    if proc.returncode != expect_rc:
+        fail(f"{label}: exit {proc.returncode} (expected {expect_rc}): "
+             f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    return proc.stdout, took
+
+
+def traced_dir(tmp: str, name: str) -> str:
+    """The last attempt's dir of a traced_run (`name-<attempt>`)."""
+    import glob
+    dirs = glob.glob(os.path.join(tmp, f"{name}-*"))
+    if not dirs:
+        fail(f"no {name} journal under {tmp}")
+    return max(dirs, key=lambda d: int(d.rsplit("-", 1)[1]))
+
+
+def int8_rows(profile: dict) -> list:
+    return [k for k in profile.get("kernels") or []
+            if any(s in k["name"] for s in KERNEL_SYMBOLS["int8_matmul"])]
+
+
+def views_phase(tmp: str, smi_line: str) -> None:
+    """22d: every view of the port on this run's own journals."""
+    fr = traced_dir(tmp, "fr_mlp")
+    slo, drift = f"{tmp}/slo_obs", f"{tmp}/drift_obs"
+    times = {}
+
+    def view(label: str, args: list) -> dict:
+        out, took = cli_child(f"22d {label}", args + ["--json"])
+        times[label] = took
+        return json.loads(out)
+
+    m = view("metrics", ["metrics", fr])
+    if [e["epoch"] for e in m["epochs"]] != [0, 1]:
+        fail(f"22d metrics: epochs {m['epochs']} of 20a's journal")
+    p = view("profile", ["profile", fr])
+    if p["compiled_functions"] or not (p["device"] or {}).get("profiles"):
+        fail(f"22d profile: compiled_functions {p['compiled_functions']}, "
+             f"device {p['device']}: expected none and 20a's profile")
+    t = view("trace", ["trace", fr])
+    rows = int8_rows(t["profiles"][0]) if t["profiles"] else []
+    if not rows:
+        fail(f"22d trace: no #4 kernel in 20a's device profile "
+             f"{t['profiles'][:1]}")
+    top = view("top", ["top", slo, "--once"])
+    if top["mode"] != "serving" or top["slo"]["alerts_total"] != 1:
+        fail(f"22d top: mode {top['mode']}, slo {top['slo']}: expected "
+             "21d's one p99 alert")
+    fleet = view("top fleet", ["top", drift, slo, "--once"])["fleet"]
+    if fleet["daemons"] != 2 or fleet["down"] != 0:
+        fail(f"22d top over 21d's dirs: {fleet}")
+    dr = view("drift", ["drift", drift])
+    alerts = [md["alerts_total"] for md in dr["models"].values()]
+    if alerts != [1]:
+        fail(f"22d drift: alerts {alerts}, expected 21d's one")
+    tl = view("timeline", ["timeline", slo, "--incident"])
+    if [i["kind"] for i in tl["incidents"]] != ["slo_alert"]:
+        fail(f"22d timeline: incidents {tl['incidents']}")
+    cv = view("chaos-verify", ["chaos-verify", f"{tmp}/cli_sup_killed"])
+    if cv["verdict"] != "PASS":
+        fail(f"22d chaos-verify: {cv}")
+    k = rows[0]
+    say(f"22d views: trace lists #4 ({k['name'][:40]}) {k['calls']} calls, "
+        f"{k['device_us']} us on the card in 20a's window; top: "
+        f"{top['serving']['requests']} requests, p99 "
+        f"{top['serving']['p99_ms']} ms, one p99 alert; drift: one "
+        f"feature_psi alert; timeline: one slo_alert incident, recovery "
+        f"{tl['incidents'][0]['recovery_s']} s; chaos-verify: PASS "
+        f"({cv['injected_total']} injection(s)); seconds "
+        + ", ".join(f"{n} {s:.3f}" for n, s in times.items())
+        + f" [{smi_line}]")
+
+
+def detach_argv(tmp: str, out: str, epochs: int, device) -> list:
+    """8a's train command (its data, the hot cache) into `out`, epochs 0
+    and 1 traced (a window whose device events the profiler lost leaves
+    the other)."""
+    from shifu_tpu_torch.utils import xmlconfig
+    xml = f"{tmp}/cli_detach.xml"
+    xmlconfig.write_configuration_xml({
+        "shifu.application.batch-size": str(TRAIN_BATCH),
+        "shifu.data.wire-dtype": "int8",
+        "shifu.data.device-resident-bytes": "0",
+        "shifu.data.cache-dir": f"{tmp}/cli_cache",
+        "shifu.obs.trace-epochs": "0,1",
+        "shifu.obs.trace-top-k": "64"}, xml)
+    return cli_argv(tmp, f"{tmp}/cli_data", xml, out, device) + [
+        "--epochs", str(epochs)]
+
+
+def process_tree(pid: int) -> list:
+    out, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        out.append(p)
+        try:
+            with open(f"/proc/{p}/task/{p}/children") as f:
+                todo += [int(k) for k in f.read().split()]
+        except OSError:
+            pass
+    return out
+
+
+def job_status(label: str, out: str) -> dict:
+    return json.loads(cli_child(f"{label} status", ["status", out])[0])
+
+
+def detach_phase(tmp: str, device, smi_line: str) -> None:
+    """22e: `train --detach`, `status`, `attach`, `kill` on 8a's job."""
+    from shifu_tpu_torch.launcher import detach
+    from shifu_tpu_torch.obs import render
+
+    out = f"{tmp}/cli_detach"
+    t0 = time.perf_counter()
+    sub, submit_s = cli_child("22e submit",
+                              detach_argv(tmp, out, DETACH_EPOCHS, device)
+                              + ["--detach"])
+    st = job_status("22e", out)
+    if st["state"] != "RUNNING":
+        fail(f"22e: status after submit {st}")
+    _, attach_s = cli_child("22e attach", ["attach", out])
+    to_exit = time.perf_counter() - t0
+    st = job_status("22e", out)
+    if (st["state"], st.get("exit")) != ("FINISHED", 0):
+        fail(f"22e: status after attach {st}")
+    tr = render.trace_summary(out)
+    rows = [k for p in (tr or {}).get("profiles") or [] for k in int8_rows(p)]
+    if not rows or not sum(k["calls"] for k in rows):
+        fail(f"22e: no #4 launch in the detached job's device profile "
+             f"{(tr or {}).get('profiles', [])[:1]}")
+    with open(f"{out}/{detach.LOG_FILE}") as f:
+        log = f.read()
+    say(f"22e detach: submit returned in {submit_s:.3f} s "
+        f"({sub.splitlines()[0]}); status RUNNING; attach followed the "
+        f"board for {attach_s:.3f} s to exit 0; status FINISHED; "
+        f"{to_exit:.3f} s from submit to exit ({DETACH_EPOCHS} epochs of "
+        f"8a's job on the card, the supervised daemon's and its attempt's "
+        f"start-up included); #4 {sum(k['calls'] for k in rows)} calls, "
+        f"{sum(k['device_us'] for k in rows):.3f} us in the traced windows; "
+        f"supervisor.log {len(log)} bytes [{smi_line}]")
+
+    kout = f"{tmp}/cli_detach_kill"
+    plan = {"faults": [{"site": "checkpoint.save", "at_call": 1,
+                        "action": "delay", "delay_s": KILL_SAVE_DELAY_S,
+                        "scope": "job"}]}
+    argv = detach_argv(tmp, kout, KILL_EPOCHS, device)
+    cli_child("22e submit (kill)",
+              argv + ["--detach", "--chaos-plan", json.dumps(plan)])
+    with open(f"{kout}/{detach.JOB_FILE}") as f:
+        pid = json.load(f)["pid"]
+    board = f"{kout}/console.board"
+    deadline = time.monotonic() + COLD_TIMEOUT_S
+    while not (os.path.exists(board) and "Epoch 0:" in open(board).read()):
+        if time.monotonic() > deadline or not detach._alive(pid):
+            fail(f"22e kill: epoch 0 did not end within {COLD_TIMEOUT_S} "
+                 f"s: {job_status('22e kill', kout)}")
+        time.sleep(0.05)
+    tree = process_tree(pid)
+    t0 = time.perf_counter()
+    kill_out, kill_s = cli_child("22e kill", ["kill", kout])
+    while any(detach._alive(p) for p in tree):
+        if time.perf_counter() - t0 > KILL_GRACE_S + 5:
+            fail(f"22e kill: processes {[p for p in tree if detach._alive(p)]}"
+                 f" of the tree alive {KILL_GRACE_S + 5} s after kill")
+        time.sleep(0.02)
+    gone_s = time.perf_counter() - t0
+    st = job_status("22e kill", kout)
+    if gone_s > KILL_GRACE_S or (st["state"], st.get("exit")) != (
+            "FAILED", 143) or "terminated" not in kill_out:
+        fail(f"22e kill: the tree gone after {gone_s:.3f} s (grace "
+             f"{KILL_GRACE_S} s), status {st}, kill said {kill_out!r}")
+    _, resume_s = cli_child("22e resume", argv)
+    recs = journal(f"{kout}/telemetry")
+    resumes = [r["epoch"] for r in recs if r["kind"] == "train_resume"]
+    graces = [r for r in recs if r["kind"] == "preemption_grace"]
+    if not resumes or not graces:
+        fail(f"22e resume: train_resume {resumes}, preemption_grace "
+             f"{graces}")
+    say(f"22e kill: the {len(tree)} processes of its tree (the daemon, its "
+        f"attempt and the attempt's children) gone "
+        f"{gone_s:.3f} s after kill started (`kill` returned in "
+        f"{kill_s:.3f} s; SIGTERM, the drain's save, exit 143; grace "
+        f"{KILL_GRACE_S} s); the plain train on the same --output resumed "
+        f"at epoch {resumes[-1]} and ran to exit 0 in {resume_s:.3f} s "
+        f"[{smi_line}]")
+
+
+def tiering_phase(tmp: str, smi_line: str) -> None:
+    """22f: bench.py's 10M-vocab tiered rung on this machine's host."""
+    from shifu_tpu_torch.embed.tiering import TieredTable
+    from shifu_tpu_torch.obs import render
+    tele = f"{tmp}/tier_obs"
+    configure_obs(tele)
+    # zeros page lazily; the cold store's I/O is content-blind
+    table = np.zeros((1, TIER_VOCAB, TIER_DIM), np.float32)
+    t0 = time.perf_counter()
+    tiered = TieredTable.build(table, f"{tmp}/tier", hot_rows=TIER_HOT,
+                               tier_dtype="int8")
+    build_s = time.perf_counter() - t0
+    del table
+    rng = np.random.default_rng(11)
+    ids = ((rng.zipf(1.1, size=(TIER_STEPS, TIER_BATCH, 1)) - 1)
+           % TIER_VOCAB).astype(np.int32)
+    tiered.lookup(ids[0])  # warm: the page cache and the prefetch dict
+    t0 = time.perf_counter()
+    for s in range(1, TIER_STEPS):
+        got = tiered.lookup(ids[s])
+    dt = time.perf_counter() - t0
+    if got.shape != (TIER_BATCH, 1, TIER_DIM) or np.any(got != 0.0):
+        fail(f"22f tiering: lookup gave {got.shape}, nonzero "
+             f"{int(np.count_nonzero(got))} on an all-zero table")
+    rep = tiered.tier_report()
+    payload = os.path.getsize(f"{tiered.cold_dir}/table.bin")
+    if payload != TIER_VOCAB * TIER_DIM or not 0 < rep["hit_rate"] < 1:
+        fail(f"22f tiering: payload {payload} bytes, hit rate "
+             f"{rep['hit_rate']}")
+    from shifu_tpu_torch import obs
+    obs.flush()
+    prof = render.profile_summary(tele)
+    if (prof["embed"] or {}).get("tier", {}).get("hit_rate") != \
+            rep["hit_rate"]:
+        fail(f"22f tiering: profile's embed rollup {prof['embed']}")
+    say(f"22f tiering: {TIER_VOCAB} x {TIER_DIM} int8 cold store "
+        f"({payload / 2 ** 20:.1f} MiB) and {TIER_HOT} hot rows built in "
+        f"{build_s:.3f} s; {(TIER_STEPS - 1) * TIER_BATCH / dt:.1f} rows/s "
+        f"over {TIER_STEPS - 1} zipf(1.1) batches of {TIER_BATCH}; hit rate "
+        f"{rep['hit_rate']}; cold {rep['cold_bytes'] / 2 ** 20:.2f} MiB in "
+        f"{rep['cold_seconds']:.3f} s of host reads (this machine's host, "
+        f"{len(os.sched_getaffinity(0))} CPUs) [{smi_line}]")
+
+
+def operator_phases(device, tmp: str, smi_line: str) -> None:
+    views_phase(tmp, smi_line)
+    lap("22d views")
+    detach_phase(tmp, device, smi_line)
+    lap("22e detach")
+    tiering_phase(tmp, smi_line)
+    lap("22f tiering")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4823,6 +5111,8 @@ def main() -> None:
         serving_plane_phases(device, tmp, smi_line)
         # phases 22a to 22c: the scoring tiers, cold start, the commands
         artifact_tier_phases(device, tmp, smi_line)
+        # phases 22d to 22f: the views, detached jobs, tiering
+        operator_phases(device, tmp, smi_line)
 
     missing = [kr["name"] for kr in kernels if not kr.get("launches")]
     if missing:

@@ -17,7 +17,9 @@ the native C++ parser, the parse-once cache and out-of-core ingest; every
 scoring tier of an artifact (`runtime/serve.load_engine`: torch, the
 `torch.export` program, the AOT pack, the numpy op list and the native C++
 scorer) and the commands `score`, `eval`, `export`, `serve` and
-`loadtest`.  Nine hand-written CUDA kernels for Hopper, in eight sources
+`loadtest`; the operator's views (`metrics`, `profile`, `trace`, `top`,
+`drift`, `timeline`, `chaos-verify`) and detached jobs (`train --detach`,
+`status`, `attach`, `kill`); the frequency-tiered embedding table.  Nine hand-written CUDA kernels for Hopper, in eight sources
 under `csrc/`, replace the JAX package's TPU kernels; each has a plain
 PyTorch twin in its wrapper module that serves CPU tensors only, and the
 scoring path's forwards are `shifu_tpu_torch::` operators.

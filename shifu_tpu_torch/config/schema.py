@@ -567,8 +567,8 @@ class ObsConfig:
 class EmbedConfig:
     """The JAX package's sparse-embedding engine knobs.  The port reads
     `dedup` ("off" turns the per-batch id compaction off); the tiering
-    fields are carried so a JAX job dict parses (tiering is ROADMAP.md
-    queue A item (e)6)."""
+    fields are validated as the JAX package validates them and, as there,
+    read by no loop: `embed/tiering.TieredTable` is built by its caller."""
 
     dedup: str = "auto"
     tiering: str = "off"

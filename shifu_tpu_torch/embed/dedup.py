@@ -8,8 +8,12 @@ once.  The unique array is padded with the sentinel id V (one past the last
 row) up to the batch size, so its shape is the same for every batch; the
 update skips the sentinel.
 
-There is no journal in the port: the counts stay on the transform's
-`dedup_state` (batches, unique rows touched, raw id cells).
+The transform counts batches, unique rows touched and raw id cells
+(`dedup_state`) and journals them as `embed_dedup_report` (with the gauge
+`embed_dedup_ratio`) every `report_every` batches; the train loop calls
+`transform.finalize()` at its teardown for the tail report, as the JAX
+loop does.  With a `TieredTable` (embed/tiering.py) the transform kicks
+its prefetch of the batch's unique ids.
 """
 
 from __future__ import annotations
@@ -65,12 +69,14 @@ def dedup_ids(ids: np.ndarray, sentinel: int,
     return unique, inverse, counts
 
 
-def attach_dedup(layout, sentinel: int) -> Callable[[dict], dict]:
+def attach_dedup(layout, sentinel: int, *, report_every: int = 256,
+                 tiered=None) -> Callable[[dict], dict]:
     """Host-side batch transform: adds UNIQUE_KEY and INVERSE_KEY to each
     batch dict that holds a (B, F) 'features' matrix (others pass
     unchanged).  It reads the f32 features, so it runs before the wire
-    cast.  `transform.dedup_state` counts batches, unique rows and raw id
-    cells."""
+    cast.  Journals `embed_dedup_report` every `report_every` batches;
+    `transform.finalize()` flushes the tail.  A `tiered` table's prefetch
+    of the batch's unique ids is kicked here, off the step."""
     state = {"batches": 0, "unique": 0, "cells": 0}
 
     def transform(batch: dict) -> dict:
@@ -79,16 +85,41 @@ def attach_dedup(layout, sentinel: int) -> Callable[[dict], dict]:
             return batch
         ids = host_ids(feats, layout)
         unique, inverse, counts = dedup_ids(ids, sentinel)
+        if tiered is not None:
+            tiered.prefetch(unique)
         out = dict(batch)
         out[UNIQUE_KEY] = unique
         out[INVERSE_KEY] = inverse
         state["batches"] += 1
         state["unique"] += int(counts.sum())
         state["cells"] += int(ids.size)
+        if state["batches"] % report_every == 0:
+            _report(state)
         return out
 
+    def finalize() -> None:
+        """The tail report: a run of fewer than `report_every` batches
+        (most jobs' last window) would otherwise journal none."""
+        if state["batches"] and state["batches"] % report_every != 0:
+            _report(state)
+
     transform.dedup_state = state
+    transform.finalize = finalize
     return transform
+
+
+def _report(state: dict) -> None:
+    from .. import obs
+    cells = max(state["cells"], 1)
+    obs.event("embed_dedup_report",
+              batches=state["batches"],
+              rows_touched=state["unique"],
+              raw_cells=state["cells"],
+              dedup_ratio=round(state["unique"] / cells, 4))
+    obs.gauge("embed_dedup_ratio",
+              "touched unique rows / raw id cells (lower = more "
+              "duplicate-heavy batches, bigger sparse-update win)"
+              ).set(state["unique"] / cells)
 
 
 def dedup_lookup(table: torch.Tensor, unique: torch.Tensor,

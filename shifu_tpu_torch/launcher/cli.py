@@ -19,6 +19,11 @@ Usage:
     python -m shifu_tpu_torch.launcher.cli serve ART [--port 0] [--engine ...]
     python -m shifu_tpu_torch.launcher.cli loadtest (--model ART |
         --connect HOST:PORT) [--rate R] [--duration S] [--json]
+    python -m shifu_tpu_torch.launcher.cli metrics|profile|trace|drift|
+        timeline|chaos-verify JOB [--json] [...]
+    python -m shifu_tpu_torch.launcher.cli top DIR [DIR ...] [--once]
+    python -m shifu_tpu_torch.launcher.cli train ... --detach
+    python -m shifu_tpu_torch.launcher.cli status|attach|kill JOB
 
 Each command that scores takes `--device` (default `cuda:0`; the torch
 tiers raise where CUDA is absent unless `--device cpu`; the numpy and
@@ -48,11 +53,19 @@ The export sequence (`_export_and_pack`, shared by the train tail and the
 where `shifu.serving.aot-pack` (or `export --aot-pack`) asks, and then
 `model.bin` for the native engine, best-effort, as in JAX.
 
+The operator's views (`metrics`, `profile`, `trace`, `top`, `drift`,
+`timeline`, `chaos-verify`) render the journals and scrape files a job or
+a daemon wrote (obs/render.py, obs/timeline.py, obs/aggregate.py), and
+the job commands (`status`, `attach`, `kill`) drive a `train --detach` job
+from its directory (launcher/detach.py).  Like the JAX package's, which
+never import jax, they import no torch and touch no card: each is safe to
+point at a live job from any machine that can read its dir.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
 item: `--hosts` and `--num-processes` > 1 (multi-host, queue A item (f)),
-`--detach` (e)5, a mesh of more than one device (f), `serve
---heartbeat-s` (the fleet lease, (e)7), and the JAX CLI's other commands
-(`_NOT_PORTED_COMMANDS`).
+a mesh of more than one device (f), `serve --heartbeat-s` (the fleet
+lease, (e)7), `kill --force` (the provision marker, (f)), and the JAX
+CLI's other commands (`_NOT_PORTED_COMMANDS`).
 """
 
 from __future__ import annotations
@@ -114,8 +127,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--max-restarts", type=int, default=-1,
                    help="supervisor restart budget (-1 = from config)")
     t.add_argument("--detach", action="store_true",
-                   help="submit and return (not ported yet: ROADMAP.md "
-                        "queue A item (e)5)")
+                   help="submit as a detached daemon (supervised) and "
+                        "return; drive it with status/attach/kill")
     t.add_argument("--chaos-plan", default=None,
                    help="declarative fault-injection plan: inline JSON or a "
                         "path to a JSON file (schema in shifu_tpu_torch/"
@@ -134,6 +147,126 @@ def build_parser() -> argparse.ArgumentParser:
                          "entries whose source changed or vanished")
     ch.add_argument("--json", action="store_true",
                     help="machine-readable entry list instead of text")
+
+    st = sub.add_parser("status", help="report a detached job's state "
+                                       "(RUNNING/FINISHED/FAILED + last "
+                                       "progress line + telemetry summary) "
+                                       "from its job dir")
+    st.add_argument("job_dir")
+    mt = sub.add_parser(
+        "metrics", help="render a job's telemetry — run journal + "
+                        "Prometheus scrape file — for a running or "
+                        "finished job")
+    mt.add_argument("job_dir",
+                    help="job dir, telemetry dir, or journal.jsonl path "
+                         "(local or gs:// hdfs:// URI)")
+    mt.add_argument("--json", action="store_true",
+                    help="machine-readable summary dict instead of text")
+    mt.add_argument("--follow", action="store_true",
+                    help="stream journal events as JSONL until ^C "
+                         "(tail_board for the structured stream)")
+    pf = sub.add_parser(
+        "profile", help="render a job's goodput ledger: per-epoch wall-time "
+                        "buckets (compile/input/step/checkpoint/restore/"
+                        "eval/other), MFU, the flight recorder's top "
+                        "kernels, and the recovery tax")
+    pf.add_argument("job_dir",
+                    help="job dir, telemetry dir, or journal.jsonl path "
+                         "(local or gs:// hdfs:// URI)")
+    pf.add_argument("--json", action="store_true",
+                    help="machine-readable profile dict instead of text")
+    tr = sub.add_parser(
+        "trace", help="render a job's device flight recorder: per-kernel "
+                      "device-time rollups from the captured trace "
+                      "windows (compute- vs HBM-bound), the anomaly log "
+                      "with its per-chunk ring, and HBM watermarks")
+    tr.add_argument("job_dir",
+                    help="job dir, telemetry dir, or journal.jsonl path "
+                         "(local or gs:// hdfs:// URI)")
+    tr.add_argument("--json", action="store_true",
+                    help="machine-readable trace dict instead of text")
+    tp = sub.add_parser(
+        "top", help="live streaming view of a job or serving daemon — "
+                    "rate/p50/p99, queue depth, lifecycle stage breakdown "
+                    "(queue/coalesce/dispatch/device), active SLO alerts; "
+                    "pass several dirs for a multi-daemon fleet rollup "
+                    "(journal/scrape tail only — no torch import)")
+    tp.add_argument("job_dirs", nargs="+",
+                    help="job dir(s), telemetry dir(s), or journal.jsonl "
+                         "path(s) — N dirs render the fleet rollup "
+                         "(obs/aggregate.serving_rollup)")
+    tp.add_argument("--once", action="store_true",
+                    help="render one frame and exit (scripting / CI)")
+    tp.add_argument("--json", action="store_true",
+                    help="machine-readable frame(s): one JSON dict per "
+                         "frame (JSONL when streaming)")
+    tp.add_argument("--interval", type=float, default=2.0,
+                    help="refresh seconds for the streaming view "
+                         "(default 2)")
+    tp.add_argument("--stale-after", type=float, default=None,
+                    help="mark a daemon DOWN when its freshest signal "
+                         "(fleet lease or journal tail) is older than "
+                         "this many seconds (default: each member's own "
+                         "lease ttl when present, else never)")
+    cv = sub.add_parser(
+        "chaos-verify", help="audit a finished chaos drill: replay the "
+                             "recorded plan against the run journal and "
+                             "report injected-vs-recovered counts")
+    cv.add_argument("job_dir", help="job dir (or telemetry dir / journal "
+                                    "path) of the finished run")
+    cv.add_argument("--plan", default=None,
+                    help="chaos plan to check against (inline JSON or "
+                         "path); default: <job_dir>/chaos_plan.json")
+    cv.add_argument("--json", action="store_true",
+                    help="machine-readable report dict instead of text")
+    at = sub.add_parser("attach", help="follow a detached job's console "
+                                       "board until it ends; exits with "
+                                       "the job's code")
+    at.add_argument("job_dir")
+    at.add_argument("--tail", action="store_true",
+                    help="start from the board's current end, not the top")
+    kl = sub.add_parser("kill", help="terminate a detached job's whole "
+                                     "process tree (SIGTERM drain, then "
+                                     "SIGKILL)")
+    kl.add_argument("job_dir")
+    kl.add_argument("--force", action="store_true",
+                    help="release a provisioned slice (not ported yet: "
+                         "ROADMAP.md queue A item (f))")
+    dr = sub.add_parser(
+        "drift", help="model-quality / data-drift panel for a serving "
+                      "daemon: per-feature PSI vs the frozen baseline "
+                      "profile, score-distribution divergence, live AUC "
+                      "decay from labeled feedback, and firing drift "
+                      "alerts (journal tail only — no torch import)")
+    dr.add_argument("job_dir",
+                    help="serving job dir, telemetry dir, or "
+                         "journal.jsonl path (train dirs render the "
+                         "journaled baseline-profile summary)")
+    dr.add_argument("--json", action="store_true",
+                    help="machine-readable drift dict instead of text")
+    dr.add_argument("--model", default=None,
+                    help="restrict to one model_id (default: all)")
+    dr.add_argument("--feature", default=None,
+                    help="restrict the PSI table to one named feature")
+    tl = sub.add_parser(
+        "timeline", help="skew-corrected causal timeline: merge every "
+                         "member's journal into one ordered event "
+                         "stream, stitch incidents (failover / SLO / "
+                         "degraded-swap episodes) and show sampled "
+                         "request traces end to end")
+    tl.add_argument("job_dir", help="telemetry/job dir (member journals "
+                                    "are discovered one level below)")
+    tl.add_argument("--json", action="store_true",
+                    help="machine-readable summary on stdout")
+    tl.add_argument("--trace-id", default=None,
+                    help="show one trace: its router hop spans and "
+                         "per-member stage decompositions")
+    tl.add_argument("--incident", action="store_true",
+                    help="incident records only (root event, causal "
+                         "chain, affected traces, recovery)")
+    tl.add_argument("--no-skew-correct", action="store_true",
+                    help="merge on raw per-host timestamps (skip the "
+                         "heartbeat-derived clock-offset correction)")
 
     s = sub.add_parser("score", help="score rows with an exported artifact")
     s.add_argument("--model", required=True, help="artifact dir")
@@ -301,9 +434,7 @@ def _add_device_flag(p, what: str = "device the torch tiers score on"
 
 # the JAX CLI's commands that the port has not yet, by ROADMAP.md item
 _NOT_PORTED_COMMANDS = {
-    **dict.fromkeys(("metrics", "status", "attach", "kill", "profile",
-                     "trace", "top", "drift", "chaos-verify"), "(e)5"),
-    **dict.fromkeys(("fleet", "fleet-verify", "timeline"), "(e)7"),
+    **dict.fromkeys(("fleet", "fleet-verify"), "(e)7"),
     **dict.fromkeys(("provision", "pod-verify", "data-dryrun"), "(f)"),
 }
 
@@ -456,8 +587,6 @@ def _check_ported(args) -> None:
         raise _not_ported("--hosts (pod-scale launch)", "(f)")
     if args.num_processes > 1:
         raise _not_ported("--num-processes > 1", "(f)")
-    if args.detach:
-        raise _not_ported("--detach", "(e)5")
     if args.devices > 1:
         raise _not_ported("--devices > 1 (the port trains on one device)",
                           "(f)")
@@ -476,6 +605,18 @@ def run_train(args) -> int:
     if rc_chaos != EXIT_OK:
         return rc_chaos
     _check_ported(args)
+
+    # --detach: re-launch this dispatcher as a supervised session-leader
+    # daemon and return; the daemon is a fresh process, so it holds no
+    # CUDA context of this one, and trains on the parent's --device
+    from . import detach as detach_lib
+    if args.detach and detach_lib.ENV_DETACHED not in os.environ:
+        out_dir = _resolve_out_dir(args)
+        args.output = out_dir
+        child = _child_train_args(args, out_dir) + ["--supervise"]
+        if args.max_restarts >= 0:
+            child += ["--max-restarts", str(args.max_restarts)]
+        return detach_lib.submit(child, out_dir)
 
     from ..device import resolve_device
     dev = resolve_device(args.device)  # raises where CUDA is absent
@@ -1086,6 +1227,247 @@ def run_loadtest(args) -> int:
         or report.get("capacity_scores_per_sec") else EXIT_FAIL
 
 
+# -- the operator's views: journal and scrape reads, no torch import ---------
+
+_NO_JOURNAL_HINT = ("(expected <job_dir>/telemetry/journal.jsonl — run with "
+                    "SHIFU_TPU_METRICS_DIR or a CLI train job)")
+
+
+def _render_view(name: str, args, summarize, render) -> int:
+    """One view: `summarize(args.job_dir)` printed as JSON (--json) or as
+    `render`'s text; exit 1 where no journal resolves."""
+    try:
+        summary = summarize(args.job_dir)
+    except Exception as e:  # noqa: BLE001 — a view reports, never raises
+        print(f"{name}: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    if summary is None:
+        print(f"no telemetry journal found under {args.job_dir} "
+              f"{_NO_JOURNAL_HINT}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    print(json.dumps(summary) if args.json else render(summary))
+    return EXIT_OK
+
+
+def run_metrics(args) -> int:
+    """`metrics <dir>`: the run journal and the registry scrape of a
+    running or finished job (--follow streams the journal as JSONL)."""
+    from ..obs import journal as journal_mod
+    from ..obs import render as obs_render
+
+    if args.follow:
+        jpath = obs_render.find_journal(args.job_dir)
+        if jpath is None:
+            print(f"no telemetry journal found under {args.job_dir}",
+                  file=sys.stderr, flush=True)
+            return EXIT_FAIL
+        try:
+            for rec in journal_mod.tail_journal(jpath):
+                print(json.dumps(rec), flush=True)
+        except KeyboardInterrupt:
+            pass
+        return EXIT_OK
+    return _render_view("metrics", args, obs_render.summarize,
+                        obs_render.render_text)
+
+
+def run_profile(args) -> int:
+    """`profile <dir>`: where the wall time went, epoch by epoch, from the
+    `goodput` events, with the flight recorder's top kernels."""
+    from ..obs import render as obs_render
+    return _render_view("profile", args, obs_render.profile_summary,
+                        obs_render.render_profile_text)
+
+
+def run_trace(args) -> int:
+    """`trace <dir>`: the device flight recorder: which kernels own the
+    device time, the anomaly log, the HBM watermarks (obs/devprof.py's
+    `device_profile` / `anomaly` / `hbm_watermark` events)."""
+    from ..obs import render as obs_render
+    return _render_view("trace", args, obs_render.trace_summary,
+                        obs_render.render_trace_text)
+
+
+def run_drift(args) -> int:
+    """`drift <dir>`: per-feature PSI against the frozen baseline, the
+    score divergence and the live AUC from labelled feedback."""
+    from ..obs import render as obs_render
+
+    def summarize(path):
+        return obs_render.drift_summary(path, model=args.model,
+                                        feature=args.feature)
+    return _render_view("drift", args, summarize,
+                        obs_render.render_drift_text)
+
+
+def run_top(args) -> int:
+    """`top <dir> [...]`: the live view of a serving daemon (rate, p50,
+    p99, queue depth, the lifecycle stages, the SLO alerts) or of a train
+    job (epoch progress, goodput, the embedding tier); several dirs render
+    the fleet rollup.  A frame every --interval seconds until ^C, one with
+    --once."""
+    from ..obs import aggregate as obs_aggregate
+    from ..obs import render as obs_render
+
+    def frame() -> tuple:
+        if len(args.job_dirs) > 1:
+            rollup = obs_aggregate.serving_rollup(
+                args.job_dirs, stale_after_s=args.stale_after)
+            return rollup, obs_render.render_top_fleet_text(rollup)
+        summary = obs_render.top_summary(args.job_dirs[0],
+                                         stale_after_s=args.stale_after)
+        if summary is None:
+            return None, None
+        return summary, obs_render.render_top_text(summary)
+
+    try:
+        while True:
+            data, text = frame()
+            if data is None:
+                print(f"no telemetry journal found under "
+                      f"{args.job_dirs[0]} (expected <dir>/telemetry/"
+                      f"journal.jsonl — a `serve`/train job writes one)",
+                      file=sys.stderr, flush=True)
+                return EXIT_FAIL
+            if args.json:
+                print(json.dumps(data), flush=True)
+            else:
+                if not args.once:
+                    print("\x1b[2J\x1b[H", end="")  # a frame, not a log
+                print(text, flush=True)
+            if args.once:
+                return EXIT_OK
+            time.sleep(max(args.interval, 0.1))
+    except KeyboardInterrupt:
+        return EXIT_OK
+
+
+def run_timeline(args) -> int:
+    """`timeline <dir>`: the merged, skew-corrected journals, the incident
+    records and the sampled request traces (obs/timeline.py)."""
+    from ..obs import timeline as timeline_mod
+
+    summary = timeline_mod.timeline_summary(
+        args.job_dir, trace_id=args.trace_id,
+        incidents_only=args.incident,
+        skew_correct=not args.no_skew_correct)
+    if summary is None:
+        print(f"no telemetry journal found under {args.job_dir}",
+              file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    print(json.dumps(summary) if args.json
+          else timeline_mod.render_timeline_text(summary))
+    return EXIT_OK
+
+
+# the journal events that count as recovery in a chaos drill's audit
+_RECOVERY_KINDS = ("supervisor_restart", "supervisor_done",
+                   "checkpoint_fallback", "checkpoint_fallback_resolved",
+                   "train_resume", "preemption_grace",
+                   "supervisor_liveness_kill", "chaos_corrupt")
+
+
+def run_chaos_verify(args) -> int:
+    """`chaos-verify <job_dir>`: replay the recorded plan (default: the
+    `chaos_plan.json` the launcher keeps beside the job) against the run
+    journal.  Exit 0 (PASS) when the run completed (a `supervisor_done`,
+    or a last `run_end` with exit 0) and every planned site injected at
+    least once; else 1 (SILENT_SITES, or INCOMPLETE)."""
+    import fnmatch
+
+    from .. import chaos
+    from ..obs import journal as journal_mod
+    from ..obs import render as obs_render
+
+    jpath = obs_render.find_journal(args.job_dir)
+    if jpath is None:
+        print(f"no telemetry journal found under {args.job_dir}",
+              file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    events = journal_mod.read_journal(jpath)
+    plan = None
+    plan_src = args.plan
+    if not plan_src:
+        cand = fsio.join(args.job_dir, "chaos_plan.json")
+        if os.path.exists(cand) or (fsio.is_remote(cand)
+                                    and obs_render._exists(cand)):
+            plan_src = cand
+    if plan_src:
+        try:
+            plan = chaos.load_plan(plan_src)
+        except chaos.ChaosPlanError as e:
+            print(f"chaos plan: {e}", file=sys.stderr, flush=True)
+            return EXIT_FAIL
+
+    injected: dict[str, int] = {}
+    recovered: dict[str, int] = {}
+    run_exits: list[int] = []
+    for rec in events:
+        kind = rec.get("kind")
+        if kind == "chaos_inject":
+            site = str(rec.get("site", "?"))
+            injected[site] = injected.get(site, 0) + 1
+        elif kind in _RECOVERY_KINDS:
+            recovered[kind] = recovered.get(kind, 0) + 1
+        elif kind == "run_end":
+            try:
+                run_exits.append(int(rec.get("exit")))
+            except (TypeError, ValueError):
+                pass
+    planned_sites = sorted({f.site for f in plan.faults}) if plan else []
+    # a glob site ("fsio.*") fired when any injected site matches it
+    silent = [s for s in planned_sites
+              if not any(i == s or fnmatch.fnmatchcase(i, s)
+                         for i in injected)]
+    completed = (recovered.get("supervisor_done", 0) > 0
+                 or (run_exits and run_exits[-1] == 0))
+    report = {
+        "journal": jpath,
+        "plan": plan_src,
+        "planned_sites": planned_sites,
+        "injected": dict(sorted(injected.items())),
+        "injected_total": sum(injected.values()),
+        "silent_sites": silent,
+        "recovered": dict(sorted(recovered.items())),
+        "final_run_exit": run_exits[-1] if run_exits else None,
+        "completed": bool(completed),
+        "verdict": ("PASS" if completed and not silent
+                    else "INCOMPLETE" if not completed else "SILENT_SITES"),
+    }
+    if args.json:
+        print(json.dumps(report))
+    else:
+        print(f"chaos-verify: {report['verdict']} — "
+              f"{report['injected_total']} injection(s) across "
+              f"{len(injected)} site(s), final exit "
+              f"{report['final_run_exit']}")
+        if planned_sites:
+            print(f"  planned sites: {', '.join(planned_sites)}")
+        for site, n in sorted(injected.items()):
+            print(f"  injected  {site}: {n}")
+        for kind, n in sorted(recovered.items()):
+            print(f"  recovered {kind}: {n}")
+        if silent:
+            print(f"  NEVER FIRED: {', '.join(silent)} (trigger never "
+                  "matched — check at_call/at_epoch/rank against the run)")
+    return EXIT_OK if report["verdict"] == "PASS" else EXIT_FAIL
+
+
+def run_status(args) -> int:
+    from . import detach as detach_lib
+    return detach_lib.run_status(args.job_dir)
+
+
+def run_attach(args) -> int:
+    from . import detach as detach_lib
+    return detach_lib.attach(args.job_dir, from_start=not args.tail)
+
+
+def run_kill(args) -> int:
+    from . import detach as detach_lib
+    return detach_lib.kill(args.job_dir, force=args.force)
+
+
 def _arm_pdeathsig() -> None:
     """A supervised child dies with its supervisor.
 
@@ -1123,7 +1505,11 @@ def _arm_pdeathsig() -> None:
 
 _COMMANDS = {"train": run_train, "cache": run_cache, "score": run_score,
              "eval": run_eval, "export": run_export, "serve": run_serve,
-             "loadtest": run_loadtest}
+             "loadtest": run_loadtest, "metrics": run_metrics,
+             "profile": run_profile, "trace": run_trace, "top": run_top,
+             "drift": run_drift, "timeline": run_timeline,
+             "chaos-verify": run_chaos_verify, "status": run_status,
+             "attach": run_attach, "kill": run_kill}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -1133,7 +1519,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         raise _not_ported(f"the {argv[0]!r} command",
                           _NOT_PORTED_COMMANDS[argv[0]])
     args = build_parser().parse_args(argv)
-    return _COMMANDS[args.command](args)
+    if args.command != "train":
+        return _COMMANDS[args.command](args)
+    # the daemonized dispatcher of a `train --detach` records the job's
+    # end for `status`, also when the run unwinds through SystemExit
+    from . import detach as detach_lib
+    detached_dir = os.environ.get(detach_lib.ENV_DETACHED)
+
+    def record(rc: int) -> None:
+        if detached_dir and not args.detach:
+            detach_lib.write_status(detached_dir, rc)
+
+    try:
+        rc = run_train(args)
+    except SystemExit as e:
+        record(e.code if isinstance(e.code, int) else 1)
+        raise
+    record(rc)
+    return rc
 
 
 if __name__ == "__main__":

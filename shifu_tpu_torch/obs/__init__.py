@@ -9,8 +9,11 @@ trace context (`tracing`), with the process-global sinks of `_sinks`.
 Until `configure(metrics_dir)` (or SHIFU_TPU_METRICS_DIR through
 `configure_from_env`) the registry still collects in memory and `event()`
 is a no-op, so instrumented call sites never need to know whether
-telemetry is on.  The cross-host aggregation and the renderers wait for
-later slices (ROADMAP.md queue A).
+telemetry is on.  The operator's views read what these write: `render`
+(`metrics`, `profile`, `trace`, `top`, `drift`), `timeline` and
+`aggregate` (the single-process parts; the cross-host gather waits for
+ROADMAP.md queue A item (f)); they are imported by the commands that use
+them, and import no torch.
 """
 
 from __future__ import annotations

@@ -982,6 +982,9 @@ def train(job: JobConfig,
         if feeder is not None:
             # however the loop exits: abort the feeder, drop its run-ahead
             feeder.close()
+        if dedup is not None:
+            # the tail embed_dedup_report, however the loop exits
+            dedup.finalize()
         if pending_thread is not None:
             # a short courtesy join only: nobody will use an unconsumed
             # background assembly, and the preemption grace is short

@@ -235,10 +235,7 @@ def test_loadtest_in_process_and_its_text_report(job, capsys):
 
 
 @pytest.mark.parametrize("command,item", [
-    ("metrics", "(e)5"), ("status", "(e)5"), ("attach", "(e)5"),
-    ("kill", "(e)5"), ("profile", "(e)5"), ("trace", "(e)5"),
-    ("top", "(e)5"), ("drift", "(e)5"), ("chaos-verify", "(e)5"),
-    ("fleet", "(e)7"), ("fleet-verify", "(e)7"), ("timeline", "(e)7"),
+    ("fleet", "(e)7"), ("fleet-verify", "(e)7"),
     ("provision", "(f)"), ("pod-verify", "(f)"), ("data-dryrun", "(f)"),
 ])
 def test_the_other_jax_commands_raise_naming_their_item(command, item):

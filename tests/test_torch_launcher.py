@@ -212,7 +212,7 @@ def test_the_default_device_is_the_card(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--hosts", "local:2"], r"\(f\)"),
     (["--num-processes", "2"], r"\(f\)"),
-    (["--detach"], r"\(e\)5"),
+    (["--detach", "--num-processes", "2"], r"\(f\)"),
     (["--devices", "4"], r"\(f\)"),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
