@@ -302,6 +302,36 @@ stderr, and no result line is printed):
                cold store, zipf(1.1) ids, batch 4096, 24 steps): build
                seconds, rows/s, hit rate, cold MB; `profile` renders its
                tier report.
+22g. fleet   — phase 4's fused FT artifact on a `FleetManager` on the card
+               (3 in-process members and 1 standby on local:2, heartbeat
+               0.5 s x 3) behind `RouterServer`: the socket loadtest at 400
+               rows/s from 16 senders for 8 s in a spawned process; the
+               member the key k0 routes to killed 3 s after the router's
+               first routed score, then, once the standby pool is
+               refilled, the member all of the wire's traffic routes to
+               (key "default") 5 s after it or later, while the loadtest
+               still runs; 0
+               errors, the router's hedge taken, one fleet_failover per
+               kill, each promoting a standby on the other host; achieved
+               rows/s, exact p50/p99, the seconds from each kill to
+               fleet_failover and to the promoted member's first answer;
+               #1 3 x and #5 once per dispatched batch and warm-up call, no
+               other kernel.  Then `swap_fleet` to the unfused artifact:
+               past the barrier 4096 probe rows through the router launch
+               #2 and not #1 and are within SERVE_ATOL of the CPU scorer.
+               `fleet-verify` (PASS), `timeline --incident` (the failover)
+               and `top --once` over the member dirs (one DOWN) as CLI
+               children.
+22h. fleet command — `python -m shifu_tpu_torch.launcher.cli fleet` with
+               `--member-mode process` (2 `serve` children and 1 standby
+               child on the card, ports from a free base in the XML):
+               each child's lease, and its STATS over the wire naming
+               the card and its #1 and #5 launches; `loadtest
+               --connect` for 3 s with 0 errors; one child's tree SIGKILLed
+               and failed over; SIGTERM: exit 0 and every process gone
+               within 10 s; `fleet-verify` PASS.  Prints the seconds from
+               spawn to the first routed answer and from the kill to
+               fleet_failover.
 23. a JSON line {"kernels": [...]} with each kernel's launches on its
    training path (FT fused for #1, FT unfused for #2 and #3, the headline
    MLP for #4, DeepFM for #5 and #6, FT flash for #7 and #8), its error
@@ -1793,21 +1823,8 @@ def synthetic_datasets(schema, n_train: int, n_valid: int, seed: int):
 
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
-    from shifu_tpu_torch.ops import flash_attention as fa
-    from shifu_tpu_torch.ops.embedding import (embedding_lookup,
-                                               fused_rows_update)
-    from shifu_tpu_torch.ops.ft_block import fused_transformer_block
-    from shifu_tpu_torch.ops.int8_matmul import int8_matmul_dequant
-    from shifu_tpu_torch.ops.small_attention import (small_attention_bwd,
-                                                     small_token_attention)
-    return {"ft_block": fused_transformer_block,
-            "small_attention": small_token_attention,
-            "small_attention_bwd": small_attention_bwd,
-            "int8_matmul": int8_matmul_dequant,
-            "embedding_lookup": embedding_lookup,
-            "rows_update": fused_rows_update,
-            "flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
-            "flash_bwd_dkv": fa.flash_bwd_dkv}
+    from shifu_tpu_torch.ops import launch_counters as counters
+    return counters()
 
 
 def reset_launches() -> None:
@@ -4984,6 +5001,432 @@ def operator_phases(device, tmp: str, smi_line: str) -> None:
     lap("22f tiering")
 
 
+# -- phases 22g and 22h: the serving fleet ------------------------------------
+
+# 22g: 3 members and 1 standby on local:2 behind the router, heartbeat
+# 0.5 s x 3 (a 1.5 s TTL); the socket loadtest at a fixed offered rate, the
+# member key k0 routes to killed FLEET_KILL_AT_S after the router's first
+# routed score, then the member the traffic routes to (RouterServer routes
+# every wire request under the key "default") FLEET_KILL2_AT_S after it or
+# once the standby pool is refilled
+FLEET_DAEMONS, FLEET_STANDBYS, FLEET_HOSTS = 3, 1, "local:2"
+FLEET_HEARTBEAT_S, FLEET_MISSES = 0.5, 3
+FLEET_RATE, FLEET_SENDERS, FLEET_SECONDS = 400.0, 16, 8.0
+FLEET_KILL_AT_S, FLEET_KILL2_AT_S = 3.0, 5.0
+FLEET_KILL_KEY, FLEET_TRAFFIC_KEY = "k0", "default"
+# 22h: the `fleet` command with 2 `serve` children and 1 standby child
+FLEET_CMD_DAEMONS, FLEET_CMD_STANDBYS = 2, 1
+FLEET_CMD_LOAD_RATE, FLEET_CMD_LOAD_SECONDS = 200.0, 3.0
+FLEET_CMD_TIMEOUT_S = 300
+FLEET_STOP_GRACE_S = 10.0
+
+
+def journal_since(path: str, kind: str, t0: float) -> list:
+    return [r for r in journal(path) if r["kind"] == kind
+            and r.get("ts", 0.0) >= t0]
+
+
+def fleet_launch_check(label: str, launches: dict, want5: int,
+                       block: str) -> None:
+    """#5 once a batch, `block` (#1 fused, #2 unfused) 3 x, no other."""
+    layers = ft_serving_spec().num_layers
+    want = {block: layers * want5, "embedding_lookup": want5}
+    if want5 <= 0 or launches != {k: want.get(k, 0) for k in launches}:
+        fail(f"{label}: launches {launches}, expected {want} and no other "
+             "kernel")
+
+
+def free_port_base(n: int) -> int:
+    """A port whose next `n` ports are free (the process-mode members')."""
+    import socket
+    for _ in range(100):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        if base + n >= 65536:
+            continue
+        socks = []
+        try:
+            for p in range(base, base + n):
+                k = socket.socket()
+                socks.append(k)
+                k.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for k in socks:
+                k.close()
+    fail("22h: no free range of member ports")
+
+
+def warm_loadtest_child() -> None:
+    """The loadtest's imports (torch among them) in the spawned child, so
+    that its traffic starts at once when the drill asks for it."""
+    from shifu_tpu_torch.runtime import loadtest  # noqa: F401
+
+
+def fleet_phase(tmp: str, device, smi_line: str) -> None:
+    """22g: FleetManager on the card (3 members, 1 standby, local:2) behind
+    RouterServer; a socket loadtest from a spawned process while the member
+    key k0 routes to and then the member the traffic routes to are killed;
+    then swap_fleet to the unfused artifact; the views as CLI children."""
+    from shifu_tpu_torch import obs
+    from shifu_tpu_torch.config.schema import FleetConfig, ServingConfig
+    from shifu_tpu_torch.export.scorer import TorchScorer
+    from shifu_tpu_torch.runtime import fleet as fleet_mod
+    from shifu_tpu_torch.runtime import serve_wire
+    from shifu_tpu_torch.runtime.router import RouterServer
+
+    fused, unfused = f"{tmp}/fused", f"{tmp}/unfused"
+    tele, root = f"{tmp}/fleet_obs", f"{tmp}/fleet"
+    configure_obs(tele)
+    cfg = FleetConfig(n_daemons=FLEET_DAEMONS, standbys=FLEET_STANDBYS,
+                      hosts=FLEET_HOSTS, heartbeat_every_s=FLEET_HEARTBEAT_S,
+                      heartbeat_misses=FLEET_MISSES)
+    t0 = time.perf_counter()
+    mgr = fleet_mod.FleetManager(
+        fused, fleet=cfg, serving=ServingConfig(report_every_s=0.0),
+        root_dir=root, device=device).start()
+    start_s = time.perf_counter() - t0
+    front = RouterServer(mgr.router, manager=mgr).start()
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    probe_row = make_rows(1, serving_schema(), np.random.default_rng(SEED + 8))
+
+    def primary(key: str):
+        return mgr.members[mgr.router.candidates(key)[0].member_id]
+
+    def standby_off(host_id: str, deadline: float):
+        """A standby on another host than `host_id` (any, for ""), waited
+        for while the pool refills: the one failover promotes first."""
+        while True:
+            with mgr._lock:
+                other = [s for s in mgr.standbys if s.host_id != host_id]
+            if other:
+                return other[0]
+            if time.monotonic() > deadline:
+                fail(f"22g: no standby off {host_id!r}: "
+                     f"{[(s.member_id, s.host_id) for s in mgr.standbys]}")
+            time.sleep(0.005)
+
+    def kill_and_fail_over(victim, t_kill: float) -> float:
+        """Kill `victim`, wait for the manager's failover, then time the
+        promoted standby's first answer: seconds from the kill.  The wait
+        reads the manager's books, not the journal: parsing the journal
+        in a loop would hold the GIL the members and the router share."""
+        with mgr._lock:
+            before, n = set(mgr.members), mgr._failovers
+        victim.kill()
+        deadline = time.monotonic() + 10 * cfg.heartbeat_ttl_s
+        while mgr.summary()["failovers"] <= n:
+            if time.monotonic() > deadline:
+                fail(f"22g: no failover {10 * cfg.heartbeat_ttl_s} s after "
+                     f"the kill of {victim.member_id}")
+            time.sleep(0.005)
+        with mgr._lock:
+            promoted = [mgr.members[i] for i in set(mgr.members) - before]
+        if len(promoted) != 1:
+            fail(f"22g: the failover of {victim.member_id} promoted "
+                 f"{[m.member_id for m in promoted]}")
+        with serve_wire.ServeClient(promoted[0].host, promoted[0].port,
+                                    timeout=30) as c:
+            c.score_rows(probe_row, dtype=serve_wire.DTYPE_F32)
+        return time.time() - t_kill
+
+    try:
+        victim = primary(FLEET_KILL_KEY)
+        victim2 = primary(FLEET_TRAFFIC_KEY)
+        standby = mgr.standbys[0]
+        if victim2 is victim or standby.host_id == victim.host_id:
+            fail(f"22g: {FLEET_KILL_KEY} routes to {victim.member_id}@"
+                 f"{victim.host_id}, {FLEET_TRAFFIC_KEY!r} to "
+                 f"{victim2.member_id}@{victim2.host_id}, the standby is "
+                 f"{standby.member_id}@{standby.host_id}: expected two "
+                 "members and a standby off the first one's host")
+        # the child's start-up, then its imports, off the clock
+        pool.apply(time.sleep, (0,))
+        t0 = time.perf_counter()
+        pool.apply(warm_loadtest_child)
+        import_s = time.perf_counter() - t0
+        reset_launches()
+        t_reset = time.time()
+        routed0 = mgr.router.router_stats()["routed"]
+        load = pool.apply_async(socket_loadtest, (front.port,), dict(
+            rate=FLEET_RATE, duration=FLEET_SECONDS, senders=FLEET_SENDERS,
+            seed=SEED + 7))
+        # the kills are timed from the traffic's first routed score (the
+        # loadtest's STATS probe is routed first), not from the request to
+        # the child: a kill before the traffic starts exercises nothing
+        deadline = time.monotonic() + 120
+        while mgr.router.router_stats()["routed"] < routed0 + 2:
+            if load.ready() or time.monotonic() > deadline:
+                fail(f"22g: the loadtest routed no score "
+                     f"{time.time() - t_reset:.3f} s after it was started: "
+                     f"{mgr.router.router_stats()}")
+            time.sleep(0.005)
+        t_load = time.time()
+        time.sleep(FLEET_KILL_AT_S)
+        t_kill = time.time()
+        answer_s = kill_and_fail_over(victim, t_kill)
+        # the second kill cuts the traffic's own connections: the router
+        # must hedge them to the next member with no error to a sender
+        standby2 = standby_off(victim2.host_id, time.monotonic() + 30)
+        time.sleep(max(0.0, t_load + FLEET_KILL2_AT_S - time.time()))
+        t_kill2 = time.time()
+        if t_kill2 - t_load > FLEET_SECONDS - 1.0 or load.ready():
+            fail(f"22g: the second kill came {t_kill2 - t_load:.3f} s into "
+                 f"the {FLEET_SECONDS:g} s loadtest (ended: {load.ready()})")
+        routed_kill2 = mgr.router.router_stats()["routed"]
+        answer2_s = kill_and_fail_over(victim2, t_kill2)
+        routed_fo2 = mgr.router.router_stats()["routed"]
+        rep = load.get(timeout=FLEET_SECONDS + 300)
+        pool.close()
+        pool.join()
+        # the pool's refill after the second failover warms its rungs on
+        # the card: wait for it, so that its warm-up calls are journaled
+        standby_off("", time.monotonic() + 30)
+        obs.flush()
+        launches = read_launches()
+        routed = mgr.router.router_stats()
+        dirs = mgr.member_dirs()
+        members = ([m for m in mgr.members.values()] + mgr.standbys
+                   + [victim, victim2])
+        dispatched = sum(m.daemon.stats()["batches"]
+                         + m.daemon.stats()["direct_batches"]
+                         for m in members)
+        warm = sum(len(r["buckets"]) for r in
+                   journal_since(tele, "model_prewarm", t_reset))
+        fo = journal_since(tele, "fleet_failover", t_reset)
+        want_fo = [(victim.member_id, standby.member_id),
+                   (victim2.member_id, standby2.member_id)]
+        if [(r["member"], r["standby"]) for r in fo] != want_fo or any(
+                r["standby_host"] == r["host"] for r in fo):
+            fail(f"22g: fleet_failover events {fo}, expected one a kill: "
+                 f"{want_fo}, each standby off its victim's host")
+        if routed["hedges"] < 1 or routed["errors"] != 0:
+            fail(f"22g: the router after killing the traffic's member "
+                 f"{victim2.member_id}: {routed} (expected a hedge and no "
+                 f"error); the traffic started {t_load - t_reset:.3f} s "
+                 f"after the loadtest was, the kill came "
+                 f"{t_kill2 - t_load:.3f} s into it, {routed_fo2 - routed_kill2}"
+                 f" requests routed from the kill to its failover, the "
+                 f"loadtest's reconnects {rep.get('reconnects')}, errors "
+                 f"{rep.get('errors')}")
+        report_load("22g fleet", rep, smi_line)
+        fleet_launch_check("22g fleet", launches, dispatched + warm,
+                           "ft_block")
+        failover_s = fo[0]["ts"] - t_kill
+        failover2_s = fo[1]["ts"] - t_kill2
+
+        # the swap to the unfused artifact; past the barrier, #2 and not #1
+        t0 = time.perf_counter()
+        swap = mgr.swap_fleet(unfused)
+        swap_s = time.perf_counter() - t0
+        if not swap["ok"] or mgr.summary()["generation"] != 1:
+            fail(f"22g swap: {swap}")
+        reset_launches()
+        probe = make_rows(PROBE_ROWS, serving_schema(),
+                          np.random.default_rng(SEED + 42))
+        with serve_wire.ServeClient(front.host, front.port,
+                                    timeout=120) as c:
+            got = c.score_rows(probe, dtype=serve_wire.DTYPE_F32)
+        launches_swap = read_launches()
+        fleet_launch_check("22g after the swap", launches_swap, 1,
+                           "small_attention")
+        want = TorchScorer(unfused, device="cpu").compute_batch(probe)
+        err = float(np.abs(got - want).max()) if got.shape == want.shape \
+            else float("inf")
+        if err > SERVE_ATOL:
+            fail(f"22g swap: {PROBE_ROWS} probe rows through the router vs "
+                 f"the unfused CPU scorer: shape {got.shape}, max |diff| "
+                 f"{err:.3e} > {SERVE_ATOL}")
+
+        # the views, as CLI children, while the fleet still runs
+        obs.flush()
+        views = {}
+        out, views["fleet-verify"] = cli_child(
+            "22g fleet-verify", ["fleet-verify", tele, "--json"])
+        if json.loads(out)["verdict"] != "PASS":
+            fail(f"22g fleet-verify: {out}")
+        out, views["timeline"] = cli_child(
+            "22g timeline", ["timeline", tele, "--incident", "--json"])
+        inc = [i for i in json.loads(out)["incidents"]
+               if i["kind"] == "fleet_failover"]
+        if sorted(i["root"].get("member") for i in inc) != sorted(
+                [victim.member_id, victim2.member_id]):
+            fail(f"22g timeline: failover incidents {inc}")
+        out, views["top"] = cli_child(
+            "22g top", ["top", *dirs, "--once", "--json"])
+        roll = json.loads(out)["fleet"]
+        if roll["down"] != 2 or roll["daemons"] != len(dirs):
+            fail(f"22g top over {len(dirs)} member dirs: {roll}")
+    finally:
+        pool.terminate()
+        front.close()
+        mgr.stop()
+    say(f"22g fleet: {FLEET_DAEMONS} members + {FLEET_STANDBYS} standby on "
+        f"{FLEET_HOSTS} ({device}) up in {start_s:.3f} s; the loadtest "
+        f"through the router: {rep['achieved_scores_per_sec']} rows/s "
+        f"achieved of {FLEET_RATE:g} offered, exact p50 {rep['p50_ms']} ms "
+        f"p99 {rep['p99_ms']} ms, 0 errors, its child's imports "
+        f"{import_s:.3f} s before the clock and its first score routed "
+        f"{t_load - t_reset:.3f} s after it was started; {victim.member_id}@"
+        f"{victim.host_id} ({FLEET_KILL_KEY}'s) killed "
+        f"{t_kill - t_load:.3f} s into the traffic: fleet_failover "
+        f"{failover_s:.3f} s after "
+        f"the kill (TTL {cfg.heartbeat_ttl_s:g} s), {standby.member_id}@"
+        f"{standby.host_id} promoted and answering {answer_s:.3f} s after "
+        f"the kill; {victim2.member_id}@{victim2.host_id} (the traffic's) "
+        f"killed {t_kill2 - t_load:.3f} s into it: fleet_failover "
+        f"{failover2_s:.3f} s after ({routed_fo2 - routed_kill2} routed "
+        f"between), {standby2.member_id}@"
+        f"{standby2.host_id} answering {answer2_s:.3f} s after the kill, "
+        f"the router {routed['routed']} routed, {routed['hedges']} hedged, "
+        f"{routed['errors']} errors; launches {launches} ({dispatched} "
+        f"batches dispatched + {warm} warm-up calls); swap_fleet to the "
+        f"unfused artifact {swap_s:.3f} s to the barrier, then {PROBE_ROWS} "
+        f"probe rows through the router: launches {launches_swap}, max "
+        f"|diff| {err:.3e} vs the CPU scorer (tol {SERVE_ATOL:g}); "
+        f"fleet-verify PASS, timeline two failover incidents, top "
+        f"{roll['down']} of {roll['daemons']} DOWN; seconds "
+        + ", ".join(f"{n} {t:.3f}" for n, t in views.items())
+        + f" [{smi_line}]")
+
+
+def children_on_card(root: str, members: list, device) -> str:
+    """Each `serve` child's own account over the wire (STATS): the device
+    its engine scores on and its process's kernel launches, #1 = 3 x #5
+    from its warm-up and no other kernel (none on the CPU).  Returns what
+    was seen; fails otherwise."""
+    from shifu_tpu_torch.runtime import serve_wire
+    layers = ft_serving_spec().num_layers
+    seen = {}
+    for m in members:
+        start = [r for r in journal(f"{root}/{m}")
+                 if r["kind"] == "serve_start"]
+        with serve_wire.ServeClient("127.0.0.1", start[-1]["port"],
+                                    timeout=60) as c:
+            st = c.stats()
+        got, n5 = st.get("launches"), st.get("launches", {}).get(
+            "embedding_lookup", 0)
+        want = ({"ft_block": layers * n5, "embedding_lookup": n5}
+                if device.type == "cuda" else {})
+        if str(st.get("device")).split(":")[0] != device.type \
+                or got != want or (device.type == "cuda" and n5 <= 0):
+            fail(f"22h: {m} (port {start[-1]['port']}) says device "
+                 f"{st.get('device')}, launches {got}; expected "
+                 f"{device.type} and #1 = {layers} x #5 > 0, no other "
+                 "kernel")
+        seen[m] = f"{st['device']} {got}"
+    return "; ".join(f"{m} on {v}" for m, v in seen.items())
+
+
+def fleet_command_phase(tmp: str, device, smi_line: str) -> None:
+    """22h: the `fleet` command with `serve` children on the card."""
+    import signal
+
+    from shifu_tpu_torch.launcher import detach
+    from shifu_tpu_torch.runtime import fleet as fleet_mod
+    from shifu_tpu_torch.runtime import serve_wire
+    from shifu_tpu_torch.utils import xmlconfig
+
+    root = f"{tmp}/fleet_cmd"
+    xml = f"{tmp}/fleet_cmd.xml"
+    n_children = FLEET_CMD_DAEMONS + FLEET_CMD_STANDBYS
+    xmlconfig.write_configuration_xml({
+        "shifu.fleet.member-port-base": str(free_port_base(n_children + 2)),
+        "shifu.fleet.heartbeat-every-s": str(FLEET_HEARTBEAT_S),
+        "shifu.fleet.heartbeat-misses": str(FLEET_MISSES)}, xml)
+    env = dict(os.environ, SHIFU_TPU_METRICS_DIR=root)
+    argv = [sys.executable, "-m", "shifu_tpu_torch.launcher.cli", "fleet",
+            f"{tmp}/fused", "--member-mode", "process", "--hosts",
+            FLEET_HOSTS, "--n-daemons", str(FLEET_CMD_DAEMONS),
+            "--standbys", str(FLEET_CMD_STANDBYS), "--port", "0",
+            "--root-dir", root, "--globalconfig", xml]
+    if device.type == "cpu":
+        argv += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(
+        __file__)), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    threading.Thread(target=lambda: lines.extend(proc.stdout),
+                     daemon=True).start()
+    try:
+        deadline = time.monotonic() + FLEET_CMD_TIMEOUT_S
+        while not any(ln.startswith("fleet: ") for ln in lines):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                fail(f"22h: the fleet did not start: {''.join(lines)[-3000:]}")
+            time.sleep(0.05)
+        line = [ln for ln in lines if ln.startswith("fleet: ")][0]
+        port = int(line.split(" on ")[1].split()[0].rsplit(":", 1)[1])
+        probe = make_rows(4, serving_schema(), np.random.default_rng(SEED))
+        with serve_wire.ServeClient("127.0.0.1", port, timeout=120) as c:
+            c.score_rows(probe, dtype=serve_wire.DTYPE_F32)
+        first_s = time.perf_counter() - t0
+        members = [f"member-{i}" for i in range(n_children)]
+        leases = {m: fleet_mod.read_lease(f"{root}/{m}") for m in members}
+        if any(v is None for v in leases.values()):
+            fail(f"22h: leases {leases}")
+        on_card = children_on_card(root, members, device)
+        out, load_s = cli_child("22h loadtest", [
+            "loadtest", "--connect", f"127.0.0.1:{port}", "--rate",
+            str(FLEET_CMD_LOAD_RATE), "--duration",
+            str(FLEET_CMD_LOAD_SECONDS), "--senders", "8", "--json"])
+        rep = json.loads(out)
+        report_load("22h fleet command", rep, smi_line)
+        victim = leases["member-0"]["pid"]
+        t_kill = time.time()
+        os.killpg(victim, signal.SIGKILL)
+        deadline = time.monotonic() + 20 * FLEET_HEARTBEAT_S * FLEET_MISSES
+        fo = []
+        while not fo:
+            if time.monotonic() > deadline:
+                fail("22h: no fleet_failover after the kill")
+            time.sleep(0.02)
+            fo = journal_since(root, "fleet_failover", t_kill)
+        failover_s = fo[0]["ts"] - t_kill
+        tree = process_tree(proc.pid)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            fail("22h: the fleet did not exit within 60 s of SIGTERM")
+        while any(detach._alive(p) for p in tree):
+            if time.perf_counter() - t_term > FLEET_STOP_GRACE_S:
+                fail(f"22h: {[p for p in tree if detach._alive(p)]} alive "
+                     f"{FLEET_STOP_GRACE_S} s after SIGTERM")
+            time.sleep(0.02)
+        gone_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    if rc != 0:
+        fail(f"22h: the fleet exited {rc}: {''.join(lines)[-3000:]}")
+    out, verify_s = cli_child("22h fleet-verify",
+                              ["fleet-verify", root, "--json"])
+    if json.loads(out)["verdict"] != "PASS":
+        fail(f"22h fleet-verify: {out}")
+    say(f"22h fleet command: {FLEET_CMD_DAEMONS} serve children + "
+        f"{FLEET_CMD_STANDBYS} standby child on {FLEET_HOSTS} ({on_card}), "
+        f"{first_s:.3f} s from spawn to the first routed answer; loadtest "
+        f"--connect {rep['completed']} rows, "
+        f"{rep['achieved_scores_per_sec']} rows/s, p50 {rep['p50_ms']} ms "
+        f"p99 {rep['p99_ms']} ms, 0 errors ({load_s:.3f} s as a child); "
+        f"member-0's tree SIGKILLed: fleet_failover {failover_s:.3f} s "
+        f"after; SIGTERM: exit 0, its {len(tree)} processes gone in "
+        f"{gone_s:.3f} s; fleet-verify PASS ({verify_s:.3f} s) "
+        f"[{smi_line}]")
+
+
+def fleet_phases(device, tmp: str, smi_line: str) -> None:
+    fleet_phase(tmp, device, smi_line)
+    lap("22g fleet")
+    fleet_command_phase(tmp, device, smi_line)
+    lap("22h fleet command")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5113,6 +5556,8 @@ def main() -> None:
         artifact_tier_phases(device, tmp, smi_line)
         # phases 22d to 22f: the views, detached jobs, tiering
         operator_phases(device, tmp, smi_line)
+        # phases 22g and 22h: the serving fleet
+        fleet_phases(device, tmp, smi_line)
 
     missing = [kr["name"] for kr in kernels if not kr.get("launches")]
     if missing:

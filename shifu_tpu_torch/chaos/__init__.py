@@ -10,9 +10,13 @@ port's sites sit where their JAX twins do: `launcher.start` and
 `checkpoint.post_save` and `checkpoint.restore` (train/checkpoint.py),
 `data.cache` (data/cache.py), `data.feeder` (data/pipeline.py),
 `fsio.read_bytes`, `fsio.write_bytes` and `fsio.list_files`
-(data/fsio.py, on its remote branch) and `journal.flush` (obs/journal.py).  A probe is a no-op
-until a chaos plan (chaos/plan.py) is active, so the cost in a healthy run
-is one attribute check.
+(data/fsio.py, on its remote branch), `journal.flush` (obs/journal.py),
+`runtime.serve` and `runtime.serve.dispatch` (runtime/serve.py),
+`embed.offload` (embed/tiering.py), and the fleet's `fleet.heartbeat`,
+`fleet.lease` and `fleet.sync` (runtime/fleet.py; the last two take a
+`member`-targeted fault) and `fleet.route` (runtime/router.py).  A probe
+is a no-op until a chaos plan (chaos/plan.py) is active, so the cost in a
+healthy run is one attribute check.
 
 When a plan is active every probe call is counted per site, triggers are
 evaluated deterministically (call counts, epoch context, rank, or a

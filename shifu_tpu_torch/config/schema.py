@@ -9,7 +9,8 @@ package's dataclasses with the same defaults and checks, so an artifact's
 `CheckpointConfig` and `RuntimeConfig` carry their fields so such a dict
 loads, and the first three keep the JAX package's checks; the port acts
 on `embed.dedup` and on `runtime.checkpoint` (`train/loop.train`).
-`ServingConfig` keeps only the knobs the port's daemon uses.
+`ServingConfig` keeps only the knobs the port's daemon uses;
+`FleetConfig` is whole.
 """
 
 from __future__ import annotations
@@ -327,6 +328,157 @@ class ServingConfig:
 
     def replace(self, **kw) -> "ServingConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class FleetConfig:
+    """Knobs for the serving fleet (the `fleet` command, runtime/fleet.py):
+    a field-for-field copy of the JAX package's `FleetConfig` with the
+    same defaults and checks.
+
+    XML spelling `shifu.fleet.*` (utils/xmlconfig.fleet_config_from_conf)
+    layers under the CLI flags as ServingConfig's keys do: N scoring
+    daemons and hot standbys, heartbeat membership, a routing front end,
+    and burn-rate-driven scale decisions."""
+
+    # active scoring daemons the manager keeps in rotation
+    n_daemons: int = 2
+    # pre-warmed hot standbys (loaded on the current artifact, wire
+    # server bound, OUT of rotation) promoted on a member failure
+    standbys: int = 1
+    # heartbeat cadence: every member writes a lease this often; a lease
+    # older than heartbeat_every_s * heartbeat_misses marks the member
+    # DOWN and triggers failover
+    heartbeat_every_s: float = 0.5
+    heartbeat_misses: int = 3
+    # router: per-request round-trip timeout before the one hedged retry
+    # to a healthy peer, and the connect timeout for (re)building a
+    # member connection
+    route_timeout_ms: float = 1000.0
+    connect_timeout_ms: float = 250.0
+    # overload shedding: a primary whose fast-window slo_burn_rate is at
+    # or above this routes around to the least-burned member
+    shed_burn: float = 1.0
+    # decorrelated-jitter reconnect backoff bounds for a member the
+    # router observed failing (same shape as fsio's retry ladder)
+    backoff_base_ms: float = 50.0
+    backoff_cap_ms: float = 2000.0
+    # scale loop: 0 disables; both burn windows must agree (fast AND
+    # slow >= scale_up_burn on the worst member -> spawn; fast AND slow
+    # <= scale_down_burn on every member -> retire) with a cooldown
+    # between decisions
+    scale_every_s: float = 0.0
+    scale_up_burn: float = 2.0
+    scale_down_burn: float = 0.25
+    scale_cooldown_s: float = 30.0
+    min_daemons: int = 1
+    max_daemons: int = 8
+    # consistent-ring virtual nodes per member (per-model routing)
+    vnodes: int = 32
+    # --- host plane (cross-host fleet) ---
+    # launcher/pod.py host grammar: "" = single-host in-proc fleet (the
+    # pre-host-plane behavior), "local:N" = N simulated hosts (tier-1
+    # drills), "h1,h2"/"@file" = one `serve` member per slot over ssh
+    hosts: str = ""
+    # member spawn mode: "auto" (in-proc on local transport, process on
+    # ssh), or force "inproc"/"process"
+    member_mode: str = "auto"
+    # first wire port for process-mode members (member i binds base+i)
+    member_port_base: int = 8600
+    # atomic artifact sync: each host pulls the export once, verifies it
+    # against the exporter's blake2b manifest, atomically renames into
+    # its cache, and only then swaps (torn/corrupt pulls quarantine the
+    # member; the old version keeps serving)
+    sync_artifacts: bool = True
+    # split-brain guard: a DOWN member whose lease resurrects (partition
+    # healed) rejoins as a STANDBY — never re-promoted into its old slot
+    rejoin_standby: bool = True
+    # fleet timeline (obs/timeline.py): estimate per-host clock offsets
+    # from lease round-trips and merge member journals in the corrected
+    # order; off = raw per-journal timestamps (debugging the estimator)
+    timeline_skew_correct: bool = True
+    # clamp on any single host's estimated |offset| — a lease stamped by
+    # a wildly wrong clock must not fling the merged timeline
+    timeline_max_offset_s: float = 300.0
+
+    @property
+    def heartbeat_ttl_s(self) -> float:
+        """Lease freshness bound: miss this many beats -> DOWN."""
+        return self.heartbeat_every_s * self.heartbeat_misses
+
+    def validate(self) -> None:
+        if self.n_daemons < 1:
+            raise ConfigError(f"fleet.n-daemons must be >= 1: "
+                              f"{self.n_daemons}")
+        if self.standbys < 0:
+            raise ConfigError(f"fleet.standbys must be >= 0: "
+                              f"{self.standbys}")
+        if self.heartbeat_every_s <= 0:
+            raise ConfigError("fleet.heartbeat-every-s must be > 0: "
+                              f"{self.heartbeat_every_s}")
+        if self.heartbeat_misses < 1:
+            raise ConfigError("fleet.heartbeat-misses must be >= 1: "
+                              f"{self.heartbeat_misses}")
+        if self.route_timeout_ms <= 0 or self.connect_timeout_ms <= 0:
+            raise ConfigError("fleet.route-timeout-ms and "
+                              "connect-timeout-ms must be > 0")
+        if self.shed_burn <= 0:
+            raise ConfigError(f"fleet.shed-burn must be > 0: "
+                              f"{self.shed_burn}")
+        if self.backoff_base_ms <= 0 \
+                or self.backoff_cap_ms < self.backoff_base_ms:
+            raise ConfigError(
+                "fleet backoff needs 0 < backoff-base-ms <= "
+                f"backoff-cap-ms: {self.backoff_base_ms}/"
+                f"{self.backoff_cap_ms}")
+        if self.scale_every_s < 0 or self.scale_cooldown_s < 0:
+            raise ConfigError("fleet.scale-every-s and scale-cooldown-s "
+                              "must be >= 0")
+        if self.scale_down_burn < 0 \
+                or self.scale_up_burn <= self.scale_down_burn:
+            raise ConfigError(
+                "fleet scale thresholds need 0 <= scale-down-burn < "
+                f"scale-up-burn: {self.scale_down_burn}/"
+                f"{self.scale_up_burn}")
+        if not (1 <= self.min_daemons <= self.max_daemons):
+            raise ConfigError(
+                "fleet daemon bounds need 1 <= min-daemons <= "
+                f"max-daemons: {self.min_daemons}/{self.max_daemons}")
+        if not (self.min_daemons <= self.n_daemons <= self.max_daemons):
+            raise ConfigError(
+                f"fleet.n-daemons ({self.n_daemons}) must sit within "
+                f"[min-daemons, max-daemons] = [{self.min_daemons}, "
+                f"{self.max_daemons}]")
+        if self.vnodes < 1:
+            raise ConfigError(f"fleet.vnodes must be >= 1: {self.vnodes}")
+        if self.member_mode not in ("auto", "inproc", "process"):
+            raise ConfigError(
+                "fleet.member-mode must be auto/inproc/process: "
+                f"{self.member_mode!r}")
+        if not (0 < self.member_port_base < 65536):
+            raise ConfigError(
+                f"fleet.member-port-base out of range: "
+                f"{self.member_port_base}")
+        if self.timeline_max_offset_s <= 0:
+            raise ConfigError(
+                "fleet.timeline-max-offset-s must be > 0: "
+                f"{self.timeline_max_offset_s}")
+        if self.hosts:
+            # fail at config time, not at fleet start: the same grammar
+            # parse_hosts uses later, minus the file read for @lists
+            h = self.hosts.strip()
+            if h.startswith("local:"):
+                try:
+                    n = int(h.split(":", 1)[1])
+                except ValueError:
+                    n = 0
+                if n < 1:
+                    raise ConfigError(
+                        f"fleet.hosts {self.hosts!r}: need local:N "
+                        "with N >= 1")
+            elif not h.startswith("@") \
+                    and not [x for x in h.split(",") if x.strip()]:
+                raise ConfigError(f"fleet.hosts {self.hosts!r}: no hosts")
 
 
 @dataclass(frozen=True)

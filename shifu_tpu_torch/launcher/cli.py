@@ -1,6 +1,7 @@
-"""The operator's command line (the port's copy of the single-host `train`,
-`cache`, `score`, `eval`, `export`, `serve` and `loadtest` commands of
-shifu_tpu/launcher/cli.py).
+"""The operator's command line (the port's copy of the single-host commands
+of shifu_tpu/launcher/cli.py: `train`, `cache`, `score`, `eval`,
+`export`, `serve`, `loadtest`, `fleet`, `fleet-verify`, the views and the
+job commands).
 
 Usage:
     python -m shifu_tpu_torch.launcher.cli train \\
@@ -17,8 +18,13 @@ Usage:
         --columnconfig C.json --checkpoint-dir JOB/tmp_model --output ART \\
         [--aot-pack]
     python -m shifu_tpu_torch.launcher.cli serve ART [--port 0] [--engine ...]
+        [--heartbeat-s S [--heartbeat-misses N]]
     python -m shifu_tpu_torch.launcher.cli loadtest (--model ART |
         --connect HOST:PORT) [--rate R] [--duration S] [--json]
+    python -m shifu_tpu_torch.launcher.cli fleet ART [--n-daemons N] \
+        [--standbys K] [--hosts local:N|h1,h2|@file] \
+        [--member-mode auto|inproc|process] [--port 8571] [--device cpu]
+    python -m shifu_tpu_torch.launcher.cli fleet-verify DIR [--json]
     python -m shifu_tpu_torch.launcher.cli metrics|profile|trace|drift|
         timeline|chaos-verify JOB [--json] [...]
     python -m shifu_tpu_torch.launcher.cli top DIR [DIR ...] [--once]
@@ -61,11 +67,17 @@ from its directory (launcher/detach.py).  Like the JAX package's, which
 never import jax, they import no torch and touch no card: each is safe to
 point at a live job from any machine that can read its dir.
 
+`fleet` runs N scoring daemons and their hot standbys behind the router's
+wire face (runtime/fleet.py, runtime/router.py), its members scoring on
+`--device` (default `cuda:0`); in-process members by default, `serve`
+children with `--member-mode process`.  `serve --heartbeat-s` writes the
+fleet's membership lease, and `fleet-verify` audits a fleet's merged
+journals, importing no torch, as the views do.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: `--hosts` and `--num-processes` > 1 (multi-host, queue A item (f)),
-a mesh of more than one device (f), `serve --heartbeat-s` (the fleet
-lease, (e)7), `kill --force` (the provision marker, (f)), and the JAX
-CLI's other commands (`_NOT_PORTED_COMMANDS`).
+item: `train --hosts` and `--num-processes` > 1 (multi-host, queue A item
+(f)), a mesh of more than one device (f), `kill --force` (the provision
+marker, (f)), and the JAX CLI's other commands (`_NOT_PORTED_COMMANDS`).
 """
 
 from __future__ import annotations
@@ -316,13 +328,82 @@ def build_parser() -> argparse.ArgumentParser:
                          "AOT pack's kernel libraries included; loopback "
                          "binds allow it by default)")
     sv.add_argument("--heartbeat-s", type=float, default=0.0,
-                    help="fleet membership lease every N seconds (not "
-                         "ported yet beyond 0: ROADMAP.md queue A item "
-                         "(e)7)")
+                    help="write a fleet membership lease into the metrics "
+                         "dir every N seconds (0 = off; a fleet manager in "
+                         "another process reads it)")
     sv.add_argument("--heartbeat-misses", type=int, default=3,
                     help="missed beats before the fleet marks this "
-                         "daemon DOWN (with --heartbeat-s)")
+                         "daemon DOWN (rides in the lease; default 3)")
     _add_device_flag(sv)
+
+    fl = sub.add_parser(
+        "fleet", help="run a fault-tolerant serving fleet: N scoring "
+                      "daemons + hot standbys under heartbeat "
+                      "supervision, a consistent-hash routing front end "
+                      "with hedged retries and overload shedding, "
+                      "fleet-wide hot-swap, burn-rate scale loop "
+                      "(runtime/fleet.py)")
+    fl.add_argument("model", help="artifact dir (the export output)")
+    fl.add_argument("--n-daemons", type=int, default=0,
+                    help="fleet members (default: shifu.fleet.n-daemons "
+                         "/ 2)")
+    fl.add_argument("--standbys", type=int, default=-1,
+                    help="hot-standby daemons pre-warmed on the current "
+                         "artifact (default: shifu.fleet.standbys / 1)")
+    fl.add_argument("--heartbeat-s", type=float, default=0,
+                    help="membership lease cadence (default: "
+                         "shifu.fleet.heartbeat-every-s / 0.5)")
+    fl.add_argument("--heartbeat-misses", type=int, default=0,
+                    help="missed beats before failover (default: "
+                         "shifu.fleet.heartbeat-misses / 3)")
+    fl.add_argument("--port", type=int, default=8571,
+                    help="router front-end TCP port (0 = ephemeral, "
+                         "printed at startup; default 8571)")
+    fl.add_argument("--host", default="127.0.0.1",
+                    help="router bind host (default 127.0.0.1)")
+    _add_engine_flag(fl, None, "member scoring engine tier (default: "
+                               "serving.engine / torch)")
+    fl.add_argument("--budget-ms", type=float, default=0,
+                    help="member micro-batcher latency budget "
+                         "(default: shifu.serving.latency-budget-ms / 2)")
+    fl.add_argument("--workers", type=int, default=0,
+                    help="scoring worker threads per member")
+    fl.add_argument("--scale-every-s", type=float, default=-1,
+                    help="burn-rate scale-loop cadence, 0 disables "
+                         "(default: shifu.fleet.scale-every-s / 0)")
+    fl.add_argument("--root-dir", default=None,
+                    help="fleet state dir for member leases + telemetry "
+                         "(default: <model>/fleet)")
+    fl.add_argument("--globalconfig", default=None,
+                    help="Hadoop-style XML carrying shifu.fleet.* and "
+                         "shifu.serving.* keys (flags override)")
+    fl.add_argument("--hosts", default=None,
+                    help="cross-host member placement (launcher/pod.py "
+                         "grammar: local:N simulated hosts, h1,h2 or "
+                         "@file over ssh; default: shifu.fleet.hosts / "
+                         "single-host)")
+    fl.add_argument("--member-mode", default=None,
+                    choices=["auto", "inproc", "process"],
+                    help="member spawn mode (default: "
+                         "shifu.fleet.member-mode / auto: in-process, "
+                         "serve children over ssh)")
+    fl.add_argument("--chaos-plan", default=None,
+                    help="fault-injection plan (fleet.heartbeat / "
+                         "fleet.lease / fleet.sync / fleet.route / "
+                         "runtime.serve sites)")
+    _add_device_flag(fl, "device the members score on")
+
+    fv = sub.add_parser(
+        "fleet-verify", help="audit a fleet run's journal: every "
+                             "failover promoted a standby, swap "
+                             "generations never regress, every swap "
+                             "reached every live member exactly once "
+                             "(chaos-verify's counterpart for the "
+                             "serving fleet)")
+    fv.add_argument("job_dir", help="fleet telemetry/job dir (or any "
+                                    "dir holding its journal.jsonl)")
+    fv.add_argument("--json", action="store_true",
+                    help="machine-readable report on stdout")
 
     lt = sub.add_parser(
         "loadtest", help="open-loop (Poisson-arrival) load harness for "
@@ -433,10 +514,8 @@ def _add_device_flag(p, what: str = "device the torch tiers score on"
 
 
 # the JAX CLI's commands that the port has not yet, by ROADMAP.md item
-_NOT_PORTED_COMMANDS = {
-    **dict.fromkeys(("fleet", "fleet-verify"), "(e)7"),
-    **dict.fromkeys(("provision", "pod-verify", "data-dryrun"), "(f)"),
-}
+_NOT_PORTED_COMMANDS = dict.fromkeys(
+    ("provision", "pod-verify", "data-dryrun"), "(f)")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -1146,8 +1225,6 @@ def run_serve(args) -> int:
     from ..config.schema import ConfigError
     from ..runtime.serve import serve_forever
 
-    if args.heartbeat_s > 0:
-        raise _not_ported("serve --heartbeat-s (the fleet lease)", "(e)7")
     if args.chaos_plan:
         try:
             base = chaos.load_plan(args.chaos_plan.strip())
@@ -1170,9 +1247,76 @@ def run_serve(args) -> int:
         rc = serve_forever(args.model, config,
                            echo=lambda m: print(m, flush=True),
                            allow_swap=True if args.allow_swap else None,
-                           device=args.device)
+                           device=args.device,
+                           heartbeat_every_s=args.heartbeat_s or 0.0,
+                           heartbeat_misses=args.heartbeat_misses)
     except (ValueError, OSError, KeyError, RuntimeError) as e:
         print(f"serve: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    obs.flush()
+    return rc
+
+
+def run_fleet(args) -> int:
+    """`fleet <artifact>`: N scoring daemons and hot standbys under
+    heartbeat supervision behind the hedging router's wire face
+    (runtime/fleet.fleet_forever), the members on `--device` (default
+    `cuda:0`, which must exist)."""
+    from .. import chaos, obs
+    from ..config.schema import ConfigError, FleetConfig
+    from ..device import resolve_device
+    from ..runtime.fleet import fleet_forever
+    from ..utils import xmlconfig
+
+    if args.chaos_plan:
+        try:
+            base = chaos.load_plan(args.chaos_plan.strip())
+            os.environ[chaos.ENV_CHAOS_PLAN] = base.to_json(indent=None)
+            chaos.reload_from_env()
+        except chaos.ChaosPlanError as e:
+            print(f"chaos plan: {e}", file=sys.stderr, flush=True)
+            return EXIT_FAIL
+    fleet_cfg = FleetConfig()
+    if args.globalconfig:
+        conf = xmlconfig.parse_configuration_xml(args.globalconfig)
+        fleet_cfg = xmlconfig.fleet_config_from_conf(conf, fleet_cfg)
+    kw = {}
+    if args.n_daemons > 0:
+        kw["n_daemons"] = args.n_daemons
+    if args.standbys >= 0:
+        kw["standbys"] = args.standbys
+    if args.heartbeat_s > 0:
+        kw["heartbeat_every_s"] = args.heartbeat_s
+    if args.heartbeat_misses > 0:
+        kw["heartbeat_misses"] = args.heartbeat_misses
+    if args.scale_every_s >= 0:
+        kw["scale_every_s"] = args.scale_every_s
+    if args.hosts is not None:
+        kw["hosts"] = args.hosts
+    if args.member_mode is not None:
+        kw["member_mode"] = args.member_mode
+    if kw:
+        fleet_cfg = dataclasses.replace(fleet_cfg, **kw)
+    try:
+        fleet_cfg.validate()
+        serving = _serving_config(args)
+        device = str(resolve_device(args.device))
+    except (ConfigError, ValueError, RuntimeError) as e:
+        print(f"fleet: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    try:
+        obs.configure(obs.resolve_metrics_dir()
+                      or fsio.join(args.model, "telemetry"))
+    except Exception:
+        pass  # telemetry must never block serving
+    root_dir = args.root_dir or fsio.join(args.model, "fleet")
+    try:
+        rc = fleet_forever(args.model, fleet=fleet_cfg, serving=serving,
+                           router_host=args.host, router_port=args.port,
+                           root_dir=root_dir, device=device,
+                           echo=lambda m: print(m, flush=True))
+    except (ValueError, OSError, KeyError, RuntimeError) as e:
+        print(f"fleet: {e}", file=sys.stderr, flush=True)
         return EXIT_FAIL
     obs.flush()
     return rc
@@ -1360,6 +1504,41 @@ def run_timeline(args) -> int:
     return EXIT_OK
 
 
+def run_fleet_verify(args) -> int:
+    """`fleet-verify <dir>`: audit a fleet run's journals against the
+    fleet's lifecycle invariants (runtime/fleet.fleet_verify_events).
+    Process-mode members journal into their own dirs on their own
+    clocks, so the audit reads the skew-corrected merged timeline
+    (obs/timeline.py).  Exit 0 when every check holds."""
+    from ..obs import timeline as timeline_mod
+    from ..runtime.fleet import fleet_verify_events
+
+    merged = timeline_mod.load_merged(args.job_dir, tail_bytes=None)
+    if merged is None:
+        print(f"no telemetry journal found under {args.job_dir}",
+              file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    report = fleet_verify_events(merged["events"])
+    report["journal"] = merged["journals"][0]
+    report["journals"] = merged["journals"]
+    report["skew_correct"] = merged["skew_correct"]
+    if args.json:
+        print(json.dumps(report))
+    else:
+        counts = report["counts"]
+        print(f"fleet-verify: {report['verdict']} — "
+              f"{counts['failovers']} failover(s), "
+              f"{counts['swaps']} fleet swap(s), "
+              f"{counts['member_swaps']} member application(s), "
+              f"{counts['rejoins']} rejoin(s), "
+              f"{counts['degraded']} degraded, "
+              f"{counts['syncs']} host sync(s)")
+        for c in report["checks"]:
+            mark = "ok " if c["ok"] else "FAIL"
+            print(f"  [{mark}] {c['check']}: {c['detail']}")
+    return EXIT_OK if report["verdict"] == "PASS" else EXIT_FAIL
+
+
 # the journal events that count as recovery in a chaos drill's audit
 _RECOVERY_KINDS = ("supervisor_restart", "supervisor_done",
                    "checkpoint_fallback", "checkpoint_fallback_resolved",
@@ -1509,7 +1688,8 @@ _COMMANDS = {"train": run_train, "cache": run_cache, "score": run_score,
              "profile": run_profile, "trace": run_trace, "top": run_top,
              "drift": run_drift, "timeline": run_timeline,
              "chaos-verify": run_chaos_verify, "status": run_status,
-             "attach": run_attach, "kill": run_kill}
+             "attach": run_attach, "kill": run_kill, "fleet": run_fleet,
+             "fleet-verify": run_fleet_verify}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

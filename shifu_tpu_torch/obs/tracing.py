@@ -44,6 +44,11 @@ class TraceContext:
                              min(max(self.attempt, 0), 255),
                              1 if self.sampled else 0, 0)
 
+    def with_attempt(self, attempt: int) -> "TraceContext":
+        """This context stamped with hop ordinal `attempt` (the router's
+        primary 0 and its hedge 1)."""
+        return dataclasses.replace(self, attempt=attempt)
+
 
 def mint() -> TraceContext:
     """A fresh sampled trace context (router-ingress minting)."""

@@ -17,8 +17,8 @@ Two modes:
   round-trips single-row frames against a live wire server
   (runtime/serve_wire.py); rates are bounded by the per-connection round
   trip, so raise `senders` for parallelism.  A sender whose connection
-  dies reconnects with decorrelated-jitter backoff (`_Backoff`, a copy of
-  the JAX router's; the router itself is ROADMAP.md queue A item (e)7).
+  dies reconnects with the fleet router's decorrelated-jitter backoff
+  (runtime/router.py `_Backoff`).
 
 Percentiles are exact (numpy over the recorded per-request latencies),
 not histogram estimates.  Each run reports its lifecycle stage breakdown
@@ -29,7 +29,6 @@ that still meets a p99 target.  An own daemon's torch engine scores on
 
 from __future__ import annotations
 
-import random
 import threading
 import time
 from typing import Optional
@@ -38,31 +37,8 @@ import numpy as np
 
 from ..config.schema import ServingConfig
 from ..device import DeviceLike
+from .router import _Backoff
 from .serve import ScoringDaemon, ServeOverload
-
-
-class _Backoff:
-    """Decorrelated-jitter reconnect backoff: each failure sleeps
-    `uniform(base, last * 3)`, capped; the state is (until, last sleep)."""
-
-    def __init__(self, base_s: float, cap_s: float):
-        self._base = base_s
-        self._cap = cap_s
-        self._sleep = 0.0
-        self._until = 0.0
-
-    def fail(self, now: Optional[float] = None) -> float:
-        now = time.monotonic() if now is None else now
-        self._sleep = min(self._cap,
-                          random.uniform(self._base,
-                                         max(self._base,
-                                             self._sleep * 3)))
-        self._until = now + self._sleep
-        return self._sleep
-
-    def ok(self) -> None:
-        self._sleep = 0.0
-        self._until = 0.0
 
 
 def _poisson_schedule(rate: float, duration: float,

@@ -28,7 +28,9 @@ artifact's `scoring.pt2`, on `device`), "aot" (the AOT pack,
 `export/aot.py`, on `device`), "numpy" (`export.scorer.Scorer`, the
 op-list interpreter on the host), "native" (`runtime/native_scorer.py`,
 the C++ engine on the host) and "auto" (`export.scorer.load_scorer`'s
-order).  The fleet's heartbeat lease is ROADMAP.md queue A item (e)7.
+order).  With `heartbeat_every_s`, serve_forever also writes the fleet's
+membership lease (runtime/fleet.py `Heartbeat`): how a `serve` child
+proves it is alive to a fleet manager in another process.
 """
 
 from __future__ import annotations
@@ -488,6 +490,22 @@ class ScoringDaemon:
         self._report(final=True)
         if self._owns_registry:
             self._registry.close()
+
+    def kill(self) -> None:
+        """The SIGKILL analogue of the fleet's drills (runtime/fleet.py):
+        no drain.  Admission shuts, queued futures fail at once, and the
+        worker threads are abandoned (daemon threads, gone at their next
+        queue check).  The registry stays open: a racing worker may still
+        hold a handle, and a killed process runs no destructors either."""
+        with self._cond:
+            self._accepting = False
+            self._running = False
+            leftovers, self._queue = self._queue, []
+            self._cond.notify_all()
+        for _row, _t, fut, _te, _ts, _tc in leftovers:
+            if fut is not None:
+                fut.set_exception(RuntimeError("serving daemon killed"))
+        self._threads.clear()
 
     def __enter__(self) -> "ScoringDaemon":
         return self.start()
@@ -1020,6 +1038,15 @@ class ScoringDaemon:
             snap["drift"] = drift_eng.state()
         if self.config.trace_sample:
             snap["trace_sample"] = self.config.trace_sample
+        device = getattr(handle.scorer, "device", None) if handle else None
+        if device is not None:
+            # a torch tier: where it scores, and this process's kernel
+            # launches so far (a remote check that a member ran the card's
+            # kernels; the counts are per process, not per daemon)
+            from ..ops import launch_counters
+            snap["device"] = str(device)
+            snap["launches"] = {k: fn.launches for k, fn in
+                                launch_counters().items() if fn.launches}
         return snap
 
     def _publish_metrics(self) -> None:
@@ -1149,12 +1176,18 @@ class ScoringDaemon:
 def serve_forever(export_dir: str, config: ServingConfig,
                   echo=print, allow_swap: Optional[bool] = None,
                   device: DeviceLike = None,
-                  stop_event: Optional[threading.Event] = None) -> int:
+                  stop_event: Optional[threading.Event] = None,
+                  heartbeat_every_s: float = 0.0,
+                  heartbeat_misses: int = 3) -> int:
     """The daemon behind the wire server (runtime/serve_wire.py) on
     `config.host`:`config.port` until SIGINT or SIGTERM, or until
     `stop_event` is set; returns a process exit code.  The torch tiers
-    score on `device` (default `cuda:0`).  The fleet's heartbeat lease
-    is ROADMAP.md queue A item (e)7."""
+    score on `device` (default `cuda:0`).
+
+    `heartbeat_every_s > 0` writes a fleet membership lease into the
+    metrics dir every beat (runtime/fleet.py), its TTL `heartbeat_misses`
+    beats and its host SHIFU_TPU_FLEET_HOST: how a process-mode member
+    proves it is alive to a FleetManager in another process."""
     import signal
 
     from .. import obs
@@ -1162,6 +1195,16 @@ def serve_forever(export_dir: str, config: ServingConfig,
 
     daemon = ScoringDaemon(export_dir, config=config, device=device)
     daemon.start()
+    heartbeat = None
+    if heartbeat_every_s > 0:
+        from .fleet import ENV_FLEET_HOST, Heartbeat
+        lease_dir = obs.resolve_metrics_dir()
+        if lease_dir:
+            heartbeat = Heartbeat(
+                lease_dir, f"serve-{os.getpid()}", heartbeat_every_s,
+                heartbeat_every_s * max(1, heartbeat_misses),
+                is_alive=lambda: daemon._running,
+                host=os.environ.get(ENV_FLEET_HOST)).start()
     try:
         server = serve_wire.ServeServer(daemon, host=config.host,
                                         port=config.port,
@@ -1169,7 +1212,9 @@ def serve_forever(export_dir: str, config: ServingConfig,
         server.start()
     except OSError:
         # bind failure (port in use): drain the running daemon so the
-        # final report lands
+        # final report lands, and let the lease age
+        if heartbeat is not None:
+            heartbeat.stop()
         daemon.stop()
         raise
     stop_evt = stop_event or threading.Event()
@@ -1194,6 +1239,8 @@ def serve_forever(export_dir: str, config: ServingConfig,
         stop_evt.wait()
     except KeyboardInterrupt:
         pass
+    if heartbeat is not None:
+        heartbeat.stop()
     server.close()
     daemon.stop()
     stats = daemon.stats()

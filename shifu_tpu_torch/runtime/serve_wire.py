@@ -199,6 +199,10 @@ class ServeServer:
         self.host, self.port = self._listener.getsockname()[:2]
         self._accept_thread: Optional[threading.Thread] = None
         self._closing = False
+        # live accepted connections, for kill(): a graceful close lets
+        # in-flight frames finish, a process death severs them
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
 
     def start(self) -> "ServeServer":
         self._accept_thread = threading.Thread(
@@ -221,6 +225,25 @@ class ServeServer:
         if self._accept_thread is not None:
             self._accept_thread.join(timeout=5)
 
+    def kill(self) -> None:
+        """The process-death analogue of the fleet's drills
+        (runtime/fleet.py): close the listener, then shut down and close
+        every live connection, so peers see the transport die (and hedge
+        or reconnect) rather than a server answering errors on sockets it
+        had already accepted."""
+        self.close()
+        with self._conns_lock:
+            conns, self._conns = list(self._conns), set()
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                c.close()
+            except OSError:
+                pass
+
     # idle connections are reaped after this long without a frame
     IDLE_TIMEOUT_S = 300.0
 
@@ -235,29 +258,36 @@ class ServeServer:
                 continue          # server must not die silently
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             conn.settimeout(self.IDLE_TIMEOUT_S)
+            with self._conns_lock:
+                self._conns.add(conn)
             threading.Thread(target=self._serve_conn, args=(conn,),
                              daemon=True, name="serve-conn").start()
 
     def _serve_conn(self, conn: socket.socket) -> None:
-        with conn:
-            while True:
-                try:
-                    frame = read_request(conn, with_trace=True)
-                except (ConnectionError, OSError):
-                    return
-                except WireError as e:
+        try:
+            with conn:
+                while True:
                     try:
-                        write_response(conn, 1, str(e).encode())
-                    except OSError:
-                        pass
-                    return  # framing lost: drop the connection
-                # arrival stamps at frame receipt: decode and admission
-                # ride the request's `admission` stage (obs/slo.py)
-                t_arrival = time.perf_counter()
-                try:
-                    self._handle(conn, t_arrival, *frame)
-                except (ConnectionError, OSError):
-                    return
+                        frame = read_request(conn, with_trace=True)
+                    except (ConnectionError, OSError):
+                        return
+                    except WireError as e:
+                        try:
+                            write_response(conn, 1, str(e).encode())
+                        except OSError:
+                            pass
+                        return  # framing lost: drop the connection
+                    # arrival stamps at frame receipt: decode and
+                    # admission ride the request's `admission` stage
+                    # (obs/slo.py)
+                    t_arrival = time.perf_counter()
+                    try:
+                        self._handle(conn, t_arrival, *frame)
+                    except (ConnectionError, OSError):
+                        return
+        finally:
+            with self._conns_lock:
+                self._conns.discard(conn)
 
     def _handle(self, conn, t_arrival, op, dtype, n_rows, n_cols, scale,
                 offset, payload, trace=None) -> None:

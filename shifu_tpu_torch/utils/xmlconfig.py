@@ -10,10 +10,9 @@ JAX package's names, defaults and messages; `configuration_xml_bytes` /
 The serving keys (`shifu.serving.*`, with the wire server's, the SLO
 engine's, tracing's and the AOT pack's) and the drift keys
 (`shifu.drift.*`) map onto the port's `ServingConfig` and `DriftConfig`
-(`serving_config_from_conf`, `drift_config_from_conf`) as the JAX
-overlay's do.  The fleet keys (`shifu.fleet.*`, ROADMAP.md queue A item
-(e)7) belong to a config the port does not have yet: such a key raises
-NotImplementedError, never silently does nothing.
+(`serving_config_from_conf`, `drift_config_from_conf`), and the fleet
+keys (`shifu.fleet.*`) onto its `FleetConfig` (`fleet_config_from_conf`),
+as the JAX overlay's do.
 """
 
 from __future__ import annotations
@@ -292,30 +291,13 @@ def write_configuration_xml(config: Mapping[str, str], path: str) -> None:
         f.write(configuration_xml_bytes(config))
 
 
-_NOT_PORTED_PREFIXES = (("shifu.fleet.", "queue A item (e)7, with the "
-                                         "serving fleet"),)
-
-
-def check_ported(conf: Mapping[str, str]) -> None:
-    """Raise NotImplementedError for a fleet key: its config is not
-    ported yet, and a key the port cannot honour must not be dropped
-    without a word."""
-    for key in sorted(conf):
-        for prefix, item in _NOT_PORTED_PREFIXES:
-            if key.startswith(prefix):
-                raise NotImplementedError(
-                    f"config key {key!r} is not ported yet (ROADMAP.md, "
-                    f"{item})")
-
-
 def serving_config_from_conf(conf: Mapping[str, str], base: Any = None) -> Any:
     """ServingConfig from `shifu.serving.*` and `shifu.drift.*` keys over
     `base` (default: the dataclass defaults), the serving-plane sibling of
-    apply_to_job.  A fleet key raises NotImplementedError."""
+    apply_to_job."""
 
     from ..config.schema import ServingConfig
 
-    check_ported(conf)
     base = base or ServingConfig()
     kw: dict[str, Any] = {}
     if KEY_SERVING_ENGINE in conf:
@@ -392,12 +374,59 @@ def drift_config_from_conf(conf: Mapping[str, str], base: Any = None) -> Any:
     return dataclasses.replace(base, **kw) if kw else base
 
 
+def fleet_config_from_conf(conf: Mapping[str, str], base: Any = None) -> Any:
+    """FleetConfig from `shifu.fleet.*` keys over `base` (default: the
+    dataclass defaults); the `fleet` command layers its flags on top of
+    this as `serve` does with serving_config_from_conf."""
+    from ..config.schema import FleetConfig
+
+    base = base or FleetConfig()
+    kw: dict[str, Any] = {}
+    _int_keys = {KEY_FLEET_N_DAEMONS: "n_daemons",
+                 KEY_FLEET_STANDBYS: "standbys",
+                 KEY_FLEET_HEARTBEAT_MISSES: "heartbeat_misses",
+                 KEY_FLEET_MIN_DAEMONS: "min_daemons",
+                 KEY_FLEET_MAX_DAEMONS: "max_daemons",
+                 KEY_FLEET_VNODES: "vnodes",
+                 KEY_FLEET_MEMBER_PORT_BASE: "member_port_base"}
+    _float_keys = {KEY_FLEET_HEARTBEAT_EVERY_S: "heartbeat_every_s",
+                   KEY_FLEET_ROUTE_TIMEOUT_MS: "route_timeout_ms",
+                   KEY_FLEET_CONNECT_TIMEOUT_MS: "connect_timeout_ms",
+                   KEY_FLEET_SHED_BURN: "shed_burn",
+                   KEY_FLEET_BACKOFF_BASE_MS: "backoff_base_ms",
+                   KEY_FLEET_BACKOFF_CAP_MS: "backoff_cap_ms",
+                   KEY_FLEET_SCALE_EVERY_S: "scale_every_s",
+                   KEY_FLEET_SCALE_UP_BURN: "scale_up_burn",
+                   KEY_FLEET_SCALE_DOWN_BURN: "scale_down_burn",
+                   KEY_FLEET_SCALE_COOLDOWN_S: "scale_cooldown_s",
+                   KEY_FLEET_TIMELINE_MAX_OFFSET_S:
+                       "timeline_max_offset_s"}
+    for key, field in _int_keys.items():
+        if key in conf:
+            kw[field] = int(conf[key])
+    _str_keys = {KEY_FLEET_HOSTS: "hosts",
+                 KEY_FLEET_MEMBER_MODE: "member_mode"}
+    _bool_keys = {KEY_FLEET_SYNC_ARTIFACTS: "sync_artifacts",
+                  KEY_FLEET_REJOIN_STANDBY: "rejoin_standby",
+                  KEY_FLEET_TIMELINE_SKEW_CORRECT:
+                      "timeline_skew_correct"}
+    for key, field in _float_keys.items():
+        if key in conf:
+            kw[field] = float(conf[key])
+    for key, field in _str_keys.items():
+        if key in conf:
+            kw[field] = str(conf[key]).strip()
+    for key, field in _bool_keys.items():
+        if key in conf:
+            kw[field] = parse_bool(conf[key])
+    return dataclasses.replace(base, **kw) if kw else base
+
+
 def apply_to_job(job: Any, conf: Mapping[str, str]) -> Any:
     """Overlay `shifu.*` keys onto a JobConfig (returns a new JobConfig).
-    Serving and drift keys are the daemon's (`serving_config_from_conf`)
-    and leave the job alone, as in the JAX overlay; a fleet key raises
-    NotImplementedError (`check_ported`)."""
-    check_ported(conf)
+    Serving, drift and fleet keys are the daemon's and the fleet's
+    (`serving_config_from_conf`, `fleet_config_from_conf`) and leave the
+    job alone, as in the JAX overlay."""
     train = job.train
     data = job.data
     runtime = job.runtime

@@ -235,7 +235,6 @@ def test_loadtest_in_process_and_its_text_report(job, capsys):
 
 
 @pytest.mark.parametrize("command,item", [
-    ("fleet", "(e)7"), ("fleet-verify", "(e)7"),
     ("provision", "(f)"), ("pod-verify", "(f)"), ("data-dryrun", "(f)"),
 ])
 def test_the_other_jax_commands_raise_naming_their_item(command, item):
@@ -243,13 +242,6 @@ def test_the_other_jax_commands_raise_naming_their_item(command, item):
                        match="not ported yet.*" + item.replace(
                            "(", r"\(").replace(")", r"\)")):
         cli.main([command, "x"])
-
-
-def test_serve_heartbeat_raises_naming_the_fleet(job):
-    _, out, _ = job
-    with pytest.raises(NotImplementedError, match=r"\(e\)7"):
-        cli.main(["serve", str(out / "final_model"), "--heartbeat-s", "1",
-                  "--device", "cpu"])
 
 
 def _load_make_demo():

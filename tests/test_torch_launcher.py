@@ -223,12 +223,22 @@ def test_unported_flags_raise(tmp_path, flags, item):
 
 @pytest.mark.parametrize("xml,item", [
     ({"shifu.mesh.data": "2"}, r"\(f\)"),
-    ({"shifu.fleet.n-daemons": "3"}, r"\(e\)7"),
 ])
 def test_unported_config_raises(tmp_path, xml, item):
     argv = _shifu_files(tmp_path, xml=xml)
     with pytest.raises(NotImplementedError, match="not ported yet.*" + item):
         cli.main(argv + ["--device", "cpu", "--output", str(tmp_path / "j")])
+
+
+def test_a_fleet_key_leaves_the_train_command_alone(tmp_path):
+    """A `shifu.fleet.*` key is the fleet's (utils/xmlconfig.
+    fleet_config_from_conf): the train command trains past it, as the JAX
+    overlay does, and keeps it in global-final.xml."""
+    argv = _shifu_files(tmp_path, xml={"shifu.fleet.n-daemons": "3"})
+    out = tmp_path / "j"
+    assert cli.main(argv + ["--device", "cpu", "--output", str(out)]) == 0
+    assert (out / "final_model" / "scoring.pt2").exists()
+    assert "shifu.fleet.n-daemons" in (out / "global-final.xml").read_text()
 
 
 def test_the_aot_pack_key_packs_the_final_model(tmp_path):

@@ -1,8 +1,8 @@
 """The port's Shifu XML overlay (shifu_tpu_torch/utils/xmlconfig.py)
 against the JAX package's: the same XML through both packages'
 `apply_to_job` gives equal job fields on every key the port carries, the
-same errors, the same serialized `global-final.xml`; a drift or fleet key
-raises NotImplementedError in the port."""
+same errors, the same serialized `global-final.xml`; the serving, drift
+and fleet keys apply as JAX's do (the fleet keys in test_torch_fleet.py)."""
 
 import json
 
@@ -143,23 +143,6 @@ def test_validation_rejects_alike(conf):
     with pytest.raises(port_schema.ConfigError) as got:
         pjob.validate()
     assert str(got.value) == str(want.value)
-
-
-@pytest.mark.parametrize("key,item", [
-    (jax_xml.KEY_FLEET_N_DAEMONS, "(e)7"),
-    (jax_xml.KEY_FLEET_HOSTS, "(e)7"),
-])
-def test_a_drift_or_fleet_key_raises_not_ported(key, item):
-    """The fleet keys still raise; the drift keys apply
-    (`test_drift_and_serving_keys_apply_like_jax`)."""
-    conf = {xml.KEY_EPOCHS: "3", key: "1"}
-    jjob, pjob = _jobs()
-    jax_xml.apply_to_job(jjob, conf)  # the JAX overlay has no such field
-    with pytest.raises(NotImplementedError, match=r"not ported yet.*"
-                       + item.replace("(", r"\(").replace(")", r"\)")):
-        xml.apply_to_job(pjob, conf)
-    with pytest.raises(NotImplementedError):
-        xml.serving_config_from_conf(conf)
 
 
 def test_serving_keys_match_jax_where_the_port_has_the_field():
