@@ -111,11 +111,12 @@ stderr, and no result line is printed):
                np.memmap-backed partition; #4 as in 8b; the parse and
                consolidation seconds, each epoch's samples/s.
 8d. supervised — `python -m shifu_tpu_torch.launcher.cli train --supervise`
-               in a subprocess: an unbroken run; one whose chaos plan exits
-               attempt 1 at epoch 2's start; one whose child gets SIGTERM in
-               epoch 0's checkpoint save (held 5 s by a chaos delay) and
-               exits 75.  Each must restart once (journaled
-               `supervisor_restart`), resume at epoch 2 (1), and end with
+               in a subprocess, 2 epochs (`--epochs`, cut from 3 to make
+               room for phase 23): an unbroken run; one whose chaos plan
+               exits attempt 1 at epoch 1's start; one whose child gets
+               SIGTERM in epoch 0's checkpoint save (held 5 s by a chaos
+               delay) and exits 75.  Each must restart once (journaled
+               `supervisor_restart`), resume at epoch 1, and end with
                per-epoch losses and final_model parameters bitwise equal to
                the unbroken run's; prints the seconds from the kill to the
                restore and to the resumed epoch's first step.
@@ -332,12 +333,28 @@ stderr, and no result line is printed):
                within 10 s; `fleet-verify` PASS.  Prints the seconds from
                spawn to the first routed answer and from the kill to
                fleet_failover.
-23. a JSON line {"kernels": [...]} with each kernel's launches on its
+23a. mesh, NCCL — a spawned child with the environment contract of one
+               rank (`parallel/distributed.initialize`: NCCL on cuda:0) and
+               a `data=1` mesh: the headline MLP (#4, 8 steps) and the
+               fused FT (#1, 4 steps) through `train(..., mesh=)`, held to
+               the same job without a mesh (rtol 1e-5, atol 1e-6), the
+               launches counted on the mesh run; a profile of 3 mesh steps
+               must show NCCL's kernels (one gradient average a step).
+               23a runs beside 23b; its profile waits for 23b's ranks to
+               end.
+23b. mesh, gloo — two spawned ranks on cuda:0 over gloo (NCCL refuses two
+               ranks of one communicator on one device): DeepFM at the
+               100k-vocab shape with its tables vocab-sharded over
+               `model=2` and the sparse Adadelta (4 steps; each rank holds
+               V/2 rows and launches #5 and #6), then the MLP on `data=2`
+               (8 steps, #4); each run's gathered parameters within 1e-2 of
+               each parameter's change of a world-1 run here.
+a JSON line {"kernels": [...]} with each kernel's launches on its
    training path (FT fused for #1, FT unfused for #2 and #3, the headline
    MLP for #4, DeepFM for #5 and #6, FT flash for #7 and #8), its error
    against the plain version, its times and its bound; every kernel must
    have launched there.
-24. the card's name and power limit, then the last line: {"ok": true,
+Then the card's name and power limit, then the last line: {"ok": true,
    "device": {...}}.  Every phase prints its wall seconds (`time:`), and
    the script its total.
 
@@ -2171,6 +2188,7 @@ def profile_training(label: str, job, train_ds, valid_ds, device,
 CLI_ROWS = 1_048_576
 CLI_FILES = 16
 CLI_EPOCHS = 3
+SUP_EPOCHS = 2   # 8d's supervised runs: depth cut from 3 for phase 23
 CLI_CHILD_TIMEOUT_S = 300
 # the parse tiers timed on this many of the parts, one file after another
 CLI_PARSE_FILES = 4
@@ -2562,23 +2580,16 @@ def cli_phases(tmp: str, device) -> None:
     obs.reset_for_tests()  # the in-process runs' sinks
     lap("8c out-of-core")
 
-    # 8d: supervised; a chaos exit at epoch 2's start, and a SIGTERM drain
-    unbroken = supervised_run("8d supervised, unbroken",
-                              argv(xml_cache, "cli_sup_unbroken"))
-    kill_plan = {"faults": [{"site": "train.epoch_start", "at_epoch": 2,
+    # 8d: supervised, SUP_EPOCHS epochs; a chaos exit at the last epoch's
+    # start, and a SIGTERM drain.  The three jobs run at once, each in its
+    # own dir on the card (their checks compare them with each other)
+    def sup_argv(out: str) -> list:
+        return argv(xml_cache, out) + ["--epochs", str(SUP_EPOCHS)]
+
+    last = SUP_EPOCHS - 1
+    kill_plan = {"faults": [{"site": "train.epoch_start", "at_epoch": last,
                              "action": "exit", "scope": "job",
                              "max_times": 1}]}
-    killed = supervised_run("8d supervised, chaos",
-                            argv(xml_cache, "cli_sup_killed"), plan=kill_plan)
-    restart, resumes = check_supervised("8d supervised, chaos", killed,
-                                        unbroken, 17)
-    if [r["epoch"] for r in resumes] != [2]:
-        fail(f"8d supervised, chaos: resumed at {resumes}, expected epoch 2")
-    inject = next(r for r in killed["journal"]
-                  if r["kind"] == "chaos_inject")
-    epoch2 = next(r for r in killed["journal"] if r["kind"] == "epoch"
-                  and r["epoch"] == 2)
-    first_step = epoch2["ts"] - epoch2["epoch_time"] - epoch2["valid_time"]
     term_out = f"{tmp}/cli_sup_term"
 
     def send_term(proc) -> None:
@@ -2599,17 +2610,37 @@ def cli_phases(tmp: str, device) -> None:
     term_plan = {"faults": [{"site": "checkpoint.save", "at_call": 1,
                              "action": "delay", "delay_s": 5,
                              "scope": "job"}]}
-    termed = supervised_run("8d supervised, SIGTERM",
-                            argv(xml_cache, "cli_sup_term"), plan=term_plan,
-                            on_start=send_term)
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(3) as pool:
+        futures = [
+            pool.submit(supervised_run, "8d supervised, unbroken",
+                        sup_argv("cli_sup_unbroken")),
+            pool.submit(supervised_run, "8d supervised, chaos",
+                        sup_argv("cli_sup_killed"), plan=kill_plan),
+            pool.submit(supervised_run, "8d supervised, SIGTERM",
+                        sup_argv("cli_sup_term"), plan=term_plan,
+                        on_start=send_term)]
+        unbroken, killed, termed = (f.result() for f in futures)
+    restart, resumes = check_supervised("8d supervised, chaos", killed,
+                                        unbroken, 17)
+    if [r["epoch"] for r in resumes] != [last]:
+        fail(f"8d supervised, chaos: resumed at {resumes}, expected epoch "
+             f"{last}")
+    inject = next(r for r in killed["journal"]
+                  if r["kind"] == "chaos_inject")
+    resumed = next(r for r in killed["journal"] if r["kind"] == "epoch"
+                   and r["epoch"] == last)
+    first_step = (resumed["ts"] - resumed["epoch_time"]
+                  - resumed["valid_time"])
     _, term_resumes = check_supervised("8d supervised, SIGTERM", termed,
                                        unbroken, 75)
     grace = [r for r in termed["journal"] if r["kind"] == "preemption_grace"]
     if [r["epoch"] for r in term_resumes] != [1] or len(grace) != 1:
         fail(f"8d supervised, SIGTERM: resumed {term_resumes}, "
              f"preemption_grace {grace}: expected a drain at epoch 1")
-    say(f"8d supervised: the chaos exit at epoch 2's start (attempt 1, rc "
-        f"{restart['rc']}) restarted once and resumed at epoch 2: "
+    say(f"8d supervised ({SUP_EPOCHS} epochs): the chaos exit at epoch "
+        f"{last}'s start (attempt 1, rc {restart['rc']}) restarted once and "
+        f"resumed at epoch {last}: "
         f"{resumes[0]['ts'] - inject['ts']:.3f} s from the kill to the "
         f"restore, {first_step - inject['ts']:.3f} s to the resumed epoch's "
         f"first step; the SIGTERM drain (exit 75 after epoch 0's save) "
@@ -5427,6 +5458,351 @@ def fleet_phases(device, tmp: str, smi_line: str) -> None:
     lap("22h fleet command")
 
 
+# -- phase 23: data- and vocab-parallel training on torch.distributed --------
+
+MESH_MLP_STEPS = 8           # the headline MLP at TRAIN_BATCH, one epoch
+MESH_FT_STEPS = 4            # the fused FT at FT_BATCH, one epoch
+MESH_DEEPFM_STEPS = 4        # DeepFM at 100k vocab, DEEPFM_BATCH, an epoch
+MESH_DEEPFM_EPOCHS = 2       # epoch 0 pays each rank's first use
+MESH_PROFILE_STEPS = 3       # mesh steps under 23a's profiler window
+MESH_CHILD_TIMEOUT_S = 300
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-6   # 23a: world 1 against no mesh (f32)
+
+
+def mesh_paths() -> dict:
+    """Phase 23's jobs, label -> (job, train, valid), from SEED alone (the
+    children build the same): the headline MLP on the int8 wire (#4),
+    the fused FT (#1), DeepFM at the 100k-vocab shape with the sparse
+    Adadelta on the per-batch tier (#5, #6)."""
+    from shifu_tpu_torch.data import synthetic
+    mlp = headline_job(epochs=1)
+    ft = ft_job(synthetic.make_schema(num_features=30), FT_BATCH, 1)
+    dfm = dlrm_job("deepfm", deepfm_schema(DEEPFM_VOCAB), DEEPFM_BATCH,
+                   epochs=MESH_DEEPFM_EPOCHS, staged=False, sparse="on")
+    return {
+        "MLP": (mlp, *synthetic_datasets(
+            mlp.schema, MESH_MLP_STEPS * TRAIN_BATCH, TRAIN_BATCH, SEED)),
+        "FT fused": (ft, *synthetic_datasets(
+            ft.schema, MESH_FT_STEPS * FT_BATCH, FT_BATCH, SEED)),
+        "DeepFM": (dfm, *synthetic_datasets(
+            dfm.schema, MESH_DEEPFM_STEPS * DEEPFM_BATCH, DEEPFM_BATCH,
+            SEED + 3)),
+    }
+
+
+def param_arrays(model) -> dict:
+    return {k: v.detach().float().cpu().numpy()
+            for k, v in model.state_dict().items()}
+
+
+def nccl_events(prof) -> tuple[dict, dict]:
+    """({NCCL device kernel: calls}, {NCCL host op: calls}) of a profile:
+    kernels from NCCL's library (ncclDevKernel_*, and oneRankReduce, the
+    kernel of a one-rank reduction) and the `nccl:*` ranges that
+    ProcessGroupNCCL records around each collective."""
+    kernels, ops = {}, {}
+    for e in prof.key_averages():
+        low = e.key.lower()
+        if low.startswith("nccl:"):
+            ops[e.key] = ops.get(e.key, 0) + e.count
+        elif ("nccl" in low or "onerank" in low) and (
+                getattr(e, "device_time_total", 0) or 0) > 0:
+            name = "oneRankReduce" if "onerank" in low else e.key[:80]
+            kernels[name] = kernels.get(name, 0) + e.count
+    return kernels, ops
+
+
+def nccl_child(out_path: str, device: str, gate: str) -> None:
+    """23a, a spawned process with the environment contract of one rank:
+    NCCL at world 1 and an explicit data=1 mesh.  For the MLP (#4) and the
+    fused FT (#1), `train` without a mesh and then through the mesh
+    (launches counted), the final parameters compared; then, once the file
+    `gate` exists (23b's ranks have ended: a profile taken beside another
+    process on the card can lose device events), a profiler window over
+    mesh steps of the MLP.  Writes its findings to `out_path` as JSON."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from shifu_tpu_torch.config.schema import MeshConfig
+    from shifu_tpu_torch.parallel import distributed, make_mesh
+    from shifu_tpu_torch.train import step as step_lib
+    from shifu_tpu_torch.train.loop import init_state, to_device, train
+
+    dev = torch.device(device)
+    distributed.initialize(device=dev)
+    mesh = make_mesh(MeshConfig(data=1))
+    out = {"backend": torch.distributed.get_backend(),
+           "world": distributed.process_count(),
+           "nccl": (".".join(str(v) for v in torch.cuda.nccl.version())
+                    if dev.type == "cuda" else "none"),
+           "runs": {}}
+    paths = mesh_paths()
+    for label in ("MLP", "FT fused"):
+        job, tr, va = paths[label]
+        t0 = time.perf_counter()
+        ref = param_arrays(train(job, tr, va, console=lambda s: None,
+                                 device=dev).state.model)
+        reset_launches()
+        res = train(job, tr, va, console=lambda s: None, device=dev,
+                    mesh=mesh)
+        launches = read_launches()
+        got = param_arrays(res.state.model)
+        out["runs"][label] = {
+            "launches": launches, "steps": res.state.step,
+            "bitwise": all(np.array_equal(got[k], ref[k]) for k in ref),
+            "close": all(np.allclose(got[k], ref[k], rtol=MESH_RTOL,
+                                     atol=MESH_ATOL) for k in ref),
+            "max_abs": max(float(np.max(np.abs(got[k] - ref[k])))
+                           for k in ref),
+            "seconds": time.perf_counter() - t0}
+    job, tr, _ = paths["MLP"]
+    state = init_state(job, tr.num_features, dev, mesh=mesh)
+    step = step_lib.make_train_step(job, mesh)
+    from shifu_tpu_torch.data import pipeline as pipe
+    wcast = pipe.wire_cast_fn(job.schema, job.data, job.model.compute_dtype)
+    batch = to_device(wcast(next(pipe.batch_iterator(
+        tr, TRAIN_BATCH, shuffle=False))), job, dev)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    deadline = time.monotonic() + MESH_CHILD_TIMEOUT_S
+    while not os.path.exists(gate) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(MESH_PROFILE_STEPS):
+                state, _ = step(state, batch)
+            torch.cuda.synchronize()
+        kernels, ops = nccl_events(prof)
+        if sum(kernels.values()) >= MESH_PROFILE_STEPS:
+            break
+    out["profile"] = {"kernels": kernels, "ops": ops, "attempts": attempt}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+
+
+def gloo_rank(rank: int, store: str, out_path: str, device: str) -> None:
+    """23b, one of two ranks that share cuda:0 over gloo (NCCL refuses two
+    ranks of one communicator on one device).  DeepFM with the tables
+    vocab-sharded over model=2, then the MLP on data=2, each through
+    `train(..., mesh=)` with the launches counted; rank 0 writes the
+    gathered parameters (`.npz`) beside its findings."""
+    import torch
+    from shifu_tpu_torch.config.schema import MeshConfig
+    from shifu_tpu_torch.embed.shard import assert_vocab_sharded
+    from shifu_tpu_torch.parallel import distributed, make_mesh
+    from shifu_tpu_torch.train import checkpoint as ckpt_lib
+    from shifu_tpu_torch.train.loop import train
+
+    dev = torch.device(device)
+    distributed.initialize(coordinator=f"file://{store}", num_processes=2,
+                           process_id=rank, backend="gloo", device=dev)
+    paths = mesh_paths()
+    out, arrays = {"backend": torch.distributed.get_backend()}, {}
+    for label, cfg in (("DeepFM", MeshConfig(model=2)),
+                       ("MLP", MeshConfig(data=2))):
+        job, tr, va = paths[label]
+        mesh = make_mesh(cfg)
+        t0 = time.perf_counter()
+        reset_launches()
+        res = train(job, tr, va, console=lambda s: None, device=dev,
+                    mesh=mesh)
+        launches = read_launches()
+        seconds = time.perf_counter() - t0
+        rows, sum_ms = None, None
+        if res.state.shardings:
+            table = res.state.model.cat_embedding.embedding
+            assert_vocab_sharded(table, 2, DEEPFM_VOCAB)
+            rows = list(table.shape)
+            # the lookup's sum over the model group, alone: the (B, Nc,
+            # D + heads) bf16 partial rows a step's forward all-reduces
+            part = torch.ones((job.data.batch_size, 6, 17),
+                              dtype=torch.bfloat16, device=dev)
+            sum_ms = time_ms(lambda: distributed.all_reduce(
+                part, mesh.group("model")), reps=5, warmup=2)
+        full = ckpt_lib.full_payload(res.state)["model"]  # collective
+        if rank == 0:
+            arrays.update({f"{label}/{k}": v.float().cpu().numpy()
+                           for k, v in full.items()})
+        out[label] = {"launches": launches, "steps": res.state.step,
+                      "table_rows": rows, "coords": mesh.coords,
+                      "valid_auc": res.history[-1].valid_auc,
+                      "step_ms": [1e3 * m.epoch_time * len(res.history)
+                                  / res.state.step for m in res.history],
+                      "sum_ms": sum_ms, "seconds": seconds}
+    with open(f"{out_path}.{rank}.json", "w") as f:
+        json.dump(out, f)
+    if rank == 0:
+        np.savez(f"{out_path}.npz", **arrays)
+    distributed.barrier("23b")
+    distributed.shutdown()
+
+
+def moved_close(got: dict, ref: dict, init: dict) -> tuple[bool, float]:
+    """Each parameter's change from init within LOCKSTEP_MOVED_RTOL of the
+    reference's (relative to its largest entry), as the card-vs-CPU
+    locksteps hold it; and the largest absolute difference."""
+    ok, worst = True, 0.0
+    for k, r in ref.items():
+        moved = np.max(np.abs(r - init[k]))
+        diff = float(np.max(np.abs(got[k] - r)))
+        worst = max(worst, diff)
+        ok &= diff <= LOCKSTEP_MOVED_RTOL * moved + 1e-7
+    return ok, worst
+
+
+def join_all(procs: list, label: str) -> float:
+    """Join spawned processes within MESH_CHILD_TIMEOUT_S; their exit
+    codes must be 0.  Returns the seconds waited."""
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + MESH_CHILD_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 1.0))
+    if any(p.is_alive() for p in procs):
+        for p in procs:
+            p.kill()
+        fail(f"{label}: did not end in {MESH_CHILD_TIMEOUT_S} s")
+    if any(p.exitcode != 0 for p in procs):
+        fail(f"{label}: exited {[p.exitcode for p in procs]}")
+    return time.perf_counter() - t0
+
+
+def mesh_phases(device, tmp: str, smi_line: str) -> None:
+    """Phase 23: the distributed path, at world 1 over NCCL (23a) and as
+    two ranks sharing the card over gloo (23b), the two at once; 23a's
+    profile waits for 23b's ranks to end, and the world-1 references of
+    23b run here after both."""
+    import torch
+    from shifu_tpu_torch.parallel import distributed
+    from shifu_tpu_torch.parallel.launch import free_port
+    from shifu_tpu_torch.train.loop import init_state, train
+
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    # 23a: one rank with the environment contract, NCCL
+    out_a, gate = f"{tmp}/mesh_nccl.json", f"{tmp}/mesh_gloo.done"
+    env = {distributed.ENV_COORDINATOR: f"127.0.0.1:{free_port()}",
+           distributed.ENV_NUM_PROCESSES: "1", distributed.ENV_PROCESS_ID: "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        proc = ctx.Process(target=nccl_child,
+                           args=(out_a, str(device), gate))
+        proc.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    # 23b: two ranks on cuda:0 over gloo
+    out_b = f"{tmp}/mesh_gloo"
+    store = f"{tmp}/mesh_gloo.store"
+    procs = [ctx.Process(target=gloo_rank, args=(r, store, out_b, str(device)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    join_all(procs, "23b: the gloo ranks")
+    b_s = time.perf_counter() - t0
+    open(gate, "w").close()
+    join_all([proc], "23a: the NCCL rank")
+    a_s = time.perf_counter() - t0
+    if not os.path.exists(out_a):
+        fail("23a: the NCCL rank wrote no findings")
+    with open(out_a) as f:
+        a = json.load(f)
+    if a["backend"] != "nccl" or a["world"] != 1:
+        fail(f"23a: backend {a['backend']} at world {a['world']}, expected "
+             "nccl at world 1")
+    for label, kernel in (("MLP", "int8_matmul"), ("FT fused", "ft_block")):
+        run = a["runs"][label]
+        if not run["close"]:
+            fail(f"23a {label}: the mesh run's parameters are "
+                 f"{run['max_abs']:.3e} from the run without a mesh "
+                 f"(rtol {MESH_RTOL} atol {MESH_ATOL})")
+        if not run["launches"].get(kernel):
+            fail(f"23a {label}: {kernel} did not launch on the mesh path: "
+                 f"{run['launches']}")
+        say(f"23a {label}: train(..., mesh=data=1) over NCCL "
+            f"{a['nccl']} at world 1, {run['steps']} steps: parameters "
+            f"{'bitwise equal to' if run['bitwise'] else 'within rtol ' + str(MESH_RTOL) + ' atol ' + str(MESH_ATOL) + ' of'} "
+            f"the run without a mesh (max abs {run['max_abs']:.3e}); "
+            f"launches {run['launches']}; {run['seconds']:.1f} s")
+    prof = a["profile"]
+    if sum(prof["kernels"].values()) < MESH_PROFILE_STEPS:
+        fail(f"23a: no NCCL kernel in {prof['attempts']} profiles of "
+             f"{MESH_PROFILE_STEPS} mesh steps: {prof}")
+    say(f"23a profile of {MESH_PROFILE_STEPS} mesh steps of the MLP: NCCL "
+        f"device kernels {prof['kernels']}, NCCL host ops {prof['ops']} "
+        f"(attempt {prof['attempts']}; one gradient average a step; NCCL "
+        f"launches its one-rank reduce kernel for an average at world 1, "
+        f"where it elides an in-place sum) [{smi_line}]")
+    say(f"time: 23a NCCL at world 1 {a_s:.1f} s from spawn to exit (its "
+        f"profile after 23b's end); 23b two ranks over gloo {b_s:.1f} s, "
+        f"the two at once")
+
+    # 23b's findings, against world-1 runs here
+    ranks = []
+    for r in range(2):
+        with open(f"{out_b}.{r}.json") as f:
+            ranks.append(json.load(f))
+    with np.load(f"{out_b}.npz") as z:
+        gathered = {k: z[k] for k in z.files}
+    paths = mesh_paths()
+    for label, want_launch in (
+            ("DeepFM", lambda st, ev: {"embedding_lookup": st + ev,
+                                       "rows_update": 2 * st}),
+            ("MLP", lambda st, ev: {"int8_matmul": st + ev})):
+        job, tr, va = paths[label]
+        init = param_arrays(init_state(job, tr.num_features, device).model)
+        res = train(job, tr, va, console=lambda s: None, device=device)
+        ref = param_arrays(res.state.model)
+        got = {k[len(label) + 1:]: v for k, v in gathered.items()
+               if k.startswith(label + "/")}
+        ok, worst = moved_close(got, ref, init)
+        if not ok or sorted(got) != sorted(ref):
+            fail(f"23b {label}: the two ranks' parameters differ from the "
+                 f"world-1 run's beyond {LOCKSTEP_MOVED_RTOL} of each "
+                 f"parameter's change (max abs {worst:.3e})")
+        steps, evals = steps_and_evals(job, tr.num_rows, va.num_rows,
+                                       job.train.epochs)
+        if ranks[0][label]["steps"] != steps:
+            fail(f"23b {label}: {ranks[0][label]['steps']} steps, expected "
+                 f"{steps}")
+        want = want_launch(steps, evals)
+        for r, rk in enumerate(ranks):
+            got_l = {k: v for k, v in rk[label]["launches"].items() if v}
+            if got_l != want:
+                fail(f"23b {label} rank {r}: launches {got_l}, expected "
+                     f"{want}")
+        rows = [rk[label]["table_rows"] for rk in ranks]
+        if label == "DeepFM" and rows != [[6, DEEPFM_VOCAB // 2, 16]] * 2:
+            fail(f"23b DeepFM: table slices {rows}, expected "
+                 f"V/2 = {DEEPFM_VOCAB // 2} rows on each rank")
+        say(f"23b {label} on {ranks[0][label]['coords']} / "
+            f"{ranks[1][label]['coords']} (two ranks on cuda:0 over "
+            f"{ranks[0]['backend']}): {steps} steps, launches per rank "
+            f"{want}"
+            + (f", each rank's tables {rows[0]} of "
+               f"[6, {DEEPFM_VOCAB}, 16]" if label == "DeepFM" else "")
+            + f"; parameters within {LOCKSTEP_MOVED_RTOL} of each change of "
+            f"the world-1 run (max abs {worst:.3e}); valid_auc "
+            f"{ranks[0][label]['valid_auc']:.4f} against "
+            f"{res.history[-1].valid_auc:.4f}; ms a step by epoch (its wall "
+            f"over its steps, host clock; epoch 0 pays the rank's first "
+            f"use) "
+            f"{[round(v, 1) for v in ranks[0][label]['step_ms']]} against "
+            f"{[round(1e3 * m.epoch_time * len(res.history) / res.state.step, 1) for m in res.history]}"
+            f" at world 1"
+            + (f"; the lookup's sum over model=2 alone "
+               f"{ranks[0][label]['sum_ms']:.2f} ms (CUDA events)"
+               if ranks[0][label]["sum_ms"] is not None else "")
+            + f"; {ranks[0][label]['seconds']:.1f} s a rank; gloo carried "
+            f"every collective on CUDA tensors (no host staging of the "
+            f"port's own)")
+    lap("23a and 23b, and 23b's world-1 references")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5466,6 +5842,14 @@ def main() -> None:
         build_s = _build.build_all()
     except Exception as e:  # noqa: BLE001 — reported as the phase's failure
         fail(f"build: {e}")
+    # one cuobjdump a source, all at once (each reads a whole library),
+    # behind the CPU halves' end and the profiler's warm-up
+    from concurrent.futures import ThreadPoolExecutor
+    sass_srcs = [src for src in sorted(_build.build_logs)
+                 if src.startswith("flash_") or src in SASS_OPS]
+    sass_pool = ThreadPoolExecutor(len(sass_srcs) or 1)
+    sass_jobs = {src: sass_pool.submit(build_report, src)
+                 for src in sass_srcs}
     try:
         cpu_refs = pending.get(timeout=900)
     except Exception as e:  # noqa: BLE001 — reported as the phase's failure
@@ -5473,9 +5857,11 @@ def main() -> None:
     pool.close()
     pool.join()
     warm_profiler(device)
+    reports = {src: job.result() for src, job in sass_jobs.items()}
+    sass_pool.shutdown()
     for src in sorted(_build.build_logs):
-        if src.startswith("flash_") or src in SASS_OPS:
-            line, counts = build_report(src)
+        if src in reports:
+            line, counts = reports[src]
             say(f"build: {src}: " + line)
             if src == "ft_block" and any(
                     not c["HMMA"] or c["MUFU.TANH"] for c in counts.values()):
@@ -5558,12 +5944,14 @@ def main() -> None:
         operator_phases(device, tmp, smi_line)
         # phases 22g and 22h: the serving fleet
         fleet_phases(device, tmp, smi_line)
+        # phase 23: data- and vocab-parallel training on torch.distributed
+        mesh_phases(device, tmp, smi_line)
 
     missing = [kr["name"] for kr in kernels if not kr.get("launches")]
     if missing:
         fail(f"kernels not launched on their training path: {missing}")
     say(f"time: total {time.perf_counter() - _T0:.1f} s")
-    # phase 23: the kernels line; phase 24: the result line
+    # the kernels line, the card's line and the result line
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -19,7 +19,10 @@ scoring tier of an artifact (`runtime/serve.load_engine`: torch, the
 scorer) and the commands `score`, `eval`, `export`, `serve` and
 `loadtest`; the operator's views (`metrics`, `profile`, `trace`, `top`,
 `drift`, `timeline`, `chaos-verify`) and detached jobs (`train --detach`,
-`status`, `attach`, `kill`); the frequency-tiered embedding table.  Nine hand-written CUDA kernels for Hopper, in eight sources
+`status`, `attach`, `kill`); the frequency-tiered embedding table; the
+one-host serving fleet; data-parallel training, local SGD and
+vocab-sharded tables on torch.distributed, one process per device
+(`parallel/`, `train(..., mesh=)`, `train --devices N`).  Nine hand-written CUDA kernels for Hopper, in eight sources
 under `csrc/`, replace the JAX package's TPU kernels; each has a plain
 PyTorch twin in its wrapper module that serves CPU tensors only, and the
 scoring path's forwards are `shifu_tpu_torch::` operators.

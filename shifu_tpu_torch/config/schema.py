@@ -752,14 +752,22 @@ class EmbedConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The JAX package's device mesh (multi-GPU is slice (f)); carried so a
-    JAX job dict parses."""
+    """The device mesh, as in the JAX package: axis sizes (`shifu.mesh.*`)
+    and `axis_order`, the row-major layout of the ranks over the axes
+    (`parallel/mesh.make_mesh`).  `data` and `model` are trained (data
+    parallelism and vocab-sharded tables); `seq` and `pipe` above 1 raise
+    until ring/Ulysses attention and GPipe are ported (ROADMAP.md queue A
+    item (f))."""
 
     data: int = 1
     model: int = 1
     seq: int = 1
     pipe: int = 1
     axis_order: tuple[str, ...] = ("data", "seq", "pipe", "model")
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.seq * self.pipe
 
     def validate(self) -> None:
         for name in ("data", "model", "seq", "pipe"):
@@ -795,9 +803,13 @@ class RuntimeConfig:
     """Job-level runtime settings of the JAX package.  The port's launcher
     (`launcher/cli.py`) reads `app_name`, `timeout_seconds`,
     `max_restarts`, `liveness_seconds`, `final_model_path`,
-    `checkpoint` and the Kerberos pair; the pod and multi-host fields
-    (`min_hosts`, `distributed`, `param_sharding_rules`, a mesh of more
-    than one device) wait for ROADMAP.md queue A item (f)."""
+    `checkpoint`, the Kerberos pair and `mesh` (`train` spawns one rank
+    per device of a mesh larger than one).  `distributed` is carried and
+    read nowhere, as in the JAX package: a rank joins its process group
+    from the environment contract (`parallel/distributed.initialize`).
+    `param_sharding_rules` (tensor-parallel placements) raise under a
+    mesh, and `min_hosts` waits for the pod launcher (ROADMAP.md queue A
+    item (f))."""
 
     mesh: MeshConfig = field(default_factory=MeshConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)

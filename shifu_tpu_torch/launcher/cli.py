@@ -74,10 +74,21 @@ children with `--member-mode process`.  `serve --heartbeat-s` writes the
 fleet's membership lease, and `fleet-verify` audits a fleet's merged
 journals, importing no torch, as the views do.
 
+`train --devices N`, or a `shifu.mesh.*` mesh of N devices, trains on N
+devices: the dispatcher spawns N ranks of the same command with the
+environment contract of `parallel/distributed.py` (`parallel/launch.py`),
+each on `cuda:r` (or the CPU under `--device cpu`); each rank joins the
+process group, builds the mesh and trains its part (`train(...,
+mesh=)`); the chief alone writes the job dir's files, the journal, the
+board, the checkpoints and the artifact, and the ranks end on a barrier.
+`--supervise` restarts the whole gang as one child.  A mesh larger than
+the visible cards exits 1 with the JAX package's message; `--devices 1`
+is the single-device path.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: `train --hosts` and `--num-processes` > 1 (multi-host, queue A item
-(f)), a mesh of more than one device (f), `kill --force` (the provision
-marker, (f)), and the JAX CLI's other commands (`_NOT_PORTED_COMMANDS`).
+item: `train --hosts` and `--num-processes` > 1 (the pod launcher, queue A
+item (f)), `kill --force` (the provision marker, (f)), and the JAX CLI's
+other commands (`_NOT_PORTED_COMMANDS`).
 """
 
 from __future__ import annotations
@@ -115,8 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Hadoop-style XML (-globalconfig parity)")
     t.add_argument("--output", default=None, help="job output dir")
     t.add_argument("--devices", type=int, default=0,
-                   help="limit device count (0 = all; the port trains on "
-                        "one device)")
+                   help="limit device count (0 = all visible cards; on the "
+                        "CPU the ranks to spawn); one rank per device")
     t.add_argument("--device", default=None,
                    help="torch device to train on (default cuda:0; 'cpu' "
                         "only when asked)")
@@ -665,16 +676,49 @@ def _check_ported(args) -> None:
     if args.hosts:
         raise _not_ported("--hosts (pod-scale launch)", "(f)")
     if args.num_processes > 1:
-        raise _not_ported("--num-processes > 1", "(f)")
-    if args.devices > 1:
-        raise _not_ported("--devices > 1 (the port trains on one device)",
-                          "(f)")
+        raise _not_ported("--num-processes > 1 (launch_gang and "
+                          "data.host_shard)", "(f)")
 
 
-def _check_job_ported(job) -> None:
-    mesh = job.runtime.mesh
-    if mesh.data * mesh.model * mesh.seq * mesh.pipe > 1:
-        raise _not_ported(f"a mesh of more than one device ({mesh})", "(f)")
+def _train_world(args, job, dev) -> tuple[int, Optional[str]]:
+    """(ranks to train on, or 0 with the reason it cannot), the JAX
+    launcher's rule: a `shifu.mesh.*` mesh of more than one device takes
+    exactly its size, which must fit the visible devices; else data
+    parallelism over them.  Visible: the cards, capped by --devices; on
+    the CPU, --devices ranks (the mesh's size when 0)."""
+    from ..parallel.mesh import check_axes
+    check_axes(job.runtime.mesh)
+    need = job.runtime.mesh.num_devices
+    if dev.type == "cuda":
+        import torch
+        n_devices = torch.cuda.device_count()
+        if args.devices:
+            n_devices = min(n_devices, args.devices)
+    else:
+        n_devices = args.devices or need
+    if need > 1:
+        if need > n_devices:
+            return 0, (f"mesh {job.runtime.mesh} needs {need} devices, "
+                       f"have {n_devices}")
+        return need, None
+    return max(n_devices, 1), None
+
+
+def _run_gang(args, out_dir: str, world: int, dev) -> int:
+    """Spawn `world` ranks of this `train` command (parallel/launch.py):
+    rank r on cuda:r, or on the CPU."""
+    from ..parallel.launch import spawn_ranks
+
+    base = _child_train_args(args, out_dir)
+    if "--device" in base:
+        i = base.index("--device")
+        del base[i:i + 2]
+
+    def argv(rank: int) -> list[str]:
+        return base + ["--device",
+                       "cpu" if dev.type == "cpu" else f"cuda:{rank}"]
+
+    return spawn_ranks(argv, world)
 
 
 def run_train(args) -> int:
@@ -707,7 +751,6 @@ def run_train(args) -> int:
         if not fsio.is_remote(out_dir):
             os.makedirs(out_dir, exist_ok=True)
         sup_job = _assemble_job(args, write_files=False)[0]
-        _check_job_ported(sup_job)
         max_restarts = (args.max_restarts if args.max_restarts >= 0
                         else sup_job.runtime.max_restarts)
         return supervise(_child_train_args(args, out_dir),
@@ -717,6 +760,36 @@ def run_train(args) -> int:
                          checkpoint_dir=sup_job.runtime.checkpoint.directory,
                          timeout_seconds=sup_job.runtime.timeout_seconds)
 
+    from ..parallel import distributed
+    if distributed.ENV_NUM_PROCESSES not in os.environ:
+        # the dispatcher: more than one device spawns the gang of ranks
+        out_dir = _resolve_out_dir(args)
+        args.output = out_dir  # pin: the ranks share one job dir
+        world, why = _train_world(
+            args, _assemble_job(args, write_files=False)[0], dev)
+        if why is not None:
+            from .console import ConsoleBoard
+            board = ConsoleBoard(fsio.join(out_dir, "console.board"))
+            board(why)
+            board.close()
+            return EXIT_FAIL
+        if world > 1:
+            return _run_gang(args, out_dir, world, dev)
+    rc = _train_rank(args, dev)
+    if rc == EXIT_OK:
+        # a failed rank leaves without the group's goodbye, which would
+        # wait for peers that are gone
+        distributed.shutdown()
+    return rc
+
+
+def _train_rank(args, dev) -> int:
+    """`train` in this process: alone, or as a rank of a gang (the
+    environment contract names its coordinator, world and rank)."""
+    from ..parallel import distributed
+    joined = distributed.initialize(device=dev)
+    chief = distributed.is_chief()
+
     # chaos site "launcher.start": process start-up, before any work
     from .. import chaos
     try:
@@ -725,8 +798,14 @@ def run_train(args) -> int:
         print(f"chaos: {e}", file=sys.stderr, flush=True)
         return EXIT_FAIL
 
-    job, out_dir = _assemble_job(args)
-    _check_job_ported(job)
+    job, out_dir = _assemble_job(args, write_files=chief)
+    mesh = None
+    if joined:
+        from ..config.schema import MeshConfig
+        from ..parallel import make_mesh
+        cfg = (job.runtime.mesh if job.runtime.mesh.num_devices > 1
+               else MeshConfig(data=distributed.process_count()))
+        mesh = make_mesh(cfg)
 
     from .security import KerberosError, ensure_kerberos_ticket
     try:
@@ -742,22 +821,31 @@ def run_train(args) -> int:
     from .supervisor import JobDeadline
 
     t_run = time.monotonic()
-    # telemetry: SHIFU_TPU_METRICS_DIR wins, else <job dir>/telemetry
-    try:
-        obs.configure(obs.resolve_metrics_dir()
-                      or fsio.join(out_dir, "telemetry"))
-    except Exception:
-        pass  # telemetry must never block the job
+    # telemetry: SHIFU_TPU_METRICS_DIR wins, else <job dir>/telemetry; the
+    # other ranks of a gang journal nothing
+    if chief:
+        try:
+            obs.configure(obs.resolve_metrics_dir()
+                          or fsio.join(out_dir, "telemetry"))
+        except Exception:
+            pass  # telemetry must never block the job
     obs.counter("launcher_runs_total", "train runs started").inc()
-    board = ConsoleBoard(fsio.join(out_dir, "console.board"))
+    board = (ConsoleBoard(fsio.join(out_dir, "console.board")) if chief
+             else _SilentBoard())
+    devices = mesh.size if mesh is not None else 1
     board(f"shifu_tpu_torch train: {job.runtime.app_name} device={dev} "
+          f"devices={devices} "
+          f"mesh={mesh.shape if mesh is not None else None} "
           f"model={job.model.model_type} epochs={job.train.epochs} "
           f"batch={job.data.batch_size}")
-    obs.gauge("launcher_devices_in_use", "devices this run trains on").set(1)
+    obs.gauge("launcher_devices_in_use",
+              "devices this run trains on").set(devices)
     obs.event("run_start", command="train", app_name=job.runtime.app_name,
-              devices=1, mesh=None, model=job.model.model_type,
+              devices=devices,
+              mesh=mesh.shape if mesh is not None else None,
+              model=job.model.model_type,
               epochs=job.train.epochs, batch_size=job.data.batch_size,
-              processes=1)
+              processes=distributed.process_count())
 
     def _finish(rc: int) -> int:
         # the terminal record and scrape file on every exit path
@@ -785,7 +873,7 @@ def run_train(args) -> int:
 
     try:
         result = train(job, console=board, epoch_callback=check_timeout,
-                       device=dev)
+                       device=dev, mesh=mesh)
     except TimeoutError:
         board.close()
         return _finish(EXIT_TIMEOUT)
@@ -795,17 +883,33 @@ def run_train(args) -> int:
         board.close()
         return _finish(EXIT_FAIL)
 
-    aot_pack, aot_buckets = _export_aot_opts(args)
-    _export_and_pack(result.state.model, job, job.runtime.final_model_path,
-                     board, baseline_profile=result.baseline_profile,
-                     aot_pack=aot_pack, aot_buckets=aot_buckets, device=dev)
-    _write_metrics_jsonl(result, fsio.join(out_dir, "metrics.jsonl"))
-    if result.history:
-        last = result.history[-1]
-        board(f"final: valid_error={last.valid_error:.6f} "
-              f"valid_auc={last.valid_auc:.4f}")
+    from ..train.loop import gathered_model
+    model = gathered_model(result.state, job)  # collective when sharded
+    if chief:
+        aot_pack, aot_buckets = _export_aot_opts(args)
+        _export_and_pack(model, job, job.runtime.final_model_path, board,
+                         baseline_profile=result.baseline_profile,
+                         aot_pack=aot_pack, aot_buckets=aot_buckets,
+                         device=dev)
+        _write_metrics_jsonl(result, fsio.join(out_dir, "metrics.jsonl"))
+        if result.history:
+            last = result.history[-1]
+            board(f"final: valid_error={last.valid_error:.6f} "
+                  f"valid_auc={last.valid_auc:.4f}")
+    distributed.barrier("export_done")
     board.close()
     return _finish(EXIT_OK)
+
+
+class _SilentBoard:
+    """The console board of a rank that is not the chief: it trains
+    silently, as the JAX package's non-chief processes do."""
+
+    def __call__(self, _line: str) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def _export_aot_opts(args) -> tuple:

@@ -144,12 +144,20 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        # (lo, hi, rows): x holds rows [lo, hi) of a batch of `rows`; the
+        # mask is drawn for the whole batch and sliced (set_dropout_rows)
+        self.rows: Optional[tuple[int, int, int]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate <= 0:
             return x
         keep_prob = 1.0 - self.rate
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        if self.rows is None:
+            u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        else:
+            lo, hi, rows = self.rows
+            u = torch.rand((rows,) + tuple(x.shape[1:]),
+                           generator=self.generator, device=x.device)[lo:hi]
         return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
 
 
@@ -159,6 +167,16 @@ def set_dropout_generator(model: nn.Module,
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def set_dropout_rows(model: nn.Module,
+                     rows: Optional[tuple[int, int, int]]) -> None:
+    """Tell every `Dropout` of `model` that its inputs are rows [lo, hi)
+    of a batch of `rows` (None: the whole batch): a data-parallel rank
+    then applies its rows of the mask the whole batch draws."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rows = rows
 
 
 class MLPTrunk(nn.Module):

@@ -2,12 +2,19 @@
 layout, the numeric/categorical split, the categorical tables and the
 numeric field vectors, and `fused_lookup`, one lookup for the tables that
 share ids.  Every lookup goes through `ops/embedding.embedding_lookup`
-(kernel #5 on the card; re-exported here)."""
+(kernel #5 on the card; re-exported here).
+
+A table may be vocab-sharded over the mesh's `model` axis (embed/shard.py):
+its module then holds rows [offset, offset + V/S) of the global table and
+a `VocabShard`, and `sharded_lookup` gathers from the local slice with the
+kernel and sums the slices' partial results over the model group.  The
+values are the unsharded lookup's, bit for bit: each global id lands in
+exactly one slice, the other slices add zeros."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 from torch import nn
@@ -15,6 +22,7 @@ from torch import nn
 from ..config.schema import DataSchema, ModelSpec
 from ..ops.embedding import embedding_lookup
 from ..ops.initializers import xavier_uniform
+from ..parallel.distributed import sum_forward
 from .base import dtype_of
 
 
@@ -81,11 +89,49 @@ def split_features(features: torch.Tensor, layout: FieldLayout
     return num, ids
 
 
+@dataclasses.dataclass(frozen=True)
+class VocabShard:
+    """This rank's slice of a vocab-sharded table: rows [offset, offset +
+    rows) of a `vocab`-row table; `group` sums the slices (the model
+    axis's process group, None alone)."""
+
+    offset: int
+    rows: int
+    vocab: int
+    group: Any = None
+
+
+def sharded_lookup(table: torch.Tensor, ids: torch.Tensor,
+                   shard: VocabShard) -> torch.Tensor:
+    """The lookup of global (B, Nc) ids in a vocab-sharded table, from the
+    local (Nc, V/S, D) slice: the unsharded `embedding_lookup`'s values
+    and gradient.  Ids wrap and go out of range by the GLOBAL vocab (ids in
+    [-V, 0) wrap, ids outside [-V, V) give a NaN row).  The ids of other
+    slices, and a lower slice's ids rebased below 0 (which the kernel would
+    wrap), are clamped to row 0 before the kernel and their rows zeroed
+    with `where` (a multiply would keep a NaN); the partial results are
+    summed over the group, whose backward is the identity, so each slice's
+    gradient reaches its own rows only."""
+    v = shard.vocab
+    ids = ids.long()
+    wrapped = torch.where(ids < 0, ids + v, ids)
+    valid = (wrapped >= 0) & (wrapped < v)
+    local = wrapped - shard.offset
+    mine = valid & (local >= 0) & (local < shard.rows)
+    part = embedding_lookup(table, torch.where(mine, local, 0).to(torch.int32))
+    part = torch.where(mine[..., None], part, torch.zeros_like(part))
+    out = sum_forward(part, shard.group)
+    return torch.where(valid[..., None], out,
+                       torch.full_like(out, float("nan")))
+
+
 class CategoricalEmbed(nn.Module):
     """Per-field embedding tables stacked as one `embedding` param
     (num_fields, max_vocab, dim) in `param_dtype`; ids (B, Nc) ->
     (B, Nc, dim) in the compute dtype through `embedding_lookup`.
-    `table()` is the compute-dtype table, for `fused_lookup`."""
+    `table()` is the compute-dtype table, for `fused_lookup`.  A
+    vocab-sharded table holds its slice and `vocab_shard`
+    (embed/shard.shard_tables)."""
 
     def __init__(self, layout: FieldLayout, dim: int,
                  compute_dtype: str = "bfloat16",
@@ -95,6 +141,7 @@ class CategoricalEmbed(nn.Module):
         self.layout = layout
         self.dim = dim
         self.cdt = dtype_of(compute_dtype)
+        self.vocab_shard: Optional[VocabShard] = None
         if layout.num_categorical:
             self.embedding = nn.Parameter(xavier_uniform(
                 (layout.num_categorical, max(layout.vocab_sizes), dim),
@@ -107,7 +154,14 @@ class CategoricalEmbed(nn.Module):
         if self.layout.num_categorical == 0:
             return ids.new_zeros((ids.shape[0], 0, self.dim),
                                  dtype=self.cdt)
-        return embedding_lookup(self.table(), ids)
+        return _lookup(self.table(), ids, self.vocab_shard)
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor,
+            shard: Optional[VocabShard]) -> torch.Tensor:
+    if shard is None:
+        return embedding_lookup(table, ids)
+    return sharded_lookup(table, ids, shard)
 
 
 def fused_lookup(embeds: Sequence[CategoricalEmbed], ids: torch.Tensor
@@ -116,9 +170,10 @@ def fused_lookup(embeds: Sequence[CategoricalEmbed], ids: torch.Tensor
     tables concatenated along dim, gathered once, the result split back
     per embed.  The same values as a lookup per embed.  (The JAX package
     looks them up separately under SHIFU_TPU_PALLAS, only because its TPU
-    kernel needs D % 128 == 0; the card has no such limit.)"""
-    fused = embedding_lookup(torch.cat([e.table() for e in embeds], dim=-1),
-                             ids)
+    kernel needs D % 128 == 0; the card has no such limit.)  Vocab-sharded
+    embeds share one slicing, so their local slices concatenate alike."""
+    fused = _lookup(torch.cat([e.table() for e in embeds], dim=-1), ids,
+                    embeds[0].vocab_shard)
     return list(fused.split([e.dim for e in embeds], dim=-1))
 
 

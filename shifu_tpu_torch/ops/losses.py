@@ -54,6 +54,28 @@ _REGISTRY: dict[str, LossFn] = {
 }
 
 
+# what each loss divides its row sum by, before the clamp, and the clamp's
+# floor: a data-parallel rank rescales its loss by the global count
+# (train/step.make_loss_fn)
+_DENOMINATORS: dict[str, tuple[Callable[[torch.Tensor], torch.Tensor],
+                               float]] = {
+    "weighted_mse": (lambda w: (w != 0).sum().float(), 1.0),
+    "bce": (lambda w: torch.full((), float(w.shape[0]),
+                                 device=w.device), 0.0),
+    "weighted_bce": (lambda w: w.sum().float(), 1e-6),
+}
+
+
+def loss_denominator(name: str
+                     ) -> tuple[Callable[[torch.Tensor], torch.Tensor], float]:
+    """(fn(weight) -> the count the loss divides by, the floor it clamps
+    that count to): nonzero weights for weighted_mse, rows for bce, the
+    weight sum for weighted_bce.  The same for every head of a
+    multi-task loss."""
+    get_loss(name)  # the registry's error for an unknown name
+    return _DENOMINATORS[name]
+
+
 def get_loss(name: str) -> LossFn:
     try:
         return _REGISTRY[name]

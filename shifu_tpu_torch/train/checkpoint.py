@@ -26,6 +26,12 @@ key only orders the saves, the true step is in the state.  With
 background thread; at most one save is in flight, and `finalize` makes it
 durable.
 
+A state on a mesh (train/loop.py) saves full tensors: the chief writes
+what `full_payload` gathered from every rank's blocks of the sharded
+tables and their slots, the same files a world-1 run writes.  A restore
+checks the full shapes and keeps this rank's blocks, so a checkpoint
+resumes on any mesh, or on none.
+
 A remote directory (gs:// hdfs:// mock://) holds the same files through
 `data/fsio.py`.  Object stores have no directory rename, so a remote save
 writes `state.pt` into the step tree and `extra.json` last: a remote step
@@ -163,13 +169,49 @@ def _host_copy(obj):
 
 
 def state_payload(state) -> dict:
-    """What a step holds of a TrainState, as plain nested containers."""
+    """What a step holds of a TrainState, as plain nested containers (on
+    a mesh: this rank's blocks)."""
     return {"model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "step": int(state.step),
             "table_slots": (None if state.table_slots is None
                             else {k: list(v)
                                   for k, v in state.table_slots.items()})}
+
+
+def _map_sharded(payload: dict, state, fn) -> dict:
+    """`payload` with fn(sharding, tensor) applied to the leaves of the
+    state's sharded parameters: the parameter and its table slots."""
+    if not getattr(state, "shardings", None):
+        return payload
+    out = dict(payload, model=dict(payload["model"]))
+    slots = payload.get("table_slots")
+    if slots is not None:
+        out["table_slots"] = dict(slots)
+    for name, sh in state.shardings.items():
+        out["model"][name] = fn(sh, payload["model"][name])
+        if slots is not None and name in slots:
+            out["table_slots"][name] = [fn(sh, t) for t in slots[name]]
+    return out
+
+
+def full_payload(state) -> dict:
+    """The payload with every sharded block gathered into its full tensor:
+    a collective over the mesh's groups, which every rank must call."""
+    return _map_sharded(state_payload(state), state,
+                        lambda sh, t: sh.gather(t.detach()))
+
+
+def _full_shaped(state) -> dict:
+    """The payload's tree as the checkpoint holds it (full shapes; the
+    sharded leaves as shape-only meta tensors), for the compatibility
+    check, with no collective."""
+    def meta(sh, t):
+        shape = [n * sh.mesh.axis_size(a) if a else n
+                 for n, a in zip(t.shape, list(sh.spec)
+                                 + [None] * (t.dim() - len(sh.spec)))]
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+    return _map_sharded(state_payload(state), state, meta)
 
 
 def _leaves(obj, path: str = ""):
@@ -374,12 +416,15 @@ def _write_step(manager: CheckpointManager, step: int, payload: dict,
 
 
 def save(manager: CheckpointManager, step: int, state,
-         extra: Optional[dict] = None, block: bool = True) -> None:
+         extra: Optional[dict] = None, block: bool = True,
+         payload: Optional[dict] = None) -> None:
     """Save the train state (and a small metadata dict) at `step`.
 
     `block=False` (CheckpointConfig.async_save) copies the state to the
     host, then writes it on a background thread that overlaps the next
-    epoch; any previous in-flight save is finalized first."""
+    epoch; any previous in-flight save is finalized first.  `payload`
+    (default `state_payload(state)`) is what to write: on a mesh, the
+    chief passes `full_payload`'s gathered tensors."""
     manager.wait_until_finished()  # at most one save in flight
     _flush_pending_marker(manager)  # the previous async save is durable
     # the clock starts after the previous save's drain: an async
@@ -391,7 +436,8 @@ def save(manager: CheckpointManager, step: int, state,
     existing = set(manager.all_steps())
     while step in existing:
         step += 1
-    payload = _host_copy(state_payload(state))
+    payload = _host_copy(state_payload(state) if payload is None
+                         else payload)
     tree_spec = _tree_spec(payload)
     chaos.maybe_fail("checkpoint.save", step=int(step))
     if block:
@@ -459,7 +505,9 @@ def _check_compatible(directory: str, step: int, target: dict) -> None:
 
 def _load_into(state, payload: dict) -> None:
     """Apply a loaded payload to `state` in place (tensors keep their
-    device and identity, so the optimizer's parameter list stays bound)."""
+    device and identity, so the optimizer's parameter list stays bound);
+    on a mesh each sharded tensor gives this rank's block."""
+    payload = _map_sharded(payload, state, lambda sh, t: sh.local(t))
     state.model.load_state_dict(payload["model"], strict=True)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
@@ -510,7 +558,7 @@ def restore_latest(manager: CheckpointManager, state,
     if not steps:
         return None
     directory = manager.directory
-    target = state_payload(state)
+    target = _full_shaped(state)
     first_err: Optional[Exception] = None
     for i, step in enumerate(steps):
         try:

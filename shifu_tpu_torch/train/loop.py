@@ -1,5 +1,5 @@
-"""The training loop on one device (port of the single-host path of
-shifu_tpu/train/loop.py).
+"""The training loop (port of the single-host path of
+shifu_tpu/train/loop.py), on one device or on a mesh of ranks.
 
 `train(job, ...)` builds the model and optimizer, resumes from the newest
 checkpoint when `runtime.checkpoint.directory` is set, and runs the epochs
@@ -45,8 +45,22 @@ work) and `train.chunk` (each chunk's save point) sit where the JAX
 loop's do.  Every evaluated epoch also sketches the valid scores and (once)
 the training features on the int8 wire grid, and journals the frozen drift
 baseline as a `baseline_profile` event; the last one rides
-`TrainResult.baseline_profile` into the artifact (obs/sketch.py).  The
-multi-host paths are ROADMAP.md queue A item (f).
+`TrainResult.baseline_profile` into the artifact (obs/sketch.py).
+
+`train(..., mesh=)` runs the same loop on every rank of a mesh
+(parallel/mesh.py), even a mesh of one: each rank holds the whole dataset
+and feeds the global batches to its device, and the steps train its rows
+(train/step.py).  Global batch sizes round up to a multiple of the mesh's
+size, for training and for evaluation, whose scores are gathered over the
+data group so that every rank computes world 1's metrics.  Init draws the
+full state from `train.seed` on every rank, which then keeps its blocks.
+Only the chief (rank 0) journals, prints and writes checkpoints, which
+hold full, gathered tensors; every rank restores from them onto its own
+blocks, so a checkpoint resumes on any mesh.  The chief's clock and its
+SIGTERM decide the mid-epoch save points, agreed over the mesh's gloo
+group.  The JAX package's model-axis placements other than vocab-sharded
+tables raise, as does a pod's process-local input (ROADMAP.md queue A
+item (f)).
 """
 
 from __future__ import annotations
@@ -67,15 +81,20 @@ from ..config.schema import JobConfig
 from ..data import pipeline as pipe
 from ..device import DeviceLike, resolve_device
 from ..embed.dedup import attach_dedup
+from ..embed.shard import shard_tables
 from ..models.registry import build_model
 from ..ops import metrics as metrics_lib
+from ..parallel import distributed
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ..parallel.sharding import DEFAULT_RULES, param_specs, shard_batch
 from . import checkpoint as ckpt_lib
 from . import profiler as prof_lib
 from . import sparse_embed
 from .optimizers import Optimizer
+from .sparse_embed import on_mesh
 from .step import (make_device_epoch_step, make_epoch_scan_step,
-                   make_eval_step, make_train_step, wire_fused_into_model,
-                   wire_grid)
+                   make_eval_step, make_local_sgd_epoch_step,
+                   make_train_step, wire_fused_into_model, wire_grid)
 from .train_state import TrainState
 
 Console = Callable[[str], None]
@@ -125,15 +144,47 @@ class TrainResult:
     baseline_profile: Optional[dict] = None
 
 
+def _tensor_parallel(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: tensor-parallel placements are not ported yet (ROADMAP.md,"
+        " queue A item (f), tensor-parallel placements); the port shards "
+        "only the vocab of sparse-plan tables over the model axis")
+
+
+def _refuse_tensor_parallel(job: JobConfig, model, plan, mesh) -> None:
+    """Raise for the JAX package's placements beyond vocab-sharded tables
+    (its init_state rules under a mesh) instead of silently replicating:
+    `shifu.sharding.rules` entries, and under a model axis above 1 MoE
+    expert sharding and DEFAULT_RULES' field-axis sharding of the
+    embeddings of a job without a sharded sparse plan."""
+    if job.runtime.param_sharding_rules:
+        raise _tensor_parallel(f"shifu.sharding.rules "
+                               f"{list(job.runtime.param_sharding_rules)}")
+    if mesh.axis_size(MODEL_AXIS) <= 1:
+        return
+    if job.model.model_type == "moe_mlp":
+        raise _tensor_parallel("MoE expert sharding over the model axis")
+    if plan is None or plan.shards <= 1:
+        hits = [n for n, spec in param_specs(
+            dict(model.named_parameters()), DEFAULT_RULES).items() if spec]
+        if hits:
+            raise _tensor_parallel(
+                f"the model axis's field-axis sharding of {hits} (the "
+                "sparse embedding plan is off for this job)")
+
+
 def init_state(job: JobConfig, num_features: int,
-               device: DeviceLike = None) -> TrainState:
+               device: DeviceLike = None, mesh=None) -> TrainState:
     """Build the model in training mode and its optimizer.  Weights are
     drawn from a `torch.Generator` seeded with `train.seed` (other numbers
     than the JAX package's init from the same seed).  When int8 features
     reach the model natively its layer 0 carries the wire grid.  Under a
     sparse embedding plan the optimizer leaves the embedding tables out and
     their slots go on `table_slots`.  Every model of the JAX ladder
-    trains."""
+    trains.  On a mesh every rank draws the full state and keeps its
+    blocks: a sparse plan's tables are vocab-sharded over the model axis
+    (embed/shard.py), the rest replicated."""
+    job = on_mesh(job, mesh)
     if job.model.model_type not in _TRAINABLE:
         raise KeyError(f"unknown model_type {job.model.model_type!r}; the "
                        "port trains " + ", ".join(_TRAINABLE))
@@ -146,12 +197,32 @@ def init_state(job: JobConfig, num_features: int,
                             job.train.seed),
                         wire=wire, train=True)
     plan = sparse_embed.resolve_plan(job)
-    tables = set(sparse_embed.table_names(model, plan)) if plan else set()
+    tables = sparse_embed.table_names(model, plan) if plan else []
+    shardings = {}
+    if mesh is not None:
+        _refuse_tensor_parallel(job, model, plan, mesh)
+        if plan is not None and plan.shards > 1:
+            shardings = shard_tables(model, mesh, tables)
     dense = [p for n, p in model.named_parameters() if n not in tables]
     return TrainState(
         model=model, optimizer=Optimizer(dense, job.train.optimizer),
         table_slots=(sparse_embed.init_table_slots(model, plan)
-                     if tables else None))
+                     if tables else None),
+        mesh=mesh, shardings=shardings)
+
+
+def gathered_model(state: TrainState, job: JobConfig) -> torch.nn.Module:
+    """The state's model with whole parameters, for the artifact: the
+    model itself, or on a vocab-sharded mesh a fresh model of the same
+    build holding the gathered tables (a collective: every rank calls
+    it).  A world-1 run writes the same artifact."""
+    if not state.shardings:
+        return state.model
+    full = ckpt_lib.full_payload(state)["model"]
+    dev = next(state.model.parameters()).device
+    model = build_model(job.model, job.schema, dev)
+    model.load_state_dict(full)
+    return model
 
 
 def _tensor_bytes(obj) -> int:
@@ -275,17 +346,29 @@ def eval_batch_size(job: JobConfig, num_rows: int) -> int:
 def evaluate(state: TrainState, ds: pipe.TabularDataset, job: JobConfig,
              eval_step, device: torch.device,
              batch_size: Optional[int] = None,
-             score_sink: Optional[Callable[[np.ndarray], None]] = None
-             ) -> tuple[float, float]:
+             score_sink: Optional[Callable[[np.ndarray], None]] = None,
+             mesh=None) -> tuple[float, float]:
     """(weighted_error, auc) over the whole dataset: every row counted, the
     last batch padded with zero-weight rows.  A multi-head model is scored
     on head 0 against target column 0, as in the JAX package.  Scores are
     fetched a window of 8 batches behind the launches, so the card is not
     drained after every batch.  `score_sink` gets each batch's head-0
-    scores of the rows with nonzero weight (the baseline score sketch)."""
+    scores of the rows with nonzero weight (the baseline score sketch).
+    On a mesh the batch rounds up to a multiple of its size, each rank
+    scores its rows and the scores are gathered over the data group: every
+    rank gets the metrics of one device."""
     if ds.num_rows == 0:
         return float("nan"), float("nan")
     bs = batch_size or eval_batch_size(job, ds.num_rows)
+    if mesh is not None:
+        bs = -(-bs // mesh.size) * mesh.size
+
+    def score(padded: dict) -> torch.Tensor:
+        if mesh is None:
+            return eval_step(state, to_device(padded, job, device))
+        local = eval_step(state, to_device(shard_batch(padded, mesh), job,
+                                           device))
+        return distributed.all_gather(local, mesh.group(DATA_AXIS), 0)
     wcast = pipe.wire_cast_fn(job.schema, job.data, job.model.compute_dtype)
     sm = metrics_lib.StreamingMetrics()
     lat = obs.histogram("eval_batch_seconds",
@@ -309,8 +392,7 @@ def evaluate(state: TrainState, ds: pipe.TabularDataset, job: JobConfig,
         padded, mask = pipe.pad_to_batch(batch, bs)
         if wcast is not None:
             padded = wcast(padded)
-        pend.append((eval_step(state, to_device(padded, job, device)),
-                     int(mask.sum()), batch["target"][:, 0],
+        pend.append((score(padded), int(mask.sum()), batch["target"][:, 0],
                      batch["weight"][:, 0]))
         if len(pend) >= 8:
             fetch(pend.popleft())
@@ -383,15 +465,23 @@ def train(job: JobConfig,
           valid_ds: Optional[pipe.TabularDataset] = None,
           console: Optional[Console] = None,
           epoch_callback: Optional[Callable[[EpochMetrics], None]] = None,
-          device: DeviceLike = None) -> TrainResult:
+          device: DeviceLike = None, mesh=None) -> TrainResult:
     """Run the training job on `device` (default `cuda:0`; the CPU only
     when asked); returns the final state and the per-epoch history.
     Datasets may be passed in, else they are loaded (or the first epoch
     streamed) from job.data.paths.  SIGTERM (main thread only) saves at
-    the next chunk boundary and raises SystemExit(75)."""
-    job = job.validate()
+    the next chunk boundary and raises SystemExit(75).  With `mesh` this
+    rank trains its part of the mesh's run (module docstring); the
+    returned state holds its blocks."""
+    job = on_mesh(job.validate(), mesh)
+    chief = mesh is None or mesh.rank == 0
     console = console or (lambda s: print(s, flush=True))
+    if not chief:
+        console = lambda s: None  # noqa: E731 - the chief speaks for all
     dev = resolve_device(device)
+    # init_state and the make_*_step functions take the mesh only when
+    # there is one (a caller may wrap them with the one-device signature)
+    on = {} if mesh is None else {"mesh": mesh}
     # the JAX loop's refusal: it takes the resident or the staged tier
     # exactly when data.staged and data.drop_remainder are both set
     if job.train.local_sgd_window > 0 and not (job.data.staged
@@ -401,11 +491,14 @@ def train(job: JobConfig,
             "device-resident input tier: set data.staged=True and "
             "data.drop_remainder=True (local replicas are synchronized "
             "by epoch scans, not per-batch dispatches)")
-    # a bare SHIFU_TPU_METRICS_DIR is enough for a library caller
-    obs.configure_from_env()
+    # a bare SHIFU_TPU_METRICS_DIR is enough for a library caller; the
+    # other ranks journal nothing
+    if chief:
+        obs.configure_from_env()
     obs.event("train_start", model=job.model.model_type,
               epochs=job.train.epochs, batch_size=job.data.batch_size,
-              processes=1, devices=1)
+              processes=distributed.process_count() if mesh else 1,
+              devices=mesh.size if mesh else 1)
     cdt = job.model.compute_dtype
     wmode = pipe.wire_mode(job.schema, job.data, cdt)
     # the streamed epoch's cast detects the compact target/weight per
@@ -457,7 +550,7 @@ def train(job: JobConfig,
 
     num_features = ((train_ds.num_features if train_ds is not None else 0)
                     or job.schema.feature_count)
-    state = init_state(job, num_features, dev)
+    state = init_state(job, num_features, dev, **on)
     manager, start_epoch = _resume(job, state, console)
 
     # streaming serves only the first epoch of a fresh run: a resumed
@@ -466,12 +559,20 @@ def train(job: JobConfig,
         train_ds, valid_ds = stream_loader.datasets()
         stream_loader = None
 
-    epoch_scan_step = make_epoch_scan_step(job)
+    local_sgd = job.train.local_sgd_window > 0
+    k_win = max(job.train.local_sgd_window, 1)
+    epoch_scan_step = (make_local_sgd_epoch_step(job, mesh) if local_sgd
+                       else make_epoch_scan_step(job, **on))
     # chunks of ~32 MB of wire bytes, so a copy stays short and overlaps
-    # compute; by bytes, not rows (the int8 wire carries 4x the rows)
+    # compute; by bytes, not rows (the int8 wire carries 4x the rows).
+    # Local SGD keeps them a multiple of its window, so that no window is
+    # cut by a chunk's closing average
     row_wire_b = pipe.wire_row_bytes(job.schema, job.data, cdt)
     chunk_cap = max(1, (32 << 20) // max(job.data.batch_size * row_wire_b, 1))
-    staged_block_batches = max(1, min(job.data.block_batches, chunk_cap))
+    block_batches = -(-job.data.block_batches // k_win) * k_win
+    if local_sgd:
+        chunk_cap = max(k_win, (chunk_cap // k_win) * k_win)
+    staged_block_batches = max(1, min(block_batches, chunk_cap))
     put, ready = make_placer(job, dev)
 
     # tier plumbing, resolved by _prepare_tiers once train_ds exists
@@ -530,10 +631,13 @@ def train(job: JobConfig,
             raise ValueError("training dataset has 0 rows — nothing to "
                              "train on")
         bs = job.data.batch_size
+        quantum = mesh.size if mesh is not None else 1
         if bs > train_ds.num_rows and job.data.drop_remainder:
-            bs = train_ds.num_rows
+            bs = max((train_ds.num_rows // quantum) * quantum, quantum)
             console(f"batch_size {job.data.batch_size} > {train_ds.num_rows} "
                     f"usable rows; clamped to {bs}")
+        # each rank trains an equal share of every global batch
+        bs = -(-bs // quantum) * quantum
         # the tier rule: bytes of the partition in its in-card format
         # against the resident budget
         rfmt = pipe.resident_feature_format(job.schema, job.data, cdt)
@@ -570,9 +674,11 @@ def train(job: JobConfig,
                 host_blocks["features"] = pipe.wire_quantize(
                     pipe.features_f32(raw_features), scale, offset)
             resident_blocks = to_device(host_blocks, job, dev)
-            device_epoch_step = make_device_epoch_step(job)
+            device_epoch_step = (
+                make_local_sgd_epoch_step(job, mesh, with_order=True)
+                if local_sgd else make_device_epoch_step(job, **on))
         elif not use_staged:
-            train_step = make_train_step(job)
+            train_step = make_train_step(job, **on)
             plan = (sparse_embed.resolve_plan(job)
                     if job.embed.dedup != "off" else None)
             bcast = wcast
@@ -596,9 +702,11 @@ def train(job: JobConfig,
                 + _tensor_bytes(resident_blocks))
 
     # device flight recorder: scheduled trace windows, the anomaly ring and
-    # the epoch-boundary watermarks
-    devprof = obs.devprof.DeviceProfiler(job.obs, start_epoch=start_epoch,
-                                         state_bytes=state_bytes)
+    # the epoch-boundary watermarks (the chief's)
+    devprof = obs.devprof.DeviceProfiler(
+        job.obs if chief else dataclasses.replace(job.obs,
+                                                  trace_epochs="off"),
+        start_epoch=start_epoch, state_bytes=state_bytes)
     timing_on = (bool(os.environ.get("SHIFU_TPU_TIMING"))
                  or job.train.log_every_steps > 0)
 
@@ -615,41 +723,58 @@ def train(job: JobConfig,
 
     save_secs = job.runtime.checkpoint.save_every_seconds
     last_save = time.monotonic()
+    control = mesh.control if mesh is not None else None
+
+    def agree(*flags: bool) -> list[bool]:
+        """Each flag set on any rank, on every rank (one gloo all-reduce
+        over the mesh; the flags themselves alone)."""
+        if control is None:
+            return list(flags)
+        t = torch.tensor([int(f) for f in flags], dtype=torch.int32)
+        distributed.all_reduce(t, control, "max")
+        return [bool(v) for v in t.tolist()]
+
+    def save_state(step: int, extra: dict, block: bool) -> None:
+        """Save through the chief: sharded blocks are gathered first, on
+        every rank (a collective), so the checkpoint holds full tensors."""
+        payload = ckpt_lib.full_payload(state)
+        if chief:
+            ckpt_lib.save(manager, step, state, extra=extra, block=block,
+                          payload=payload)
 
     def maybe_midtrain_save(epoch: int) -> None:
         """A chunk-boundary save point: the time cadence and the SIGTERM
         drain.  A mid-epoch save records the current epoch, so a resume
-        replays that epoch from its start."""
+        replays that epoch from its start.  On a mesh the ranks agree:
+        any rank's SIGTERM drains them all, the chief's clock times the
+        cadence."""
         nonlocal last_save
         # chaos site "train.chunk": dying between a chunk's compute and
         # its save
         chaos.maybe_fail("train.chunk", echo=console, epoch=epoch)
-        if term_flag["hit"]:
+        due = (chief and manager is not None and save_secs > 0
+               and time.monotonic() - last_save >= save_secs)
+        term, due = agree(term_flag["hit"], due)
+        if not (term or due):
+            return
+        cur = int(state.step)
+        # `<`: a collision-bumped key can sit above the raw step, and that
+        # still means this step's state is durable
+        (fresh,) = agree(chief and manager is not None
+                         and (ckpt_lib.latest_step(manager) or -1) < cur)
+        if fresh:
+            save_state(cur, {"epoch": epoch}, True)
+        if term:
             if manager is not None:
-                cur = int(state.step)
-                saved = False
-                if (ckpt_lib.latest_step(manager) or -1) < cur:
-                    ckpt_lib.save(manager, cur, state,
-                                  extra={"epoch": epoch}, block=True)
-                    saved = True
                 ckpt_lib.finalize(manager)
                 obs.event("preemption_grace", epoch=int(epoch), step=cur,
-                          saved=saved)
+                          saved=fresh)
                 obs.flush()
                 console("SIGTERM: checkpoint saved, exiting for restart")
             else:
                 console("SIGTERM: exiting (no checkpoint directory)")
             raise SystemExit(PREEMPTED_EXIT)
-        if manager is None or save_secs <= 0:
-            return
-        if time.monotonic() - last_save >= save_secs:
-            cur = int(state.step)
-            # `<`: a collision-bumped key can sit above the raw step, and
-            # that still means this step's state is durable
-            if (ckpt_lib.latest_step(manager) or -1) < cur:
-                ckpt_lib.save(manager, cur, state, extra={"epoch": epoch},
-                              block=True)
-            last_save = time.monotonic()
+        last_save = time.monotonic()
 
     def run_chunks(items, step_fn, epoch: int, timer, count) -> tuple:
         """Train on `items` (placed batches or blocks) with `step_fn`;
@@ -726,6 +851,8 @@ def train(job: JobConfig,
                 streamed_this_epoch = False
                 if stream_loader is not None and epoch == start_epoch:
                     stream_bs = bs
+                    if mesh is not None:
+                        stream_bs = -(-stream_bs // mesh.size) * mesh.size
                     console(f"Streaming first epoch: training overlaps the "
                             f"background parse (batch {stream_bs}, "
                             f"{staged_block_batches} batches/chunk)")
@@ -819,7 +946,7 @@ def train(job: JobConfig,
                 with obs.span("epoch/eval", epoch=epoch):
                     valid_error, valid_auc = evaluate(
                         state, valid_ds, job, eval_step, dev,
-                        score_sink=score_sketch.update)
+                        score_sink=score_sketch.update, **on)
             else:
                 score_sketch = None
                 valid_error, valid_auc = float("nan"), float("nan")
@@ -909,9 +1036,9 @@ def train(job: JobConfig,
                                    else epoch + 1)}
                 if best_restored:
                     extra["best_restored"] = True
-                ckpt_lib.save(manager, int(state.step), state, extra=extra,
-                              block=(early_stop_now
-                                     or not job.runtime.checkpoint.async_save))
+                save_state(int(state.step), extra,
+                           block=(early_stop_now
+                                  or not job.runtime.checkpoint.async_save))
                 last_save = time.monotonic()
             # the epoch boundary: the resident tier's drain point
             maybe_midtrain_save(epoch + 1)

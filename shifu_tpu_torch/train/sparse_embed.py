@@ -1,5 +1,5 @@
 """Rows-touched-only optimizer updates for embedding tables (port of
-shifu_tpu/train/sparse_embed.py, one device).
+shifu_tpu/train/sparse_embed.py).
 
 A dense Adadelta reads and writes a table and its two moment slots whole at
 every step, although only the rows the batch looked up have a nonzero
@@ -17,6 +17,13 @@ takes duplicate ids, and is told when they are unique (`unique=True`), so
 that it updates each row without electing one copy (ops/embedding).  The JAX package sends raw ids to its
 XLA reference instead, since its TPU kernel needs unique ids; the values
 are the same (ROADMAP.md section C).
+
+On a mesh the ids are the global batch's, which every rank holds.  With
+`mesh.model` > 1 each table is vocab-sharded and the update runs on the
+local slice (embed/shard.py); with `mesh.data` > 1 each rank gathers its
+dense gradient's rows at those ids and the (U, Nc, D) rows are averaged
+over the data group before the update (never the dense (Nc, V, D)
+gradient: at the 4M-vocab shape that is 1.5 GB a step).
 """
 
 from __future__ import annotations
@@ -28,8 +35,9 @@ import torch
 
 from ..config.schema import ConfigError, JobConfig
 from ..embed.dedup import UNIQUE_KEY
+from ..embed.shard import make_sharded_rows_update
 from ..models.embedding import FieldLayout, field_layout, split_features
-from ..ops.embedding import fused_rows_update
+from ..parallel.mesh import DATA_AXIS
 from .optimizers import learning_rate
 
 # "auto" engages at this largest vocab and above, where the dense update's
@@ -43,11 +51,13 @@ _TABLE_MODELS = ("wide_deep", "deepfm")
 @dataclasses.dataclass(frozen=True)
 class SparseEmbedPlan:
     """The resolved plan: the update rule, its rate (a float or a schedule
-    of the step), and the tables' field layout."""
+    of the step), the tables' field layout and the vocab shards (the
+    mesh's model axis; 1 = replicated tables)."""
 
     rule: str                    # "adadelta" | "sgd"
     learning_rate: Any
     layout: FieldLayout
+    shards: int = 1
 
     @property
     def num_categorical(self) -> int:
@@ -61,10 +71,21 @@ class SparseEmbedPlan:
 def _is_table_leaf(name: str, leaf: torch.Tensor,
                    plan: SparseEmbedPlan) -> bool:
     """A sparse-updatable table: a stacked CategoricalEmbed param, named
-    `embedding`, shaped (num_categorical, max_vocab, D)."""
+    `embedding`, shaped (num_categorical, max_vocab, D), or its vocab
+    slice (num_categorical, max_vocab / shards, D)."""
     return (name.split(".")[-1] == "embedding" and leaf.dim() == 3
             and leaf.shape[0] == plan.num_categorical
-            and leaf.shape[1] == plan.max_vocab)
+            and leaf.shape[1] in (plan.max_vocab,
+                                  plan.max_vocab // plan.shards))
+
+
+def on_mesh(job: JobConfig, mesh) -> JobConfig:
+    """`job` with `runtime.mesh` set to the mesh it trains on: the plan
+    reads its vocab shards there."""
+    if mesh is None or job.runtime.mesh == mesh.config:
+        return job
+    return job.replace(runtime=dataclasses.replace(job.runtime,
+                                                   mesh=mesh.config))
 
 
 def resolve_plan(job: JobConfig) -> Optional[SparseEmbedPlan]:
@@ -75,7 +96,8 @@ def resolve_plan(job: JobConfig) -> Optional[SparseEmbedPlan]:
     vocab is at least AUTO_MIN_VOCAB, whatever the device (the JAX package
     also wants a TPU with D % 128 == 0, or its Pallas opt-in: a deliberate
     difference, ROADMAP.md section C); "off" is None.  A model axis above 1
-    (vocab-sharded tables) is not ported yet."""
+    shards the tables' vocab over it, which must divide the largest
+    vocab (the JAX package's blocker)."""
     mode = job.train.sparse_embedding_update
     if mode == "off":
         return None
@@ -117,13 +139,9 @@ def resolve_plan(job: JobConfig) -> Optional[SparseEmbedPlan]:
     layout = field_layout(job.schema)
     if mode == "auto" and max(layout.vocab_sizes) < AUTO_MIN_VOCAB:
         return None
-    if job.runtime.mesh.model > 1:
-        raise NotImplementedError(
-            f"the sparse plan wants {job.runtime.mesh.model} vocab shards "
-            "(mesh.model > 1); vocab-sharded tables are not ported yet "
-            "(ROADMAP.md, queue A item (f)); set runtime.mesh.model to 1")
     return SparseEmbedPlan(rule=rule, learning_rate=learning_rate(opt),
-                           layout=layout)
+                           layout=layout,
+                           shards=max(job.runtime.mesh.model, 1))
 
 
 def table_names(model: torch.nn.Module, plan: SparseEmbedPlan) -> list[str]:
@@ -150,17 +168,25 @@ def extract_ids(features: torch.Tensor, plan: SparseEmbedPlan
     return split_features(features, plan.layout)[1]
 
 
-def make_sparse_apply(job: JobConfig) -> Optional[Callable]:
+def make_sparse_apply(job: JobConfig, mesh=None) -> Optional[Callable]:
     """None (dense job), or fn(state, batch) -> state that applies one
     update from the parameters' .grad: the dense `Optimizer` on every
-    parameter but the tables, and the rows-touched rule on each table.  The
-    rate is the schedule's at `state.step` before the increment."""
-    plan = resolve_plan(job)
+    parameter but the tables, and the rows-touched rule on each table (on
+    its vocab slice under a sharded plan, its rows' gradients averaged
+    over the mesh's data group).  The rate is the schedule's at
+    `state.step` before the increment."""
+    plan = resolve_plan(on_mesh(job, mesh))
     if plan is None:
         return None
     lr_of = (plan.learning_rate if callable(plan.learning_rate)
              else (lambda _step, _lr=plan.learning_rate: _lr))
-    nc, vocab = plan.num_categorical, plan.max_vocab
+    if plan.shards > 1 and mesh is None:
+        raise ConfigError(f"the sparse plan wants {plan.shards} vocab "
+                          "shards but no mesh was built")
+    update = make_sharded_rows_update(
+        mesh, nc=plan.num_categorical, vocab=plan.max_vocab,
+        shards=plan.shards, rule=plan.rule,
+        data_group=mesh.group(DATA_AXIS) if mesh is not None else None)
     dedup_on = job.embed.dedup != "off"
 
     def apply(state, batch: dict):
@@ -170,17 +196,12 @@ def make_sparse_apply(job: JobConfig) -> Optional[Callable]:
         lr = lr_of(state.step)
         state.optimizer.step()
         with torch.no_grad():
-            # touched rows' gradients, (U, Nc, D) f32; the sentinel's rows
-            # gather clamped rows that the update skips
-            fields = torch.arange(nc, device=ids.device)[None, :]
-            safe = ids.long().clamp(0, vocab - 1)
             for name, p in state.model.named_parameters():
                 if name not in state.table_slots:
                     continue
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
-                fused_rows_update(p.detach(), state.table_slots[name],
-                                  g[fields, safe].float(), ids, plan.rule, lr,
-                                  unique=unique is not None)
+                update(p.detach(), state.table_slots[name], g, ids, lr,
+                       unique=unique is not None)
         state.step += 1
         return state
 

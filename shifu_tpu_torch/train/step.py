@@ -30,8 +30,32 @@ to), are tallied, and credit their FLOP count to the goodput ledger.  The
 epoch programs call the train step unwrapped, so a batch inside them is
 neither named nor credited twice.
 
-Waits for later slices: local SGD across replicas (on one device the
-window's average is the identity).
+On a mesh (`parallel/mesh.py`) every rank receives the whole global
+batch and trains its rows of it (`parallel/sharding.shard_batch`), so the
+update equals the single-device update on the global batch, as the JAX
+package's sharded step does:
+- the loss is the weighted mean of the GLOBAL batch: each rank scales its
+  own mean by its count over the global count (`ops/losses.
+  loss_denominator`, summed over the data group first) and by the data
+  axis's size, so that the average of the ranks' losses and gradients is
+  the global one, and the L2 term, which every rank adds, counts once;
+- one explicit average over the data group carries every dense gradient
+  and the loss (NCCL's own average; a sum then a division on gloo), never
+  DDP's divide-by-world of per-rank means, which is wrong under weights;
+  the tables of a sparse plan average only their touched rows
+  (train/sparse_embed.py);
+- a rank draws the whole batch's dropout mask and applies its rows
+  (`models/base.set_dropout_rows`), so a world of N equals a world of 1
+  with dropout on;
+- the optimizer then runs on each rank on equal gradients, so replicated
+  parameters and optimizer state stay bitwise equal across the ranks.
+
+`make_local_sgd_epoch_step` is the JAX package's local SGD (SAGN): each
+data rank runs `local_sgd_window` plain-SGD updates on its own replica,
+over its own rows, normalised per rank as the JAX package's vmap over the
+shard axis is, with no communication; the replicas are averaged over the
+data group every K updates and at the end of every call (a chunk, or the
+resident tier's epoch).
 """
 
 from __future__ import annotations
@@ -43,10 +67,14 @@ import torch
 
 from ..config.schema import JobConfig
 from ..data import pipeline as pipe
-from ..models.base import Wire, set_dropout_generator
-from ..ops import losses as losses_lib
+from ..embed.dedup import UNIQUE_KEY
+from ..models.base import Wire, set_dropout_generator, set_dropout_rows
 from ..obs.flops import instrument
+from ..ops import losses as losses_lib
 from ..ops.int8_matmul import int8_available
+from ..parallel import distributed
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ..parallel.sharding import shard_batch
 from .train_state import TrainState
 
 Batch = dict[str, torch.Tensor]
@@ -131,10 +159,13 @@ class DropoutStream:
         return gen
 
 
-def make_loss_fn(job: JobConfig):
-    """(model, batch, step) -> scalar f32 loss.  With ModelConfig
-    DropoutRate > 0 the model runs in training mode with the dropout
-    generator of this step."""
+def make_loss_fn(job: JobConfig, mesh=None):
+    """(model, batch, step, rows=None) -> scalar f32 loss.  With
+    ModelConfig DropoutRate > 0 the model runs in training mode with the
+    dropout generator of this step; `rows` = (lo, hi, global rows) says
+    the batch is those rows of a global batch, whose mask it then uses.
+    On a mesh whose data axis is above 1 the loss is this rank's share of
+    the global batch's, scaled by the axis's size (module docstring)."""
     base = losses_lib.get_loss(job.train.loss)
     if job.model.num_heads > 1:
         base = losses_lib.multitask_loss(base)
@@ -142,17 +173,28 @@ def make_loss_fn(job: JobConfig):
     dropout = (DropoutStream(job.train.seed)
                if job.model.dropout_rate > 0 else None)
     decode = make_wire_decode(job)
+    n_data = mesh.axis_size(DATA_AXIS) if mesh is not None else 1
+    if n_data > 1:
+        count_of, floor = losses_lib.loss_denominator(job.train.loss)
+        data_group = mesh.group(DATA_AXIS)
 
-    def loss_fn(model, batch: Batch, step: int = 0) -> torch.Tensor:
+    def loss_fn(model, batch: Batch, step: int = 0,
+                rows: Optional[tuple[int, int, int]] = None) -> torch.Tensor:
         feats = batch["features"]
         if decode is not None:
             feats = decode(feats)
         if dropout is not None:
             set_dropout_generator(model, dropout.generator(feats.device,
                                                            step))
+            set_dropout_rows(model, rows)
         logits = model(feats)
         target, weight = decode_target_weight(batch)
         loss = base(logits, target, weight)
+        if n_data > 1:
+            count = count_of(weight)
+            total = distributed.all_reduce(count.clone(), data_group, "sum")
+            loss = loss * (n_data * count.clamp(min=floor)
+                           / total.clamp(min=floor))
         if l2 > 0:
             loss = loss + losses_lib.l2_penalty(model, l2)
         return loss
@@ -160,47 +202,110 @@ def make_loss_fn(job: JobConfig):
     return loss_fn
 
 
-def make_apply_gradients(job: JobConfig
+def make_apply_gradients(job: JobConfig, mesh=None
                          ) -> Callable[[TrainState, Batch], TrainState]:
     """(state, batch) -> state: one update from the parameters' .grad.  The
     dense optimizer, or the sparse plan's apply, which reads the batch's
-    features or, when the feeder attached them, its unique ids."""
+    features or, when the feeder attached them, its unique ids (of the
+    global batch, on a mesh)."""
     from .sparse_embed import make_sparse_apply
 
-    sparse = make_sparse_apply(job)
+    sparse = make_sparse_apply(job, mesh)
     if sparse is None:
         return lambda state, batch: state.apply_gradients()
     return sparse
 
 
-def make_train_step(job: JobConfig
+def _average(tensors: list, group) -> None:
+    """Average the tensors over `group` in place, one collective for each
+    dtype among them."""
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group_ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group_ts])
+        distributed.all_reduce(flat, group, "avg")
+        for t, part in zip(group_ts,
+                           flat.split([t.numel() for t in group_ts])):
+            t.copy_(part.view_as(t))
+
+
+def make_train_step(job: JobConfig, mesh=None
                     ) -> Callable[[TrainState, Batch], tuple[TrainState, dict]]:
-    """(state, batch) -> (state, {"loss"}): forward, backward, one update."""
-    return instrument(_train_step_fn(job), "train_step")
+    """(state, batch) -> (state, {"loss"}): forward, backward, one update
+    (on a mesh: this rank's rows, the average over the data group, the
+    update; `batch` is the global batch)."""
+    return instrument(_train_step_fn(job, mesh), "train_step")
 
 
-def _train_step_fn(job: JobConfig):
-    loss_fn = make_loss_fn(job)
-    apply_grads = make_apply_gradients(job)
+def _sharded_l2(state: TrainState, l2: float) -> Optional[torch.Tensor]:
+    """The L2 term of this rank's blocks of sharded parameters (those the
+    loss counts locally), or None."""
+    if l2 <= 0 or not state.shardings:
+        return None
+    params = dict(state.model.named_parameters())
+    return l2 * sum(torch.sum(torch.square(params[n].detach().float()))
+                    for n in state.shardings)
 
-    def step(state: TrainState, batch: Batch):
-        state.model.train()
-        for p in state.model.parameters():
+
+def _train_step_fn(job: JobConfig, mesh=None):
+    loss_fn = make_loss_fn(job, mesh)
+    apply_grads = make_apply_gradients(job, mesh)
+
+    if mesh is None:
+        def step(state: TrainState, batch: Batch):
+            state.model.train()
+            for p in state.model.parameters():
+                p.grad = None
+            loss = loss_fn(state.model, batch, state.step)
+            loss.backward()
+            state = apply_grads(state, batch)
+            return state, {"loss": loss.detach()}
+
+        return step
+
+    data_group = mesh.group(DATA_AXIS)
+    n_data, d = mesh.axis_size(DATA_AXIS), mesh.axis_index(DATA_AXIS)
+    l2 = job.model.l2_scale
+
+    def mesh_step(state: TrainState, batch: Batch):
+        model = state.model
+        model.train()
+        for p in model.parameters():
             p.grad = None
-        loss = loss_fn(state.model, batch, state.step)
+        local = shard_batch(batch, mesh, keep=(UNIQUE_KEY,))
+        b = batch["features"].shape[0]
+        loss = loss_fn(model, local, state.step,
+                       rows=(d * b // n_data, (d + 1) * b // n_data, b))
         loss.backward()
+        report = loss.detach().float().reshape(1)
+        # sharded blocks add their own squares to the loss: report the
+        # whole table's term, as one device would
+        part = _sharded_l2(state, l2)
+        if part is not None:
+            whole = distributed.all_reduce(part.clone(),
+                                           mesh.group(MODEL_AXIS), "sum")
+            report = report + (whole - part)
+        dense = [p for n, p in model.named_parameters()
+                 if not (state.table_slots and n in state.table_slots)]
+        grads = []
+        for p in dense:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        _average(grads + [report], data_group)
         state = apply_grads(state, batch)
-        return state, {"loss": loss.detach()}
+        return state, {"loss": report[0]}
 
-    return step
+    return mesh_step
 
 
-def make_device_epoch_step(job: JobConfig):
+def make_device_epoch_step(job: JobConfig, mesh=None):
     """The resident tier's epoch: (state, blocks, order) -> (state, loss
     sum on the card).  `blocks` holds the training partition on the card
     as (nb, B, ...) tensors; `order` is the epoch's block permutation.
     Each block is a view of the resident tensors (no copy)."""
-    train_step = _train_step_fn(job)
+    train_step = _train_step_fn(job, mesh)
 
     def epoch_step(state: TrainState, blocks: Batch, order):
         acc = None
@@ -213,13 +318,13 @@ def make_device_epoch_step(job: JobConfig):
     return instrument(epoch_step, "device_epoch_step")
 
 
-def make_epoch_scan_step(job: JobConfig):
+def make_epoch_scan_step(job: JobConfig, mesh=None):
     """The staged tier's step (JAX `make_epoch_scan_step`): (state, block)
     -> (state, the loss summed over the block on the card).  `block`
     holds nb host-fed batches on the card as (nb, B, ...) tensors; the
     batches train in their order in the block, each a view (no copy), and
     nothing is read back to the host inside the block."""
-    train_step = _train_step_fn(job)
+    train_step = _train_step_fn(job, mesh)
 
     def scan_step(state: TrainState, block: Batch):
         acc = None
@@ -229,6 +334,59 @@ def make_epoch_scan_step(job: JobConfig):
         return state, acc
 
     return instrument(scan_step, "epoch_scan_step")
+
+
+def make_local_sgd_epoch_step(job: JobConfig, mesh=None,
+                              with_order: bool = False):
+    """Local SGD over one call (JAX `make_local_sgd_epoch_step`): (state,
+    blocks) -> (state, loss sum), or (state, blocks, order) on the
+    resident tier (`with_order`).  Each data rank trains its rows of every
+    global batch with plain p - lr * g updates of its own replica, its
+    loss normalised over its own rows (the JAX package's per-shard vmap)
+    and its dropout folded from (step + i) * Nd + d, as there; the
+    replicas are averaged over the data group after every
+    `local_sgd_window` updates and at the end of the call.  The loss sum
+    is the average over the ranks of their sums.  The optimizer's state
+    is left as it is, as in the JAX package."""
+    loss_fn = make_loss_fn(job)
+    k = job.train.local_sgd_window
+    lr = job.train.optimizer.learning_rate
+    n_data = mesh.axis_size(DATA_AXIS) if mesh is not None else 1
+    d = mesh.axis_index(DATA_AXIS) if mesh is not None else 0
+    group = mesh.group(DATA_AXIS) if mesh is not None else None
+
+    def epoch_step(state: TrainState, blocks: Batch, order=None):
+        model = state.model
+        model.train()
+        params = list(model.parameters())
+        nb = blocks["features"].shape[0]
+        acc = None
+        for i, idx in enumerate(order if with_order else range(nb)):
+            xs = {key: v[int(idx)] for key, v in blocks.items()}
+            if mesh is not None:
+                xs = shard_batch(xs, mesh)
+            for p in params:
+                p.grad = None
+            loss = loss_fn(model, xs, (state.step + i) * n_data + d)
+            loss.backward()
+            with torch.no_grad():
+                for p in params:
+                    if p.grad is not None:
+                        p.sub_(lr * p.grad)
+            acc = loss.detach() if acc is None else acc + loss.detach()
+            if (i + 1) % k == 0:
+                with torch.no_grad():
+                    _average(params, group)
+        with torch.no_grad():
+            _average(params, group)  # the call's end is a sync point
+        acc = distributed.all_reduce(acc.reshape(1), group, "avg")[0]
+        state.step += nb
+        return state, acc
+
+    if with_order:
+        return instrument(epoch_step, "local_sgd_epoch_step")
+    return instrument(lambda state, blocks: epoch_step(state, blocks),
+                      "local_sgd_epoch_step")
 
 
 def make_eval_step(job: JobConfig) -> Callable[[TrainState, Batch],

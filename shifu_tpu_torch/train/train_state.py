@@ -8,13 +8,16 @@ optimizer updates applied (micro-steps of gradient accumulation included,
 as `TrainState.step` counts them).  Under a sparse embedding plan
 (train/sparse_embed.py) the optimizer holds every parameter but the
 embedding tables, and `table_slots` holds the tables' moment slots by
-parameter name; it is None for a dense job.
+parameter name; it is None for a dense job.  On a mesh (`train(...,
+mesh=)`) `mesh` is this rank's place on it and `shardings` names the
+parameters this rank holds a block of (vocab-sharded tables, whose slots
+follow them), by name; every other parameter is replicated.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 from torch import nn
 
@@ -27,6 +30,8 @@ class TrainState:
     optimizer: Optimizer
     step: int = 0
     table_slots: Optional[dict] = None
+    mesh: Any = None
+    shardings: dict = dataclasses.field(default_factory=dict)
 
     def apply_gradients(self) -> "TrainState":
         """One dense optimizer update from the parameters' .grad."""

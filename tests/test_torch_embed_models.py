@@ -254,10 +254,14 @@ def test_plan_gating_follows_jax_blockers():
         "adadelta", 0.5, VOCAB)
     assert sparse_embed.resolve_plan(_jobs(sparse="off")[1]) is None
     assert sparse_embed.resolve_plan(_jobs(sparse="auto")[1]) is None
+    # a model axis shards the tables' vocab, as in JAX (embed/shard.py)
+    jjob, _ = _jobs()
+    jsharded = dataclasses.replace(jjob, runtime=dataclasses.replace(
+        jjob.runtime, mesh=dataclasses.replace(jjob.runtime.mesh, model=2)))
     sharded = dataclasses.replace(pjob, runtime=dataclasses.replace(
         pjob.runtime, mesh=dataclasses.replace(pjob.runtime.mesh, model=2)))
-    with pytest.raises(NotImplementedError, match=r"queue A item \(f\)"):
-        sparse_embed.resolve_plan(sharded)
+    assert sparse_embed.resolve_plan(sharded).shards == \
+        jax_sparse.resolve_plan(jsharded).shards == 2
 
 
 def test_auto_engages_at_100k_vocab_on_any_device(monkeypatch):

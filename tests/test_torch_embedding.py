@@ -359,16 +359,19 @@ def test_sparse_apply_says_when_ids_are_unique(monkeypatch, dedup, attach,
     launch (test_cuda_rows_update_routes_to_the_kernel)."""
     from shifu_tpu_torch.embed.dedup import UNIQUE_KEY, attach_dedup
     from shifu_tpu_torch.models.embedding import field_layout
-    from shifu_tpu_torch.train import loop, sparse_embed, step
+    from shifu_tpu_torch.embed import shard
+    from shifu_tpu_torch.train import loop, step
     job = _deepfm_job(dedup)
     state = loop.init_state(job, job.schema.feature_count, "cpu")
-    seen, real = [], sparse_embed.fused_rows_update
+    seen, real = [], shard.fused_rows_update
 
     def record(*a, **k):
         seen.append(k.get("unique"))
         return real(*a, **k)
 
-    monkeypatch.setattr(sparse_embed, "fused_rows_update", record)
+    # the sparse apply updates each table through embed/shard.py's
+    # rows-touched update (a vocab slice of one shard without a mesh)
+    monkeypatch.setattr(shard, "fused_rows_update", record)
     rng = np.random.default_rng(7)
     feats = rng.normal(size=(8, 6)).astype(np.float32)
     feats[:, 6 - NC:] = rng.integers(0, 4, size=(8, NC))  # duplicates

@@ -213,7 +213,7 @@ def test_the_default_device_is_the_card(tmp_path):
     (["--hosts", "local:2"], r"\(f\)"),
     (["--num-processes", "2"], r"\(f\)"),
     (["--detach", "--num-processes", "2"], r"\(f\)"),
-    (["--devices", "4"], r"\(f\)"),
+    (["--detach", "--hosts", "local:2"], r"\(f\)"),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
     argv = _shifu_files(tmp_path)
@@ -222,7 +222,7 @@ def test_unported_flags_raise(tmp_path, flags, item):
 
 
 @pytest.mark.parametrize("xml,item", [
-    ({"shifu.mesh.data": "2"}, r"\(f\)"),
+    ({"shifu.mesh.seq": "2"}, r"\(f\)"),
 ])
 def test_unported_config_raises(tmp_path, xml, item):
     argv = _shifu_files(tmp_path, xml=xml)
