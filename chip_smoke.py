@@ -349,6 +349,34 @@ stderr, and no result line is printed):
                V/2 rows and launches #5 and #6), then the MLP on `data=2`
                (8 steps, #4); each run's gathered parameters within 1e-2 of
                each parameter's change of a world-1 run here.
+24a. tensor and sequence parallel — in 23b's two ranks, after its runs,
+               each through `train(..., mesh=)` with the launches counted
+               and its gathered parameters within 1e-2 of each parameter's
+               change of the same job at world 1 here: DeepFM at the
+               100k-vocab shape on Adam with the sparse plan off on
+               `model=2` (the tables split by field, 3 + 3; #5 looks up
+               each rank's fields), moe_mlp with 4 experts on `model=2`
+               (2 experts a rank; no kernel), the headline MLP on the int8
+               wire with `shifu.sharding.rules` `.*hidden_layer.*kernel` ->
+               (None, model) (#4 on the gathered layer-0 kernel), and the
+               FT rung's widths on 31 features (S = 32) with ring and then
+               Ulysses attention on `seq=2` (#5 in the tokenizer).
+24b. pipeline — three spawned ranks on cuda:0 over gloo, `pipe=3`: the FT
+               rung (6 categorical columns; f32, as the FT locksteps, and
+               24a's FT runs too) with pipeline_stages=3, one
+               layer and 3 microbatches a stage, batch 8190 (3 microbatches
+               must divide it); #1 3 x and #5 once a step and an eval
+               batch on every stage; its gathered parameters within 1e-2
+               of each change of the stacked trunk at world 1 here, and
+               its exported (per-block) artifact within SERVE_ATOL of the
+               world-1 artifact on the probe rows, both on the card.
+               24b runs beside 23a and 23b; 23a's profile waits for it.
+24c. stacked trunk — in 23a's NCCL rank at world 1: that FT job with no
+               pipe axis (the stacked trunk as one loop, #1 3 x a step)
+               through `train(..., mesh=data=1)`, against the per-block
+               job trained from the same seed: the canonicalized
+               parameters bitwise equal, or within 1e-2 of each change
+               (the script says which).
 a JSON line {"kernels": [...]} with each kernel's launches on its
    training path (FT fused for #1, FT unfused for #2 and #3, the headline
    MLP for #4, DeepFM for #5 and #6, FT flash for #7 and #8), its error
@@ -5467,6 +5495,14 @@ MESH_DEEPFM_EPOCHS = 2       # epoch 0 pays each rank's first use
 MESH_PROFILE_STEPS = 3       # mesh steps under 23a's profiler window
 MESH_CHILD_TIMEOUT_S = 300
 MESH_RTOL, MESH_ATOL = 1e-5, 1e-6   # 23a: world 1 against no mesh (f32)
+# phase 24: tensor-, pipeline- and sequence-parallel training
+MESH_TP_STEPS = 4            # 24a's DeepFM, MoE and ruled MLP, one epoch
+MESH_SEQ_STEPS = 2           # 24a's FT on seq=2 at FT_BATCH, one epoch
+MESH_SEQ_FEATURES = 31       # S = 32 tokens, which seq=2 divides
+MESH_PIPE_BATCH = 8190       # 24b/24c: 3 microbatches must divide it
+MESH_PIPE_STEPS = 3          # 24b/24c, one epoch
+MESH_PIPE_STAGES = 3         # one layer of the FT rung's three a stage
+MESH_RULES = ((r".*hidden_layer.*kernel", (None, "model")),)
 
 
 def mesh_paths() -> dict:
@@ -5488,6 +5524,68 @@ def mesh_paths() -> dict:
             dfm.schema, MESH_DEEPFM_STEPS * DEEPFM_BATCH, DEEPFM_BATCH,
             SEED + 3)),
     }
+
+
+def tp_paths() -> dict:
+    """Phase 24a's jobs, label -> (job, mesh axes, train, valid, the
+    launches a rank makes as a function of (steps, evals)), from SEED
+    alone (23b's ranks build the same)."""
+    from shifu_tpu_torch.config.schema import OptimizerConfig
+    from shifu_tpu_torch.data import synthetic
+    dfm = dlrm_job("deepfm", deepfm_schema(DEEPFM_VOCAB), DEEPFM_BATCH,
+                   staged=False, sparse="off")
+    dfm = dfm.replace(train=dataclasses.replace(
+        dfm.train, optimizer=OptimizerConfig(name="adam",
+                                             learning_rate=1e-3)))
+    moe = ladder_job("moe_mlp")
+    moe = moe.replace(
+        model=dataclasses.replace(moe.model, num_experts=4),
+        train=dataclasses.replace(moe.train, epochs=1))
+    mlp = headline_job(epochs=1)
+    mlp = mlp.replace(runtime=dataclasses.replace(
+        mlp.runtime, param_sharding_rules=MESH_RULES))
+    seq_schema = synthetic.make_schema(num_features=MESH_SEQ_FEATURES,
+                                       num_categorical=6, vocab_size=1000)
+    lookups = (lambda st, ev: {"embedding_lookup": st + ev})
+    out = {
+        "DeepFM field": (dfm, {"model": 2}, *synthetic_datasets(
+            dfm.schema, MESH_TP_STEPS * DEEPFM_BATCH, DEEPFM_BATCH,
+            SEED + 5), lookups),
+        "MoE experts": (moe, {"model": 2}, *synthetic_datasets(
+            moe.schema, MESH_TP_STEPS * LADDER_BATCH, LADDER_BATCH,
+            SEED + 6), lambda st, ev: {}),
+        "MLP rules": (mlp, {"model": 2}, *synthetic_datasets(
+            mlp.schema, MESH_TP_STEPS * TRAIN_BATCH, TRAIN_BATCH, SEED + 7),
+            lambda st, ev: {"int8_matmul": st + ev}),
+    }
+    for impl in ("ring", "ulysses"):
+        job = ft_job(seq_schema, FT_BATCH, 1, attention_impl=impl)
+        # f32, as the FT locksteps: ring attention streams its softmax in
+        # f32 where world 1's local route takes #2 in bf16, and bf16's
+        # rounding moves an Adadelta change by more than the 1e-2 it is
+        # held to (tiny gradients flip sign)
+        job = job.replace(model=dataclasses.replace(
+            job.model, compute_dtype=LOCKSTEP_FT_DTYPE))
+        out[f"FT {impl}"] = (job, {"seq": 2}, *synthetic_datasets(
+            seq_schema, MESH_SEQ_STEPS * FT_BATCH, FT_BATCH, SEED + 8),
+            lookups)
+    return out
+
+
+def pipe_path(stages: int = MESH_PIPE_STAGES,
+              dtype: str = "bfloat16") -> tuple:
+    """Phase 24b/24c's FT job (the rung with 6 categorical columns, its
+    trunk stacked into `stages` stages; 1: per block) in `dtype` and its
+    data."""
+    from shifu_tpu_torch.data import synthetic
+    schema = synthetic.make_schema(num_features=30, num_categorical=6,
+                                   vocab_size=1000)
+    job = ft_job(schema, MESH_PIPE_BATCH, 1, pipeline_stages=stages)
+    job = job.replace(model=dataclasses.replace(job.model,
+                                                compute_dtype=dtype))
+    return (job, *synthetic_datasets(schema, MESH_PIPE_STEPS
+                                     * MESH_PIPE_BATCH, MESH_PIPE_BATCH,
+                                     SEED + 9))
 
 
 def param_arrays(model) -> dict:
@@ -5554,6 +5652,26 @@ def nccl_child(out_path: str, device: str, gate: str) -> None:
             "max_abs": max(float(np.max(np.abs(got[k] - ref[k])))
                            for k in ref),
             "seconds": time.perf_counter() - t0}
+    # 24c: the stacked trunk as one loop, against the per-block job
+    from shifu_tpu_torch.models.ft_transformer import canonicalize_params
+    t0 = time.perf_counter()
+    job, tr, va = pipe_path(1)
+    blocks = train(job, tr, va, console=lambda s: None, device=dev)
+    ref = param_arrays(blocks.state.model)
+    init = param_arrays(init_state(job, tr.num_features, dev).model)
+    job, tr, va = pipe_path()
+    reset_launches()
+    res = train(job, tr, va, console=lambda s: None, device=dev, mesh=mesh)
+    launches = read_launches()
+    got = canonicalize_params(param_arrays(res.state.model), job.model)
+    ok, worst = moved_close(got, ref, init)
+    out["stacked"] = {
+        "launches": launches, "steps": res.state.step,
+        "evals": steps_and_evals(job, tr.num_rows, va.num_rows, 1)[1],
+        "bitwise": sorted(got) == sorted(ref) and all(
+            np.array_equal(got[k], ref[k]) for k in ref),
+        "close": ok and sorted(got) == sorted(ref), "max_abs": worst,
+        "seconds": time.perf_counter() - t0}
     job, tr, _ = paths["MLP"]
     state = init_state(job, tr.num_features, dev, mesh=mesh)
     step = step_lib.make_train_step(job, mesh)
@@ -5630,11 +5748,69 @@ def gloo_rank(rank: int, store: str, out_path: str, device: str) -> None:
                       "step_ms": [1e3 * m.epoch_time * len(res.history)
                                   / res.state.step for m in res.history],
                       "sum_ms": sum_ms, "seconds": seconds}
+    # 24a: the model-side axes, on the same two ranks
+    for label, (job, axes, tr, va, _) in tp_paths().items():
+        mesh = make_mesh(MeshConfig(**axes))
+        t0 = time.perf_counter()
+        reset_launches()
+        res = train(job, tr, va, console=lambda s: None, device=dev,
+                    mesh=mesh)
+        launches = read_launches()
+        full = ckpt_lib.full_payload(res.state)["model"]  # collective
+        if rank == 0:
+            arrays.update({f"{label}/{k}": v.float().cpu().numpy()
+                           for k, v in full.items()})
+        out[label] = {
+            "launches": launches, "steps": res.state.step,
+            "coords": mesh.coords, "valid_auc": res.history[-1].valid_auc,
+            "split": {k: [list(sh.spec), list(
+                dict(res.state.model.named_parameters())[k].shape)]
+                for k, sh in res.state.shardings.items()},
+            "seconds": time.perf_counter() - t0}
     with open(f"{out_path}.{rank}.json", "w") as f:
         json.dump(out, f)
     if rank == 0:
         np.savez(f"{out_path}.npz", **arrays)
     distributed.barrier("23b")
+    distributed.shutdown()
+
+
+def pipe_rank(rank: int, store: str, out_path: str, device: str) -> None:
+    """24b, one of three ranks that share cuda:0 over gloo on `pipe=3`: the
+    pipelined FT through `train(..., mesh=)` with the launches counted;
+    rank 0 writes the gathered parameters and the exported artifact."""
+    import torch
+    from shifu_tpu_torch.config.schema import MeshConfig
+    from shifu_tpu_torch.export.artifact import save_artifact
+    from shifu_tpu_torch.parallel import distributed, make_mesh
+    from shifu_tpu_torch.train import checkpoint as ckpt_lib
+    from shifu_tpu_torch.train.loop import gathered_model, train
+
+    dev = torch.device(device)
+    distributed.initialize(coordinator=f"file://{store}",
+                           num_processes=MESH_PIPE_STAGES, process_id=rank,
+                           backend="gloo", device=dev)
+    job, tr, va = pipe_path(dtype=LOCKSTEP_FT_DTYPE)
+    mesh = make_mesh(MeshConfig(pipe=MESH_PIPE_STAGES))
+    t0 = time.perf_counter()
+    reset_launches()
+    res = train(job, tr, va, console=lambda s: None, device=dev, mesh=mesh)
+    launches = read_launches()
+    seconds = time.perf_counter() - t0
+    full = ckpt_lib.full_payload(res.state)["model"]  # collective
+    model = gathered_model(res.state, job)            # collective
+    out = {"backend": torch.distributed.get_backend(),
+           "launches": launches, "steps": res.state.step,
+           "coords": mesh.coords, "seconds": seconds,
+           "valid_auc": res.history[-1].valid_auc,
+           "stage_rows": list(res.state.model.blocks.qkv_kernel.shape)}
+    if rank == 0:
+        np.savez(f"{out_path}.npz", **{k: v.float().cpu().numpy()
+                                       for k, v in full.items()})
+        save_artifact(model, job.model, job.schema, f"{out_path}.artifact")
+    with open(f"{out_path}.{rank}.json", "w") as f:
+        json.dump(out, f)
+    distributed.barrier("24b")
     distributed.shutdown()
 
 
@@ -5668,10 +5844,11 @@ def join_all(procs: list, label: str) -> float:
 
 
 def mesh_phases(device, tmp: str, smi_line: str) -> None:
-    """Phase 23: the distributed path, at world 1 over NCCL (23a) and as
-    two ranks sharing the card over gloo (23b), the two at once; 23a's
-    profile waits for 23b's ranks to end, and the world-1 references of
-    23b run here after both."""
+    """Phases 23 and 24: the distributed path, at world 1 over NCCL (23a,
+    then 24c in the same rank), as two ranks sharing the card over gloo
+    (23b, then 24a in the same ranks) and as three (24b), all at once;
+    23a's profile waits for the gloo ranks to end, and the world-1
+    references of 23b, 24a and 24b run here after them."""
     import torch
     from shifu_tpu_torch.parallel import distributed
     from shifu_tpu_torch.parallel.launch import free_port
@@ -5700,10 +5877,18 @@ def mesh_phases(device, tmp: str, smi_line: str) -> None:
     store = f"{tmp}/mesh_gloo.store"
     procs = [ctx.Process(target=gloo_rank, args=(r, store, out_b, str(device)))
              for r in range(2)]
-    for p in procs:
+    # 24b: three ranks on cuda:0 over gloo, pipe=3, beside 23b
+    out_p = f"{tmp}/mesh_pipe"
+    pipes = [ctx.Process(target=pipe_rank,
+                         args=(r, f"{tmp}/mesh_pipe.store", out_p,
+                               str(device)))
+             for r in range(MESH_PIPE_STAGES)]
+    for p in procs + pipes:
         p.start()
-    join_all(procs, "23b: the gloo ranks")
+    join_all(procs, "23b/24a: the gloo ranks")
     b_s = time.perf_counter() - t0
+    join_all(pipes, "24b: the pipeline ranks")
+    p_s = time.perf_counter() - t0
     open(gate, "w").close()
     join_all([proc], "23a: the NCCL rank")
     a_s = time.perf_counter() - t0
@@ -5738,8 +5923,28 @@ def mesh_phases(device, tmp: str, smi_line: str) -> None:
         f"launches its one-rank reduce kernel for an average at world 1, "
         f"where it elides an in-place sum) [{smi_line}]")
     say(f"time: 23a NCCL at world 1 {a_s:.1f} s from spawn to exit (its "
-        f"profile after 23b's end); 23b two ranks over gloo {b_s:.1f} s, "
-        f"the two at once")
+        f"profile after 23b's and 24b's end); 23b and 24a two ranks over "
+        f"gloo {b_s:.1f} s, 24b three ranks over gloo {p_s:.1f} s, all at "
+        f"once")
+    st = a["stacked"]
+    want = {"ft_block": MESH_PIPE_STAGES * (st["steps"] + st["evals"]),
+            "embedding_lookup": st["steps"] + st["evals"]}
+    got_l = {k: v for k, v in st["launches"].items() if v}
+    if got_l != want:
+        fail(f"24c: launches {got_l}, expected {want}")
+    if not st["close"]:
+        fail(f"24c: the stacked trunk's canonicalized parameters differ "
+             f"from the per-block run's beyond {LOCKSTEP_MOVED_RTOL} of "
+             f"each change (max abs {st['max_abs']:.3e})")
+    say(f"24c stacked trunk (pipeline_stages={MESH_PIPE_STAGES}, no pipe "
+        f"axis) through train(..., mesh=data=1) over NCCL at world 1, "
+        f"{st['steps']} steps at batch {MESH_PIPE_BATCH}: launches {got_l}; "
+        f"canonicalized parameters "
+        + ("bitwise equal to" if st["bitwise"] else
+           f"within {LOCKSTEP_MOVED_RTOL} of each change of")
+        + f" the per-block run from the same seed (max abs "
+        f"{st['max_abs']:.3e}); {st['seconds']:.1f} s for both runs "
+        f"[{smi_line}]")
 
     # 23b's findings, against world-1 runs here
     ranks = []
@@ -5801,6 +6006,106 @@ def mesh_phases(device, tmp: str, smi_line: str) -> None:
             f"every collective on CUDA tensors (no host staging of the "
             f"port's own)")
     lap("23a and 23b, and 23b's world-1 references")
+    seq_tp_phase(device, ranks, gathered, smi_line)
+    pipe_phase(device, tmp, out_p, smi_line)
+    lap("24a and 24b's world-1 references")
+
+
+def seq_tp_phase(device, ranks: list, gathered: dict, smi_line: str) -> None:
+    """24a's findings (in 23b's ranks' files) against world-1 runs here."""
+    from shifu_tpu_torch.train.loop import init_state, train
+
+    for label, (job, axes, tr, va, want_launch) in tp_paths().items():
+        init = param_arrays(init_state(job, tr.num_features, device).model)
+        res = train(job, tr, va, console=lambda s: None, device=device)
+        ref = param_arrays(res.state.model)
+        got = {k[len(label) + 1:]: v for k, v in gathered.items()
+               if k.startswith(label + "/")}
+        ok, worst = moved_close(got, ref, init) if sorted(got) == sorted(
+            ref) else (False, float("nan"))
+        if not ok:
+            fail(f"24a {label}: the two ranks' parameters differ from the "
+                 f"world-1 run's beyond {LOCKSTEP_MOVED_RTOL} of each "
+                 f"parameter's change (max abs {worst:.3e})")
+        steps, evals = steps_and_evals(job, tr.num_rows, va.num_rows, 1)
+        want = want_launch(steps, evals)
+        for r, rk in enumerate(ranks):
+            run = rk[label]
+            if run["steps"] != steps:
+                fail(f"24a {label}: {run['steps']} steps, expected {steps}")
+            got_l = {k: v for k, v in run["launches"].items() if v}
+            if got_l != want:
+                fail(f"24a {label} rank {r}: launches {got_l}, expected "
+                     f"{want}")
+        split = ranks[0][label]["split"]
+        if "seq" not in axes and not split:
+            fail(f"24a {label}: no parameter split over {axes}")
+        say(f"24a {label} on {axes} (two ranks on cuda:0 over gloo): "
+            f"{steps} steps, launches per rank {want or 'none'}; split "
+            f"leaves (spec, rank 0's block) {split or 'none'}; parameters "
+            f"within {LOCKSTEP_MOVED_RTOL} of each change of the world-1 "
+            f"run (max abs {worst:.3e}); valid_auc "
+            f"{ranks[0][label]['valid_auc']:.4f} against "
+            f"{res.history[-1].valid_auc:.4f}; "
+            f"{ranks[0][label]['seconds']:.1f} s a rank [{smi_line}]")
+
+
+def pipe_phase(device, tmp: str, out_p: str, smi_line: str) -> None:
+    """24b's findings against the stacked trunk at world 1 here, and the
+    two exported artifacts scored on the card."""
+    from shifu_tpu_torch.export.artifact import save_artifact
+    from shifu_tpu_torch.export.scorer import TorchScorer
+    from shifu_tpu_torch.train.loop import init_state, train
+
+    ranks = []
+    for r in range(MESH_PIPE_STAGES):
+        with open(f"{out_p}.{r}.json") as f:
+            ranks.append(json.load(f))
+    with np.load(f"{out_p}.npz") as z:
+        got = {k: z[k] for k in z.files}
+    job, tr, va = pipe_path(dtype=LOCKSTEP_FT_DTYPE)
+    init = param_arrays(init_state(job, tr.num_features, device).model)
+    res = train(job, tr, va, console=lambda s: None, device=device)
+    ref = param_arrays(res.state.model)
+    ok, worst = moved_close(got, ref, init) if sorted(got) == sorted(
+        ref) else (False, float("nan"))
+    if not ok:
+        fail(f"24b: the pipeline's parameters differ from the world-1 "
+             f"stacked run's beyond {LOCKSTEP_MOVED_RTOL} of each change "
+             f"(max abs {worst:.3e})")
+    steps, evals = steps_and_evals(job, tr.num_rows, va.num_rows, 1)
+    want = {"ft_block": MESH_PIPE_STAGES * (steps + evals),
+            "embedding_lookup": steps + evals}
+    for r, rk in enumerate(ranks):
+        got_l = {k: v for k, v in rk["launches"].items() if v}
+        if rk["steps"] != steps or got_l != want:
+            fail(f"24b rank {r}: {rk['steps']} steps, launches {got_l}; "
+                 f"expected {steps} and {want}")
+        if rk["stage_rows"][0] != 1:
+            fail(f"24b rank {r}: stage holds {rk['stage_rows']} of the "
+                 "stacked qkv kernel, expected one layer")
+    one = save_artifact(res.state.model, job.model, job.schema,
+                        f"{tmp}/mesh_pipe_world1")
+    rows = synthetic_datasets(job.schema, PROBE_ROWS, 1,
+                              SEED + 10)[0].features
+    a = TorchScorer(f"{out_p}.artifact", device=device).compute_batch(rows)
+    b = TorchScorer(one, device=device).compute_batch(rows)
+    diff = float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+    if not diff <= SERVE_ATOL:
+        fail(f"24b: the pipelined artifact's scores are {diff:.3e} from the "
+             f"world-1 artifact's (SERVE_ATOL {SERVE_ATOL})")
+    say(f"24b pipe={MESH_PIPE_STAGES} (three ranks on cuda:0 over "
+        f"{ranks[0]['backend']}), batch {MESH_PIPE_BATCH} in "
+        f"{MESH_PIPE_STAGES} microbatches: {steps} steps, launches per "
+        f"rank {want} (each stage runs its layer on its 3 microbatches "
+        f"only, the bubble ticks skipped); parameters within "
+        f"{LOCKSTEP_MOVED_RTOL} of each change of the stacked trunk at "
+        f"world 1 (max abs {worst:.3e}); valid_auc "
+        f"{ranks[0]['valid_auc']:.4f} against "
+        f"{res.history[-1].valid_auc:.4f}; the exported per-block "
+        f"artifact's scores {diff:.3e} from the world-1 artifact's on "
+        f"{PROBE_ROWS} rows; {ranks[0]['seconds']:.1f} s a rank "
+        f"[{smi_line}]")
 
 
 def main() -> None:
@@ -5944,7 +6249,8 @@ def main() -> None:
         operator_phases(device, tmp, smi_line)
         # phases 22g and 22h: the serving fleet
         fleet_phases(device, tmp, smi_line)
-        # phase 23: data- and vocab-parallel training on torch.distributed
+        # phases 23 and 24: data-, vocab-, tensor-, sequence- and
+        # pipeline-parallel training on torch.distributed
         mesh_phases(device, tmp, smi_line)
 
     missing = [kr["name"] for kr in kernels if not kr.get("launches")]

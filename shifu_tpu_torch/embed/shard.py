@@ -17,10 +17,11 @@ rank's loss is scaled so that the average is the global batch's
 gradient, train/step.py): (U, Nc, D) rows, batch-proportional, never the
 dense (Nc, V, D) gradient.
 
-The JAX package's VOCAB_SHARD_RULES pattern also matches the numeric
-field vectors (`numeric_embedding`), whose D axis XLA then splits; the
-port shards the sparse plan's stacked tables only and replicates the rest
-(the math is the same).
+The placement itself is parallel/sharding.place_model's: the stacked
+tables' modules take their vocab slices (models/embedding.CategoricalEmbed.
+accept_split).  As in the JAX package the VOCAB_SHARD_RULES pattern also
+matches the numeric field vectors (`numeric_embedding`), whose D axis is
+then split and all-gathered where the forward uses it.
 """
 
 from __future__ import annotations
@@ -29,11 +30,9 @@ from typing import Optional
 
 import torch
 
-from ..models.embedding import CategoricalEmbed, VocabShard
 from ..ops.embedding import fused_rows_update
 from ..parallel import distributed
 from ..parallel.mesh import MODEL_AXIS, Mesh
-from ..parallel.sharding import Sharding
 
 # the sparse plan's rule: stacked (Nc, V, D) tables split the vocab axis
 VOCAB_SHARD_SPEC = (None, MODEL_AXIS, None)
@@ -69,33 +68,6 @@ def make_sharded_rows_update(mesh: Optional[Mesh], *, nc: int, vocab: int,
                                  unique=unique)
 
     return update
-
-
-def shard_tables(model: torch.nn.Module, mesh: Mesh,
-                 names: list[str]) -> dict[str, Sharding]:
-    """Replace each named stacked table of `model` (full, as init drew
-    it) by this rank's vocab slice, and give its module the `VocabShard`
-    its lookup needs.  Returns {name: Sharding} of the sharded tables."""
-    shards = mesh.axis_size(MODEL_AXIS)
-    sharding = Sharding(mesh, VOCAB_SHARD_SPEC)
-    out = {}
-    for mod_name, mod in model.named_modules():
-        name = f"{mod_name}.embedding" if mod_name else "embedding"
-        if not isinstance(mod, CategoricalEmbed) or name not in names:
-            continue
-        full = mod.embedding.detach()
-        vocab = full.shape[1]
-        if vocab % shards != 0:
-            raise ValueError(f"vocab {vocab} not divisible by {shards} "
-                             "shards")
-        rows = vocab // shards
-        mod.embedding = torch.nn.Parameter(
-            sharding.local(full).contiguous().clone())
-        mod.vocab_shard = VocabShard(
-            offset=mesh.axis_index(MODEL_AXIS) * rows, rows=rows,
-            vocab=vocab, group=mesh.group(MODEL_AXIS))
-        out[name] = sharding
-    return out
 
 
 def assert_vocab_sharded(table: torch.Tensor, shards: int,

@@ -80,8 +80,9 @@ def params_from_jax(flat: dict[str, np.ndarray],
     `shifu_output_0/Dense_0/kernel`, ...) onto `model`'s state_dict.
 
     The port names its parameters after the Flax tree and keeps its layouts,
-    so a key maps by `/` -> `.` with no transpose.  Raises on a missing or
-    an extra key and on a shape mismatch."""
+    so a key maps by `/` -> `.` with no transpose; a stacked trunk's
+    `blocks/<name>` (L, ...) leaves map onto the port's `blocks.<name>`.
+    Raises on a missing or an extra key and on a shape mismatch."""
     want = model.state_dict()
     got = {k.replace("/", "."): v for k, v in flat.items()}
     missing = sorted(set(want) - set(got))
@@ -209,12 +210,22 @@ def save_artifact(model: nn.Module, spec: ModelSpec, schema: DataSchema,
     `cuda:0`) at `aot_buckets` (default: the ServingConfig-default
     ladder), best-effort as in JAX (export/aot.py).
     `sync_manifest.json` comes last, so its digests cover every other
-    file; a failure to write it raises."""
+    file; a failure to write it raises.  A pipelined FT-Transformer
+    (`pipeline_stages > 1`, a training-time layout) ships the canonical
+    per-block artifact, as in JAX: the same weights, program and
+    `scoring.pt2` as a one-device model."""
     from ..runtime.fleet import write_sync_manifest
     from .program import PROGRAM_VERSION, build_program_v2, weight_keys
 
     os.makedirs(export_dir, exist_ok=True)
     flat = flat_params(model)
+    if spec.model_type == "ft_transformer" and spec.pipeline_stages > 1:
+        from ..models.ft_transformer import canonicalize_params
+        flat = {k.replace(".", "/"): v for k, v in canonicalize_params(
+            {k.replace("/", "."): v for k, v in flat.items()},
+            spec).items()}
+        spec = dataclasses.replace(spec, pipeline_stages=1,
+                                   pipeline_microbatches=0)
     program = build_program_v2(spec, schema)
     if program is not None:
         missing = [k for k in weight_keys(program) if k not in flat]

@@ -686,8 +686,6 @@ def _train_world(args, job, dev) -> tuple[int, Optional[str]]:
     exactly its size, which must fit the visible devices; else data
     parallelism over them.  Visible: the cards, capped by --devices; on
     the CPU, --devices ranks (the mesh's size when 0)."""
-    from ..parallel.mesh import check_axes
-    check_axes(job.runtime.mesh)
     need = job.runtime.mesh.num_devices
     if dev.type == "cuda":
         import torch
@@ -1260,7 +1258,7 @@ def run_export(args) -> int:
     from ..config import job_config_from_shifu
     from ..device import resolve_device
     from ..train import checkpoint as ckpt_lib
-    from ..train.loop import init_state
+    from ..train.loop import init_state, restore_latest_any_layout
     from ..utils import xmlconfig
 
     job = job_config_from_shifu(args.modelconfig, args.columnconfig)
@@ -1276,8 +1274,9 @@ def run_export(args) -> int:
     aot_pack, aot_buckets = _export_aot_opts(args)
     dev = resolve_device(args.device) if aot_pack else None
     state = init_state(job, job.schema.feature_count, "cpu")
-    restored = ckpt_lib.restore_latest(ckpt_lib.make_manager(
-        args.checkpoint_dir), state, with_extra=True)
+    restored = restore_latest_any_layout(
+        ckpt_lib.make_manager(args.checkpoint_dir), state, job,
+        lambda m: print(m, flush=True))
     if restored is None:
         print(f"no checkpoint found under {args.checkpoint_dir}",
               file=sys.stderr, flush=True)

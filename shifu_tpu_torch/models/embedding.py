@@ -4,12 +4,20 @@ numeric field vectors, and `fused_lookup`, one lookup for the tables that
 share ids.  Every lookup goes through `ops/embedding.embedding_lookup`
 (kernel #5 on the card; re-exported here).
 
-A table may be vocab-sharded over the mesh's `model` axis (embed/shard.py):
-its module then holds rows [offset, offset + V/S) of the global table and
-a `VocabShard`, and `sharded_lookup` gathers from the local slice with the
-kernel and sums the slices' partial results over the model group.  The
-values are the unsharded lookup's, bit for bit: each global id lands in
-exactly one slice, the other slices add zeros."""
+A stacked table may be split over a mesh axis (parallel/sharding.
+place_model offers the block to `CategoricalEmbed.accept_split`):
+- by vocab (a sparse plan's rule, embed/shard.py): the module holds rows
+  [offset, offset + V/S) of the global table and a `VocabShard`, and
+  `sharded_lookup` gathers from the local slice with the kernel and sums
+  the slices' partial results over the group.  The values are the
+  unsharded lookup's, bit for bit: each global id lands in exactly one
+  slice, the other slices add zeros.
+- by field (DEFAULT_RULES' `P(model, None)` on a (Nc, V, D) table): the
+  module holds fields [offset, offset + Nc/S) and a `FieldShard`; the
+  kernel looks up this rank's fields only, and `field_lookup` all-gathers
+  the (B, Nc/S, D) result over the group on the field axis.  Its backward
+  hands each rank the cotangent of its own fields, which the lookup's
+  backward scatters into the local table in f32, as on one device."""
 
 from __future__ import annotations
 
@@ -22,7 +30,7 @@ from torch import nn
 from ..config.schema import DataSchema, ModelSpec
 from ..ops.embedding import embedding_lookup
 from ..ops.initializers import xavier_uniform
-from ..parallel.distributed import sum_forward
+from ..parallel.distributed import gather_grad, sum_forward
 from .base import dtype_of
 
 
@@ -125,13 +133,34 @@ def sharded_lookup(table: torch.Tensor, ids: torch.Tensor,
                        torch.full_like(out, float("nan")))
 
 
+@dataclasses.dataclass(frozen=True)
+class FieldShard:
+    """This rank's fields of a field-split table: fields [offset, offset +
+    count) of the stacked (Nc, V, D) table; `group` gathers the fields
+    (the split axis's process group)."""
+
+    offset: int
+    count: int
+    group: Any = None
+
+
+def field_lookup(table: torch.Tensor, ids: torch.Tensor,
+                 shard: FieldShard) -> torch.Tensor:
+    """The lookup of global (B, Nc) ids in a field-split table: this
+    rank's (count, V, D) fields through the kernel, then the (B, Nc, D)
+    result all-gathered over the group on the field axis, with a
+    gradient (the unsharded lookup's values and gradient)."""
+    mine = ids[:, shard.offset:shard.offset + shard.count].contiguous()
+    return gather_grad(embedding_lookup(table, mine), shard.group, 1)
+
+
 class CategoricalEmbed(nn.Module):
     """Per-field embedding tables stacked as one `embedding` param
     (num_fields, max_vocab, dim) in `param_dtype`; ids (B, Nc) ->
     (B, Nc, dim) in the compute dtype through `embedding_lookup`.
-    `table()` is the compute-dtype table, for `fused_lookup`.  A
-    vocab-sharded table holds its slice and `vocab_shard`
-    (embed/shard.shard_tables)."""
+    `table()` is the compute-dtype table, for `fused_lookup`.  A split
+    table holds its block and `vocab_shard` or `field_shard`
+    (`accept_split`)."""
 
     def __init__(self, layout: FieldLayout, dim: int,
                  compute_dtype: str = "bfloat16",
@@ -142,10 +171,32 @@ class CategoricalEmbed(nn.Module):
         self.dim = dim
         self.cdt = dtype_of(compute_dtype)
         self.vocab_shard: Optional[VocabShard] = None
+        self.field_shard: Optional[FieldShard] = None
         if layout.num_categorical:
             self.embedding = nn.Parameter(xavier_uniform(
                 (layout.num_categorical, max(layout.vocab_sizes), dim),
                 generator).to(dtype_of(param_dtype)))
+
+    def accept_split(self, leaf: str, sharding) -> bool:
+        """Take the table's block when it is split by vocab (the second
+        axis) or by field (the first) over one mesh axis; a split of the
+        embedding dimension is left to the all-gather."""
+        if leaf != "embedding":
+            return False
+        spec = tuple(sharding.spec) + (None,) * 3
+        axes = [a for a in spec[:3] if a is not None]
+        if len(axes) != 1 or spec[2] is not None:
+            return False
+        mesh, axis = sharding.mesh, axes[0]
+        index, group = mesh.axis_index(axis), mesh.group(axis)
+        if spec[0] is not None:
+            count = self.embedding.shape[0]
+            self.field_shard = FieldShard(index * count, count, group)
+        else:
+            rows = self.embedding.shape[1]
+            self.vocab_shard = VocabShard(index * rows, rows,
+                                          rows * mesh.axis_size(axis), group)
+        return True
 
     def table(self) -> torch.Tensor:
         return self.embedding.to(self.cdt)
@@ -154,14 +205,16 @@ class CategoricalEmbed(nn.Module):
         if self.layout.num_categorical == 0:
             return ids.new_zeros((ids.shape[0], 0, self.dim),
                                  dtype=self.cdt)
-        return _lookup(self.table(), ids, self.vocab_shard)
+        return _lookup(self.table(), ids, self)
 
 
 def _lookup(table: torch.Tensor, ids: torch.Tensor,
-            shard: Optional[VocabShard]) -> torch.Tensor:
-    if shard is None:
-        return embedding_lookup(table, ids)
-    return sharded_lookup(table, ids, shard)
+            embed: CategoricalEmbed) -> torch.Tensor:
+    if embed.vocab_shard is not None:
+        return sharded_lookup(table, ids, embed.vocab_shard)
+    if embed.field_shard is not None:
+        return field_lookup(table, ids, embed.field_shard)
+    return embedding_lookup(table, ids)
 
 
 def fused_lookup(embeds: Sequence[CategoricalEmbed], ids: torch.Tensor
@@ -170,10 +223,15 @@ def fused_lookup(embeds: Sequence[CategoricalEmbed], ids: torch.Tensor
     tables concatenated along dim, gathered once, the result split back
     per embed.  The same values as a lookup per embed.  (The JAX package
     looks them up separately under SHIFU_TPU_PALLAS, only because its TPU
-    kernel needs D % 128 == 0; the card has no such limit.)  Vocab-sharded
-    embeds share one slicing, so their local slices concatenate alike."""
+    kernel needs D % 128 == 0; the card has no such limit.)  Embeds split
+    alike (by vocab or by field) concatenate their local blocks alike;
+    embeds split differently are looked up one by one."""
+    first = embeds[0]
+    if any((e.vocab_shard, e.field_shard)
+           != (first.vocab_shard, first.field_shard) for e in embeds[1:]):
+        return [e(ids) for e in embeds]
     fused = _lookup(torch.cat([e.table() for e in embeds], dim=-1), ids,
-                    embeds[0].vocab_shard)
+                    first)
     return list(fused.split([e.dim for e in embeds], dim=-1))
 
 

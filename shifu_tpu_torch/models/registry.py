@@ -16,15 +16,18 @@ from .base import Wire
 def build_model(spec: ModelSpec, schema: DataSchema,
                 device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None,
-                wire: Optional[Wire] = None, train: bool = False
-                ) -> nn.Module:
+                wire: Optional[Wire] = None, train: bool = False,
+                mesh=None) -> nn.Module:
     """Build the module for `spec` on `device` (default `cuda:0`), in eval
     mode for scoring or in training mode (`train=True`: dropout active).
     Parameters are drawn from `generator` (a fresh one seeded 0 when None)
     on the CPU and then moved, so one seed gives the same weights on every
     device.  `wire` (the int8 grid of data/pipeline.wire_params) goes to
     the MLP's layer 0; other model types never see wire inputs and ignore
-    it, as in the JAX package."""
+    it, as in the JAX package.  `mesh` (parallel/mesh.Mesh) reaches the
+    FT-Transformer, whose ring/Ulysses attention and pipelined trunk use
+    its `seq` and `pipe` axes; the other placements are made on the built
+    model (parallel/sharding.place_model)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -44,7 +47,8 @@ def build_model(spec: ModelSpec, schema: DataSchema,
         from .wide_deep import WideDeep
         cls = {"ft_transformer": FTTransformer, "wide_deep": WideDeep,
                "deepfm": DeepFM}[spec.model_type]
-        model = cls(spec, field_layout(schema), generator)
+        extra = {"mesh": mesh} if spec.model_type == "ft_transformer" else {}
+        model = cls(spec, field_layout(schema), generator, **extra)
     else:
         raise KeyError(f"unknown model_type {spec.model_type!r}")
     return model.to(dev).train(train)

@@ -61,17 +61,20 @@ def ft_block_applicable(seq_len: int, token_dim: int, num_heads: int,
             and 0 < mlp_ratio <= MAX_MLP_RATIO)
 
 
-def fused_block_engaged(spec, seq_len: int, train: bool = False) -> bool:
+def fused_block_engaged(spec, seq_len: int, train: bool = False,
+                        n_seq_parallel: int = 1) -> bool:
     """Config-level gate (ModelSpec.fused_block), the JAX gate's rules with
     one difference: where JAX engages "auto" only on a TPU, here "auto"
     engages wherever the block runs — on the card through the kernel, on
     the CPU through its plain version.  As in JAX, a block with dropout is
-    not fused in training (dropout applies between the fused stages).  The
-    JAX gate's ring/Ulysses case has no caller: the model refuses those
-    `attention_impl`s."""
+    not fused in training (dropout applies between the fused stages), nor
+    one whose attention is ring or Ulysses (`attention_impl`, with or
+    without a seq axis above 1)."""
     if getattr(spec, "fused_block", "off") == "off":
         return False
     if train and spec.dropout_rate > 0:
+        return False
+    if n_seq_parallel > 1 or spec.attention_impl in ("ring", "ulysses"):
         return False
     return ft_block_applicable(seq_len, spec.token_dim,
                                spec.num_attention_heads, spec.mlp_ratio)

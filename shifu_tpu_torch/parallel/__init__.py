@@ -1,9 +1,9 @@
 """Multi-device training on torch.distributed (port of shifu_tpu/parallel):
 the mesh of ranks and its process groups (`mesh`), batch and parameter
 placement (`sharding`), process-group bring-up and the collectives
-(`distributed`), and the local rank spawner of `train --devices N`
-(`launch`).  GPipe (`pipeline_apply`, `pipeline_reference`) is not ported
-yet (ROADMAP.md queue A item (f))."""
+(`distributed`, with the collectives that carry a gradient), GPipe over
+the `pipe` axis (`pipeline`), and the local rank spawner of `train
+--devices N` (`launch`)."""
 
 from .mesh import (
     DATA_AXIS,
@@ -14,6 +14,7 @@ from .mesh import (
     host_shard_info,
     make_mesh,
 )
+from .pipeline import pipeline_apply, pipeline_reference
 from .sharding import (
     DEFAULT_RULES,
     batch_sharding,
@@ -31,6 +32,8 @@ __all__ = [
     "MODEL_AXIS",
     "PIPE_AXIS",
     "SEQ_AXIS",
+    "pipeline_apply",
+    "pipeline_reference",
     "data_parallel_mesh",
     "host_shard_info",
     "make_mesh",

@@ -23,6 +23,25 @@ with "avg" is NCCL's native average (a pre-multiplied sum; on one rank
 NCCL still launches its one-rank reduce kernel, where it elides an
 in-place sum) and, on gloo, which has no average, a sum divided by the
 group's size.
+
+The collectives with a gradient (`sum_forward`, `gather_grad`,
+`all_to_all_grad`, `ppermute`) are the ones XLA inserts for the JAX
+package's model-side axes (`model`, `seq`, `pipe`).  Each backward is the
+exact transpose of its forward under one convention (train/step.py): the
+objective is the SUM over the ranks of their losses, each rank's loss
+scaled by 1 / (the number of ranks that see its rows).  So the transpose
+of a sum over a group is a sum of the cotangents, that of an all-gather
+this rank's slice of the summed cotangent, that of a tiled all-to-all the
+inverse all-to-all, and that of a neighbour exchange the exchange the
+other way round.
+
+Gloo has no point-to-point transfer of CUDA tensors (its send reads the
+device pointer from the host: "Bad address" on the H100 machine), and
+ranks that share a card run gloo: there the neighbour exchange is staged
+through host memory explicitly, and only there; gloo's all-reduce,
+all-gather and all-to-all take CUDA tensors, and NCCL takes every one as
+it is.  That is the collective's transport, not a fallback of the compute
+(ROADMAP.md section C).
 """
 
 from __future__ import annotations
@@ -140,23 +159,177 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def _group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _global_rank(group, i: int) -> int:
+    return dist.get_global_rank(group, i)
+
+
+def _host_staged(t: torch.Tensor, group) -> bool:
+    """True where a point-to-point exchange of `t` goes through host
+    memory: a CUDA tensor on a gloo group (module docstring)."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
 class _SumForward(torch.autograd.Function):
-    """Sum over a group in the forward, identity in the backward: the
-    reduction of partial results that every rank of the group then uses
-    alike (each rank's upstream gradient is the whole gradient of its
-    partial)."""
+    """Sum over a group; the backward sums the cotangents over the group
+    (the transpose of a sum, module docstring)."""
 
     @staticmethod
     def forward(ctx, x, group):
+        ctx.group = group
         return all_reduce(x.clone(), group, "sum")
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return all_reduce(g.contiguous().clone(), ctx.group, "sum"), None
 
 
 def sum_forward(x: torch.Tensor, group) -> torch.Tensor:
-    """Differentiable all-reduce sum whose backward is the identity."""
-    if group is None:
+    """Differentiable all-reduce sum (JAX's psum): the reduction of the
+    partial results the ranks of the group computed."""
+    if _group_size(group) == 1:
         return x
     return _SumForward.apply(x, group)
+
+
+class _GatherGrad(torch.autograd.Function):
+    """All-gather along `dim`; the backward is this rank's slice of the
+    cotangent summed over the group.  The sum is an all-reduce (gloo has
+    no reduce-scatter of CUDA tensors), then the slice."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = all_reduce(g.contiguous().clone(), ctx.group, "sum")
+        i = dist.get_rank(ctx.group)
+        return total.narrow(ctx.dim, i * ctx.n, ctx.n).contiguous(), None, \
+            None
+
+
+def gather_grad(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Differentiable all-gather of the group's blocks along `dim`, in
+    rank order of the group (JAX's all_gather(tiled=True))."""
+    if _group_size(group) == 1:
+        return x
+    return _GatherGrad.apply(x, group, dim)
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """JAX's all_to_all(split_axis, concat_axis, tiled=True): `x` cut in
+    n blocks along `split_dim`, block j sent to rank j of the group, the
+    n blocks received concatenated along `concat_dim` in rank order."""
+    n = _group_size(group)
+    if n == 1:
+        return x
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dimension {split_dim} of size "
+                         f"{x.shape[split_dim]} does not split into {n}")
+    send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(list(recv.unbind(0)), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, split_dim, concat_dim)
+        return all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return (all_to_all(g.contiguous(), group, concat_dim, split_dim),
+                None, None, None)
+
+
+def all_to_all_grad(x: torch.Tensor, group, split_dim: int,
+                    concat_dim: int) -> torch.Tensor:
+    """Differentiable tiled all-to-all; its backward is the inverse
+    all-to-all (split and concat dimensions swapped)."""
+    if _group_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
+
+
+def exchange(x: torch.Tensor, group, shift: int, ring: bool
+             ) -> torch.Tensor:
+    """Send `x` to the rank `shift` places on in the group and return what
+    the rank `shift` places back sent (JAX's ppermute).  `ring`: the
+    permutation j -> j + shift mod n; else the open chain, where a rank
+    with no peer to send to sends nothing and one with none to receive
+    from gets zeros.  One batch of isend/irecv (NCCL pairs them; gloo
+    stages CUDA tensors through host memory)."""
+    n = _group_size(group)
+    i = dist.get_rank(group)
+    dst, src = i + shift, i - shift
+    if ring:
+        dst, src = dst % n, src % n
+    staged = _host_staged(x, group)
+    send = (x.cpu() if staged else x).contiguous()
+    recv = torch.zeros_like(send)
+    ops = []
+    if 0 <= dst < n:
+        ops.append(dist.P2POp(dist.isend, send, _global_rank(group, dst),
+                              group))
+    if 0 <= src < n:
+        ops.append(dist.P2POp(dist.irecv, recv, _global_rank(group, src),
+                              group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return recv.to(x.device) if staged else recv
+
+
+class _Exchange(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, shift, ring):
+        ctx.args = (group, shift, ring)
+        return exchange(x, group, shift, ring)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, shift, ring = ctx.args
+        return exchange(g.contiguous(), group, -shift, ring), None, None, \
+            None
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1,
+             ring: bool = True) -> torch.Tensor:
+    """Differentiable neighbour exchange (`exchange`); the backward sends
+    the cotangent the other way.  Every rank of the group must call it,
+    in the same order."""
+    if _group_size(group) == 1:
+        return x if ring else torch.zeros_like(x)
+    return _Exchange.apply(x, group, shift, ring)
+
+
+class _Attach(torch.autograd.Function):
+    """`x` itself; `dep` rides along with a zero cotangent.  Keeps an
+    exchange whose result a rank does not use in that rank's backward
+    graph, so every rank runs every exchange's transpose in the same
+    order (parallel/pipeline.py)."""
+
+    @staticmethod
+    def forward(ctx, x, dep):
+        ctx.dep = (dep.shape, dep.dtype, dep.device)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.dep
+        return g, torch.zeros(shape, dtype=dtype, device=device)
+
+
+def attach(x: torch.Tensor, dep: torch.Tensor) -> torch.Tensor:
+    return _Attach.apply(x, dep)

@@ -7,9 +7,11 @@ at the origin), as the JAX package reshapes its device list.  Each rank
 knows its coordinates and holds one process group per axis: the ranks
 that differ from it only along that axis (its "line").  `data` is the
 data-parallel axis (each data coordinate trains its rows of every global
-batch, train/step.py); `model` holds vocab-sharded embedding tables
-(embed/shard.py).  `seq` and `pipe` above 1 raise until ring/Ulysses
-attention and GPipe are ported.
+batch, train/step.py); `model` splits embedding tables (by vocab or by
+field), MoE experts and the leaves of `shifu.sharding.rules`
+(parallel/sharding.py); `seq` splits the attention's tokens (ring and
+Ulysses attention, ops/attention.py); `pipe` holds the stages of a
+pipelined trunk (parallel/pipeline.py).
 
 `dist.new_group` is collective over the whole world: every rank creates
 every line's group, in the same order, including the lines it is not on
@@ -83,19 +85,6 @@ def _lines(shape: dict, axis: str) -> list[list[int]]:
     return sorted(moved.tolist(), key=lambda line: line[0])
 
 
-def check_axes(cfg: MeshConfig) -> None:
-    """Raise for the axes the port does not train yet: `seq` and `pipe`
-    above 1."""
-    if cfg.seq > 1:
-        raise NotImplementedError(
-            f"mesh seq axis {cfg.seq} > 1: sequence-parallel (ring/Ulysses) "
-            "attention is not ported yet (ROADMAP.md, queue A item (f))")
-    if cfg.pipe > 1:
-        raise NotImplementedError(
-            f"mesh pipe axis {cfg.pipe} > 1: GPipe is not ported yet "
-            "(ROADMAP.md, queue A item (f))")
-
-
 def make_mesh(cfg: Optional[MeshConfig] = None,
               devices: Optional[int] = None) -> Mesh:
     """The mesh over `devices` ranks (default: the process group's world,
@@ -109,7 +98,6 @@ def make_mesh(cfg: Optional[MeshConfig] = None,
         raise ConfigError(
             f"mesh {cfg.data}x{cfg.seq}x{cfg.pipe}x{cfg.model} needs "
             f"{cfg.num_devices} devices, have {n}")
-    check_axes(cfg)
     if not dist.is_initialized():
         if n != 1:
             raise ConfigError(f"a mesh of {n} devices needs a process group "

@@ -27,8 +27,10 @@ background thread; at most one save is in flight, and `finalize` makes it
 durable.
 
 A state on a mesh (train/loop.py) saves full tensors: the chief writes
-what `full_payload` gathered from every rank's blocks of the sharded
-tables and their slots, the same files a world-1 run writes.  A restore
+what `full_payload` gathered from every rank's blocks of the split
+parameters (tables split by vocab or field, experts, pipeline stages,
+rule-split leaves), their optimizer slots and their table slots: the same
+files a world-1 run writes.  A restore
 checks the full shapes and keeps this rank's blocks, so a checkpoint
 resumes on any mesh, or on none.
 
@@ -179,9 +181,24 @@ def state_payload(state) -> dict:
                                   for k, v in state.table_slots.items()})}
 
 
+def _map_opt(obj, n: int, positions: dict, fn):
+    """The optimizer state with fn(sharding, slot) applied to the slots of
+    split parameters: a transformation's per-parameter slots are a list of
+    `n` tensors in the optimizer's parameter order."""
+    if isinstance(obj, dict):
+        return {k: _map_opt(v, n, positions, fn) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        if len(obj) == n and all(isinstance(x, torch.Tensor) for x in obj):
+            return type(obj)(fn(positions[i], x) if i in positions else x
+                             for i, x in enumerate(obj))
+        return type(obj)(_map_opt(v, n, positions, fn) for v in obj)
+    return obj
+
+
 def _map_sharded(payload: dict, state, fn) -> dict:
     """`payload` with fn(sharding, tensor) applied to the leaves of the
-    state's sharded parameters: the parameter and its table slots."""
+    state's split parameters: the parameter, its optimizer slots and its
+    table slots."""
     if not getattr(state, "shardings", None):
         return payload
     out = dict(payload, model=dict(payload["model"]))
@@ -192,6 +209,14 @@ def _map_sharded(payload: dict, state, fn) -> dict:
         out["model"][name] = fn(sh, payload["model"][name])
         if slots is not None and name in slots:
             out["table_slots"][name] = [fn(sh, t) for t in slots[name]]
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    opt_params = state.optimizer.params
+    positions = {i: state.shardings[names[id(p)]]
+                 for i, p in enumerate(opt_params)
+                 if names.get(id(p)) in state.shardings}
+    if positions:
+        out["optimizer"] = _map_opt(payload["optimizer"], len(opt_params),
+                                    positions, fn)
     return out
 
 
@@ -207,10 +232,8 @@ def _full_shaped(state) -> dict:
     sharded leaves as shape-only meta tensors), for the compatibility
     check, with no collective."""
     def meta(sh, t):
-        shape = [n * sh.mesh.axis_size(a) if a else n
-                 for n, a in zip(t.shape, list(sh.spec)
-                                 + [None] * (t.dim() - len(sh.spec)))]
-        return torch.empty(shape, dtype=t.dtype, device="meta")
+        return torch.empty(sh.full_shape(t.shape), dtype=t.dtype,
+                           device="meta")
     return _map_sharded(state_payload(state), state, meta)
 
 

@@ -58,9 +58,13 @@ Only the chief (rank 0) journals, prints and writes checkpoints, which
 hold full, gathered tensors; every rank restores from them onto its own
 blocks, so a checkpoint resumes on any mesh.  The chief's clock and its
 SIGTERM decide the mid-epoch save points, agreed over the mesh's gloo
-group.  The JAX package's model-axis placements other than vocab-sharded
-tables raise, as does a pod's process-local input (ROADMAP.md queue A
-item (f)).
+group.  The placements are the JAX package's (parallel/sharding.
+sharding_rules): `shifu.sharding.rules`, vocab-sharded sparse tables, the
+field axis of embedding tables, MoE experts over `model`, a pipelined
+trunk's stages over `pipe`; ring and Ulysses attention use the `seq` axis.
+A per-block FT checkpoint resumes into a stacked trunk and back
+(`restore_latest_any_layout`).  A pod's process-local input raises
+(ROADMAP.md queue A item (f)).
 """
 
 from __future__ import annotations
@@ -77,16 +81,16 @@ import numpy as np
 import torch
 
 from .. import chaos, obs
-from ..config.schema import JobConfig
+from ..config.schema import ConfigError, JobConfig
 from ..data import pipeline as pipe
 from ..device import DeviceLike, resolve_device
 from ..embed.dedup import attach_dedup
-from ..embed.shard import shard_tables
 from ..models.registry import build_model
 from ..ops import metrics as metrics_lib
 from ..parallel import distributed
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
-from ..parallel.sharding import DEFAULT_RULES, param_specs, shard_batch
+from ..parallel.mesh import DATA_AXIS, PIPE_AXIS
+from ..parallel.pipeline import n_microbatches
+from ..parallel.sharding import place_model, shard_batch, sharding_rules
 from . import checkpoint as ckpt_lib
 from . import profiler as prof_lib
 from . import sparse_embed
@@ -144,33 +148,25 @@ class TrainResult:
     baseline_profile: Optional[dict] = None
 
 
-def _tensor_parallel(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: tensor-parallel placements are not ported yet (ROADMAP.md,"
-        " queue A item (f), tensor-parallel placements); the port shards "
-        "only the vocab of sparse-plan tables over the model axis")
-
-
-def _refuse_tensor_parallel(job: JobConfig, model, plan, mesh) -> None:
-    """Raise for the JAX package's placements beyond vocab-sharded tables
-    (its init_state rules under a mesh) instead of silently replicating:
-    `shifu.sharding.rules` entries, and under a model axis above 1 MoE
-    expert sharding and DEFAULT_RULES' field-axis sharding of the
-    embeddings of a job without a sharded sparse plan."""
-    if job.runtime.param_sharding_rules:
-        raise _tensor_parallel(f"shifu.sharding.rules "
-                               f"{list(job.runtime.param_sharding_rules)}")
-    if mesh.axis_size(MODEL_AXIS) <= 1:
-        return
-    if job.model.model_type == "moe_mlp":
-        raise _tensor_parallel("MoE expert sharding over the model axis")
-    if plan is None or plan.shards <= 1:
-        hits = [n for n, spec in param_specs(
-            dict(model.named_parameters()), DEFAULT_RULES).items() if spec]
-        if hits:
-            raise _tensor_parallel(
-                f"the model axis's field-axis sharding of {hits} (the "
-                "sparse embedding plan is off for this job)")
+def check_pipeline(job: JobConfig, mesh) -> None:
+    """The JAX init_state's checks of a pipelined trunk: the mesh's pipe
+    axis, when above 1, must equal `pipeline_stages`, and the batch must
+    split into microbatches x the data axis."""
+    n_pipe = mesh.axis_size(PIPE_AXIS) if mesh is not None else 1
+    if job.model.pipeline_stages > 1 and n_pipe > 1 \
+            and n_pipe != job.model.pipeline_stages:
+        raise ConfigError(
+            f"mesh pipe axis ({n_pipe}) must equal model.pipeline_stages "
+            f"({job.model.pipeline_stages})")
+    if job.model.pipeline_stages > 1:
+        n_micro = n_microbatches(job.model)
+        n_data = mesh.axis_size(DATA_AXIS) if mesh is not None else 1
+        bs = job.data.batch_size
+        if bs % n_micro != 0 or (bs // n_micro) % n_data != 0:
+            raise ConfigError(
+                f"batch_size ({bs}) must be divisible by pipeline "
+                f"microbatches ({n_micro}) x data axis ({n_data}); "
+                f"use a multiple of {n_micro * n_data}")
 
 
 def init_state(job: JobConfig, num_features: int,
@@ -182,8 +178,9 @@ def init_state(job: JobConfig, num_features: int,
     sparse embedding plan the optimizer leaves the embedding tables out and
     their slots go on `table_slots`.  Every model of the JAX ladder
     trains.  On a mesh every rank draws the full state and keeps its
-    blocks: a sparse plan's tables are vocab-sharded over the model axis
-    (embed/shard.py), the rest replicated."""
+    blocks by the JAX package's rules (parallel/sharding.sharding_rules),
+    the rest replicated; the optimizer and the table slots are built on
+    the blocks, so they follow them."""
     job = on_mesh(job, mesh)
     if job.model.model_type not in _TRAINABLE:
         raise KeyError(f"unknown model_type {job.model.model_type!r}; the "
@@ -191,21 +188,25 @@ def init_state(job: JobConfig, num_features: int,
     if num_features != job.schema.feature_count:
         raise ValueError(f"dataset has {num_features} features, the schema "
                          f"selects {job.schema.feature_count}")
+    check_pipeline(job, mesh)
     wire = wire_grid(job) if wire_fused_into_model(job) else None
     model = build_model(job.model, job.schema, device,
                         generator=torch.Generator().manual_seed(
                             job.train.seed),
-                        wire=wire, train=True)
+                        wire=wire, train=True, mesh=mesh)
     plan = sparse_embed.resolve_plan(job)
-    tables = sparse_embed.table_names(model, plan) if plan else []
     shardings = {}
     if mesh is not None:
-        _refuse_tensor_parallel(job, model, plan, mesh)
-        if plan is not None and plan.shards > 1:
-            shardings = shard_tables(model, mesh, tables)
-    dense = [p for n, p in model.named_parameters() if n not in tables]
+        shardings = place_model(model, mesh,
+                                sharding_rules(job, mesh, plan))
+    tables = sparse_embed.table_names(model, plan) if plan else []
+    dense = [(n, p) for n, p in model.named_parameters() if n not in tables]
+    optimizer = Optimizer([p for _, p in dense], job.train.optimizer)
+    if shardings:
+        optimizer.set_split_groups([shardings[n].groups() if n in shardings
+                                    else () for n, _ in dense])
     return TrainState(
-        model=model, optimizer=Optimizer(dense, job.train.optimizer),
+        model=model, optimizer=optimizer,
         table_slots=(sparse_embed.init_table_slots(model, plan)
                      if tables else None),
         mesh=mesh, shardings=shardings)
@@ -213,9 +214,9 @@ def init_state(job: JobConfig, num_features: int,
 
 def gathered_model(state: TrainState, job: JobConfig) -> torch.nn.Module:
     """The state's model with whole parameters, for the artifact: the
-    model itself, or on a vocab-sharded mesh a fresh model of the same
-    build holding the gathered tables (a collective: every rank calls
-    it).  A world-1 run writes the same artifact."""
+    model itself, or on a mesh with split leaves a fresh model of the same
+    build (no mesh) holding the gathered parameters (a collective: every
+    rank calls it).  A world-1 run writes the same artifact."""
     if not state.shardings:
         return state.model
     full = ckpt_lib.full_payload(state)["model"]
@@ -362,6 +363,10 @@ def evaluate(state: TrainState, ds: pipe.TabularDataset, job: JobConfig,
     bs = batch_size or eval_batch_size(job, ds.num_rows)
     if mesh is not None:
         bs = -(-bs // mesh.size) * mesh.size
+    if job.model.pipeline_stages > 1:
+        # the pipelined trunk splits every batch into microbatches
+        quantum = n_microbatches(job.model) * (mesh.size if mesh else 1)
+        bs = -(-bs // quantum) * quantum
 
     def score(padded: dict) -> torch.Tensor:
         if mesh is None:
@@ -433,6 +438,72 @@ def _stack_blocks(ds: pipe.TabularDataset, nb: int, bs: int) -> dict:
             "weight": stack(ds.weight)}
 
 
+def restore_latest_any_layout(manager, state: TrainState, job: JobConfig,
+                              console: Console):
+    """`checkpoint.restore_latest` with the FT trunk-layout fallback:
+    (state, extra, step), or None when there is no checkpoint.  A
+    checkpoint that does not fit `state` is tried in the other trunk
+    layout (per-block or stacked); the original error re-raises when it
+    fits neither.  The train loop's resume and the export command's
+    recovery path share it."""
+    try:
+        return ckpt_lib.restore_latest(manager, state, with_extra=True)
+    except Exception:
+        restored = _restore_across_trunk_layout(manager, state, job, console)
+        if restored is None:
+            raise
+        return restored
+
+
+def _restore_across_trunk_layout(manager, state: TrainState, job: JobConfig,
+                                 console: Console):
+    """Resume an FT-Transformer from a checkpoint of the OTHER trunk layout
+    (per-block or stacked: `pipeline_stages` is a layout, not part of the
+    model).  The weights convert exactly (models/ft_transformer.
+    canonicalize_params / stack_block_params); the optimizer slots
+    restart, which the console says.  (state, extra, step) or None."""
+    if job.model.model_type != "ft_transformer":
+        return None
+    from ..models import ft_transformer as ftt
+
+    cur = job.model
+    if cur.pipeline_stages > 1:
+        alt = dataclasses.replace(cur, pipeline_stages=1,
+                                  pipeline_microbatches=0)
+        convert = ftt.stack_block_params
+    else:
+        stages = next((s for s in range(2, cur.num_layers + 1)
+                       if cur.num_layers % s == 0), 1)
+        if stages == 1:
+            return None  # one layer: only one layout exists
+        alt = dataclasses.replace(cur, pipeline_stages=stages,
+                                  pipeline_microbatches=0)
+        convert = ftt.canonicalize_params
+    try:
+        alt_job = job.replace(model=alt, data=dataclasses.replace(
+            job.data, batch_size=job.data.batch_size * alt.pipeline_stages))
+        template = init_state(alt_job, job.schema.feature_count, "cpu")
+        restored = ckpt_lib.restore_latest(manager, template,
+                                           with_extra=True)
+    except Exception:  # noqa: BLE001 - not the other layout either
+        return None
+    if restored is None:
+        return None
+    alt_state, extra, step = restored
+    full = convert(dict(alt_state.model.state_dict()), cur)
+    own = dict(state.model.named_parameters())
+    with torch.no_grad():
+        for name, t in full.items():
+            sh = state.shardings.get(name)
+            own[name].copy_(sh.local(t) if sh is not None else t)
+    state.step = alt_state.step
+    direction = ("stacked -> per-block" if cur.pipeline_stages == 1
+                 else "per-block -> stacked")
+    console(f"Resuming across a trunk-layout change ({direction}): weights "
+            "converted exactly, optimizer slots reinitialized")
+    return state, extra, step
+
+
 def _resume(job: JobConfig, state: TrainState, console: Console):
     """The checkpoint manager (None without a directory) and the epoch to
     start at, after restoring the newest usable checkpoint into `state`."""
@@ -443,7 +514,7 @@ def _resume(job: JobConfig, state: TrainState, console: Console):
     if not ck.resume:
         return manager, 0
     fresh_opt = state.optimizer.state_dict()  # before the restore replaces it
-    restored = ckpt_lib.restore_latest(manager, state, with_extra=True)
+    restored = restore_latest_any_layout(manager, state, job, console)
     if restored is None:
         return manager, 0
     _, extra, step = restored

@@ -236,11 +236,28 @@ class ScaleByRss(Transform):
 
 
 class ClipByGlobalNorm(Transform):
+    """optax.clip_by_global_norm.  On a mesh `split` lists, for each
+    parameter, the process groups its block is split over: a block's
+    squares are summed over them, so the norm is the global tensors'."""
+
     def __init__(self, max_norm: float):
         self.max_norm = max_norm
+        self.split: Optional[list] = None
+
+    def _square_sum(self, grads) -> torch.Tensor:
+        if not self.split:
+            return sum(torch.sum(g * g) for g in grads)
+        from ..parallel import distributed
+        total = None
+        for g, groups in zip(grads, self.split):
+            sq = torch.sum(g * g)
+            for group in groups:
+                sq = distributed.all_reduce(sq.clone(), group, "sum")
+            total = sq if total is None else total + sq
+        return total
 
     def update(self, grads, state, params):
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        g_norm = torch.sqrt(self._square_sum(grads))
         trigger = g_norm < self.max_norm
         return ([torch.where(trigger, g, (g / g_norm) * self.max_norm)
                  for g in grads], state)
@@ -324,6 +341,18 @@ class Optimizer:
         self.tx = build_transform(cfg)
         with torch.no_grad():
             self.state = self.tx.init([p.detach() for p in self.params])
+
+    def set_split_groups(self, groups: list) -> None:
+        """On a mesh: for each parameter, the process groups its block is
+        split over (empty for a replicated one), for the global norm of
+        gradient clipping."""
+        def visit(tx):
+            if isinstance(tx, ClipByGlobalNorm):
+                tx.split = list(groups)
+            for child in (getattr(tx, "transforms", ())
+                          + ((tx.inner,) if hasattr(tx, "inner") else ())):
+                visit(child)
+        visit(self.tx)
 
     @torch.no_grad()
     def step(self, grads: Optional[Tensors] = None) -> None:

@@ -50,6 +50,24 @@ package's sharded step does:
 - the optimizer then runs on each rank on equal gradients, so replicated
   parameters and optimizer state stay bitwise equal across the ranks.
 
+The model-side axes (`model`, `seq`, `pipe`) split parameters or
+activations (parallel/sharding.py) and their collectives carry gradients
+(parallel/distributed.py).  One convention makes every reduction right,
+whatever a rank computes: the objective is the sum over the ranks of
+their losses, each rank's loss (L2 term included) divided by R, the
+number of ranks that see its rows (the product of the model-side axes'
+sizes), and a split parameter's L2 term counted once for each of its
+blocks.  Every collective's backward is its exact transpose under that
+sum, so after the backward:
+- a parameter replicated over a model-side axis is summed over that
+  axis's group (its ranks saw the same rows but may have computed
+  different parts: experts, fields, query tokens, stages), then averaged
+  over the data group as above;
+- a parameter split over an axis is not reduced over it: its block's
+  gradient came back summed by the collective's transpose.
+The reported loss is the one-device loss, with the L2 term of the whole
+parameters.
+
 `make_local_sgd_epoch_step` is the JAX package's local SGD (SAGN): each
 data rank runs `local_sgd_window` plain-SGD updates on its own replica,
 over its own rows, normalised per rank as the JAX package's vmap over the
@@ -73,8 +91,8 @@ from ..obs.flops import instrument
 from ..ops import losses as losses_lib
 from ..ops.int8_matmul import int8_available
 from ..parallel import distributed
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
-from ..parallel.sharding import shard_batch
+from ..parallel.mesh import DATA_AXIS
+from ..parallel.sharding import model_forward, shard_batch
 from .train_state import TrainState
 
 Batch = dict[str, torch.Tensor]
@@ -159,17 +177,21 @@ class DropoutStream:
         return gen
 
 
-def make_loss_fn(job: JobConfig, mesh=None):
+def make_loss_fn(job: JobConfig, mesh=None, with_l2: Optional[bool] = None):
     """(model, batch, step, rows=None) -> scalar f32 loss.  With
     ModelConfig DropoutRate > 0 the model runs in training mode with the
     dropout generator of this step; `rows` = (lo, hi, global rows) says
     the batch is those rows of a global batch, whose mask it then uses.
     On a mesh whose data axis is above 1 the loss is this rank's share of
-    the global batch's, scaled by the axis's size (module docstring)."""
+    the global batch's, scaled by the axis's size (module docstring).
+    The L2 term is added when `with_l2` (default: without a mesh; on a
+    mesh `backward_on_mesh` adds it)."""
+    if with_l2 is None:
+        with_l2 = mesh is None
     base = losses_lib.get_loss(job.train.loss)
     if job.model.num_heads > 1:
         base = losses_lib.multitask_loss(base)
-    l2 = job.model.l2_scale
+    l2 = job.model.l2_scale if with_l2 else 0.0
     dropout = (DropoutStream(job.train.seed)
                if job.model.dropout_rate > 0 else None)
     decode = make_wire_decode(job)
@@ -187,7 +209,7 @@ def make_loss_fn(job: JobConfig, mesh=None):
             set_dropout_generator(model, dropout.generator(feats.device,
                                                            step))
             set_dropout_rows(model, rows)
-        logits = model(feats)
+        logits = model_forward(model, feats)
         target, weight = decode_target_weight(batch)
         loss = base(logits, target, weight)
         if n_data > 1:
@@ -216,15 +238,17 @@ def make_apply_gradients(job: JobConfig, mesh=None
     return sparse
 
 
-def _average(tensors: list, group) -> None:
-    """Average the tensors over `group` in place, one collective for each
-    dtype among them."""
+def _average(tensors: list, group, op: str = "avg") -> None:
+    """Average (or with `op`, sum) the tensors over `group` in place, one
+    collective for each dtype among them."""
+    if group is None or not tensors:
+        return
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for group_ts in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in group_ts])
-        distributed.all_reduce(flat, group, "avg")
+        distributed.all_reduce(flat, group, op)
         for t, part in zip(group_ts,
                            flat.split([t.numel() for t in group_ts])):
             t.copy_(part.view_as(t))
@@ -238,14 +262,58 @@ def make_train_step(job: JobConfig, mesh=None
     return instrument(_train_step_fn(job, mesh), "train_step")
 
 
-def _sharded_l2(state: TrainState, l2: float) -> Optional[torch.Tensor]:
-    """The L2 term of this rank's blocks of sharded parameters (those the
-    loss counts locally), or None."""
-    if l2 <= 0 or not state.shardings:
-        return None
-    params = dict(state.model.named_parameters())
-    return l2 * sum(torch.sum(torch.square(params[n].detach().float()))
-                    for n in state.shardings)
+def _model_axes(mesh) -> list:
+    """The mesh's model-side axes above 1 (every axis but `data`)."""
+    return [a for a in mesh.axis_names
+            if a != DATA_AXIS and mesh.axis_size(a) > 1]
+
+
+def backward_on_mesh(state: TrainState, loss: torch.Tensor,
+                     l2: float) -> torch.Tensor:
+    """The backward of one step on a mesh, by the convention of the module
+    docstring: (loss + the L2 term) / R, then each parameter's gradient
+    summed over the model-side axes it is replicated over.  The tables of
+    a sparse plan are left to its update.  Returns the reported loss (one
+    element, f32): `loss` plus the whole parameters' L2 term; not yet
+    averaged over the data group."""
+    mesh, model, shardings = state.mesh, state.model, state.shardings
+    axes = _model_axes(mesh)
+    replicas = int(np.prod([mesh.axis_size(a) for a in axes]))
+    params = list(model.named_parameters())
+    total = loss
+    if l2 > 0:
+        squares = []
+        for name, p in params:
+            sq = torch.sum(torch.square(p.float()))
+            if name in shardings:
+                sq = shardings[name].split_factor() * sq
+            squares.append(sq)
+        total = loss + l2 * sum(squares)
+    (total / replicas if replicas > 1 else total).backward()
+    buckets: dict = {}
+    for name, p in params:
+        if state.table_slots and name in state.table_slots:
+            continue
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        split = shardings[name].axes if name in shardings else ()
+        key = tuple(a for a in axes if a not in split)
+        buckets.setdefault(key, []).append(p.grad)
+    for key, grads in buckets.items():
+        for axis in key:
+            _average(grads, mesh.group(axis), "sum")
+    report = loss.detach().float().reshape(1)
+    if l2 > 0:
+        with torch.no_grad():
+            whole = []
+            for name, p in params:
+                sq = torch.sum(torch.square(p.float())).reshape(1)
+                if name in shardings:
+                    for group in shardings[name].groups():
+                        sq = distributed.all_reduce(sq, group, "sum")
+                whole.append(sq)
+            report = report + l2 * sum(whole)
+    return report
 
 
 def _train_step_fn(job: JobConfig, mesh=None):
@@ -277,22 +345,9 @@ def _train_step_fn(job: JobConfig, mesh=None):
         b = batch["features"].shape[0]
         loss = loss_fn(model, local, state.step,
                        rows=(d * b // n_data, (d + 1) * b // n_data, b))
-        loss.backward()
-        report = loss.detach().float().reshape(1)
-        # sharded blocks add their own squares to the loss: report the
-        # whole table's term, as one device would
-        part = _sharded_l2(state, l2)
-        if part is not None:
-            whole = distributed.all_reduce(part.clone(),
-                                           mesh.group(MODEL_AXIS), "sum")
-            report = report + (whole - part)
-        dense = [p for n, p in model.named_parameters()
+        report = backward_on_mesh(state, loss, l2)
+        grads = [p.grad for n, p in model.named_parameters()
                  if not (state.table_slots and n in state.table_slots)]
-        grads = []
-        for p in dense:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
         _average(grads + [report], data_group)
         state = apply_grads(state, batch)
         return state, {"loss": report[0]}
@@ -347,8 +402,12 @@ def make_local_sgd_epoch_step(job: JobConfig, mesh=None,
     replicas are averaged over the data group after every
     `local_sgd_window` updates and at the end of the call.  The loss sum
     is the average over the ranks of their sums.  The optimizer's state
-    is left as it is, as in the JAX package."""
-    loss_fn = make_loss_fn(job)
+    is left as it is, as in the JAX package.  With model-side axes the
+    gradients are reduced over them as in the synchronous step
+    (`backward_on_mesh`) before each update."""
+    on_axes = mesh is not None and (mesh.size > mesh.axis_size(DATA_AXIS))
+    loss_fn = make_loss_fn(job, with_l2=not on_axes)
+    l2 = job.model.l2_scale
     k = job.train.local_sgd_window
     lr = job.train.optimizer.learning_rate
     n_data = mesh.axis_size(DATA_AXIS) if mesh is not None else 1
@@ -368,7 +427,10 @@ def make_local_sgd_epoch_step(job: JobConfig, mesh=None,
             for p in params:
                 p.grad = None
             loss = loss_fn(model, xs, (state.step + i) * n_data + d)
-            loss.backward()
+            if on_axes:
+                loss = backward_on_mesh(state, loss, l2)[0]
+            else:
+                loss.backward()
             with torch.no_grad():
                 for p in params:
                     if p.grad is not None:
@@ -404,7 +466,7 @@ def make_eval_step(job: JobConfig) -> Callable[[TrainState, Batch],
         model.eval()
         try:
             with torch.no_grad():
-                return torch.sigmoid(model(feats).float())
+                return torch.sigmoid(model_forward(model, feats).float())
         finally:
             model.train(was_training)
 

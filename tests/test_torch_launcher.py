@@ -224,10 +224,31 @@ def test_unported_flags_raise(tmp_path, flags, item):
 @pytest.mark.parametrize("xml,item", [
     ({"shifu.mesh.seq": "2"}, r"\(f\)"),
 ])
-def test_unported_config_raises(tmp_path, xml, item):
+def test_unported_config_raises(tmp_path, xml, item, monkeypatch):
+    """A `shifu.mesh.seq` axis that once raised naming (f) now trains:
+    the dispatcher spawns its two ranks on the CPU (an MLP has no
+    attention to split, so the seq ranks compute alike) and the run ends
+    with no mention of (f)."""
+    import re
     argv = _shifu_files(tmp_path, xml=xml)
-    with pytest.raises(NotImplementedError, match="not ported yet.*" + item):
-        cli.main(argv + ["--device", "cpu", "--output", str(tmp_path / "j")])
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+         os.environ.get("PYTHONPATH", "")]))
+    mesh_env = ("SHIFU_TPU_COORDINATOR", "SHIFU_TPU_NUM_PROCESSES",
+                "SHIFU_TPU_PROCESS_ID")
+    try:
+        assert cli.main(argv + ["--device", "cpu", "--output",
+                                str(tmp_path / "j")]) == 0
+    finally:
+        for var in mesh_env:
+            os.environ.pop(var, None)
+    journal = [json.loads(ln) for ln in (tmp_path / "j" / "telemetry" /
+               "journal.jsonl").read_text().splitlines()]
+    starts = [e for e in journal if e["kind"] == "run_start"]
+    assert starts[0]["mesh"] == {"data": 1, "seq": 2, "pipe": 1, "model": 1}
+    board = (tmp_path / "j" / "console.board").read_text()
+    assert not re.search(item, board)
+    assert board.count("model exported to") == 1
 
 
 def test_a_fleet_key_leaves_the_train_command_alone(tmp_path):

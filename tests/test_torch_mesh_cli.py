@@ -137,6 +137,40 @@ def test_a_mesh_larger_than_the_devices_exits_1_as_in_jax(tmp_path, capsys):
     assert got.split("]", 1)[-1] == want.split("]", 1)[-1]
 
 
+def test_model_axis_and_sharding_rules_through_the_command(tmp_path,
+                                                         capsys):
+    """`shifu.mesh.model=2` with a `shifu.sharding.rules` entry trains on
+    two ranks (the hidden kernel split over `model`, all-gathered where
+    layer 0 uses it) the job a one-device run trains (module docstring's
+    tolerances)."""
+    from shifu_tpu_torch.export.scorer import TorchScorer
+
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    one_argv = _shifu_files(tmp_path / "a")
+    two_argv = _shifu_files(tmp_path / "b", xml={
+        "shifu.mesh.data": "1", "shifu.mesh.model": "2",
+        "shifu.sharding.rules": ".*hidden_layer0.*kernel.*=none,model"})
+    one, two = tmp_path / "one", tmp_path / "two"
+    assert cli.main(one_argv + ["--device", "cpu", "--output",
+                                str(one)]) == 0
+    assert cli.main(two_argv + ["--device", "cpu", "--output",
+                                str(two)]) == 0
+    capsys.readouterr()
+    starts = [e for e in _journal(two) if e["kind"] == "run_start"]
+    assert starts[0]["mesh"] == {"data": 1, "seq": 1, "pipe": 1, "model": 2}
+    m1, m2 = ([json.loads(ln) for ln in (d / "metrics.jsonl").read_text()
+               .splitlines()] for d in (one, two))
+    assert [m["epoch"] for m in m2] == [0, 1]
+    for a, b in zip(m1, m2):
+        assert abs(a["valid_auc"] - b["valid_auc"]) <= 1e-4
+        assert b["train_error"] == pytest.approx(a["train_error"], rel=1e-4)
+    rows = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
+    s1, s2 = (TorchScorer(str(d / "final_model"), device="cpu")
+              .compute_batch(rows) for d in (one, two))
+    np.testing.assert_allclose(s2, s1, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("flags", [["--num-processes", "2"],
                                    ["--hosts", "local:2"],
                                    ["--devices", "2", "--hosts", "h1,h2"]])

@@ -187,12 +187,20 @@ def test_params_from_jax_rejects_missing_extra_and_misshaped_keys():
 
 
 def test_unported_configurations_raise():
-    schema = _from_dict(DataSchema, dataclasses.asdict(_schema()))
+    """The specs the port once refused build on one device and score as
+    JAX's model does from the same weights: ring and Ulysses attention
+    without a seq axis take the local route, as in JAX, and
+    `pipeline_stages=2` holds the stacked trunk (`blocks.<name>` (L, ...)
+    leaves) run as one loop."""
+    x = _rows(np.random.default_rng(4), 6)
     for kw in (dict(attention_impl="ulysses"), dict(attention_impl="ring"),
                dict(pipeline_stages=2)):
-        spec = ModelSpec(**dict(_ft_kw("auto", "float32"), **kw))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(spec, schema, device="cpu")
+        jfwd, model = _pair(dict(_ft_kw("auto", "float32"), **kw))
+        if "pipeline_stages" in kw:
+            assert tuple(model.blocks.qkv_kernel.shape) == (2, 16, 48)
+        with torch.inference_mode():
+            got = model(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, jfwd(x), rtol=F32_TOL, atol=F32_TOL)
 
 
 def _forced_flash(monkeypatch):

@@ -117,10 +117,27 @@ def test_make_mesh_errors_match_jax(eight_devices):
     with pytest.raises(ConfigError) as perr:
         port_mesh.make_mesh(MeshConfig(data=3), devices=8)
     assert str(perr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match=r"ring/Ulysses.*\(f\)"):
+    # seq and pipe meshes lay ranks out as JAX lays its devices out
+    for axes in (dict(data=2, seq=2), dict(data=2, pipe=2),
+                 dict(seq=2, pipe=2, model=2)):
+        jm = jax_mesh.make_mesh(jax_schema.MeshConfig(**axes), eight_devices[
+            :int(np.prod(list(axes.values())))])
+        for pos, dev in np.ndenumerate(np.asarray(jm.devices)):
+            m = port_mesh.Mesh(MeshConfig(**axes), dev.id, {})
+            assert tuple(m.coords[a] for a in jm.axis_names) == pos
+            assert m.shape == dict(jm.shape)
+    # a mesh of more than one rank needs the process group of its ranks
+    with pytest.raises(ConfigError, match="process group"):
         port_mesh.make_mesh(MeshConfig(seq=2), devices=2)
-    with pytest.raises(NotImplementedError, match=r"GPipe.*\(f\)"):
-        port_mesh.make_mesh(MeshConfig(pipe=2), devices=2)
+    # JAX's remaining errors, with its messages
+    for bad in (dict(seq=0), dict(pipe=0),
+                dict(pipe=2, axis_order=("data", "seq", "model")),
+                dict(seq=2, axis_order=("data", "pipe", "model"))):
+        with pytest.raises(jax_schema.ConfigError) as jerr:
+            jax_schema.MeshConfig(**bad).validate()
+        with pytest.raises(ConfigError) as perr:
+            MeshConfig(**bad).validate()
+        assert str(perr.value) == str(jerr.value)
     # no process group: a mesh of one, no collectives
     m = port_mesh.make_mesh()
     assert m.size == 1 and m.group("data") is None and m.control is None

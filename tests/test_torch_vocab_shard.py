@@ -212,29 +212,89 @@ def _moe_job():
         schema=jax_synth.make_schema(num_features=10),
         model=jax_schema.ModelSpec(model_type="moe_mlp", hidden_nodes=(8,),
                                    activations=("relu",), num_experts=2,
-                                   compute_dtype="float32"))
-    return port_schema.JobConfig.from_dict(json.loads(jjob.to_json()))
+                                   compute_dtype="float32"),
+        runtime=jax_schema.RuntimeConfig(
+            mesh=jax_schema.MeshConfig(data=2, model=2)))
+    return jjob, port_schema.JobConfig.from_dict(json.loads(jjob.to_json()))
 
 
 def _ruled_job():
-    job = _deepfm_jobs()[1]
-    return job.replace(runtime=dataclasses.replace(
-        job.runtime, param_sharding_rules=((r".*kernel", (None, "model")),)))
+    jjob, pjob = _deepfm_jobs()
+    rules = ((r".*trunk.*kernel", (None, "model")),)
+    jjob = jjob.replace(runtime=dataclasses.replace(
+        jjob.runtime, param_sharding_rules=rules))
+    return jjob, pjob.replace(runtime=dataclasses.replace(
+        pjob.runtime, param_sharding_rules=rules))
+
+
+def _ft_pipe_jobs(batch_size, mesh, micro=0):
+    jjob = jax_schema.JobConfig(
+        schema=jax_synth.make_schema(num_features=7, num_categorical=2,
+                                     vocab_size=16),
+        data=jax_schema.DataConfig(batch_size=batch_size),
+        model=jax_schema.ModelSpec(
+            model_type="ft_transformer", hidden_nodes=(8,),
+            activations=("relu",), token_dim=8, num_attention_heads=2,
+            num_layers=2, pipeline_stages=2, pipeline_microbatches=micro,
+            compute_dtype="float32"),
+        runtime=jax_schema.RuntimeConfig(
+            mesh=jax_schema.MeshConfig(**mesh)))
+    return jjob, port_schema.JobConfig.from_dict(json.loads(jjob.to_json()))
+
+
+def _trim(spec) -> tuple:
+    out = tuple(spec)
+    while out and out[-1] is None:
+        out = out[:-1]
+    return out
 
 
 @pytest.mark.parametrize("what,make", [
     ("field-axis sharding",
-     lambda: _deepfm_jobs(opt="adam", sparse="off")[1]),
+     lambda: _deepfm_jobs(opt="adam", sparse="off")),
     ("MoE expert sharding", _moe_job),
     ("shifu.sharding.rules", _ruled_job),
+    ("pipe axis", lambda: _ft_pipe_jobs(16, dict(data=1, pipe=4))),
+    ("multiple of 8", lambda: _ft_pipe_jobs(12, dict(data=2, pipe=2),
+                                            micro=4)),
 ])
-def test_other_model_axis_placements_raise(what, make):
-    """The JAX package's other placements under a model axis raise, naming
-    the ROADMAP item, instead of replicating silently."""
-    job = make()
-    mesh = Mesh(MeshConfig(data=2, model=2), 0, {})
-    with pytest.raises(NotImplementedError) as err:
-        loop.init_state(job, job.schema.feature_count, "cpu", mesh=mesh)
-    assert what in str(err.value)
-    assert "tensor-parallel placements" in str(err.value)
-    assert "(f)" in str(err.value)
+def test_other_model_axis_placements_raise(what, make, eight_devices):
+    """The JAX package's model-axis placements beyond vocab-sharded
+    tables (the field axis of DEFAULT_RULES, MoE experts,
+    `shifu.sharding.rules`) place every parameter on each rank of a
+    data=2 x model=2 mesh as JAX does: the same spec and this rank's
+    block of JAX's shape.  A pipe axis that disagrees with the stages and
+    a batch that the microbatches do not divide raise JAX's ConfigError
+    with its message."""
+    jjob, pjob = make()
+    jmesh = jax_mesh.make_mesh(jjob.runtime.mesh,
+                               jax.devices()[:jjob.runtime.mesh.num_devices])
+    if what in ("pipe axis", "multiple of 8"):
+        with pytest.raises(jax_schema.ConfigError) as jerr:
+            jax_loop.init_state(jjob, jjob.schema.feature_count, jmesh)
+        with pytest.raises(ConfigError, match=what) as perr:
+            loop.init_state(pjob, pjob.schema.feature_count, "cpu",
+                            mesh=Mesh(pjob.runtime.mesh, 0, {}))
+        assert str(perr.value) == str(jerr.value)
+        return
+    jstate = jax_loop.init_state(jjob, jjob.schema.feature_count, jmesh)
+    jleaves = {jax.tree_util.keystr(kp): leaf for kp, leaf in
+               jax.tree_util.tree_flatten_with_path(jstate.params)[0]}
+    flat = _flatten_params(jax.device_get(jstate.params))
+    by_name = dict(zip((k.replace("/", ".") for k in flat),
+                       jleaves.values()))
+    split = 0
+    for dev in jmesh.devices.flat:
+        state = loop.init_state(pjob, pjob.schema.feature_count, "cpu",
+                                mesh=Mesh(pjob.runtime.mesh, dev.id, {}))
+        params = dict(state.model.named_parameters())
+        assert sorted(params) == sorted(by_name)
+        for name, leaf in by_name.items():
+            sh = state.shardings.get(name)
+            assert (_trim(sh.spec) if sh else ()) == _trim(
+                leaf.sharding.spec), name
+            want = [s.data.shape for s in leaf.addressable_shards
+                    if s.device == dev][0]
+            assert tuple(params[name].shape) == tuple(want), name
+            split += sh is not None
+    assert split > 0

@@ -129,10 +129,21 @@ def _mesh(mesh_cfg):
     return make_mesh(mesh_cfg)
 
 
+def full_params(state, rank: int):
+    """The whole parameters (numpy, by name) gathered from the mesh's
+    blocks (a collective: every rank calls it); on rank 0 only."""
+    from shifu_tpu_torch.train import checkpoint as ckpt_lib
+
+    full = ckpt_lib.full_payload(state)["model"]
+    if rank != 0:
+        return None
+    return {k: v.detach().float().numpy().copy() for k, v in full.items()}
+
+
 def dp_cases(rank, world, mesh_cfg, cases) -> list:
     """For each (job, flat params or None, host batches): the train
-    steps on the mesh from those params; the losses and this rank's
-    state."""
+    steps on the mesh from those params; the losses, this rank's state
+    and (on rank 0) the gathered parameters."""
     from shifu_tpu_torch.train import loop, step
 
     mesh = _mesh(mesh_cfg)
@@ -148,8 +159,121 @@ def dp_cases(rank, world, mesh_cfg, cases) -> list:
             state, m = train_step(state, to_batch(b, job))
             losses.append(float(m["loss"]))
         out.append({"losses": losses, "state": state_arrays(state),
-                    "coords": dict(mesh.coords)})
+                    "coords": dict(mesh.coords),
+                    "specs": {k: sh.spec for k, sh in state.shardings.items()},
+                    "full": full_params(state, rank)})
     return out
+
+
+def regroup(rank: int, world: int, store: str) -> bool:
+    """Leave the process group and form one of the first `world` ranks
+    (a `file://` store at `store`); True on the ranks that go on."""
+    from shifu_tpu_torch.parallel import distributed
+
+    distributed.shutdown()
+    if rank >= world:
+        return False
+    distributed.initialize(coordinator=f"file://{store}",
+                           num_processes=world, process_id=rank,
+                           device="cpu")
+    return True
+
+
+def sequence(rank, world, store_base: str, steps) -> list:
+    """Run `steps`, (ranks, fn, args) each, in order on one spawn of the
+    largest world: before a step on fewer ranks the group is re-formed
+    over the first of them (`regroup`) and the others stop.  The results
+    of the steps this rank took part in."""
+    out = []
+    cur = world
+    for i, (n, fn, args) in enumerate(steps):
+        if n != cur:
+            if not regroup(rank, n, f"{store_base}-{i}"):
+                break
+            cur = n
+        out.append(fn(rank, n, *args))
+    return out
+
+
+def forward_cases(rank, world, mesh_cfg, cases) -> list:
+    """For each (job, flat params, (B, F) features): the eval forward on
+    the mesh of this rank's data rows (logits) and its coordinates."""
+    from shifu_tpu_torch.parallel.sharding import model_forward, shard_batch
+    from shifu_tpu_torch.train import loop
+
+    mesh = _mesh(mesh_cfg)
+    out = []
+    for job, flat, feats in cases:
+        state = loop.init_state(job, job.schema.feature_count, "cpu",
+                                mesh=mesh)
+        carry(state, flat, job)
+        state.model.eval()
+        local = shard_batch({"features": torch.tensor(feats)}, mesh)
+        with torch.no_grad():
+            logits = model_forward(state.model, local["features"])
+        out.append({"logits": logits.numpy(), "coords": dict(mesh.coords)})
+    return out
+
+
+def seq_attention_checks(rank, world, mesh_cfg, q, k, v, impls,
+                         dtype: str = "float32") -> dict:
+    """Each of `impls` ("ring", "ulysses") on this rank's sequence blocks
+    of the whole (B, H, S, D) q, k, v (every data coordinate holds the
+    same rows): the output gathered over `seq`, and the gradients of this
+    rank's blocks for sum(out ** 2), each rank's share 1 / n_seq (the
+    step's convention)."""
+    from shifu_tpu_torch.ops.attention import ring_attention, \
+        ulysses_attention
+    from shifu_tpu_torch.parallel.distributed import gather_grad
+    from shifu_tpu_torch.parallel.mesh import SEQ_AXIS
+
+    mesh = _mesh(mesh_cfg)
+    n = mesh.axis_size(SEQ_AXIS)
+    blk = q.shape[2] // n
+    lo = mesh.axis_index(SEQ_AXIS) * blk
+    out = {"seq": mesh.axis_index(SEQ_AXIS), "n": n}
+    for impl in impls:
+        fn = ring_attention if impl == "ring" else ulysses_attention
+        ts = [torch.tensor(t[:, :, lo:lo + blk]).to(getattr(torch, dtype))
+              .requires_grad_(True) for t in (q, k, v)]
+        try:
+            local = fn(*ts, mesh)
+        except ValueError as e:
+            out[impl] = {"error": str(e)}
+            continue
+        whole = gather_grad(local, mesh.group(SEQ_AXIS), 2)
+        (torch.sum(torch.square(whole.float())) / n).backward()
+        out[impl] = {"out": whole.detach().float().numpy(),
+                     "grads": [t.grad.float().numpy() for t in ts]}
+    return out
+
+
+def pipeline_checks(rank, world, mesh_cfg, params, x) -> dict:
+    """The toy stage (h <- tanh(h @ W) over the stage's stacked W) through
+    `pipeline_apply` on the mesh: this data coordinate's rows of x
+    (n_micro, mb, d), the stage's layers of params (L, d, d); the output,
+    and the gradient of the stage's layers for sum(out ** 2) (each pipe
+    rank's share 1 / n_pipe)."""
+    from shifu_tpu_torch.parallel.mesh import DATA_AXIS, PIPE_AXIS
+    from shifu_tpu_torch.parallel.pipeline import pipeline_apply
+
+    mesh = _mesh(mesh_cfg)
+    n_pipe, n_data = mesh.axis_size(PIPE_AXIS), mesh.axis_size(DATA_AXIS)
+    lps = params.shape[0] // n_pipe
+    s, d = mesh.axis_index(PIPE_AXIS), mesh.axis_index(DATA_AXIS)
+    w = torch.tensor(params[s * lps:(s + 1) * lps]).requires_grad_(True)
+    mb = x.shape[1] // n_data
+    xs = torch.tensor(x[:, d * mb:(d + 1) * mb])
+
+    def stage_fn(p, h):
+        for i in range(p["w"].shape[0]):
+            h = torch.tanh(h @ p["w"][i])
+        return h
+
+    y = pipeline_apply(stage_fn, {"w": w}, xs, mesh)
+    (torch.sum(torch.square(y)) / n_pipe).backward()
+    return {"out": y.detach().numpy(), "grad": w.grad.numpy(),
+            "coords": dict(mesh.coords)}
 
 
 def epoch_cases(rank, world, mesh_cfg, cases) -> list:
@@ -168,7 +292,9 @@ def epoch_cases(rank, world, mesh_cfg, cases) -> list:
               else step.make_epoch_scan_step(job, mesh))
         state, acc = fn(state, to_batch(blocks, job))
         out.append({"loss_sum": float(acc), "state": state_arrays(state),
-                    "step": state.step})
+                    "step": state.step, "coords": dict(mesh.coords),
+                    "specs": {k: sh.spec for k, sh in state.shardings.items()},
+                    "full": full_params(state, rank)})
     return out
 
 
@@ -193,7 +319,8 @@ def train_runs(rank, world, mesh_cfg, runs) -> list:
 def lookup_checks(rank, world, mesh_cfg, table, ids, weight) -> dict:
     """The vocab-sharded lookup of `ids` from this rank's slice of
     `table`, and the gradient of sum(out * weight) (finite rows) on the
-    slice; also through `fused_lookup` of two embeds."""
+    slice, each model rank's share of that sum 1 / shards (the step's
+    convention: the transpose of the slices' sum is a sum)."""
     from shifu_tpu_torch.embed.shard import (VOCAB_SHARD_SPEC,
                                              assert_vocab_sharded)
     from shifu_tpu_torch.models.embedding import VocabShard, sharded_lookup
@@ -211,7 +338,8 @@ def lookup_checks(rank, world, mesh_cfg, table, ids, weight) -> dict:
                        mesh.group(MODEL_AXIS))
     out = sharded_lookup(local, torch.tensor(ids), shard)
     w = torch.tensor(weight)
-    torch.where(torch.isfinite(out), out * w, 0.0).sum().backward()
+    (torch.where(torch.isfinite(out), out * w, 0.0).sum()
+     / shards).backward()
     return {"out": out.detach().numpy(), "grad": local.grad.numpy(),
             "model": mesh.axis_index(MODEL_AXIS)}
 
