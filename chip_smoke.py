@@ -291,7 +291,7 @@ stderr, and no result line is printed):
 22e. detach — `train --detach` of 8a's job (2 epochs, the cache hot,
                both traced) on the card: `status` RUNNING, `attach`
                to exit 0, `status` FINISHED, #4's kernel in its journal's
-               device profile; a second detached run (3 epochs, epoch 0's
+               device profile; a second detached run (2 epochs, epoch 0's
                checkpoint save held 3 s by a chaos delay) `kill`ed after
                epoch 0: every process of its tree gone within the 10 s
                grace (exit 143 after the drain), and a plain `train` on
@@ -342,13 +342,15 @@ stderr, and no result line is printed):
                must show NCCL's kernels (one gradient average a step).
                23a runs beside 23b; its profile waits for 23b's ranks to
                end.
-23b. mesh, gloo — two spawned ranks on cuda:0 over gloo (NCCL refuses two
-               ranks of one communicator on one device): DeepFM at the
-               100k-vocab shape with its tables vocab-sharded over
-               `model=2` and the sparse Adadelta (4 steps; each rank holds
-               V/2 rows and launches #5 and #6), then the MLP on `data=2`
-               (8 steps, #4); each run's gathered parameters within 1e-2 of
-               each parameter's change of a world-1 run here.
+23b. mesh, gloo — two spawned ranks on cuda:0 over gloo, which their
+               placement chose (NCCL refuses two ranks of one communicator
+               on one device; each rank must report gloo, "ranks share a
+               card"): DeepFM at the 100k-vocab shape with its tables
+               vocab-sharded over `model=2` and the sparse Adadelta (4
+               steps; each rank holds V/2 rows and launches #5 and #6),
+               then the MLP on `data=2` (8 steps, #4); each run's gathered
+               parameters within 1e-2 of each parameter's change of a
+               world-1 run here.
 24a. tensor and sequence parallel — in 23b's two ranks, after its runs,
                each through `train(..., mesh=)` with the launches counted
                and its gathered parameters within 1e-2 of each parameter's
@@ -361,11 +363,12 @@ stderr, and no result line is printed):
                (None, model) (#4 on the gathered layer-0 kernel), and the
                FT rung's widths on 31 features (S = 32) with ring and then
                Ulysses attention on `seq=2` (#5 in the tokenizer).
-24b. pipeline — three spawned ranks on cuda:0 over gloo, `pipe=3`: the FT
-               rung (6 categorical columns; f32, as the FT locksteps, and
-               24a's FT runs too) with pipeline_stages=3, one
-               layer and 3 microbatches a stage, batch 8190 (3 microbatches
-               must divide it); #1 3 x and #5 once a step and an eval
+24b. pipeline — three spawned ranks on cuda:0 over gloo (chosen by their
+               placement, as in 23b), `pipe=3`: the FT rung (6
+               categorical columns; f32, as the FT locksteps, and 24a's FT
+               runs too) with pipeline_stages=3, one layer and 3
+               microbatches a stage, batch 8190 (3 microbatches must divide
+               it); #1 3 x and #5 once a step and an eval
                batch on every stage; its gathered parameters within 1e-2
                of each change of the stacked trunk at world 1 here, and
                its exported (per-block) artifact within SERVE_ATOL of the
@@ -377,6 +380,22 @@ stderr, and no result line is printed):
                job trained from the same seed: the canonicalized
                parameters bitwise equal, or within 1e-2 of each change
                (the script says which).
+25. pod     — beside 8d, three runs at once on 8a's 16 parts and hot
+               cache (the headline MLP, int8 wire, staged tier, global
+               batch 65536, 32768 a host), each a gang of two simulated
+               hosts whose ranks share cuda:0 (gloo, chosen by the
+               placement): 25a `train --hosts local:2` (2 epochs), 25b the
+               same with a chaos exit of rank 1 at `data.host_shard` in
+               epoch 1 (one gang restart; per-epoch losses and final_model
+               bitwise 25a's), 25c `train --provision` for 1 epoch over a
+               fake gcloud (a slice of two workers at 127.0.0.1) and a
+               fake ssh (the provision marker there while the gang trains,
+               gone after, the slice deleted).  A sitecustomize on the
+               children's PYTHONPATH writes each process's kernel counts:
+               every rank launched #4 (steps + eval batches) times and no
+               other kernel; `dcn_placement` says gloo; pod-verify passes
+               each (25b's recovery with its one injection).  Prints each
+               run's seconds and each epoch's samples/s.
 a JSON line {"kernels": [...]} with each kernel's launches on its
    training path (FT fused for #1, FT unfused for #2 and #3, the headline
    MLP for #4, DeepFM for #5 and #6, FT flash for #7 and #8), its error
@@ -2448,8 +2467,9 @@ def check_supervised(label: str, run: dict, unbroken: dict,
     return restarts[0], resumes
 
 
-def cli_phases(tmp: str, device) -> None:
-    """Phases 8a-8e: the operator's `train` command on the headline MLP."""
+def cli_phases(tmp: str, device, smi_line: str = "") -> None:
+    """Phases 8a-8e: the operator's `train` command on the headline MLP;
+    phase 25, the pod, runs beside 8d."""
     import dataclasses as dc
 
     from shifu_tpu_torch import obs
@@ -2639,6 +2659,10 @@ def cli_phases(tmp: str, device) -> None:
                              "action": "delay", "delay_s": 5,
                              "scope": "job"}]}
     from concurrent.futures import ThreadPoolExecutor
+    # phase 25 (the pod, on 8a's parts and hot cache) beside 8d: both are
+    # child processes' start-ups, neither profiles
+    pod_pool = ThreadPoolExecutor(1)
+    pod_run = pod_pool.submit(pod_phases, device, tmp, smi_line)
     with ThreadPoolExecutor(3) as pool:
         futures = [
             pool.submit(supervised_run, "8d supervised, unbroken",
@@ -2677,6 +2701,9 @@ def cli_phases(tmp: str, device) -> None:
         f"supervised run's; walls unbroken {unbroken['wall_s']:.1f} s, "
         f"chaos {killed['wall_s']:.1f} s, SIGTERM {termed['wall_s']:.1f} s")
     lap("8d supervised")
+    pod_run.result()
+    pod_pool.shutdown()
+    lap("25 pod (beside 8d: the seconds past 8d's end)")
 
     # 8e: the supervised job's artifact served on the card
     served = serve_phase("8e serve", f"{tmp}/cli_sup_killed/final_model",
@@ -3003,7 +3030,8 @@ def feeder_pair(label: str, tmp: str, job, train_ds, valid_ds, device,
         + f"; order digests equal on every epoch ({rep_on[1]['tier']} tier)")
 
 
-def training_phases(device, tmp: str, kernels: list) -> None:
+def training_phases(device, tmp: str, kernels: list,
+                    smi_line: str = "") -> None:
     from shifu_tpu_torch.export.artifact import save_artifact
 
     job = headline_job()
@@ -3025,7 +3053,7 @@ def training_phases(device, tmp: str, kernels: list) -> None:
     lap("lockstep")
     shifu_files_run(tmp, device)
     lap("shifu")
-    cli_phases(tmp, device)
+    cli_phases(tmp, device, smi_line)
 
     export_dir = save_artifact(res.state.model, job.model, job.schema,
                                f"{tmp}/trained_mlp",
@@ -4800,7 +4828,7 @@ def artifact_tier_phases(device, tmp: str, smi_line: str) -> None:
 
 VIEW_TIMEOUT_S = 60
 DETACH_EPOCHS = 2
-KILL_EPOCHS = 3
+KILL_EPOCHS = 2   # cut from 3 for phase 25: the resume trains epoch 1
 KILL_SAVE_DELAY_S = 3
 KILL_GRACE_S = 10.0     # launcher/detach.kill's default grace
 # bench.py's 10M-vocab rung (bench.py:428-475)
@@ -5714,9 +5742,9 @@ def gloo_rank(rank: int, store: str, out_path: str, device: str) -> None:
 
     dev = torch.device(device)
     distributed.initialize(coordinator=f"file://{store}", num_processes=2,
-                           process_id=rank, backend="gloo", device=dev)
+                           process_id=rank, device=dev)
     paths = mesh_paths()
-    out, arrays = {"backend": torch.distributed.get_backend()}, {}
+    out, arrays = {"backend": distributed.backend_choice()}, {}
     for label, cfg in (("DeepFM", MeshConfig(model=2)),
                        ("MLP", MeshConfig(data=2))):
         job, tr, va = paths[label]
@@ -5789,7 +5817,7 @@ def pipe_rank(rank: int, store: str, out_path: str, device: str) -> None:
     dev = torch.device(device)
     distributed.initialize(coordinator=f"file://{store}",
                            num_processes=MESH_PIPE_STAGES, process_id=rank,
-                           backend="gloo", device=dev)
+                           device=dev)
     job, tr, va = pipe_path(dtype=LOCKSTEP_FT_DTYPE)
     mesh = make_mesh(MeshConfig(pipe=MESH_PIPE_STAGES))
     t0 = time.perf_counter()
@@ -5799,7 +5827,7 @@ def pipe_rank(rank: int, store: str, out_path: str, device: str) -> None:
     seconds = time.perf_counter() - t0
     full = ckpt_lib.full_payload(res.state)["model"]  # collective
     model = gathered_model(res.state, job)            # collective
-    out = {"backend": torch.distributed.get_backend(),
+    out = {"backend": distributed.backend_choice(),
            "launches": launches, "steps": res.state.step,
            "coords": mesh.coords, "seconds": seconds,
            "valid_auc": res.history[-1].valid_auc,
@@ -5812,6 +5840,18 @@ def pipe_rank(rank: int, store: str, out_path: str, device: str) -> None:
         json.dump(out, f)
     distributed.barrier("24b")
     distributed.shutdown()
+
+
+def placed_gloo(label: str, ranks: list) -> str:
+    """The backend every rank's placement chose: gloo, because all of
+    `ranks` share cuda:0 (fails otherwise).  Returns it as a phrase."""
+    want = {"backend": "gloo", "reason": "ranks share a card",
+            "ranks_per_card": len(ranks)}
+    got = [rk["backend"] for rk in ranks]
+    if any(g != want for g in got):
+        fail(f"{label}: the placement chose {got}, expected {want} on "
+             "every rank")
+    return f"gloo (ranks share a card: {len(ranks)} on it)"
 
 
 def moved_close(got: dict, ref: dict, init: dict) -> tuple[bool, float]:
@@ -5953,6 +5993,7 @@ def mesh_phases(device, tmp: str, smi_line: str) -> None:
             ranks.append(json.load(f))
     with np.load(f"{out_b}.npz") as z:
         gathered = {k: z[k] for k in z.files}
+    placed = placed_gloo("23b", ranks)
     paths = mesh_paths()
     for label, want_launch in (
             ("DeepFM", lambda st, ev: {"embedding_lookup": st + ev,
@@ -5986,8 +6027,8 @@ def mesh_phases(device, tmp: str, smi_line: str) -> None:
                  f"V/2 = {DEEPFM_VOCAB // 2} rows on each rank")
         say(f"23b {label} on {ranks[0][label]['coords']} / "
             f"{ranks[1][label]['coords']} (two ranks on cuda:0 over "
-            f"{ranks[0]['backend']}): {steps} steps, launches per rank "
-            f"{want}"
+            f"{placed}, by the placement): {steps} steps, launches per "
+            f"rank {want}"
             + (f", each rank's tables {rows[0]} of "
                f"[6, {DEEPFM_VOCAB}, 16]" if label == "DeepFM" else "")
             + f"; parameters within {LOCKSTEP_MOVED_RTOL} of each change of "
@@ -6063,6 +6104,7 @@ def pipe_phase(device, tmp: str, out_p: str, smi_line: str) -> None:
             ranks.append(json.load(f))
     with np.load(f"{out_p}.npz") as z:
         got = {k: z[k] for k in z.files}
+    placed = placed_gloo("24b", ranks)
     job, tr, va = pipe_path(dtype=LOCKSTEP_FT_DTYPE)
     init = param_arrays(init_state(job, tr.num_features, device).model)
     res = train(job, tr, va, console=lambda s: None, device=device)
@@ -6095,7 +6137,7 @@ def pipe_phase(device, tmp: str, out_p: str, smi_line: str) -> None:
         fail(f"24b: the pipelined artifact's scores are {diff:.3e} from the "
              f"world-1 artifact's (SERVE_ATOL {SERVE_ATOL})")
     say(f"24b pipe={MESH_PIPE_STAGES} (three ranks on cuda:0 over "
-        f"{ranks[0]['backend']}), batch {MESH_PIPE_BATCH} in "
+        f"{placed}, by the placement), batch {MESH_PIPE_BATCH} in "
         f"{MESH_PIPE_STAGES} microbatches: {steps} steps, launches per "
         f"rank {want} (each stage runs its layer on its 3 microbatches "
         f"only, the bubble ticks skipped); parameters within "
@@ -6106,6 +6148,248 @@ def pipe_phase(device, tmp: str, out_p: str, smi_line: str) -> None:
         f"artifact's scores {diff:.3e} from the world-1 artifact's on "
         f"{PROBE_ROWS} rows; {ranks[0]['seconds']:.1f} s a rank "
         f"[{smi_line}]")
+
+
+# -- phase 25: the pod on the card --------------------------------------------
+
+POD_EPOCHS = 2
+POD_TIMEOUT_S = 300
+# the children's sitecustomize: before every chaos probe (the loop's epoch
+# starts, a chaos exit among them) and at exit, each process that trains
+# writes its kernel counts to <CHIP_SMOKE_POD_COUNTS>/<pid>.json
+POD_SITE = '''
+import atexit, json, os, sys
+_dir = os.environ.get("CHIP_SMOKE_POD_COUNTS")
+if _dir:
+    def _write():
+        ops = sys.modules.get("shifu_tpu_torch.ops")
+        if ops is None:
+            return
+        rec = {"rank": os.environ.get("SHIFU_TPU_PROCESS_ID"),
+               "launches": {k: fn.launches
+                            for k, fn in ops.launch_counters().items()}}
+        path = os.path.join(_dir, f"{os.getpid()}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(path + ".tmp", path)
+    from shifu_tpu_torch import chaos as _chaos
+    _probe = _chaos.maybe_fail
+
+    def _counted_probe(*a, **k):
+        _write()
+        return _probe(*a, **k)
+    _chaos.maybe_fail = _counted_probe
+    atexit.register(_write)
+'''
+# Cloud TPU's control surface, faked: a slice of two workers at 127.0.0.1
+POD_GCLOUD = '''#!{python}
+import json, os, sys
+with open(os.environ["CHIP_SMOKE_GCLOUD_LOG"], "a") as f:
+    f.write(json.dumps(sys.argv[1:]) + chr(10))
+cmd = " ".join(sys.argv[1:])
+if "queued-resources describe" in cmd:
+    print(json.dumps({{"state": {{"state": "ACTIVE"}}}}))
+elif "tpu-vm describe" in cmd:
+    print(json.dumps({{"networkEndpoints": [{{"ipAddress": "127.0.0.1"}},
+                                            {{"ipAddress": "127.0.0.1"}}]}}))
+elif "queued-resources" not in cmd:
+    sys.exit(64)
+'''
+# an ssh that runs the remote command here, keeping the job dir's
+# provision marker as it stood when the gang was dispatched
+POD_SSH = '''#!/bin/sh
+[ "$1" = -tt ] || {{ echo 'missing -tt' >&2; exit 64; }}
+shift
+[ "$1" = -o ] && shift 2
+shift
+cp {marker} {seen} 2>/dev/null
+exec sh -c "$*"
+'''
+
+
+def pod_env(tmp: str, counts: str) -> dict:
+    """The pod's environment: the fake gcloud and ssh first on PATH, the
+    counting sitecustomize and the repo on PYTHONPATH, no SHIFU_TPU_*."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(counts, exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("SHIFU_TPU_")}
+    env.update(PYTHONPATH=os.pathsep.join((f"{tmp}/pod_site", root)),
+               PATH=f"{tmp}/pod_bin{os.pathsep}{env.get('PATH', '')}",
+               CHIP_SMOKE_POD_COUNTS=counts,
+               CHIP_SMOKE_GCLOUD_LOG=f"{tmp}/pod_gcloud.log")
+    return env
+
+
+def pod_counts(counts: str) -> list:
+    """Each training process's kernel counts (its rank and launches)."""
+    out = []
+    for name in sorted(os.listdir(counts)):
+        if name.endswith(".json"):
+            with open(os.path.join(counts, name)) as f:
+                out.append(json.load(f))
+    return out
+
+
+def check_pod_launches(label: str, counts: list, want: int,
+                       processes: int) -> None:
+    """Every rank process launched #4 `want` times and no other kernel
+    (a dispatcher, which has no rank, launched none)."""
+    got = [(c["rank"], c["launches"]) for c in counts
+           if c["rank"] is not None]
+    idle = [c["launches"] for c in counts if c["rank"] is None]
+    if len(got) != processes or any(sum(n.values()) for n in idle) or any(
+            n["int8_matmul"] != want or sum(n.values()) != want
+            for _, n in got):
+        fail(f"{label}: launches {got}: expected {processes} rank "
+             f"processes, each with int8_matmul {want} (train steps + eval "
+             "batches) and no other kernel")
+
+
+def pod_phases(device, tmp: str, smi_line: str) -> None:
+    """25: the pod on the card, three runs at once on phase 8's 16 gzip
+    parts of the headline MLP (the int8 wire, the staged tier, the cache
+    hot, global batch 65536): 25a `train --hosts local:2`, 25b the same
+    with rank 1 killed at `data.host_shard` in epoch 1, 25c `train
+    --provision` over a fake gcloud and ssh for 1 epoch."""
+    import dataclasses as dc
+
+    from shifu_tpu_torch.data import pipeline as pipe
+    from shifu_tpu_torch.launcher import cli, pod
+    from shifu_tpu_torch.obs import timeline
+    from shifu_tpu_torch.parallel.launch import free_port
+
+    t_phase = time.perf_counter()
+    os.makedirs(f"{tmp}/pod_site")
+    with open(f"{tmp}/pod_site/sitecustomize.py", "w") as f:
+        f.write(POD_SITE)
+    os.makedirs(f"{tmp}/pod_bin")
+    for name, text in (("gcloud", POD_GCLOUD.format(python=sys.executable)),
+                       ("ssh", POD_SSH.format(
+                           marker=f"{tmp}/pod_c/provision.json",
+                           seen=f"{tmp}/pod_marker_seen"))):
+        with open(f"{tmp}/pod_bin/{name}", "w") as f:
+            f.write(text)
+        os.chmod(f"{tmp}/pod_bin/{name}", 0o755)
+    xml = cli_xml(tmp, "pod", {"cache-dir": f"{tmp}/cli_cache"})
+    data_dir = f"{tmp}/cli_data"
+
+    def argv(out: str, epochs: int) -> list:
+        return cli_argv(tmp, data_dir, xml, f"{tmp}/{out}", device) + [
+            "--epochs", str(epochs)]
+
+    kill_plan = {"faults": [{"site": "data.host_shard", "rank": 1,
+                             "at_epoch": 1, "action": "exit",
+                             "exit_code": 23, "scope": "job",
+                             "max_times": 1}]}
+    runs = {"25a": argv("pod_a", POD_EPOCHS) + ["--hosts", "local:2"],
+            "25b": argv("pod_b", POD_EPOCHS) + [
+                "--hosts", "local:2", "--chaos-plan", json.dumps(kill_plan)],
+            "25c": argv("pod_c", 1) + [
+                "--provision", "--provision-name", "chip-smoke-pod",
+                "--accelerator-type", "v5litepod-8", "--zone", "us-west4-a",
+                "--coordinator-port", str(free_port())]}
+    procs = {}
+    for label, args in runs.items():
+        procs[label] = (subprocess.Popen(
+            [sys.executable, "-m", "shifu_tpu_torch.launcher.cli", *args],
+            env=pod_env(tmp, f"{tmp}/pod_counts_{label[-1]}"),
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            time.perf_counter())
+    # meanwhile, each host's shard as its ranks load it: the steps and eval
+    # batches every rank must launch #4 for
+    job = cli._assemble_job(cli.build_parser().parse_args(
+        runs["25a"]), write_files=False)[0]
+    data = dc.replace(job.data, cache_dir=f"{tmp}/cli_cache")
+    fd = f"int8c{job.data.wire_int8_clip:g}"
+    shards = [pipe.load_datasets(job.schema, data, h, 2, feature_dtype=fd)
+              for h in range(2)]
+    local_bs = TRAIN_BATCH // 2
+    steps = min(tr.num_rows for tr, _ in shards) // local_bs
+    evals = max(-(-va.num_rows // local_bs) for _, va in shards)
+    del shards
+    outs = {}
+    for label, (proc, t0) in procs.items():
+        try:
+            stdout, _ = proc.communicate(timeout=POD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for p, _ in procs.values():
+                p.kill()
+            fail(f"{label}: the pod did not end within {POD_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            fail(f"{label}: the pod exited {proc.returncode}: "
+                 f"{stdout[-3000:]}")
+        out = f"{tmp}/pod_{label[-1]}"
+        with np.load(f"{out}/final_model/weights.npz") as z:
+            weights = {k: z[k] for k in z.files}
+        outs[label] = {"stdout": stdout, "wall_s": time.perf_counter() - t0,
+                       "journal": journal(f"{out}/telemetry"),
+                       "merged": timeline.load_merged(out, tail_bytes=None),
+                       "weights": weights,
+                       "counts": pod_counts(f"{tmp}/pod_counts_{label[-1]}")}
+
+    per_epoch = steps + evals
+    check_pod_launches("25a", outs["25a"]["counts"], POD_EPOCHS * per_epoch,
+                       2)
+    check_pod_launches("25b", outs["25b"]["counts"], per_epoch, 4)
+    check_pod_launches("25c", outs["25c"]["counts"], per_epoch, 2)
+    reports = {}
+    for label, run in outs.items():
+        dcn = [e for e in run["journal"] if e["kind"] == "dcn_placement"]
+        if not dcn or any((e["backend"], e["hosts"], e["ranks"])
+                          != ("gloo", 2, 2) for e in dcn) \
+                or "backend=gloo (ranks share a card)" not in run["stdout"]:
+            fail(f"{label}: dcn_placement {dcn[:1]}: expected two hosts on "
+                 "gloo, chosen because the ranks share a card")
+        reports[label] = pod.pod_verify_events(run["merged"]["events"])
+        if reports[label]["verdict"] != "PASS":
+            fail(f"{label}: pod-verify {reports[label]}")
+    recovery = [c for c in reports["25b"]["checks"]
+                if c["check"] == "recovery"]
+    if (reports["25b"]["counts"]["injections"] != 1 or not recovery
+            or not recovery[0]["ok"]
+            or "pod: succeeded after 2 attempts" not in
+            outs["25b"]["stdout"]):
+        fail(f"25b: pod-verify {reports['25b']}, output "
+             f"{outs['25b']['stdout'][-2000:]}: expected one injection, "
+             "recovery and one gang restart")
+    a, b = outs["25a"], outs["25b"]
+    if journal_losses(a["journal"]) != journal_losses(b["journal"]) or \
+            sorted(a["weights"]) != sorted(b["weights"]) or not all(
+                np.array_equal(a["weights"][k], b["weights"][k])
+                for k in a["weights"]):
+        fail(f"25b: per-epoch losses {journal_losses(b['journal'])} or "
+             f"final_model against 25a's {journal_losses(a['journal'])}")
+    with open(f"{tmp}/pod_gcloud.log") as f:
+        calls = [json.loads(ln) for ln in f]
+    seen = f"{tmp}/pod_marker_seen"
+    if (not os.path.exists(seen) or os.path.exists(
+            f"{tmp}/pod_c/provision.json")
+            or [c[3] for c in calls[:1] + calls[-1:]] != ["create", "delete"]
+            or "provision: released chip-smoke-pod" not in
+            outs["25c"]["stdout"]):
+        fail(f"25c: gcloud calls {calls}, marker seen "
+             f"{os.path.exists(seen)}: expected the marker during the run, "
+             "gone after, and the slice deleted")
+
+    def samples(run: dict) -> str:
+        return ", ".join(
+            f"epoch {e['epoch']} {steps * TRAIN_BATCH / e['epoch_time']:.1f}"
+            for e in run["journal"] if e["kind"] == "epoch")
+    say(f"25 pod: two hosts (local ranks on cuda:0, gloo: the ranks share "
+        f"the card), each its 8 of phase 8's 16 parts, {steps} steps of "
+        f"{local_bs} rows a rank and {evals} eval batches an epoch; every "
+        f"rank launched #4 steps + evals times and no other kernel; "
+        f"25a {a['wall_s']:.1f} s, samples/s {samples(a)}; 25b (rank 1 "
+        f"killed at data.host_shard in epoch 1, one gang restart, pod-verify "
+        f"recovery) {b['wall_s']:.1f} s, losses and final_model bitwise "
+        f"25a's, samples/s {samples(b)}; 25c (train --provision, the fake "
+        f"gcloud's {len(calls)} calls from create to delete, the marker "
+        f"there during the run and gone after) "
+        f"{outs['25c']['wall_s']:.1f} s, samples/s {samples(outs['25c'])}; "
+        f"pod-verify PASS on each; phase {time.perf_counter() - t_phase:.1f}"
+        f" s [{smi_line}]")
 
 
 def main() -> None:
@@ -6234,7 +6518,7 @@ def main() -> None:
         lap("serve and profile")
 
         # phases 6 to 10: train the headline MLP on the int8 wire
-        training_phases(device, tmp, kernels)
+        training_phases(device, tmp, kernels, smi_line)
         # phases 11 to 13: train the FT-Transformer on both attention paths
         ft_training_phases(device, tmp, kernels, cpu_refs)
         # phases 14 to 19: train and serve Wide&Deep and DeepFM
@@ -6252,6 +6536,7 @@ def main() -> None:
         # phases 23 and 24: data-, vocab-, tensor-, sequence- and
         # pipeline-parallel training on torch.distributed
         mesh_phases(device, tmp, smi_line)
+        # phase 25, the pod, ran beside 8d (cli_phases)
 
     missing = [kr["name"] for kr in kernels if not kr.get("launches")]
     if missing:

@@ -497,8 +497,8 @@ class DataConfig:
     queue, or the per-epoch producer's), `cache_dir` and `cache_format`
     (the parse-once cache, `data/cache.py`), `ingest_workers` and
     `read_threads` (the parse pool), and `out_of_core` (memory-mapped
-    consolidated arrays, `data/outofcore.py`).  `host_shard` belongs to
-    multi-host ingest, ROADMAP.md queue A item (f).
+    consolidated arrays, `data/outofcore.py`).  `host_shard` is a pod's
+    shard-assignment mode (`data/pipeline.host_shard_assignment`).
     """
 
     paths: tuple[str, ...] = ()
@@ -754,10 +754,9 @@ class EmbedConfig:
 class MeshConfig:
     """The device mesh, as in the JAX package: axis sizes (`shifu.mesh.*`)
     and `axis_order`, the row-major layout of the ranks over the axes
-    (`parallel/mesh.make_mesh`).  `data` and `model` are trained (data
-    parallelism and vocab-sharded tables); `seq` and `pipe` above 1 raise
-    until ring/Ulysses attention and GPipe are ported (ROADMAP.md queue A
-    item (f))."""
+    (`parallel/mesh.make_mesh`): data parallelism over `data`, split
+    tables, experts and ruled leaves over `model`, ring and Ulysses
+    attention over `seq`, a pipelined trunk over `pipe`."""
 
     data: int = 1
     model: int = 1
@@ -807,9 +806,9 @@ class RuntimeConfig:
     per device of a mesh larger than one).  `distributed` is carried and
     read nowhere, as in the JAX package: a rank joins its process group
     from the environment contract (`parallel/distributed.initialize`).
-    `param_sharding_rules` (tensor-parallel placements) raise under a
-    mesh, and `min_hosts` waits for the pod launcher (ROADMAP.md queue A
-    item (f))."""
+    `param_sharding_rules` place leaves over the mesh's axes
+    (`parallel/sharding.py`), and `min_hosts` is the floor of a pod's
+    elastic reshape (`launcher/pod.supervise_pod`)."""
 
     mesh: MeshConfig = field(default_factory=MeshConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)

@@ -86,6 +86,18 @@ def _source_info(path: str):
     return st.st_size, st.st_mtime_ns, _sha1(os.path.abspath(path))[:16]
 
 
+
+def source_bytes(paths) -> int:
+    """The on-disk bytes of the given source files (0 for a file that
+    cannot be stat'ed): the pod data plane's denominator, each of N hosts
+    ingesting about source_bytes(all) / N."""
+    total = 0
+    for p in paths:
+        size, _mtime, _part = _source_info(p)
+        if size is not None:
+            total += int(size)
+    return total
+
 def cache_entry_name(path: str, delimiter: str,
                      version: Optional[int] = None) -> Optional[str]:
     """Deterministic cache file name for `path`'s current state, or None when

@@ -34,8 +34,9 @@ training partition; scattering rows across a disk file would be random IO,
 so here the write permutes at chunk granularity across files (plus a
 shuffle within each chunk), seeded as the JAX package seeds it, and the
 staged tier's per-epoch batch order sits on top.  Validation rows keep
-file order, as in the in-RAM loader.  The port is single-host: its entry
-is the JAX package's host 0 of 1.
+file order, as in the in-RAM loader.  Under a pod each host consolidates
+its own file shard (`pipeline.host_shard_assignment` at epoch 0) into
+`dataset-<key>-h<host>of<hosts>`, the JAX package's name.
 """
 
 from __future__ import annotations
@@ -96,6 +97,7 @@ def _open_split(entry_dir: str, prefix: str) -> tuple:
 
 
 def load_datasets_out_of_core(schema: DataSchema, data: DataConfig,
+                              host_index: int = 0, num_hosts: int = 1,
                               feature_dtype: str = "float32"):
     """(train, valid) TabularDatasets backed by read-only memmaps, features
     already in the wire dtype.
@@ -103,18 +105,25 @@ def load_datasets_out_of_core(schema: DataSchema, data: DataConfig,
     Requires a cache directory (DataConfig.cache_dir or SHIFU_TPU_DATA_CACHE)
     — the consolidated arrays have to live somewhere durable.
     """
-    from .pipeline import TabularDataset, source_files  # import cycle
+    from .pipeline import (TabularDataset, host_shard_assignment,
+                           source_files)  # import cycle
 
     cache_dir = cache_mod.resolve_cache_dir(data.cache_dir)
     if cache_dir is None:
         raise ValueError(
             "out-of-core datasets need a cache directory: set "
             "DataConfig.cache_dir or SHIFU_TPU_DATA_CACHE")
-    mine = source_files(data)
+    files = source_files(data)
+    own = set(host_shard_assignment(
+        len(files), host_index, num_hosts, seed=data.shuffle_seed, epoch=0,
+        mode=data.host_shard))
+    mine = [(i, p) for i, p in files if i in own]
     key = _entry_key(schema, data, mine, feature_dtype)
-    entry_dir = os.path.join(cache_dir, f"dataset-{key}-h0of1")
+    entry_dir = os.path.join(cache_dir,
+                             f"dataset-{key}-h{host_index}of{num_hosts}")
     if not os.path.exists(os.path.join(entry_dir, "meta.json")):
-        _build_entry(entry_dir, schema, data, mine, feature_dtype, cache_dir)
+        _build_entry(entry_dir, schema, data, mine, feature_dtype, cache_dir,
+                     host_index, num_hosts)
     train = TabularDataset(*_open_split(entry_dir, "train"))
     valid = TabularDataset(*_open_split(entry_dir, "valid"))
     return train, valid
@@ -243,7 +252,8 @@ def _ensure_entries(mine, schema: DataSchema, data: DataConfig,
 
 
 def _build_entry(entry_dir, schema: DataSchema, data: DataConfig, mine,
-                 feature_dtype: str, cache_dir: str) -> None:
+                 feature_dtype: str, cache_dir: str, host_index: int = 0,
+                 num_hosts: int = 1) -> None:
     entries = _ensure_entries(mine, schema, data, feature_dtype, cache_dir)
     counts = [e.rows for e in entries]
     masks = [e.valid_mask for e in entries]
@@ -364,7 +374,7 @@ def _build_entry(entry_dir, schema: DataSchema, data: DataConfig, mine,
             # bits (npy has no bf16) and is viewed back at open time
             "features_dtype": feat_logical,
             "wire_feature_dtype": feature_dtype,
-            "host_index": 0, "num_hosts": 1,
+            "host_index": int(host_index), "num_hosts": int(num_hosts),
             "files": file_paths,
             "file_state": file_state,
         }

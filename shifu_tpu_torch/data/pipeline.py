@@ -25,7 +25,17 @@ entry (the cache is "hot", and the loop loads instead of streaming);
 `data.out_of_core` loads memory-mapped consolidated arrays
 (`outofcore.py`).  bf16 features are held as their uint16 bits
 (`bf16_bits`; numpy has no bfloat16), which the placer views as bfloat16
-on the card.  Multi-host sharding waits for ROADMAP.md queue A item (f).
+on the card.
+
+The pod data plane: under a pod (launcher/pod.py) each host reads only its
+slice of the source files, `host_file_shard`, from the one pure formula
+`host_shard_assignment` (a function of the file count, the host, the
+number of hosts, the seed, the epoch and the mode), which `load_datasets`,
+`StreamingLoader`, `projected_cache_complete` and the out-of-core build
+all derive their shard from.  Row ids `(file_idx << 40) + row` and the
+train/valid split stay keyed on the global file index, so no row changes
+its id with the host that reads it.  `interleaved_epoch_order` is the
+pod's global batch order, which one process can replay.
 """
 
 from __future__ import annotations
@@ -248,7 +258,7 @@ def _load_one_projected(item: tuple[int, str], schema: DataSchema,
 
 
 def _emit_ingest_report(stats: list, pool_width: int, wall_s: float,
-                        mode: str) -> None:
+                        mode: str, host_index: int = 0) -> None:
     """One `ingest_report` journal event per completed ingest (the JAX
     package's keys): the pool width, the per-phase cost split, which tier
     served each file and a per-file table of at most 32 (each parsed
@@ -272,7 +282,7 @@ def _emit_ingest_report(stats: list, pool_width: int, wall_s: float,
             inflate_s=round(sum(r["inflate_s"] for r in files), 6),
             write_s=round(sum(r["write_s"] for r in files), 6),
             source_bytes=int(sum(r.get("bytes", 0) for r in files)),
-            host_index=0, tiers=tiers, per_file=per_file,
+            host_index=int(host_index), tiers=tiers, per_file=per_file,
             per_file_truncated=len(files) > 32)
         reason = native_parser.unavailable_reason()
         if reason is not None and any(r.get("parser") == "numpy"
@@ -288,6 +298,74 @@ def source_files(data: DataConfig) -> list[tuple[int, str]]:
     the train/valid split, so every entry point must agree on it."""
     return list(enumerate(f for p in data.paths
                           for f in reader.list_data_files(p)))
+
+
+def shard_rotation(seed: int, epoch: int, num_hosts: int) -> int:
+    """The rotation of the host<->file round-robin for `epoch`: a pure
+    function of (seed, epoch, num_hosts), so every host (one rejoining
+    after an elastic reshape too) derives it alone.  Epoch 0 is pinned to
+    0, the fixed round-robin, so cache and out-of-core keys stay valid."""
+    if num_hosts <= 1 or epoch <= 0:
+        return 0
+    rng = np.random.default_rng(
+        np.random.PCG64([int(seed), int(epoch), int(num_hosts), 0x51A4D]))
+    return int(rng.integers(num_hosts))
+
+
+def host_shard_assignment(n_files: int, host_index: int, num_hosts: int,
+                          *, seed: int = 0, epoch: int = 0,
+                          mode: str = "static") -> list[int]:
+    """The global file indices host `host_index` owns for `epoch`: the one
+    shard formula of the pod data plane.  "static" (and "auto"): the
+    round-robin `i % num_hosts`; "rotate": the round-robin turned by
+    `shard_rotation(seed, epoch, num_hosts)`, so that across epochs every
+    host visits every slice (epoch 0 equals "static").  Either way a
+    partition: every file owned by exactly one host."""
+    if num_hosts <= 1:
+        return list(range(n_files))
+    r = (shard_rotation(seed, epoch, num_hosts)
+         if mode == "rotate" else 0)
+    return [i for i in range(n_files)
+            if (i + r) % num_hosts == host_index]
+
+
+def shard_assignment_digest(n_files: int, num_hosts: int, *, seed: int = 0,
+                            epoch: int = 0, mode: str = "static") -> str:
+    """Digest of the whole file->host assignment for `epoch`: equal on
+    every host exactly when the gang agrees on (n_files, num_hosts, seed,
+    epoch, mode).  Journaled per epoch and compared by `pod-verify`, so a
+    host with a stale file listing or a wrong contract shows as a split."""
+    import hashlib
+    h = hashlib.blake2b(digest_size=16)
+    h.update(f"{n_files}:{num_hosts}:{seed}:{epoch}:{mode}".encode())
+    for host in range(num_hosts):
+        idx = host_shard_assignment(n_files, host, num_hosts, seed=seed,
+                                    epoch=epoch, mode=mode)
+        h.update(np.asarray(idx, np.int64).tobytes())
+        h.update(b";")
+    return h.hexdigest()
+
+
+def count_source_files(data: DataConfig) -> int:
+    """The number of source files the config resolves to (the `n_files`
+    of host_shard_assignment and shard_assignment_digest)."""
+    return sum(len(reader.list_data_files(p)) for p in data.paths)
+
+
+def host_file_shard(data: DataConfig, host_index: int = 0,
+                    num_hosts: int = 1, *,
+                    epoch: int = 0) -> list[tuple[int, str]]:
+    """This host's (global file index, path) list, assigned by global index
+    through `host_shard_assignment`: the one source of the shard scheme
+    for every entry point.  Chaos site `data.host_shard` probes here (the
+    elastic drill kills a host exactly where its slice is derived)."""
+    from .. import chaos
+    chaos.maybe_fail("data.host_shard", epoch=epoch)
+    files = source_files(data)
+    own = set(host_shard_assignment(
+        len(files), host_index, num_hosts, seed=data.shuffle_seed,
+        epoch=epoch, mode=data.host_shard))
+    return [(i, p) for i, p in files if i in own]
 
 
 def ingest_pool_width(data: DataConfig, n_files: int) -> int:
@@ -361,12 +439,14 @@ def _assemble(results: list, schema: DataSchema, data: DataConfig
 
 
 def load_datasets(schema: DataSchema, data: DataConfig,
+                  host_index: int = 0, num_hosts: int = 1,
                   feature_dtype: str = "float32"
                   ) -> tuple[TabularDataset, TabularDataset]:
-    """Load (train, valid) from `data.paths` on one host, through the
-    parse-once cache when `data.cache_dir` (or SHIFU_TPU_DATA_CACHE) is
-    set, and out of core (memory-mapped consolidated arrays,
-    `outofcore.py`) when `data.out_of_core` is.
+    """Load (train, valid) from this host's files of `data.paths`
+    (`host_file_shard`), through the parse-once cache when
+    `data.cache_dir` (or SHIFU_TPU_DATA_CACHE) is set, and out of core
+    (memory-mapped consolidated arrays, `outofcore.py`) when
+    `data.out_of_core` is.
 
     Rows split train/valid by the stable hash of (file index, row index)
     (`split.train_valid_mask`); the training partition then gets one global
@@ -375,33 +455,37 @@ def load_datasets(schema: DataSchema, data: DataConfig,
     on the int8 wire grid."""
     if data.out_of_core:
         from .outofcore import load_datasets_out_of_core
-        return load_datasets_out_of_core(schema, data,
+        return load_datasets_out_of_core(schema, data, host_index,
+                                         num_hosts,
                                          feature_dtype=feature_dtype)
-    files = source_files(data)
+    files = host_file_shard(data, host_index, num_hosts)
     t_ingest = time.perf_counter()
     width = ingest_pool_width(data, len(files))
     results: list = []
     stats = _run_ingest_pool(files, schema, data, feature_dtype, width,
                              results.append)
     _emit_ingest_report(stats, width, time.perf_counter() - t_ingest,
-                        mode="load")
+                        mode="load", host_index=host_index)
     return _assemble(results, schema, data)
 
 
 def projected_cache_complete(schema: DataSchema, data: DataConfig,
-                             feature_dtype: str = "float32") -> bool:
+                             feature_dtype: str = "float32", *,
+                             host_index: int = 0,
+                             num_hosts: int = 1) -> bool:
     """True when every input file has a projected-cache entry (the current
     format, or a v1 or legacy `.npz` one the loader serves and upgrades):
     the ingest then runs at `np.load` speed, so the streamed first epoch
     has no parse left to hide and the loaded tiers are faster.  One stat
     per source file and one exists per entry; False on any miss, a file
-    with no key, or no cache dir."""
+    with no key, or no cache dir.  The files are this host's
+    (`host_file_shard`)."""
     from . import cache as cache_lib
     cache_dir = cache_lib.resolve_cache_dir(data.cache_dir)
     if cache_dir is None or not os.path.isdir(cache_dir):
         return False
     try:
-        files = source_files(data)
+        files = host_file_shard(data, host_index, num_hosts)
         if not files:
             return False
         version = resolved_cache_format(data)
@@ -632,11 +716,13 @@ class StreamingLoader:
     """
 
     def __init__(self, schema: DataSchema, data: DataConfig,
-                 feature_dtype: str = "float32"):
+                 feature_dtype: str = "float32", host_index: int = 0,
+                 num_hosts: int = 1):
         self._schema = schema
         self._data = data
         self._feature_dtype = feature_dtype
-        self._items = source_files(data)
+        self._host_index = host_index
+        self._items = host_file_shard(data, host_index, num_hosts)
         self._results: list[tuple[dict, np.ndarray]] = []
         self._datasets: Optional[tuple[TabularDataset, TabularDataset]] = None
         self._valid: Optional[TabularDataset] = None
@@ -660,7 +746,7 @@ class StreamingLoader:
             self._q.put(e)
             return
         _emit_ingest_report(stats, width, time.perf_counter() - t_ingest,
-                            mode="stream")
+                            mode="stream", host_index=self._host_index)
         self._q.put(None)
 
     def first_epoch_blocks(self, batch_size: int, block_batches: int,
@@ -916,6 +1002,31 @@ def epoch_order_digest(tier: str, num_rows: int, batch_size: int, *,
     else:
         return None
     return hashlib.blake2b(payload.tobytes(), digest_size=16).hexdigest()
+
+
+def interleaved_epoch_order(host_row_ids, local_batch_size: int, *,
+                            shuffle: bool = True, seed: int = 0,
+                            epoch: int = 0) -> np.ndarray:
+    """The pod's global batch order, as row ids: global batch `b` of
+    `epoch` is the rank-order concatenation of every host's rows
+    `local_perm[b*lbs:(b+1)*lbs]`, `local_perm` being the same
+    `epoch_permutation(min_rows, ...)` on every host.  One process
+    replaying it reproduces an N-host run's global batches.  Rows past
+    `min_rows` and the batch tail are dropped, as the loop's min-host-rows
+    agreement and drop-remainder do.  A flat (steps * hosts * lbs,) array;
+    reshape to (steps, hosts, lbs) for per-batch views."""
+    if not host_row_ids:
+        return np.zeros((0,), np.int64)
+    min_rows = min(len(r) for r in host_row_ids)
+    steps = min_rows // local_batch_size
+    if steps == 0:
+        return np.zeros((0,), np.int64)
+    perm = epoch_permutation(min_rows, shuffle=shuffle, seed=seed,
+                             epoch=epoch)
+    take = perm[: steps * local_batch_size]
+    cols = [np.asarray(r, np.int64)[take].reshape(steps, local_batch_size)
+            for r in host_row_ids]
+    return np.stack(cols, axis=1).reshape(-1)
 
 
 class _DepthGate:

@@ -1,7 +1,7 @@
-"""The operator's command line (the port's copy of the single-host commands
-of shifu_tpu/launcher/cli.py: `train`, `cache`, `score`, `eval`,
-`export`, `serve`, `loadtest`, `fleet`, `fleet-verify`, the views and the
-job commands).
+"""The operator's command line (the port's copy of shifu_tpu/launcher/
+cli.py: `train`, `cache`, `score`, `eval`, `export`, `serve`,
+`loadtest`, `fleet`, `fleet-verify`, `provision`, `pod-verify`,
+`data-dryrun`, the views and the job commands).
 
 Usage:
     python -m shifu_tpu_torch.launcher.cli train \\
@@ -29,7 +29,13 @@ Usage:
         timeline|chaos-verify JOB [--json] [...]
     python -m shifu_tpu_torch.launcher.cli top DIR [DIR ...] [--once]
     python -m shifu_tpu_torch.launcher.cli train ... --detach
-    python -m shifu_tpu_torch.launcher.cli status|attach|kill JOB
+    python -m shifu_tpu_torch.launcher.cli train ... --hosts local:N \
+        [--coordinator-port P] | --num-processes N | --provision [...]
+    python -m shifu_tpu_torch.launcher.cli provision create|status|hosts|
+        delete [--provision-name ...]
+    python -m shifu_tpu_torch.launcher.cli pod-verify DIR [--json]
+    python -m shifu_tpu_torch.launcher.cli data-dryrun --data D --out O
+    python -m shifu_tpu_torch.launcher.cli status|attach|kill [--force] JOB
 
 Each command that scores takes `--device` (default `cuda:0`; the torch
 tiers raise where CUDA is absent unless `--device cpu`; the numpy and
@@ -85,10 +91,17 @@ board, the checkpoints and the artifact, and the ranks end on a barrier.
 the visible cards exits 1 with the JAX package's message; `--devices 1`
 is the single-device path.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: `train --hosts` and `--num-processes` > 1 (the pod launcher, queue A
-item (f)), `kill --force` (the provision marker, (f)), and the JAX CLI's
-other commands (`_NOT_PORTED_COMMANDS`).
+`train --hosts local:N|h1,h2|@file` (or SHIFU_TPU_HOSTS) runs a pod
+(launcher/pod.py): one process per host, each reading its own shard of
+the files, supervised as one gang with the restart budget and, with
+`shifu.pod.min-hosts`, the elastic reshape; `--num-processes N` is one
+unsupervised attempt of `local:N`.  A host with several cards (on the CPU
+SHIFU_TPU_CPU_DEVICES) runs one rank per card.  `train --provision`
+acquires a Cloud TPU slice through gcloud first and releases it after,
+as the JAX package does (launcher/provision.py; the `provision` command
+drives the slice alone).  `pod-verify` audits a pod's journals, and
+`data-dryrun` is the data plane's rank without training, the child of
+the elastic drill.
 """
 
 from __future__ import annotations
@@ -142,13 +155,21 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--supervise", action="store_true",
                    help="run under the restart supervisor")
     t.add_argument("--num-processes", type=int, default=0,
-                   help="coordinated processes on this machine (not ported "
-                        "yet beyond 1: ROADMAP.md queue A item (f))")
+                   help="spawn N coordinated processes on this machine, "
+                        "each a host of a simulated pod with its own file "
+                        "shard (the one-machine spelling of --hosts "
+                        "local:N)")
     t.add_argument("--hosts", default=None,
-                   help="pod-scale launch (not ported yet: ROADMAP.md "
-                        "queue A item (f))")
+                   help="pod-scale launch: dispatch one process per host "
+                        "with whole-gang supervised restart. Forms: "
+                        "'h1,h2,...' (ssh, in worker order), '@hostfile', "
+                        "or 'local:N' (simulated pod on this machine). Env "
+                        "spelling: SHIFU_TPU_HOSTS")
     t.add_argument("--max-restarts", type=int, default=-1,
                    help="supervisor restart budget (-1 = from config)")
+    t.add_argument("--coordinator-port", type=int, default=0,
+                   help="ssh-pod rendezvous port on hosts[0] (default 8476; "
+                        "env spelling: SHIFU_TPU_COORDINATOR_PORT)")
     t.add_argument("--detach", action="store_true",
                    help="submit as a detached daemon (supervised) and "
                         "return; drive it with status/attach/kill")
@@ -157,6 +178,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "path to a JSON file (schema in shifu_tpu_torch/"
                         "chaos/plan.py); exported to children as "
                         "SHIFU_TPU_CHAOS_PLAN")
+    t.add_argument("--provision", action="store_true",
+                   help="acquire a TPU slice first (shifu.provision.* keys "
+                        "/ --provision-* flags), dispatch the pod onto its "
+                        "workers, release the slice when the job ends")
+    t.add_argument("--keep-slice", action="store_true",
+                   help="with --provision: leave the slice running after "
+                        "the job (release with `provision delete`)")
+    _add_provision_flags(t)
+
+    pv = sub.add_parser(
+        "provision", help="TPU slice lifecycle (Cloud TPU queued "
+                          "resources through gcloud, as the JAX package "
+                          "drives them)")
+    pv.add_argument("action", choices=["create", "status", "hosts", "delete"])
+    pv.add_argument("--globalconfig", default=None,
+                    help="Hadoop-style XML carrying shifu.provision.* keys")
+    pv.add_argument("--wait", action="store_true",
+                    help="with create: block until the slice is ACTIVE")
+    _add_provision_flags(pv)
 
     ch = sub.add_parser(
         "cache", help="inspect the columnar data cache: list entries "
@@ -253,8 +293,8 @@ def build_parser() -> argparse.ArgumentParser:
                                      "SIGKILL)")
     kl.add_argument("job_dir")
     kl.add_argument("--force", action="store_true",
-                    help="release a provisioned slice (not ported yet: "
-                         "ROADMAP.md queue A item (f))")
+                    help="release a provisioned slice even when the marker "
+                         "names a live dispatcher or another host")
     dr = sub.add_parser(
         "drift", help="model-quality / data-drift panel for a serving "
                       "daemon: per-feature PSI vs the frozen baseline "
@@ -416,6 +456,47 @@ def build_parser() -> argparse.ArgumentParser:
     fv.add_argument("--json", action="store_true",
                     help="machine-readable report on stdout")
 
+    pdv = sub.add_parser(
+        "pod-verify", help="audit a pod training run's per-rank journals: "
+                           "every epoch closed by a complete agreeing "
+                           "cohort (order + shard digests), per-host "
+                           "ingest stayed balanced, and every injected "
+                           "host kill was followed by recovery")
+    pdv.add_argument("job_dir", help="pod job/telemetry dir (per-rank "
+                                     "journals are discovered one level "
+                                     "below the root journal)")
+    pdv.add_argument("--json", action="store_true",
+                     help="machine-readable report on stdout")
+    pdv.add_argument("--balance-limit", type=float, default=1.5,
+                     help="max per-rank ingest bytes as a multiple of the "
+                          "even share (default 1.5)")
+
+    dd = sub.add_parser(
+        "data-dryrun", help="pod data-plane dryrun rank: shard-local "
+                            "ingest, per-epoch order/shard digests "
+                            "journaled per rank, no device training — "
+                            "the gang child of the elastic recovery drill "
+                            "under `supervise_pod`")
+    dd.add_argument("--data", required=True,
+                    help="directory (or file) of delimited part files; "
+                         "layout [target, f0..fN-1]")
+    dd.add_argument("--out", required=True, help="job dir for per-rank "
+                                                 "telemetry + progress")
+    dd.add_argument("--features", type=int, default=8,
+                    help="numeric feature count in the files (default 8)")
+    dd.add_argument("--epochs", type=int, default=3)
+    dd.add_argument("--batch-size", type=int, default=32)
+    dd.add_argument("--delimiter", default="|")
+    dd.add_argument("--seed", type=int, default=0,
+                    help="shuffle seed pinning permutations and digests")
+    dd.add_argument("--host-shard", default="auto",
+                    choices=["auto", "static", "rotate"],
+                    help="shard-assignment mode "
+                         "(data/pipeline.host_shard_assignment)")
+    dd.add_argument("--epoch-seconds", type=float, default=0.0,
+                    help="simulated per-epoch wall (sleep) so kill/"
+                         "liveness windows have something to land in")
+
     lt = sub.add_parser(
         "loadtest", help="open-loop (Poisson-arrival) load harness for "
                          "the scoring plane: reports scores/s and "
@@ -524,14 +605,60 @@ def _add_device_flag(p, what: str = "device the torch tiers score on"
                    help=f"{what} (default cuda:0; 'cpu' only when asked)")
 
 
-# the JAX CLI's commands that the port has not yet, by ROADMAP.md item
-_NOT_PORTED_COMMANDS = dict.fromkeys(
-    ("provision", "pod-verify", "data-dryrun"), "(f)")
+def _add_provision_flags(p) -> None:
+    p.add_argument("--provision-name", default="",
+                   help="queued-resource / node id (shifu.provision.name)")
+    p.add_argument("--accelerator-type", default="",
+                   help="e.g. v5litepod-16 (shifu.provision.accelerator-type)")
+    p.add_argument("--zone", default="",
+                   help="e.g. us-west4-a (shifu.provision.zone)")
+    p.add_argument("--project", default="",
+                   help="GCP project (shifu.provision.project; default = "
+                        "gcloud's configured project)")
+    p.add_argument("--runtime-version", default="",
+                   help="TPU VM runtime (shifu.provision.runtime-version)")
+    p.add_argument("--spot", action="store_true",
+                   help="request spot/preemptible capacity "
+                        "(shifu.provision.spot)")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue A item {item})")
+def _provision_spec(args):
+    """ProvisionSpec from the --globalconfig shifu.provision.* keys, the
+    flags on top."""
+    from ..utils import xmlconfig
+    from .provision import spec_from_xml
+
+    conf: dict = {}
+    if getattr(args, "globalconfig", None):
+        conf = xmlconfig.parse_configuration_xml(args.globalconfig)
+    return spec_from_xml(
+        conf, name=args.provision_name,
+        accelerator_type=args.accelerator_type, zone=args.zone,
+        project=args.project, runtime_version=args.runtime_version,
+        spot=args.spot)
+
+
+def run_provision(args) -> int:
+    from . import provision as prov
+
+    try:
+        spec = _provision_spec(args)
+        if args.action == "create":
+            prov.create(spec)
+            if args.wait:
+                prov.await_ready(spec)
+            return EXIT_OK
+        spec.validate()
+        if args.action == "status":
+            print(prov.state(spec))
+        elif args.action == "hosts":
+            print(",".join(prov.worker_hosts(spec)))
+        else:
+            prov.delete(spec)
+        return EXIT_OK
+    except prov.ProvisionError as e:
+        print(f"provision: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
 
 
 def _assemble_job(args, write_files: bool = True):
@@ -611,9 +738,11 @@ def _resolve_out_dir(args) -> str:
         os.getcwd(), f"shifu_tpu_job_{time.strftime('%Y%m%d_%H%M%S')}")
 
 
-def _child_train_args(args, out_dir: str) -> list[str]:
+def _child_train_args(args, out_dir: str,
+                      num_processes: int = 0) -> list[str]:
     """A `train` child argv rebuilt from the parsed args, --output pinned
-    (shared checkpoints and board), the supervisor's flags stripped."""
+    (shared checkpoints and board), the supervisor's and the pod's flags
+    stripped unless re-asked through `num_processes`."""
     child = ["train",
              "--modelconfig", args.modelconfig,
              "--columnconfig", args.columnconfig,
@@ -622,6 +751,8 @@ def _child_train_args(args, out_dir: str) -> list[str]:
         child += ["--data", *args.data]
     if args.globalconfig:
         child += ["--globalconfig", args.globalconfig]
+    if num_processes > 1:
+        child += ["--num-processes", str(num_processes)]
     for flag, val in (("--devices", args.devices), ("--epochs", args.epochs),
                       ("--batch-size", args.batch_size),
                       ("--timeout", args.timeout),
@@ -672,14 +803,6 @@ def _activate_chaos(args) -> int:
     return EXIT_OK
 
 
-def _check_ported(args) -> None:
-    if args.hosts:
-        raise _not_ported("--hosts (pod-scale launch)", "(f)")
-    if args.num_processes > 1:
-        raise _not_ported("--num-processes > 1 (launch_gang and "
-                          "data.host_shard)", "(f)")
-
-
 def _train_world(args, job, dev) -> tuple[int, Optional[str]]:
     """(ranks to train on, or 0 with the reason it cannot), the JAX
     launcher's rule: a `shifu.mesh.*` mesh of more than one device takes
@@ -719,28 +842,167 @@ def _run_gang(args, out_dir: str, world: int, dev) -> int:
     return spawn_ranks(argv, world)
 
 
+def _check_device(device: Optional[str]) -> None:
+    """resolve_device's refusal of a missing card, without touching the
+    card (a dispatcher only spawns the processes that use it)."""
+    import torch
+    if torch.device(device or "cuda:0").type == "cuda" \
+            and not torch.cuda.is_available():
+        from ..device import resolve_device
+        resolve_device(device)  # raises, naming the CPU
+
+
+def _spawn_processes(args, out_dir: str) -> int:
+    """`--num-processes N`: N processes on this machine, each a host of a
+    simulated pod (the one-machine spelling of `--hosts local:N`): one
+    gang attempt through the pod launcher; restarts come from an outer
+    `--supervise`, which re-enters here with a fresh gang."""
+    from . import pod as pod_lib
+
+    if args.devices:
+        # a device prefix of the whole list would strand the other
+        # processes outside the mesh; device counts are per process here
+        print("--devices cannot combine with --num-processes "
+              "(set SHIFU_TPU_CPU_DEVICES per process instead)",
+              file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    os.makedirs(out_dir, exist_ok=True)
+    spec = pod_lib.PodSpec(hosts=("local",) * args.num_processes,
+                           transport="local")
+    rc, _failed = pod_lib.launch_gang(spec, _child_train_args(args, out_dir),
+                                      out_dir, attempt=1)
+    return rc
+
+
+def _detach_argv(args, out_dir: str) -> list[str]:
+    """The detached daemon's `train` argv: the slim child's, with the
+    orchestration flags it strips put back."""
+    child = _child_train_args(args, out_dir,
+                              num_processes=args.num_processes)
+    if args.hosts:
+        child += ["--hosts", args.hosts]
+    if args.provision:
+        child += ["--provision"]
+        for flag, val in (("--provision-name", args.provision_name),
+                          ("--accelerator-type", args.accelerator_type),
+                          ("--zone", args.zone), ("--project", args.project),
+                          ("--runtime-version", args.runtime_version)):
+            if val:
+                child += [flag, val]
+        if args.spot:
+            child += ["--spot"]
+        if args.keep_slice:
+            child += ["--keep-slice"]
+    elif args.supervise or not args.hosts:
+        child += ["--supervise"]  # a detached job heals itself
+    if args.max_restarts >= 0:
+        child += ["--max-restarts", str(args.max_restarts)]
+    if args.coordinator_port:
+        child += ["--coordinator-port", str(args.coordinator_port)]
+    return child
+
+
+def _run_provisioned(args) -> int:
+    """`--provision`: acquire a slice, dispatch the pod onto its workers,
+    release it on every exit path (launcher/provision.provision_and_run).
+    A SIGTERM meanwhile unwinds through SystemExit, so the release still
+    runs (the marker in the job dir covers an uncatchable death)."""
+    from . import provision as prov
+    try:
+        spec = _provision_spec(args)
+        spec.validate()
+    except prov.ProvisionError as e:
+        print(f"provision: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
+
+    def _dispatch(hosts: list) -> int:
+        args.hosts = ",".join(hosts)
+        args.provision = False  # the re-entry takes the pod branch
+        return run_train(args)
+
+    import signal as signal_lib
+
+    def _term_to_exit(signum, _frame):
+        # the first SIGTERM starts the unwind; later ones are ignored, so
+        # that none aborts the release's own gcloud call
+        signal_lib.signal(signal_lib.SIGTERM, signal_lib.SIG_IGN)
+        raise SystemExit(128 + signum)
+
+    old_term, installed = None, False
+    try:
+        old_term = signal_lib.signal(signal_lib.SIGTERM, _term_to_exit)
+        installed = True
+    except ValueError:
+        pass  # not the main thread: the marker still covers it
+    try:
+        args.output = _resolve_out_dir(args)
+        return prov.provision_and_run(spec, _dispatch, keep=args.keep_slice,
+                                      marker_dir=args.output)
+    except prov.ProvisionError as e:
+        print(f"provision: {e}", file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    finally:
+        if installed:
+            signal_lib.signal(signal_lib.SIGTERM,
+                              old_term if old_term is not None
+                              else signal_lib.SIG_DFL)
+
+
 def run_train(args) -> int:
     # the chaos plan first: its env must be exported before any child
     # spawns, and a malformed plan fails here, at submit time
     rc_chaos = _activate_chaos(args)
     if rc_chaos != EXIT_OK:
         return rc_chaos
-    _check_ported(args)
 
-    # --detach: re-launch this dispatcher as a supervised session-leader
-    # daemon and return; the daemon is a fresh process, so it holds no
-    # CUDA context of this one, and trains on the parent's --device
+    # --detach: re-launch this dispatcher as a session-leader daemon and
+    # return; the daemon is a fresh process, so it holds no CUDA context
+    # of this one, and trains on the parent's --device
     from . import detach as detach_lib
     if args.detach and detach_lib.ENV_DETACHED not in os.environ:
         out_dir = _resolve_out_dir(args)
         args.output = out_dir
-        child = _child_train_args(args, out_dir) + ["--supervise"]
-        if args.max_restarts >= 0:
-            child += ["--max-restarts", str(args.max_restarts)]
-        return detach_lib.submit(child, out_dir)
+        return detach_lib.submit(_detach_argv(args, out_dir), out_dir)
 
-    from ..device import resolve_device
-    dev = resolve_device(args.device)  # raises where CUDA is absent
+    # the pod (launcher/pod.py) and the provisioned pod: the dispatcher
+    # routes here only in the parent; a dispatched child carries the
+    # environment contract and runs the plain train path below
+    from ..parallel import distributed
+    from . import pod as pod_lib
+    in_gang = distributed.ENV_PROCESS_ID in os.environ
+    pod_hosts = args.hosts or pod_lib.detect_hosts_env()
+    if args.provision and not in_gang:
+        if pod_hosts:
+            print("--provision and --hosts are exclusive (provisioning "
+                  "derives the hosts from the new slice)",
+                  file=sys.stderr, flush=True)
+            return EXIT_FAIL
+        return _run_provisioned(args)
+    _check_device(args.device)
+    if pod_hosts and not in_gang:
+        try:
+            spec = pod_lib.parse_hosts(pod_hosts, args.coordinator_port)
+        except (ValueError, OSError) as e:
+            print(f"--hosts: {e}", file=sys.stderr, flush=True)
+            return EXIT_FAIL
+        if args.num_processes > 1:
+            print("--hosts and --num-processes are alternative spellings of "
+                  "a process gang; use one", file=sys.stderr, flush=True)
+            return EXIT_FAIL
+        out_dir = _resolve_out_dir(args)
+        args.output = out_dir  # pin: a second resolve could timestamp anew
+        if not fsio.is_remote(out_dir):
+            os.makedirs(out_dir, exist_ok=True)
+        sup_job = _assemble_job(args, write_files=False)[0]
+        max_restarts = (args.max_restarts if args.max_restarts >= 0
+                        else sup_job.runtime.max_restarts)
+        return pod_lib.supervise_pod(
+            spec, _child_train_args(args, out_dir), out_dir,
+            max_restarts=max_restarts,
+            liveness_seconds=sup_job.runtime.liveness_seconds,
+            checkpoint_dir=sup_job.runtime.checkpoint.directory,
+            timeout_seconds=sup_job.runtime.timeout_seconds,
+            min_hosts=sup_job.runtime.min_hosts)
 
     if args.supervise:
         from .supervisor import supervise
@@ -751,16 +1013,30 @@ def run_train(args) -> int:
         sup_job = _assemble_job(args, write_files=False)[0]
         max_restarts = (args.max_restarts if args.max_restarts >= 0
                         else sup_job.runtime.max_restarts)
-        return supervise(_child_train_args(args, out_dir),
+        return supervise(_child_train_args(args, out_dir,
+                                           num_processes=args.num_processes),
                          max_restarts=max_restarts,
                          board_path=fsio.join(out_dir, "console.board"),
                          liveness_seconds=sup_job.runtime.liveness_seconds,
                          checkpoint_dir=sup_job.runtime.checkpoint.directory,
                          timeout_seconds=sup_job.runtime.timeout_seconds)
 
-    from ..parallel import distributed
-    if distributed.ENV_NUM_PROCESSES not in os.environ:
+    if args.num_processes > 1 and not in_gang:
+        return _spawn_processes(args, _resolve_out_dir(args))
+
+    from ..device import resolve_device
+    if distributed.pod_contract() is not None:
+        if args.devices:
+            print("--devices is not supported under multi-host (device "
+                  "counts are per-process)", file=sys.stderr, flush=True)
+            return EXIT_FAIL
+        local = _host_devices(args.device)
+        if local > 1 and int(os.environ[distributed.ENV_NUM_PROCESSES]) \
+                == distributed.pod_contract()[1]:
+            return _run_host_ranks(args, local)
+    elif distributed.ENV_NUM_PROCESSES not in os.environ:
         # the dispatcher: more than one device spawns the gang of ranks
+        dev = resolve_device(args.device)  # raises where CUDA is absent
         out_dir = _resolve_out_dir(args)
         args.output = out_dir  # pin: the ranks share one job dir
         world, why = _train_world(
@@ -773,7 +1049,7 @@ def run_train(args) -> int:
             return EXIT_FAIL
         if world > 1:
             return _run_gang(args, out_dir, world, dev)
-    rc = _train_rank(args, dev)
+    rc = _train_rank(args)
     if rc == EXIT_OK:
         # a failed rank leaves without the group's goodbye, which would
         # wait for peers that are gone
@@ -781,20 +1057,62 @@ def run_train(args) -> int:
     return rc
 
 
-def _train_rank(args, dev) -> int:
-    """`train` in this process: alone, or as a rank of a gang (the
-    environment contract names its coordinator, world and rank)."""
-    from ..parallel import distributed
-    joined = distributed.initialize(device=dev)
-    chief = distributed.is_chief()
+def _host_devices(device: Optional[str]) -> int:
+    """The devices of this host a pod member drives: every visible card,
+    or on the CPU SHIFU_TPU_CPU_DEVICES (the JAX package's spelling of a
+    CPU host's device count; 1 without it)."""
+    import torch
+    if torch.device(device or "cuda:0").type == "cuda":
+        return max(torch.cuda.device_count(), 1)
+    try:
+        return max(int(os.environ.get("SHIFU_TPU_CPU_DEVICES", "1") or 1), 1)
+    except ValueError:
+        return 1
 
-    # chaos site "launcher.start": process start-up, before any work
+
+def _run_host_ranks(args, local: int) -> int:
+    """A pod member whose host has `local` devices: one rank per device
+    in the pod's group, rank host * local + i on cuda:i (or the CPU),
+    the world hosts * local (parallel/launch.spawn_ranks)."""
+    from ..parallel import distributed
+    from ..parallel.launch import spawn_ranks
+
+    host, hosts = distributed.pod_contract()
+    base = _child_train_args(args, _resolve_out_dir(args))
+    if "--device" in base:
+        i = base.index("--device")
+        del base[i:i + 2]
+    cpu = args.device == "cpu"
+
+    def argv(i: int) -> list[str]:
+        return base + ["--device", "cpu" if cpu else f"cuda:{i}"]
+
+    return spawn_ranks(argv, local,
+                       coordinator=os.environ[distributed.ENV_COORDINATOR],
+                       world=hosts * local, first_rank=host * local)
+
+
+def _train_rank(args) -> int:
+    """`train` in this process: alone, or as a rank of a gang (the
+    environment contract names its coordinator, world and rank; under a
+    pod also its host count)."""
+    # chaos site "launcher.start": process start-up, before the rendezvous
+    # (a host that never joins; its peers are torn down by the gang's
+    # dispatcher, and one down for good drives the pod's elastic reshape)
     from .. import chaos
     try:
         chaos.maybe_fail("launcher.start")
     except chaos.ChaosError as e:
         print(f"chaos: {e}", file=sys.stderr, flush=True)
         return EXIT_FAIL
+
+    # the rendezvous, before any work on the card: every rank joins the
+    # group (the placement decides its backend, parallel/distributed.py)
+    from ..device import resolve_device
+    from ..parallel import distributed
+    dev = resolve_device(args.device)
+    joined = distributed.initialize(device=dev)
+    chief = distributed.is_chief()
 
     job, out_dir = _assemble_job(args, write_files=chief)
     mesh = None
@@ -820,22 +1138,29 @@ def _train_rank(args, dev) -> int:
 
     t_run = time.monotonic()
     # telemetry: SHIFU_TPU_METRICS_DIR wins, else <job dir>/telemetry; the
-    # other ranks of a gang journal nothing
-    if chief:
+    # other ranks of a one-host gang journal nothing, a pod's other ranks
+    # journal into rank-<r> below it (its chaos injections among their
+    # events, which `pod-verify` audits)
+    tele = obs.resolve_metrics_dir() or fsio.join(out_dir, "telemetry")
+    if not chief and distributed.pod_contract() is not None:
+        tele = fsio.join(tele, f"rank-{distributed.process_index()}")
+    if chief or distributed.pod_contract() is not None:
         try:
-            obs.configure(obs.resolve_metrics_dir()
-                          or fsio.join(out_dir, "telemetry"))
+            obs.configure(tele)
         except Exception:
             pass  # telemetry must never block the job
     obs.counter("launcher_runs_total", "train runs started").inc()
     board = (ConsoleBoard(fsio.join(out_dir, "console.board")) if chief
              else _SilentBoard())
     devices = mesh.size if mesh is not None else 1
+    choice = distributed.backend_choice()
     board(f"shifu_tpu_torch train: {job.runtime.app_name} device={dev} "
           f"devices={devices} "
           f"mesh={mesh.shape if mesh is not None else None} "
           f"model={job.model.model_type} epochs={job.train.epochs} "
-          f"batch={job.data.batch_size}")
+          f"batch={job.data.batch_size}"
+          + (f" backend={choice['backend']} ({choice['reason']})"
+             if choice else ""))
     obs.gauge("launcher_devices_in_use",
               "devices this run trains on").set(devices)
     obs.event("run_start", command="train", app_name=job.runtime.app_name,
@@ -1649,6 +1974,133 @@ _RECOVERY_KINDS = ("supervisor_restart", "supervisor_done",
                    "supervisor_liveness_kill", "chaos_corrupt")
 
 
+def run_pod_verify(args) -> int:
+    """`pod-verify <dir>`: audit a pod run's merged per-rank journals
+    (launcher/pod.pod_verify_events); exit 0 when every check holds.
+    Journal reads only: no torch."""
+    from ..obs import timeline as timeline_mod
+    from .pod import pod_verify_events
+
+    merged = timeline_mod.load_merged(args.job_dir, tail_bytes=None)
+    if merged is None:
+        print(f"no telemetry journal found under {args.job_dir}",
+              file=sys.stderr, flush=True)
+        return EXIT_FAIL
+    report = pod_verify_events(merged["events"],
+                               balance_limit=args.balance_limit)
+    report["journals"] = merged["journals"]
+    if args.json:
+        print(json.dumps(report))
+    else:
+        counts = report["counts"]
+        print(f"pod-verify: {report['verdict']} — "
+              f"{counts['epochs']} epoch(s), "
+              f"{counts['close_rows']} close row(s) from "
+              f"{counts['ranks']} rank(s), "
+              f"{counts['injections']} injection(s)")
+        for c in report["checks"]:
+            mark = "ok " if c["ok"] else "FAIL"
+            print(f"  [{mark}] {c['check']}: {c['detail']}")
+    return EXIT_OK if report["verdict"] == "PASS" else EXIT_FAIL
+
+
+def _dryrun_progress_start(prog_dir: str, num_hosts: int) -> int:
+    """The first epoch this attempt runs: the least epoch the current
+    gang's ranks all completed, plus one (a rank with no file completed
+    nothing), so that a restart re-runs every epoch a killed rank never
+    closed and the journal ends with complete cohorts."""
+    start = None
+    for rank in range(num_hosts):
+        p = os.path.join(prog_dir, f"rank-{rank}.json")
+        try:
+            with open(p) as f:
+                done = int(json.load(f).get("epoch", -1))
+        except (OSError, ValueError):
+            done = -1
+        start = done if start is None else min(start, done)
+    return (start if start is not None else -1) + 1
+
+
+def _dryrun_progress_mark(prog_dir: str, rank: int, epoch: int) -> None:
+    os.makedirs(prog_dir, exist_ok=True)
+    tmp = os.path.join(prog_dir, f".rank-{rank}.tmp")
+    with open(tmp, "w") as f:
+        json.dump({"epoch": int(epoch)}, f)
+    os.replace(tmp, os.path.join(prog_dir, f"rank-{rank}.json"))
+
+
+def run_data_dryrun(args) -> int:
+    """`data-dryrun`: one rank of the pod's data plane: the shard-local
+    ingest of this host's slice, the per-epoch order and shard digests,
+    one `pod_epoch_close` row per epoch, and no training and no
+    collectives.  The rank comes from the pod's contract, which
+    `supervise_pod` derives anew each attempt, so a reshape rebalances
+    the shards.  The digests are pure functions of (seed, epoch, width),
+    and the drill's equal part files give every rank the same rows, so the
+    cohorts must agree: what `pod-verify` audits."""
+    from .. import chaos, obs
+    from ..config.schema import DataConfig
+    from ..data import pipeline as pipe
+    from ..data import synthetic
+
+    try:
+        rank = int(os.environ.get("SHIFU_TPU_PROCESS_ID", "0") or 0)
+        nproc = int(os.environ.get("SHIFU_TPU_NUM_PROCESSES", "1") or 1)
+    except ValueError:
+        rank, nproc = 0, 1
+    chaos.reload_from_env()
+    out = args.out
+    obs.configure(os.path.join(out, "telemetry") if rank == 0
+                  else os.path.join(out, "telemetry", f"rank-{rank}"))
+    schema = synthetic.make_schema(num_features=args.features)
+    # valid_ratio 0: the agreement needs every rank's train rows equal,
+    # which the hash split would skew per shard
+    data = DataConfig(paths=(args.data,), delimiter=args.delimiter,
+                      batch_size=int(args.batch_size), valid_ratio=0.0,
+                      shuffle_seed=int(args.seed),
+                      host_shard=args.host_shard)
+    data.validate()
+    prog_dir = os.path.join(out, "data_progress")
+    start = _dryrun_progress_start(prog_dir, nproc)
+    obs.event("pod_data_dryrun_start", rank=rank, hosts=nproc,
+              epoch_start=start, epochs=int(args.epochs),
+              host_shard=args.host_shard)
+    n_files = pipe.count_source_files(data)
+    reg = obs.default_registry()
+    train_rows = None
+    for ep in range(start, int(args.epochs)):
+        # the `data.host_shard` chaos probe, with the epoch: the elastic
+        # drill's kill lands here
+        mine = pipe.host_file_shard(data, rank, nproc, epoch=ep)
+        if train_rows is None:
+            train_ds, _valid = pipe.load_datasets(schema, data, rank, nproc)
+            train_rows = int(train_ds.num_rows)
+        if args.epoch_seconds > 0:
+            time.sleep(float(args.epoch_seconds))
+        order_digest = pipe.epoch_order_digest(
+            "batch", train_rows, int(args.batch_size), shuffle=True,
+            seed=int(args.seed), epoch=ep)
+        shard_digest = pipe.shard_assignment_digest(
+            n_files, nproc, seed=int(args.seed), epoch=ep,
+            mode=args.host_shard)
+        obs.event(
+            "pod_epoch_close", epoch=ep, rank=rank, hosts=nproc,
+            files=len(mine), rows=train_rows,
+            order_digest=order_digest, shard_digest=shard_digest,
+            ingest_bytes=int(
+                reg.counter("ingest_source_bytes_total").total()),
+            ingest_s=round(
+                reg.counter("ingest_seconds_total").total(), 6))
+        obs.flush()
+        _dryrun_progress_mark(prog_dir, rank, ep)
+        print(f"data-dryrun rank {rank}/{nproc}: epoch {ep} "
+              f"files={len(mine)} rows={train_rows}", flush=True)
+    obs.event("pod_data_dryrun_done", rank=rank, hosts=nproc,
+              epochs=int(args.epochs))
+    obs.flush()
+    return EXIT_OK
+
+
 def run_chaos_verify(args) -> int:
     """`chaos-verify <job_dir>`: replay the recorded plan (default: the
     `chaos_plan.json` the launcher keeps beside the job) against the run
@@ -1792,15 +2244,12 @@ _COMMANDS = {"train": run_train, "cache": run_cache, "score": run_score,
              "drift": run_drift, "timeline": run_timeline,
              "chaos-verify": run_chaos_verify, "status": run_status,
              "attach": run_attach, "kill": run_kill, "fleet": run_fleet,
-             "fleet-verify": run_fleet_verify}
+             "fleet-verify": run_fleet_verify, "provision": run_provision,
+             "pod-verify": run_pod_verify, "data-dryrun": run_data_dryrun}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     _arm_pdeathsig()
-    argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in _NOT_PORTED_COMMANDS:
-        raise _not_ported(f"the {argv[0]!r} command",
-                          _NOT_PORTED_COMMANDS[argv[0]])
     args = build_parser().parse_args(argv)
     if args.command != "train":
         return _COMMANDS[args.command](args)

@@ -9,16 +9,19 @@ The daemon writes `<job>/job.status` when the job ends.  `status`,
 `attach` and `kill` drive the job from its directory afterwards.  The file
 names and the environment variable are the JAX package's.
 
-Two deliberate differences from the JAX package:
-- `_is_our_job` accepts only a `shifu_tpu_torch` / `shifu-tpu-torch`
-  command line, so the port's `kill` never signals a JAX dispatcher (the
-  JAX package's substring test matches the port's command lines too);
-- the provision marker (`provision.json`: a slice acquired for a pod job)
-  belongs to the port's multi-GPU slice (ROADMAP.md queue A item (f)):
-  `job_state` reports no slice and `kill --force` raises.
-`kill`'s SIGKILL escalation also reaches the supervised attempt's own
-session, so a drain that outlasts the grace leaves no process behind,
-and a zombie counts as ended (an orphaned daemon may wait for its reaper).
+A job dir that records a provisioned slice (`provision.json`, the
+marker of launcher/provision.py) shows it in `status` as
+`provisioned_slice`, and `kill` releases it once the dispatcher is gone;
+`kill --force` releases it even when the marker names a live foreground
+dispatcher or another host.
+
+One deliberate difference from the JAX package: `_is_our_job` accepts
+only a `shifu_tpu_torch` / `shifu-tpu-torch` command line, so the port's
+`kill` never signals a JAX dispatcher (the JAX package's substring test
+matches the port's command lines too).  `kill`'s SIGKILL escalation also
+reaches the supervised attempt's own session, so a drain that outlasts
+the grace leaves no process behind, and a zombie counts as ended (an
+orphaned daemon may wait for its reaper).
 
 Everything here reads and writes files and signals processes: nothing
 imports torch.
@@ -178,6 +181,13 @@ def job_state(out_dir: str) -> dict:
     out: dict = {"job_dir": out_dir}
     if job:
         out.update(pid=job.get("pid"), submitted_at=job.get("submitted_at"))
+    try:  # an acquired slice not yet released (provision.json)
+        from .provision import read_marker
+        marker = read_marker(out_dir)
+        if marker and marker.get("name"):
+            out["provisioned_slice"] = marker["name"]
+    except Exception:
+        pass
     if status is not None:
         rc = int(status.get("exit", 1))
         out.update(state="FINISHED" if rc == 0 else "FAILED", exit=rc,
@@ -361,27 +371,67 @@ def attach(out_dir: str, echo=print, poll_seconds: float = 0.5,
         return 0  # stop following; the job keeps running
 
 
+def _release_slice(out_dir: str, echo, force: bool = False,
+                   killed_pid: Optional[int] = None) -> bool:
+    """Release the slice the job dir records, best-effort: killing the job
+    frees its compute, and a dispatcher's unclean death must leave no
+    billing slice behind.  Unless `force`, refuse (False) when the marker
+    names a live dispatcher (a foreground `--provision` run, which writes
+    no job.json) or another host, whose pid table this host cannot read.
+    `killed_pid`, the dispatcher `kill` just signalled, may still look
+    alive (a zombie): it does not count as live."""
+    try:
+        from .provision import read_marker, release_from_marker
+        marker = read_marker(out_dir)
+        if marker and not force:
+            mpid = marker.get("pid")
+            mhost = marker.get("host")
+            if mhost and mhost != os.uname().nodename:
+                echo(f"provision marker was written on {mhost!r} — run kill "
+                     "there (its pid table can check dispatcher liveness) "
+                     "or re-run with --force")
+                return False
+            if (isinstance(mpid, int) and mpid != killed_pid
+                    and _alive(mpid) and _is_our_job(mpid, marker)):
+                echo(f"provision marker records a LIVE dispatcher (pid "
+                     f"{mpid}) — a foreground --provision run is still "
+                     "using the slice; SIGTERM that process (or re-run "
+                     "with --force) instead")
+                return False
+        release_from_marker(out_dir, echo=echo)
+        return True
+    except Exception as e:
+        echo(f"provision: release check failed ({e}); see provision.json "
+             f"in {out_dir}")
+        return True
+
+
 def kill(out_dir: str, echo=print, grace_seconds: float = 10.0,
          force: bool = False) -> int:
     """SIGTERM the detached dispatcher's process group (a session leader:
     the supervisor forwards the drain to its attempt, which saves and
-    exits 75), then SIGKILL the group after `grace_seconds`."""
-    if force:
-        raise NotImplementedError(
-            "kill --force releases a provisioned slice, which is not "
-            "ported yet (ROADMAP.md, queue A item (f))")
+    exits 75), then SIGKILL the group after `grace_seconds`; then release
+    the slice the job dir records (`_release_slice`), one left behind by
+    an earlier unclean death included.  Exit 1 when a recorded slice was
+    deliberately not released."""
     job = _read_json(os.path.join(out_dir, JOB_FILE))
     if not job or not isinstance(job.get("pid"), int):
         echo(f"no submitted job under {out_dir}")
+        # a foreground --provision run writes no job.json but may have
+        # left a marker (an unclean death): the rescue release still runs
+        _release_slice(out_dir, echo, force=force)
         return 1
     pid = job["pid"]
     if not _alive(pid):
         echo(f"job pid {pid} is not running")
-        return 0
+        return 0 if _release_slice(out_dir, echo, force=force) else 1
     if not _is_our_job(pid, job):
         echo(f"pid {pid} is not this job's dispatcher (recycled pid or a "
              f"different host — job.json says {job.get('host')!r}); "
              "refusing to signal it")
+        if not (job.get("host") and job["host"] != os.uname().nodename):
+            # this host, a recycled pid: the dispatcher is gone
+            _release_slice(out_dir, echo, force=force)
         return 1
     try:
         os.killpg(pid, signal.SIGTERM)
@@ -394,7 +444,7 @@ def kill(out_dir: str, echo=print, grace_seconds: float = 10.0,
     while time.monotonic() < deadline:
         if not _alive(pid):
             echo(f"job pid {pid} terminated")
-            return 0
+            return 0 if _release_slice(out_dir, echo, force=force) else 1
         time.sleep(0.2)
     # the supervised attempt runs in a session of its own: its group is
     # killed with the dispatcher's, so no process of the tree outlives it
@@ -407,4 +457,5 @@ def kill(out_dir: str, echo=print, grace_seconds: float = 10.0,
     while time.monotonic() < reap_deadline and _alive(pid):
         time.sleep(0.1)
     echo(f"job pid {pid} killed")
-    return 0
+    return 0 if _release_slice(out_dir, echo, force=force,
+                               killed_pid=pid) else 1

@@ -132,16 +132,19 @@ class ProgressProbe:
                 and checkpoint_progress(self._dir) > self._mark)
 
 
-def charge_restart_budget(failures_since_progress: int,
-                          progressed: bool) -> int:
+def charge_restart_budget(failures_since_progress: int, progressed: bool,
+                          echo=None, what: str = "supervisor") -> int:
     """The budget bounds consecutive failures without durable progress,
     not lifetime restarts: a long job on preemptible capacity restarts
     many times, each resuming further; only a crash loop that persists
-    nothing burns it."""
+    nothing burns it.  Shared by both supervisors (`what` names which)."""
     if progressed:
         if failures_since_progress:
-            print("supervisor: progress since last failure — restart "
-                  "budget reset", flush=True)
+            msg = f"{what}: progress since last failure — restart budget reset"
+            if echo is None:
+                print(msg, flush=True)
+            else:
+                echo(msg)
         return 1
     return failures_since_progress + 1
 

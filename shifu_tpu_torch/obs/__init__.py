@@ -11,9 +11,9 @@ Until `configure(metrics_dir)` (or SHIFU_TPU_METRICS_DIR through
 is a no-op, so instrumented call sites never need to know whether
 telemetry is on.  The operator's views read what these write: `render`
 (`metrics`, `profile`, `trace`, `top`, `drift`), `timeline` and
-`aggregate` (the single-process parts; the cross-host gather waits for
-ROADMAP.md queue A item (f)); they are imported by the commands that use
-them, and import no torch.
+`aggregate` (with the pod's per-epoch cross-host gather, which finds
+torch where a process group is up); they are imported by the commands
+that use them, and import no torch.
 """
 
 from __future__ import annotations

@@ -1,12 +1,17 @@
-"""Telemetry aggregation (port of shifu_tpu/obs/aggregate.py, its
-single-process parts): the per-host skew-table row and line, the digest
-agreement rule, and the multi-daemon serving rollup behind `top` over N
-dirs.
+"""Telemetry aggregation (port of shifu_tpu/obs/aggregate.py): the
+per-host skew table of a pod, the digest agreement rule, the pod's ingest
+ledger, and the multi-daemon serving rollup behind `top` over N dirs.
 
-The cross-host gather (`gather_host_summaries`), the per-epoch
-`epoch_skew` and `pod_ingest_rollup` are multi-host and wait for the port's
-multi-GPU slice (ROADMAP.md queue A item (f)).  Nothing here imports torch:
-`top` reads journals on any machine.
+Each host of a pod encodes a small summary of its telemetry, ONE
+all-gather moves them all (`gather_host_summaries`: torch.distributed's
+`all_gather_object` over the mesh's gloo control group, so an NCCL world
+moves no pickle through the card), and the chief prints the slowest-first
+line and journals `host_skew` (`epoch_skew`, once per epoch).  A host is a
+JAX process: with several ranks on a host, the chief keeps one row per
+host, its first rank's, with `rank` the host's index.
+
+Nothing here imports torch: `top` and `pod-verify` read journals on any
+machine; the gather finds torch where a process group is up.
 """
 
 from __future__ import annotations
@@ -16,17 +21,27 @@ import sys
 from typing import Optional
 
 
-def _rank() -> int:
-    """This process's rank: torch.distributed's when a process group is
-    up (never importing torch for it), else 0."""
+def _dist():
+    """torch.distributed when a process group is up (never importing
+    torch for it), else None."""
     torch = sys.modules.get("torch")
     dist = getattr(torch, "distributed", None) if torch else None
     try:
         if dist is not None and dist.is_available() and dist.is_initialized():
-            return int(dist.get_rank())
+            return dist
     except Exception:
         pass
-    return 0
+    return None
+
+
+def _rank() -> int:
+    """This process's host index under a pod, else its rank (0 alone)."""
+    dist = _dist()
+    if dist is None:
+        return 0
+    pod = sys.modules.get("shifu_tpu_torch.parallel.distributed")
+    contract = pod.pod_contract() if pod is not None else None
+    return contract[0] if contract else int(dist.get_rank())
 
 
 def host_summary(input_seconds: float = 0.0, epoch_seconds: float = 0.0,
@@ -67,6 +82,122 @@ def skew_line(epoch: int, rows: list[dict],
 
     return (f"Epoch {epoch} hosts by input time (slowest first): "
             + " | ".join(_one(r) for r in ordered))
+
+
+def gather_host_summaries(summary: dict, group=None) -> list[dict]:
+    """Every rank's summary, in rank order, on every rank: one
+    `all_gather_object` over `group` (the mesh's gloo control group).
+    Alone: [summary], no collective."""
+    dist = _dist()
+    if dist is None or dist.get_world_size(group) <= 1:
+        return [dict(summary)]
+    rows: list = [None] * dist.get_world_size(group)
+    dist.all_gather_object(rows, dict(summary), group=group)
+    out = []
+    for r, rec in enumerate(rows):
+        if isinstance(rec, dict):
+            rec.setdefault("rank", r)
+            out.append(rec)
+    return out
+
+
+def _one_per_host(rows: list[dict]) -> list[dict]:
+    """The first row of each host index (rows arrive in rank order, and a
+    host's ranks are consecutive)."""
+    seen: set = set()
+    out = []
+    for r in rows:
+        if r.get("rank") not in seen:
+            seen.add(r.get("rank"))
+            out.append(r)
+    return out
+
+
+def epoch_skew(epoch: int, input_seconds: float, epoch_seconds: float,
+               valid_seconds: float, console=None, journal: bool = True,
+               extra: Optional[dict] = None, group=None
+               ) -> Optional[list[dict]]:
+    """The per-epoch cross-host skew: gather every host's summary, print
+    the slowest-first line on the chief, journal a `host_skew` event with
+    the hosts' agreement on `order_digest` and `shard_digest` (the
+    digests `pod-verify` audits).  Collective: every rank of `group` calls
+    it.  Returns the rows on the chief, None elsewhere and alone.  `extra`
+    (ingest bytes and seconds, the digests) rides each row through the
+    one gather, with this host's peak device memory where known."""
+    dist = _dist()
+    if dist is None or dist.get_world_size(group) <= 1:
+        return None
+    fields = dict(extra or {})
+    try:
+        from . import devprof
+        snap = devprof.hbm_snapshot()
+        if snap.get("peak_bytes"):
+            fields["hbm_peak_bytes"] = int(snap["peak_bytes"])
+    except Exception:
+        pass
+    rows = _one_per_host(gather_host_summaries(host_summary(
+        input_seconds, epoch_seconds, valid_seconds, **fields), group))
+    if dist.get_rank() != 0:
+        return None
+    if console is not None:
+        console(skew_line(epoch, rows))
+    if journal:
+        from . import _sinks
+        _sinks.event("host_skew", epoch=epoch, hosts=rows,
+                     order_digest_agree=digest_agreement(
+                         rows, "order_digest"),
+                     shard_digest_agree=digest_agreement(
+                         rows, "shard_digest"))
+    return rows
+
+
+def pod_ingest_rollup(events: list) -> dict:
+    """Fold a pod run's merged journal events (obs/timeline.load_merged)
+    into the per-host ingest ledger: source bytes and ingest seconds per
+    host, the pod's totals and its max/min byte imbalance.  A pure fold.
+    A host is the event's `host` stamp, else `rank<src>` (the merge's
+    journal index).  `ingest_report` rows add up (their phase seconds
+    summed); a `host_skew` row's cumulative extras replace them (newest
+    wins)."""
+    hosts: dict = {}
+
+    def slot(key) -> dict:
+        return hosts.setdefault(str(key), {
+            "ingest_bytes": 0, "ingest_s": 0.0, "files": 0, "reports": 0})
+
+    for ev in events:
+        kind = ev.get("kind")
+        key = ev.get("host") or f"rank{ev.get('src', 0)}"
+        if kind == "ingest_report":
+            s = slot(key)
+            s["reports"] += 1
+            s["files"] += int(ev.get("files") or 0)
+            s["ingest_s"] += sum(
+                float(ev.get(k) or 0.0)
+                for k in ("parse_s", "inflate_s", "write_s"))
+            if ev.get("source_bytes") is not None:
+                s["ingest_bytes"] += int(ev["source_bytes"])
+        elif kind == "host_skew":
+            for r in ev.get("hosts") or []:
+                if r.get("ingest_bytes") is None:
+                    continue
+                s = slot(r.get("host") or f"rank{r.get('rank', 0)}")
+                s["ingest_bytes"] = int(r["ingest_bytes"])
+                s["ingest_s"] = float(r.get("ingest_s") or 0.0)
+    total_b = sum(h["ingest_bytes"] for h in hosts.values())
+    loads = [h["ingest_bytes"] for h in hosts.values()
+             if h["ingest_bytes"] > 0]
+    return {
+        "hosts": {k: hosts[k] for k in sorted(hosts)},
+        "pod": {
+            "hosts": len(hosts),
+            "ingest_bytes_total": total_b,
+            "ingest_s_total": round(
+                sum(h["ingest_s"] for h in hosts.values()), 3),
+            "imbalance": (round(max(loads) / max(min(loads), 1), 3)
+                          if loads else None),
+        },
+    }
 
 
 def digest_agreement(rows: list[dict], key: str) -> Optional[bool]:

@@ -3,7 +3,7 @@ the mesh of ranks and its process groups (`mesh`), batch and parameter
 placement (`sharding`), process-group bring-up and the collectives
 (`distributed`, with the collectives that carry a gradient), GPipe over
 the `pipe` axis (`pipeline`), and the local rank spawner of `train
---devices N` (`launch`)."""
+--devices N` and of a pod's host with several cards (`launch`)."""
 
 from .mesh import (
     DATA_AXIS,

@@ -10,12 +10,24 @@ Environment contract, as in the JAX package (first match wins): explicit
 arguments, else SHIFU_TPU_COORDINATOR + SHIFU_TPU_NUM_PROCESSES +
 SHIFU_TPU_PROCESS_ID; without a coordinator `initialize` is a no-op and
 the process trains alone.  The coordinator is `host:port` (a TCP store on
-that address; rank 0 listens) or a `tcp://` / `file://` init method.  The
-backend is NCCL when the rank's device is CUDA and gloo on the CPU; a
-caller may name it, as two ranks that share one card must (NCCL refuses
-two ranks of one communicator on one device; gloo carries every
-collective used here on CUDA tensors).  The JAX package's TPU pod
-autodetection (TPU_WORKER_HOSTNAMES) has no counterpart.
+that address; rank 0 listens) or a `tcp://` / `file://` init method.
+
+The backend is gloo on the CPU.  On CUDA the placement decides it, before
+the group forms: every rank publishes its host name and its card's UUID
+through the store at the coordinator, and if any two ranks share a card
+the whole group takes gloo (NCCL refuses two ranks of one communicator on
+one device; gloo carries every collective used here on CUDA tensors),
+else NCCL (an `env://` init method has no store to publish in: NCCL).
+No NCCL failure is ever caught and retried on gloo.  `backend_choice()`
+says what was chosen and why (the mesh and `dcn_placement` rows journal
+it).
+
+A pod (launcher/pod.py) adds SHIFU_TPU_NUM_HOSTS to the contract: the
+ranks are then spread over that many hosts, `world / hosts` on each, rank
+= host * (world / hosts) + local rank, and each host reads its own slice
+of the data (`pod_contract`).  Without it every rank is on one host.  The
+JAX package's TPU pod autodetection (TPU_WORKER_HOSTNAMES) has no
+counterpart.
 
 The collectives take a group of the mesh (`parallel/mesh.py`) and are
 no-ops on `None`, the group of a process that trains alone.  `all_reduce`
@@ -60,6 +72,10 @@ log = logging.getLogger(__name__)
 ENV_COORDINATOR = "SHIFU_TPU_COORDINATOR"
 ENV_NUM_PROCESSES = "SHIFU_TPU_NUM_PROCESSES"
 ENV_PROCESS_ID = "SHIFU_TPU_PROCESS_ID"
+ENV_NUM_HOSTS = "SHIFU_TPU_NUM_HOSTS"
+
+_PLACEMENT_PREFIX = "shifu_placement/"
+_choice: dict = {}
 
 
 def _init_method(coordinator: str) -> str:
@@ -68,17 +84,65 @@ def _init_method(coordinator: str) -> str:
     return f"tcp://{coordinator}"
 
 
+def _make_store(coordinator: str, world: int, rank: int):
+    """The rendezvous store at the coordinator (None for env://, which
+    torch reads itself): a TCP store that rank 0 serves, or a file."""
+    method = _init_method(coordinator)
+    if method.startswith("file://"):
+        return dist.FileStore(method[len("file://"):], world)
+    if method.startswith("tcp://"):
+        host, _, port = method[len("tcp://"):].rpartition(":")
+        return dist.TCPStore(host, int(port), world, is_master=rank == 0)
+    return None
+
+
+def card_identity(dev: torch.device) -> str:
+    """(this host, this card) as one string: the host name and the card's
+    UUID (its index where the UUID is not exposed)."""
+    props = torch.cuda.get_device_properties(dev)
+    card = getattr(props, "uuid", None)
+    return f"{os.uname().nodename}|{card if card is not None else dev}"
+
+
+def placement_backend(store, world: int, rank: int, me: str) -> tuple:
+    """("gloo" | "nccl", ranks per card): each rank publishes `me` under
+    its rank in `store` and reads every rank's; gloo as soon as two ranks
+    share a card."""
+    store.set(f"{_PLACEMENT_PREFIX}{rank}", me)
+    seen = [store.get(f"{_PLACEMENT_PREFIX}{r}").decode()
+            for r in range(world)]
+    most = max(seen.count(c) for c in seen)
+    return ("gloo" if most > 1 else "nccl"), most
+
+
+def backend_choice() -> dict:
+    """{"backend", "reason", "ranks_per_card"} of the group this process
+    joined ({} alone)."""
+    return dict(_choice)
+
+
+def pod_contract() -> Optional[tuple[int, int]]:
+    """(host index, number of hosts) when this process is a rank of a pod
+    (SHIFU_TPU_NUM_HOSTS in the contract), else None."""
+    hosts = int(os.environ.get(ENV_NUM_HOSTS, "0") or 0)
+    if hosts < 1 or not os.environ.get(ENV_COORDINATOR):
+        return None
+    world = int(os.environ.get(ENV_NUM_PROCESSES, "1"))
+    rank = int(os.environ.get(ENV_PROCESS_ID, "0"))
+    return rank // max(world // hosts, 1), hosts
+
+
 def initialize(coordinator: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
-               backend: Optional[str] = None,
                device: DeviceLike = None) -> bool:
     """Join the process group; True when one is (now) up.
 
     Safe to call unconditionally: without a coordinator (argument or
     environment) it does nothing and returns False.  Idempotent.  The
-    backend defaults to NCCL for a CUDA `device` (default `cuda:0`) and
-    gloo for the CPU; a CUDA rank is bound to its device first."""
+    backend is gloo on the CPU and, for a CUDA `device` (default
+    `cuda:0`), what the placement allows (module docstring); a CUDA rank
+    is bound to its device first."""
     if dist.is_initialized():
         return True
     coordinator = coordinator or os.environ.get(ENV_COORDINATOR)
@@ -89,18 +153,31 @@ def initialize(coordinator: Optional[str] = None,
     if process_id is None:
         process_id = int(os.environ.get(ENV_PROCESS_ID, "0"))
     dev = resolve_device(device)
-    if backend is None:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-    kwargs = {}
+    world, rank = int(num_processes), int(process_id)
+    store = _make_store(coordinator, world, rank)
+    per_card = None
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-        if backend == "nccl":
-            kwargs["device_id"] = dev
-    dist.init_process_group(backend, init_method=_init_method(coordinator),
-                            world_size=int(num_processes),
-                            rank=int(process_id), **kwargs)
-    log.info("torch.distributed initialized: rank %d/%d via %s (%s)",
-             dist.get_rank(), dist.get_world_size(), coordinator, backend)
+    if dev.type != "cuda":
+        backend, reason = "gloo", "cpu"
+    elif store is None:
+        backend, reason = "nccl", "cuda"
+    else:
+        backend, per_card = placement_backend(store, world, rank,
+                                              card_identity(dev))
+        reason = ("ranks share a card" if per_card > 1
+                  else "one rank per card")
+    kwargs = {"device_id": dev} if backend == "nccl" else {}
+    if store is None:
+        kwargs["init_method"] = _init_method(coordinator)
+    else:
+        kwargs["store"] = store
+    dist.init_process_group(backend, world_size=world, rank=rank, **kwargs)
+    _choice.clear()
+    _choice.update(backend=backend, reason=reason, ranks_per_card=per_card)
+    log.info("torch.distributed initialized: rank %d/%d via %s (%s: %s)",
+             dist.get_rank(), dist.get_world_size(), coordinator, backend,
+             reason)
     return True
 
 
@@ -108,6 +185,7 @@ def shutdown() -> None:
     """Leave the process group (a no-op when none is up)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+    _choice.clear()
 
 
 def process_index() -> int:
@@ -133,11 +211,13 @@ def barrier(name: str = "barrier") -> None:
 
 
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """In-place "sum", "max" or "avg" of `t` over `group`; returns `t`."""
+    """In-place "sum", "max", "min" or "avg" of `t` over `group`; returns
+    `t`."""
     if group is None:
         return t
-    if op == "max":
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    if op in ("max", "min"):
+        dist.all_reduce(t, op=getattr(dist.ReduceOp, op.upper()),
+                        group=group)
     elif op == "avg" and dist.get_backend(group) == "nccl":
         dist.all_reduce(t, op=dist.ReduceOp.AVG, group=group)
     elif op in ("sum", "avg"):

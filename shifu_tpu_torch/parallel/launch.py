@@ -17,6 +17,10 @@ world size and its rank), and waits for them:
 - each rank dies with the dispatcher (supervisor.ENV_PDEATHSIG), so a
   `--supervise` restart, which kills the dispatcher's session, takes the
   whole gang down and starts a new one.
+
+A pod's host with several cards runs its ranks the same way, as part of
+the pod's group: the pod's coordinator, its world, and ranks numbered
+from host * cards (launcher/cli.py).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import socket
 import subprocess
 import sys
 import time
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 from . import distributed
 
@@ -67,13 +71,17 @@ def _stop(procs: Sequence[subprocess.Popen], sig: int,
 
 
 def spawn_ranks(argv_for_rank: Callable[[int], list[str]],
-                world: int) -> int:
-    """Run `python -m shifu_tpu_torch.launcher.cli <argv_for_rank(r)>` for
-    r in [0, world) as one gang; returns 0 when every rank exits 0, else
-    the first failed rank's exit code (module docstring)."""
+                count: int, coordinator: Optional[str] = None,
+                world: Optional[int] = None, first_rank: int = 0) -> int:
+    """Run `python -m shifu_tpu_torch.launcher.cli <argv_for_rank(i)>` for
+    i in [0, count) as one gang, ranks first_rank + i of a group of
+    `world` (default `count`) at `coordinator` (default a free port on
+    127.0.0.1); returns 0 when every rank exits 0, else the first failed
+    rank's exit code (module docstring)."""
     from ..launcher.supervisor import ENV_PDEATHSIG
 
-    coordinator = f"127.0.0.1:{free_port()}"
+    coordinator = coordinator or f"127.0.0.1:{free_port()}"
+    world = count if world is None else world
     procs: list[subprocess.Popen] = []
 
     old = []
@@ -84,16 +92,16 @@ def spawn_ranks(argv_for_rank: Callable[[int], list[str]],
     except ValueError:  # not the main thread: no forwarding
         pass
     try:
-        for r in range(world):
+        for i in range(count):
             env = dict(os.environ)
             env[distributed.ENV_COORDINATOR] = coordinator
             env[distributed.ENV_NUM_PROCESSES] = str(world)
-            env[distributed.ENV_PROCESS_ID] = str(r)
+            env[distributed.ENV_PROCESS_ID] = str(first_rank + i)
             env[ENV_PDEATHSIG] = f"{os.getpid()}:{int(signal.SIGKILL)}"
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", CHILD_MODULE, *argv_for_rank(r)],
+                [sys.executable, "-m", CHILD_MODULE, *argv_for_rank(i)],
                 env=env,
-                stdout=None if r == 0 else subprocess.DEVNULL))
+                stdout=None if i == 0 else subprocess.DEVNULL))
         while True:
             codes = [p.poll() for p in procs]
             failed = [c for c in codes if c not in (None, 0)]

@@ -129,21 +129,30 @@ def data_parallel_mesh(num_devices: Optional[int] = None) -> Mesh:
     return make_mesh(MeshConfig(data=n), n)
 
 
-def host_shard_info(mesh: Mesh) -> tuple[int, int]:
-    """(host_index, num_hosts) for input-file sharding.  The ranks of one
-    host share its files and each trains its rows of every global batch,
-    as the JAX package's single-host mesh does, so a one-host mesh is
-    (0, 1) whatever its ranks (file sharding belongs to the pod launcher,
-    ROADMAP.md queue A item (f))."""
+def host_shard_info(mesh: Optional[Mesh] = None) -> tuple[int, int]:
+    """(host_index, num_hosts) for input-file sharding.  Under a pod
+    (`distributed.pod_contract`) each host reads its own slice of the
+    files and the host's ranks share it; otherwise the ranks of the one
+    host share all its files and each trains its rows of every global
+    batch, as the JAX package's single-host mesh does: (0, 1) whatever
+    the ranks."""
     del mesh
-    return 0, 1
+    return distributed.pod_contract() or (0, 1)
 
 
 def dcn_topology(mesh: Optional[Mesh] = None) -> dict:
-    """The process and slice summary of the JAX package's `dcn_placement`
-    row: a rank is a process with one device; one host is one slice."""
-    return {"processes": distributed.process_count(),
-            "process_index": distributed.process_index(),
+    """The process, host and device summary of the JAX package's
+    `dcn_placement` row.  A host is a JAX process: `processes` counts the
+    hosts, `process_index` is this rank's host, `local_devices` the ranks
+    (one card each) on a host, `devices` the mesh; one host is one slice.
+    `ranks` and `backend` are the port's: the process group's world and
+    the backend the placement chose."""
+    host, hosts = host_shard_info(mesh)
+    world = distributed.process_count()
+    return {"processes": hosts,
+            "process_index": host,
             "devices": mesh.size if mesh is not None else 1,
-            "local_devices": 1,
-            "slices": 1}
+            "local_devices": max(world // hosts, 1),
+            "slices": 1,
+            "ranks": world,
+            "backend": distributed.backend_choice().get("backend")}

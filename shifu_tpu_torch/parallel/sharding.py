@@ -11,9 +11,12 @@ Batches follow the JAX package's single-host semantics: every rank holds
 the whole global batch and `shard_batch` takes its rows,
 [d * B / Nd, (d + 1) * B / Nd) for data coordinate d (views, no copy).
 Ranks along `model` take the same rows, as `P('data', ...)` replicates
-over the other axes.  The process-local variants, where each host holds
-only its own rows, belong to the pod launcher (ROADMAP.md queue A item
-(f)) and raise.
+over the other axes.  Under a pod each host holds only its own rows, the
+host's slice [h * B / H, (h + 1) * B / H) of the global batch (the JAX
+package's process-local data): `shard_batch_process_local` and
+`shard_blocks_process_local` take a rank's rows out of its host's slice,
+so the ranks of one host split it by local rank, as `shard_batch` splits
+the global batch.
 
 Parameters are placed by rules, (path regex, spec) pairs matched against
 the port's parameter names (`cat_embedding.embedding`; the JAX package's
@@ -157,15 +160,65 @@ def shard_blocks(blocks: Mapping[str, Any], mesh: Mesh,
             for k, v in blocks.items()}
 
 
-def _process_local(*_args, **_kwargs):
-    raise NotImplementedError(
-        "process-local batches (each host holds only its own rows) belong "
-        "to the pod launcher and data plane, not ported yet (ROADMAP.md, "
-        "queue A item (f))")
+def _host_rows(local_rows: int, mesh: Mesh,
+               hosts: Optional[tuple[int, int]]) -> slice:
+    """This rank's rows within its host's `local_rows`: its data
+    coordinate's rows of the global batch (`hosts[1]` host slices in host
+    order), less the host's offset."""
+    from .mesh import host_shard_info
+    h, n_hosts = hosts if hosts is not None else host_shard_info(mesh)
+    n_data, d = mesh.axis_size(DATA_AXIS), mesh.axis_index(DATA_AXIS)
+    total = local_rows * n_hosts
+    if total % n_data:
+        raise ValueError(f"a global batch of {total} rows ({n_hosts} hosts "
+                         f"of {local_rows}) does not split over a data "
+                         f"axis of {n_data}")
+    per = total // n_data
+    lo = d * per - h * local_rows
+    if lo < 0 or lo + per > local_rows:
+        raise ConfigError(
+            f"rank {mesh.rank} (data index {d}) trains rows [{d * per}, "
+            f"{(d + 1) * per}) of the global batch, outside host {h}'s "
+            f"slice: a pod needs `data` as the mesh's leading axis, over "
+            f"a multiple of the {n_hosts} hosts")
+    return slice(lo, lo + per)
 
 
-shard_batch_process_local = _process_local
-shard_blocks_process_local = _process_local
+def shard_batch_process_local(batch: Mapping[str, Any], mesh: Mesh,
+                              keep: Sequence[str] = (),
+                              hosts: Optional[tuple[int, int]] = None
+                              ) -> dict:
+    """This rank's rows of its host's slice of a global batch (views); the
+    keys in `keep` stay whole.  `hosts` = (host, number of hosts), by
+    default this process's (`mesh.host_shard_info`)."""
+    rows = None
+    out = {}
+    for k, v in batch.items():
+        if k in keep:
+            out[k] = v
+            continue
+        if rows is None:
+            rows = _host_rows(v.shape[0], mesh, hosts)
+        out[k] = v[rows]
+    return out
+
+
+def shard_blocks_process_local(blocks: Mapping[str, Any], mesh: Mesh,
+                               keep: Sequence[str] = (),
+                               hosts: Optional[tuple[int, int]] = None
+                               ) -> dict:
+    """This rank's rows of its host's (nb, B / H, ...) blocks, sliced on
+    axis 1."""
+    rows = None
+    out = {}
+    for k, v in blocks.items():
+        if k in keep:
+            out[k] = v
+            continue
+        if rows is None:
+            rows = _host_rows(v.shape[1], mesh, hosts)
+        out[k] = v[:, rows]
+    return out
 
 
 def _adapt(spec: Spec, ndim: int) -> Spec:

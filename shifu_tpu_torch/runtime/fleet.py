@@ -899,10 +899,22 @@ class FleetManager:
 
     def _monitor_loop(self) -> None:
         tick = self.fleet.heartbeat_every_s
+        nap, held = min(tick, 0.2), False
         while self._running:
-            time.sleep(min(tick, 0.2))
+            t_nap = time.monotonic()
+            time.sleep(nap)
             if not self._running:
                 return
+            if time.monotonic() - t_nap > nap + tick and not held:
+                # this process was starved for more than a beat (a loaded
+                # host): its in-process members' heartbeats were held up
+                # alike, so their leases get one tick to catch up.  Only
+                # one: the next tick judges whatever its delay, or a
+                # process that stays starved would never fail over a
+                # member that really died
+                held = True
+                continue
+            held = False
             try:
                 self.check_members()
                 self._retry_stale()

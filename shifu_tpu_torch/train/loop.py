@@ -63,13 +63,26 @@ sharding_rules): `shifu.sharding.rules`, vocab-sharded sparse tables, the
 field axis of embedding tables, MoE experts over `model`, a pipelined
 trunk's stages over `pipe`; ring and Ulysses attention use the `seq` axis.
 A per-block FT checkpoint resumes into a stacked trunk and back
-(`restore_latest_any_layout`).  A pod's process-local input raises
-(ROADMAP.md queue A item (f)).
+(`restore_latest_any_layout`).
+
+Under a pod (more than one host, parallel/distributed.pod_contract) each
+host loads only its file shard, and a rank is fed only its own rows of
+its host's slice of every global batch (the JAX package's process-local
+data): the hosts agree (MIN over the control group) on streaming or
+loading, on the compact wire, on min_host_rows, which sizes the epochs
+(global batch B, B / hosts a host), and on each epoch's file listing;
+the first epoch streams in agreed rounds.  Every epoch ends with the
+straggler line and its `host_skew` row (obs/aggregate.epoch_skew: each
+host's input seconds, ingest, order and shard digests) and a
+`dcn_placement` row.  A pod rank catches no SIGTERM and has no mid-epoch
+save point, as in the JAX package: the gang's teardown is immediate and
+the epoch saves keep the progress.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import signal
 import threading
@@ -88,9 +101,12 @@ from ..embed.dedup import attach_dedup
 from ..models.registry import build_model
 from ..ops import metrics as metrics_lib
 from ..parallel import distributed
+from ..parallel import mesh as mesh_lib
 from ..parallel.mesh import DATA_AXIS, PIPE_AXIS
 from ..parallel.pipeline import n_microbatches
-from ..parallel.sharding import place_model, shard_batch, sharding_rules
+from ..parallel.sharding import (place_model, shard_batch,
+                                 shard_batch_process_local,
+                                 shard_blocks_process_local, sharding_rules)
 from . import checkpoint as ckpt_lib
 from . import profiler as prof_lib
 from . import sparse_embed
@@ -357,16 +373,25 @@ def evaluate(state: TrainState, ds: pipe.TabularDataset, job: JobConfig,
     scores of the rows with nonzero weight (the baseline score sketch).
     On a mesh the batch rounds up to a multiple of its size, each rank
     scores its rows and the scores are gathered over the data group: every
-    rank gets the metrics of one device."""
-    if ds.num_rows == 0:
+    rank gets the metrics of one device.  Under a pod `ds` is this host's
+    shard: every host feeds its rows to the same number of global batches
+    (agreed over the mesh; a short host feeds zero-weight rows), and the
+    gathered scores give every rank the global metrics."""
+    multihost = mesh is not None and mesh_lib.host_shard_info(mesh)[1] > 1
+    if ds.num_rows == 0 and not multihost:
         return float("nan"), float("nan")
-    bs = batch_size or eval_batch_size(job, ds.num_rows)
+    bs = batch_size or (max(job.data.batch_size, 4096) if multihost
+                        else eval_batch_size(job, ds.num_rows))
     if mesh is not None:
         bs = -(-bs // mesh.size) * mesh.size
     if job.model.pipeline_stages > 1:
         # the pipelined trunk splits every batch into microbatches
         quantum = n_microbatches(job.model) * (mesh.size if mesh else 1)
         bs = -(-bs // quantum) * quantum
+
+    if multihost:
+        return _evaluate_pod(state, ds, job, eval_step, device, bs,
+                             score_sink, mesh)
 
     def score(padded: dict) -> torch.Tensor:
         if mesh is None:
@@ -403,6 +428,44 @@ def evaluate(state: TrainState, ds: pipe.TabularDataset, job: JobConfig,
             fetch(pend.popleft())
     while pend:
         fetch(pend.popleft())
+    return sm.weighted_error(), sm.auc()
+
+
+def _evaluate_pod(state: TrainState, ds: pipe.TabularDataset, job: JobConfig,
+                  eval_step, device: torch.device, bs: int, score_sink,
+                  mesh) -> tuple[float, float]:
+    """`evaluate` under a pod: global batch i is every host's rows [i * bs
+    / H, (i + 1) * bs / H) of its shard, zero-weight padded; the step count
+    is the largest host's (a MAX over the control group); scores, targets
+    and weights are gathered over the data group in global row order."""
+    _, n_hosts = mesh_lib.host_shard_info(mesh)
+    local_bs = bs // n_hosts
+    steps = torch.tensor([-(-ds.num_rows // local_bs)], dtype=torch.int64)
+    n_steps = int(distributed.all_reduce(steps, mesh.control, "max")[0])
+    if n_steps == 0:
+        return float("nan"), float("nan")
+    wcast = pipe.wire_cast_fn(job.schema, job.data, job.model.compute_dtype)
+    group = mesh.group(DATA_AXIS)
+    sm = metrics_lib.StreamingMetrics()
+    for i in range(n_steps):
+        lo = min(i * local_bs, ds.num_rows)
+        hi = min(lo + local_bs, ds.num_rows)
+        local, _ = pipe.pad_to_batch(
+            {"features": ds.features[lo:hi], "target": ds.target[lo:hi],
+             "weight": ds.weight[lo:hi]}, local_bs)
+        mine = shard_batch_process_local(local, mesh)
+        tw = torch.from_numpy(np.stack(
+            [mine["target"][:, 0], mine["weight"][:, 0]], axis=1)
+            .astype(np.float32)).to(device)
+        if wcast is not None:
+            mine = wcast(mine)
+        s = eval_step(state, to_device(mine, job, device))[:, :1]
+        out = distributed.all_gather(torch.cat([s.float(), tw], 1), group,
+                                     0).cpu().numpy()
+        scores, tgt, wgt = out[:, 0], out[:, 1], out[:, 2]
+        sm.update(scores, tgt, wgt)
+        if score_sink is not None:
+            score_sink(scores[wgt > 0])
     return sm.weighted_error(), sm.auc()
 
 
@@ -553,6 +616,21 @@ def train(job: JobConfig,
     # init_state and the make_*_step functions take the mesh only when
     # there is one (a caller may wrap them with the one-device signature)
     on = {} if mesh is None else {"mesh": mesh}
+    # a pod: each host holds its own file shard, and each rank is fed only
+    # its rows (module docstring)
+    host, nhosts = (mesh_lib.host_shard_info(mesh) if mesh is not None
+                    else (0, 1))
+    multihost = nhosts > 1
+    step_on = dict(on, process_local=True) if multihost else on
+    control = mesh.control if mesh is not None else None
+
+    def agree_min(*vals: int) -> list[int]:
+        """The smallest of each value over the ranks (itself alone)."""
+        if control is None:
+            return [int(v) for v in vals]
+        t = torch.tensor([int(v) for v in vals], dtype=torch.int64)
+        return [int(v) for v in
+                distributed.all_reduce(t, control, "min").tolist()]
     # the JAX loop's refusal: it takes the resident or the staged tier
     # exactly when data.staged and data.drop_remainder are both set
     if job.train.local_sgd_window > 0 and not (job.data.staged
@@ -573,8 +651,10 @@ def train(job: JobConfig,
     cdt = job.model.compute_dtype
     wmode = pipe.wire_mode(job.schema, job.data, cdt)
     # the streamed epoch's cast detects the compact target/weight per
-    # block (content-driven, so a resume replays identical formats)
-    wcast_stream = pipe.wire_cast_fn(job.schema, job.data, cdt, compact=True)
+    # block (content-driven, so a resume replays identical formats); a
+    # pod's hosts keep the wide wire, as the JAX package's do
+    wcast_stream = pipe.wire_cast_fn(job.schema, job.data, cdt,
+                                     compact=not multihost)
     # the loaders store the features in the wire dtype; the int8 grid's
     # clip rides in the cache key, so a changed grid never reuses entries
     feature_dtype = {"int8": f"int8c{job.data.wire_int8_clip:g}",
@@ -590,22 +670,30 @@ def train(job: JobConfig,
                        and not job.data.out_of_core
                        and job.data.staged and job.data.drop_remainder
                        and not (0.0 < rate < 1.0))
-        if want_stream and pipe.projected_cache_complete(
-                job.schema, job.data, feature_dtype):
-            # a hot cache loads at np.load speed: no parse left to hide,
-            # and the loaded tiers beat training in file order
-            console("Projected cache is hot for every input file: "
-                    "skipping the streamed first epoch")
-            want_stream = False
         if want_stream:
-            stream_loader = pipe.StreamingLoader(job.schema, job.data,
-                                                 feature_dtype)
+            cache_hot = pipe.projected_cache_complete(
+                job.schema, job.data, feature_dtype, host_index=host,
+                num_hosts=nhosts)
+            if multihost:
+                # streaming or loading is collective: every host agrees
+                (cache_hot,) = agree_min(cache_hot)
+            if cache_hot:
+                # a hot cache loads at np.load speed: no parse left to
+                # hide, and the loaded tiers beat training in file order
+                console("Projected cache is hot for every input file: "
+                        "skipping the streamed first epoch")
+                want_stream = False
+        if want_stream:
+            stream_loader = pipe.StreamingLoader(
+                job.schema, job.data, feature_dtype, host_index=host,
+                num_hosts=nhosts)
         else:
             # blocking ingest (hot cache, loaded tiers, out of core),
             # charged to the first epoch's input bucket below
             t_ingest = time.perf_counter()
             train_ds, valid_ds = pipe.load_datasets(
-                job.schema, job.data, feature_dtype=feature_dtype)
+                job.schema, job.data, host, nhosts,
+                feature_dtype=feature_dtype)
             pending_ingest_s = time.perf_counter() - t_ingest
     if valid_ds is None and stream_loader is None:
         raise ValueError("train() needs valid_ds when train_ds is given")
@@ -632,8 +720,9 @@ def train(job: JobConfig,
 
     local_sgd = job.train.local_sgd_window > 0
     k_win = max(job.train.local_sgd_window, 1)
-    epoch_scan_step = (make_local_sgd_epoch_step(job, mesh) if local_sgd
-                       else make_epoch_scan_step(job, **on))
+    epoch_scan_step = (make_local_sgd_epoch_step(job, mesh,
+                                                 process_local=multihost)
+                       if local_sgd else make_epoch_scan_step(job, **step_on))
     # chunks of ~32 MB of wire bytes, so a copy stays short and overlaps
     # compute; by bytes, not rows (the int8 wire carries 4x the rows).
     # Local SGD keeps them a multiple of its window, so that no window is
@@ -646,7 +735,12 @@ def train(job: JobConfig,
     staged_block_batches = max(1, min(block_batches, chunk_cap))
     put, ready = make_placer(job, dev)
 
-    # tier plumbing, resolved by _prepare_tiers once train_ds exists
+    # tier plumbing, resolved by _prepare_tiers once train_ds exists; under
+    # a pod every sizing below derives from numbers the hosts agreed on
+    min_host_rows = 0
+    local_bs = job.data.batch_size
+    steps_per_epoch = None
+    host_input_times: list[float] = []
     bs = job.data.batch_size
     use_resident = use_staged = False
     resident_blocks = None
@@ -662,32 +756,70 @@ def train(job: JobConfig,
     feeder_host_depth = job.data.prefetch_depth or 4
     feeder_dev_depth = job.data.prefetch if job.data.prefetch_depth else 2
 
+    def _timed(items):
+        """`items`, each pull's host seconds recorded (the pod's straggler
+        line reads them)."""
+        it = iter(items)
+        while True:
+            t_in = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            host_input_times.append(time.perf_counter() - t_in)
+            yield b
+
+    def staged_source(ep: int) -> pipe.TabularDataset:
+        """This host's rows for one staged epoch: under a pod exactly
+        min_host_rows (agreed block counts), a host with more drawing an
+        epoch-seeded subset, so that its tail rows still train."""
+        if not multihost or train_ds.num_rows <= min_host_rows:
+            return train_ds
+        if job.data.shuffle:
+            rng = np.random.default_rng(
+                np.random.PCG64(job.data.shuffle_seed * 9176 + ep))
+            keep = np.sort(rng.permutation(train_ds.num_rows)[:min_host_rows])
+        else:
+            keep = np.arange(min_host_rows)
+        return train_ds.take(keep)
+
     def _staged_host_blocks(ep: int):
-        """The staged epoch's blocks, wire-cast on the producing thread."""
+        """The staged epoch's blocks, wire-cast on the producing thread
+        (under a pod, this rank's rows of its host's blocks)."""
         for b in pipe.staged_epoch_blocks(
-                train_ds, bs, shuffle=job.data.shuffle,
+                staged_source(ep), local_bs, shuffle=job.data.shuffle,
                 seed=job.data.shuffle_seed, epoch=ep,
                 block_batches=staged_block_batches):
-            yield wcast(b) if wcast is not None else b
+            b = wcast(b) if wcast is not None else b
+            yield shard_blocks_process_local(b, mesh) if multihost else b
 
     def _perbatch_host_batches(ep: int):
         """The epoch's batches, deduped and wire-cast on the producing
-        thread (the feeder's assembly thread when the overlap is on)."""
-        for b in pipe.batch_iterator(
-                train_ds, bs, shuffle=job.data.shuffle,
-                seed=job.data.shuffle_seed, epoch=ep,
-                drop_remainder=job.data.drop_remainder):
-            yield bcast(b) if bcast is not None else b
+        thread (the feeder's assembly thread when the overlap is on);
+        under a pod the agreed number of this rank's rows."""
+        hb = pipe.batch_iterator(
+            train_ds, local_bs, shuffle=job.data.shuffle,
+            seed=job.data.shuffle_seed, epoch=ep,
+            drop_remainder=job.data.drop_remainder or multihost)
+        if multihost:
+            hb = itertools.islice(hb, steps_per_epoch)
+        for b in hb:
+            b = bcast(b) if bcast is not None else b
+            yield shard_batch_process_local(b, mesh) if multihost else b
 
     def _prepare_tiers():
         nonlocal bs, use_resident, use_staged, resident_blocks, \
-            device_epoch_step, train_step, wcast, bcast, dedup, prepared
+            device_epoch_step, train_step, wcast, bcast, dedup, prepared, \
+            min_host_rows, local_bs, steps_per_epoch
         prepared = True
         # compact target/weight wire, decided once over the whole partition
+        # (under a pod, over every host's shard)
         label_ok = (job.data.wire_label_dtype in ("auto", "uint8")
                     and pipe.target_u8_exact(train_ds.target))
         weight_ok = (job.data.wire_weight_mode in ("auto", "elide")
                      and pipe.weight_all_ones(train_ds.weight))
+        min_host_rows, label_ok, weight_ok = agree_min(
+            train_ds.num_rows, label_ok, weight_ok)
         if job.data.wire_label_dtype == "uint8" and not label_ok:
             raise ValueError("wire_label_dtype=uint8 but targets are not "
                              "integers in [0, 255] — use "
@@ -697,23 +829,35 @@ def train(job: JobConfig,
                              "all 1.0 — use wire_weight_mode=auto or "
                              "float32")
         wcast = pipe.wire_cast_fn(job.schema, job.data, cdt,
-                                  compact=(label_ok, weight_ok))
-        if train_ds.num_rows == 0:
-            raise ValueError("training dataset has 0 rows — nothing to "
+                                  compact=(bool(label_ok), bool(weight_ok)))
+        if min_host_rows == 0:
+            raise ValueError("a training data shard has 0 rows — nothing "
+                             "to train on" if multihost else
+                             "training dataset has 0 rows — nothing to "
                              "train on")
         bs = job.data.batch_size
         quantum = mesh.size if mesh is not None else 1
-        if bs > train_ds.num_rows and job.data.drop_remainder:
-            bs = max((train_ds.num_rows // quantum) * quantum, quantum)
-            console(f"batch_size {job.data.batch_size} > {train_ds.num_rows} "
+        capacity = min_host_rows * nhosts  # rows every host can cover
+        if bs > capacity and job.data.drop_remainder:
+            bs = max((capacity // quantum) * quantum, quantum)
+            console(f"batch_size {job.data.batch_size} > {capacity} "
                     f"usable rows; clamped to {bs}")
         # each rank trains an equal share of every global batch
         bs = -(-bs // quantum) * quantum
+        local_bs = bs // nhosts
+        steps_per_epoch = None
+        if multihost:
+            steps_per_epoch = min_host_rows // local_bs
+            if steps_per_epoch == 0:
+                raise ValueError(
+                    f"a host has < {local_bs} rows (global batch {bs} / "
+                    f"{nhosts} hosts) — lower the batch size or rebalance "
+                    "file shards")
         # the tier rule: bytes of the partition in its in-card format
         # against the resident budget
         rfmt = pipe.resident_feature_format(job.schema, job.data, cdt)
-        n = train_ds.num_rows
-        feat_row_bytes = train_ds.features.nbytes // max(n, 1)
+        n = min_host_rows
+        feat_row_bytes = train_ds.features.nbytes // max(train_ds.num_rows, 1)
         if train_ds.features.dtype == np.float32:
             if rfmt == "int8":
                 feat_row_bytes //= 4
@@ -721,19 +865,20 @@ def train(job: JobConfig,
                 feat_row_bytes //= 2
         elif train_ds.features.dtype == np.uint16 and rfmt == "int8":
             feat_row_bytes //= 2
-        tgt_row_bytes = train_ds.target.nbytes // max(n, 1)
+        tgt_row_bytes = train_ds.target.nbytes // max(train_ds.num_rows, 1)
         if label_ok:
             tgt_row_bytes //= 4
-        wgt_row_bytes = 0 if weight_ok else train_ds.weight.nbytes // max(n, 1)
+        wgt_row_bytes = (0 if weight_ok else train_ds.weight.nbytes
+                         // max(train_ds.num_rows, 1))
         ds_bytes = (feat_row_bytes + tgt_row_bytes + wgt_row_bytes) * n
         use_resident = (job.data.staged and job.data.drop_remainder
                         and 0 < ds_bytes <= job.data.device_resident_bytes
-                        and n // bs > 0)
+                        and n // local_bs > 0)
         use_staged = (job.data.staged and job.data.drop_remainder
                       and not use_resident)
         if use_resident:
-            nb_total = n // bs
-            host_blocks = _stack_blocks(train_ds, nb_total, bs)
+            nb_total = n // local_bs
+            host_blocks = _stack_blocks(train_ds, nb_total, local_bs)
             raw_features = host_blocks["features"]
             if wcast is not None:
                 host_blocks = wcast(host_blocks)
@@ -744,14 +889,19 @@ def train(job: JobConfig,
                 host_blocks = dict(host_blocks)
                 host_blocks["features"] = pipe.wire_quantize(
                     pipe.features_f32(raw_features), scale, offset)
+            if multihost:
+                host_blocks = shard_blocks_process_local(host_blocks, mesh)
             resident_blocks = to_device(host_blocks, job, dev)
             device_epoch_step = (
-                make_local_sgd_epoch_step(job, mesh, with_order=True)
-                if local_sgd else make_device_epoch_step(job, **on))
+                make_local_sgd_epoch_step(job, mesh, with_order=True,
+                                          process_local=multihost)
+                if local_sgd else make_device_epoch_step(job, **step_on))
         elif not use_staged:
-            train_step = make_train_step(job, **on)
+            train_step = make_train_step(job, **step_on)
+            # the dedup's unique ids are a global batch's: a pod's hosts
+            # each see only theirs, so there the update extracts the ids
             plan = (sparse_embed.resolve_plan(job)
-                    if job.embed.dedup != "off" else None)
+                    if job.embed.dedup != "off" and not multihost else None)
             bcast = wcast
             if plan is not None:
                 # dedup reads the f32 features: it runs before the cast
@@ -784,17 +934,21 @@ def train(job: JobConfig,
     # preemption: on SIGTERM, save at the next chunk boundary and exit 75.
     # The handler only sets a flag; signal.signal raises off the main
     # thread, and then no handler is installed, as in the JAX loop
+    # A pod rank does not catch SIGTERM, as the JAX package's multi-host
+    # ranks do not: a host draining while its peers run collectives
+    # would deadlock the step; the gang's teardown is immediate and the
+    # checkpoint cadence keeps the progress (launcher/pod.py)
     term_flag = {"hit": False}
     old_term = None
-    try:
-        old_term = signal.signal(signal.SIGTERM,
-                                 lambda *_: term_flag.update(hit=True))
-    except ValueError:
-        pass  # not the main thread
+    if not multihost:
+        try:
+            old_term = signal.signal(signal.SIGTERM,
+                                     lambda *_: term_flag.update(hit=True))
+        except ValueError:
+            pass  # not the main thread
 
     save_secs = job.runtime.checkpoint.save_every_seconds
     last_save = time.monotonic()
-    control = mesh.control if mesh is not None else None
 
     def agree(*flags: bool) -> list[bool]:
         """Each flag set on any rank, on every rank (one gloo all-reduce
@@ -818,8 +972,11 @@ def train(job: JobConfig,
         drain.  A mid-epoch save records the current epoch, so a resume
         replays that epoch from its start.  On a mesh the ranks agree:
         any rank's SIGTERM drains them all, the chief's clock times the
-        cadence."""
+        cadence.  A pod has no mid-epoch save point, as in the JAX
+        package: its epochs end on the epoch boundary's save."""
         nonlocal last_save
+        if multihost:
+            return
         # chaos site "train.chunk": dying between a chunk's compute and
         # its save
         chaos.maybe_fail("train.chunk", echo=console, epoch=epoch)
@@ -866,6 +1023,42 @@ def train(job: JobConfig,
         st, m = train_step(st, batch)
         return st, m["loss"]
 
+    def _stream_pod_rounds(loader, local_stream_bs: int) -> tuple:
+        """The pod's streamed first epoch, in rounds: each host pulls one
+        block of its own shard (blocking, so "none" means its stream
+        ended) and the hosts agree (a MIN over the control group) that all
+        have one; the first dry host ends the epoch for all.  No tail
+        padding: a partial block's rows train in the later epochs.  The
+        pull and the placement run one round ahead, on the producer
+        thread."""
+        nonlocal state
+        end = object()
+        it = pipe.prefetch_to_device(
+            (shard_blocks_process_local(
+                wcast_stream(b) if wcast_stream is not None else b, mesh)
+             for b in loader.first_epoch_blocks(
+                 local_stream_bs, staged_block_batches, pad_tail=False)),
+            put, size=1)
+        acc, n = None, 0
+        while True:
+            t_in = time.perf_counter()
+            pending = next(it, end)
+            host_input_times.append(time.perf_counter() - t_in)
+            (have,) = agree_min(pending is not end)
+            if not have:
+                # a peer ran dry: stop the producer before the loader is
+                # touched again
+                loader.abort_blocks()
+                for _ in it:
+                    pass
+                return acc, n
+            timer.mark_input_ready()
+            xs = ready(pending)
+            state, loss = epoch_scan_step(state, xs)
+            acc = loss if acc is None else acc + loss
+            n += block_batches(xs)
+            timer.mark_step_done()
+
     def block_batches(xs) -> int:
         return xs["features"].shape[0]
 
@@ -886,6 +1079,17 @@ def train(job: JobConfig,
             # work (the previous epoch's save has landed); distinct from
             # the CLI's post-epoch "train.epoch"
             chaos.maybe_fail("train.epoch_start", echo=console, epoch=epoch)
+            if multihost:
+                # the epoch's shard view (chaos site `data.host_shard`, with
+                # the epoch): the hosts agree that they list the same files
+                pipe.host_file_shard(job.data, host, nhosts, epoch=epoch)
+                n_files = pipe.count_source_files(job.data)
+                least, most = agree_min(n_files, -n_files)
+                if least != -most:
+                    raise ValueError(
+                        f"epoch {epoch}: the hosts list between {least} and "
+                        f"{-most} source files; every host must see the "
+                        "same files")
             t0 = time.perf_counter()
             led_open = obs.goodput.begin_epoch()
             # the blocking load before the loop is charged to the first
@@ -908,6 +1112,7 @@ def train(job: JobConfig,
                 pending_loader = None
                 _prepare_tiers()
             loss_acc, loss_n = None, 0
+            host_input_times.clear()
             timer = prof_lib.StepTimer(on_chunk=devprof.chunk_hook(epoch))
             timer.start()
             # the legacy SHIFU_TPU_PROFILE_DIR first-epoch dump keeps its
@@ -927,22 +1132,26 @@ def train(job: JobConfig,
                     console(f"Streaming first epoch: training overlaps the "
                             f"background parse (batch {stream_bs}, "
                             f"{staged_block_batches} batches/chunk)")
-                    # zero-weight tail padding is exact only for the
-                    # weight-gated losses without an L2 term
-                    pad_tail = (job.train.loss in ("weighted_mse",
-                                                   "weighted_bce")
-                                and job.model.l2_scale <= 0)
-                    blocks = (wcast_stream(b) for b in
-                              stream_loader.first_epoch_blocks(
-                                  stream_bs, staged_block_batches,
-                                  pad_tail=pad_tail))
-                    loss_acc, _ = run_chunks(
-                        pipe.prefetch_to_device(blocks, put,
-                                                size=job.data.prefetch),
-                        epoch_scan_step, epoch, timer, block_batches)
-                    # the denominator: batches holding at least one real
-                    # row (pad-only batches add zero loss)
-                    loss_n = stream_loader.real_batches
+                    if multihost:
+                        loss_acc, loss_n = _stream_pod_rounds(
+                            stream_loader, stream_bs // nhosts)
+                    else:
+                        # zero-weight tail padding is exact only for the
+                        # weight-gated losses without an L2 term
+                        pad_tail = (job.train.loss in ("weighted_mse",
+                                                       "weighted_bce")
+                                    and job.model.l2_scale <= 0)
+                        blocks = (wcast_stream(b) for b in
+                                  stream_loader.first_epoch_blocks(
+                                      stream_bs, staged_block_batches,
+                                      pad_tail=pad_tail))
+                        loss_acc, _ = run_chunks(
+                            pipe.prefetch_to_device(blocks, put,
+                                                    size=job.data.prefetch),
+                            epoch_scan_step, epoch, timer, block_batches)
+                        # the denominator: batches holding at least one
+                        # real row (pad-only batches add zero loss)
+                        loss_n = stream_loader.real_batches
                     valid_ds = stream_loader.valid_dataset()
                     pending_loader, stream_loader = stream_loader, None
                     streamed_this_epoch = loss_n > 0
@@ -993,8 +1202,10 @@ def train(job: JobConfig,
                                 host_depth=feeder_host_depth)
                         items = feeder.epoch(epoch)
                     else:
+                        src = source(epoch)
                         items = pipe.prefetch_to_device(
-                            source(epoch), put, size=job.data.prefetch)
+                            _timed(src) if multihost else src, put,
+                            size=job.data.prefetch)
                     if use_staged:
                         loss_acc, loss_n = run_chunks(
                             items, epoch_scan_step, epoch, timer,
@@ -1065,10 +1276,43 @@ def train(job: JobConfig,
             tier = ("stream" if streamed_this_epoch else
                     "resident" if use_resident else
                     "staged" if use_staged else "batch")
+            digest_rows = 0
+            if train_ds is not None:
+                digest_rows = (min_host_rows
+                               if multihost and tier in ("staged", "resident")
+                               else train_ds.num_rows)
             order_digest = pipe.epoch_order_digest(
-                tier, train_ds.num_rows if train_ds is not None else 0, bs,
-                shuffle=job.data.shuffle, seed=job.data.shuffle_seed,
-                epoch=epoch)
+                tier, digest_rows, local_bs, shuffle=job.data.shuffle,
+                seed=job.data.shuffle_seed, epoch=epoch)
+            if multihost:
+                # the slowest-first per-host line on the chief, and its
+                # host_skew row: each host's input seconds (the producer's
+                # when one timed it), cumulative source ingest, and the
+                # digests whose agreement pod-verify audits
+                if feeder is not None:
+                    input_s = feeder.production_seconds(epoch)
+                elif host_input_times:
+                    input_s = sum(host_input_times)
+                else:
+                    input_s = sum(timer.input_times)
+                reg = obs.default_registry()
+                try:
+                    shard_digest = pipe.shard_assignment_digest(
+                        pipe.count_source_files(job.data), nhosts,
+                        seed=job.data.shuffle_seed, epoch=epoch,
+                        mode=job.data.host_shard)
+                except OSError:
+                    shard_digest = None  # the sources went away mid-run
+                prof_lib.straggler_line(
+                    epoch, epoch_time, valid_time, input_s, console,
+                    extra={
+                        "ingest_bytes": int(reg.counter(
+                            "ingest_source_bytes_total").total()),
+                        "ingest_s": round(reg.counter(
+                            "ingest_seconds_total").total(), 3),
+                        "order_digest": order_digest,
+                        "shard_digest": shard_digest,
+                    }, group=control)
 
             # early stopping runs before the terminal save, so that the
             # checkpoint holds the best params the returned state holds
@@ -1130,6 +1374,7 @@ def train(job: JobConfig,
             # against the host seconds the epoch's items cost (production)
             exposed_s = sum(timer.input_times)
             prod_s = (feeder.production_seconds(epoch) if feeder is not None
+                      else sum(host_input_times) if host_input_times
                       else exposed_s)
             hidden_s = max(prod_s - exposed_s, 0.0)
             eff = (hidden_s / (hidden_s + exposed_s)
@@ -1151,6 +1396,31 @@ def train(job: JobConfig,
                           pipe.resident_feature_format(job.schema, job.data,
                                                        cdt)
                           if use_resident else None))
+            if multihost:
+                # the input placement ledger: each host's rows go to its
+                # own ranks, so no input byte crosses between hosts; a
+                # replicated input plane would ship (hosts - 1) x the
+                # local bytes.  Local SGD skips the per-step syncs
+                topo = mesh_lib.dcn_topology(mesh)
+                local_input_b = int(digest_rows) * int(row_wire_b)
+                spe = int(steps_per_epoch or 0)
+                k_now = int(job.train.local_sgd_window)
+                sync_rounds = spe // k_now if k_now > 0 else spe
+                sync_skipped = max(spe - sync_rounds, 0) if k_now > 0 else 0
+                param_b = sum(t.numel() * t.element_size()
+                              for t in state.model.parameters())
+                obs.event("dcn_placement", epoch=epoch, tier=tier,
+                          hosts=topo["processes"], slices=topo["slices"],
+                          local_devices=topo["local_devices"],
+                          input_local_bytes=local_input_b,
+                          input_dcn_bytes=0,
+                          input_dcn_saved_bytes=(
+                              (topo["processes"] - 1) * local_input_b),
+                          local_sgd_window=k_now,
+                          sync_rounds=sync_rounds,
+                          sync_rounds_skipped=sync_skipped,
+                          dcn_sync_saved_bytes=sync_skipped * param_b,
+                          ranks=topo["ranks"], backend=topo["backend"])
             obs.counter("overlap_hidden_seconds_total",
                         "input seconds hidden behind device compute by "
                         "the overlap engine").inc(hidden_s, kind="input")

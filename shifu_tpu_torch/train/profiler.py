@@ -11,8 +11,8 @@
 - `trace` / `maybe_trace`: the same as a context (the legacy
   SHIFU_TPU_PROFILE_DIR dump).
 
-The JAX package's `straggler_line` reads `obs/aggregate` across hosts; it
-waits for multi-GPU training (ROADMAP.md queue A item (f)).
+- `straggler_line`: a pod's per-epoch slowest-first line of its hosts
+  and their `host_skew` row (obs/aggregate.epoch_skew).
 """
 
 from __future__ import annotations
@@ -118,6 +118,23 @@ class StepTimer:
         return (f"timing: input p50 {s.get('input_p50_ms', 0):.2f}ms "
                 f"step p50 {s.get('step_p50_ms', 0):.2f}ms "
                 f"input fraction {s.get('input_fraction', 0):.1%}")
+
+
+def straggler_line(epoch: int, epoch_time: float, valid_time: float,
+                   input_seconds: float, console,
+                   extra: Optional[dict] = None, group=None) -> None:
+    """The pod's per-epoch straggler line: every rank contributes (input
+    seconds, epoch and eval time, host name) through one small gather over
+    `group` (the mesh's gloo control group), and the chief prints the
+    hosts slowest-first by HOST INPUT SECONDS (under synchronous data
+    parallelism the epoch wall converges on every rank; host-side input
+    is what a slow disk or NIC shows in) and journals `host_skew`
+    (obs/aggregate.epoch_skew).  Collective: every rank calls it each
+    epoch.  `extra` (cumulative ingest bytes and seconds, the epoch's
+    order digest, the shard-assignment digest) rides the same gather."""
+    from ..obs import aggregate
+    aggregate.epoch_skew(epoch, input_seconds, epoch_time, valid_time,
+                         console=console, extra=extra, group=group)
 
 
 _trace_lock = threading.Lock()

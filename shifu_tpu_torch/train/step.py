@@ -50,6 +50,14 @@ package's sharded step does:
 - the optimizer then runs on each rank on equal gradients, so replicated
   parameters and optimizer state stay bitwise equal across the ranks.
 
+Under a pod (`process_local=True`) a rank receives only its own rows,
+which the loop took out of its host's slice when it placed the batch
+(`parallel/sharding.shard_batch_process_local`): the step is the same,
+on rows a one-host rank would have sliced out of the global batch, so a
+pod and a one-host mesh fed the same global batches train alike.  A
+sparse plan's update, which reads the ids of the global batch, gathers
+them over the data group.
+
 The model-side axes (`model`, `seq`, `pipe`) split parameters or
 activations (parallel/sharding.py) and their collectives carry gradients
 (parallel/distributed.py).  One convention makes every reduction right,
@@ -254,12 +262,13 @@ def _average(tensors: list, group, op: str = "avg") -> None:
             t.copy_(part.view_as(t))
 
 
-def make_train_step(job: JobConfig, mesh=None
+def make_train_step(job: JobConfig, mesh=None, process_local: bool = False
                     ) -> Callable[[TrainState, Batch], tuple[TrainState, dict]]:
     """(state, batch) -> (state, {"loss"}): forward, backward, one update
     (on a mesh: this rank's rows, the average over the data group, the
-    update; `batch` is the global batch)."""
-    return instrument(_train_step_fn(job, mesh), "train_step")
+    update; `batch` is the global batch, or with `process_local` this
+    rank's rows of it)."""
+    return instrument(_train_step_fn(job, mesh, process_local), "train_step")
 
 
 def _model_axes(mesh) -> list:
@@ -316,7 +325,7 @@ def backward_on_mesh(state: TrainState, loss: torch.Tensor,
     return report
 
 
-def _train_step_fn(job: JobConfig, mesh=None):
+def _train_step_fn(job: JobConfig, mesh=None, process_local: bool = False):
     loss_fn = make_loss_fn(job, mesh)
     apply_grads = make_apply_gradients(job, mesh)
 
@@ -336,31 +345,43 @@ def _train_step_fn(job: JobConfig, mesh=None):
     n_data, d = mesh.axis_size(DATA_AXIS), mesh.axis_index(DATA_AXIS)
     l2 = job.model.l2_scale
 
+    from . import sparse_embed
+    sparse = process_local and sparse_embed.resolve_plan(
+        sparse_embed.on_mesh(job, mesh)) is not None
+
     def mesh_step(state: TrainState, batch: Batch):
         model = state.model
         model.train()
         for p in model.parameters():
             p.grad = None
-        local = shard_batch(batch, mesh, keep=(UNIQUE_KEY,))
-        b = batch["features"].shape[0]
+        if process_local:
+            local = batch
+            b = batch["features"].shape[0] * n_data
+        else:
+            local = shard_batch(batch, mesh, keep=(UNIQUE_KEY,))
+            b = batch["features"].shape[0]
         loss = loss_fn(model, local, state.step,
                        rows=(d * b // n_data, (d + 1) * b // n_data, b))
         report = backward_on_mesh(state, loss, l2)
         grads = [p.grad for n, p in model.named_parameters()
                  if not (state.table_slots and n in state.table_slots)]
         _average(grads + [report], data_group)
+        if sparse:  # the update reads the global batch's ids
+            batch = {"features": distributed.all_gather(
+                batch["features"], data_group)}
         state = apply_grads(state, batch)
         return state, {"loss": report[0]}
 
     return mesh_step
 
 
-def make_device_epoch_step(job: JobConfig, mesh=None):
+def make_device_epoch_step(job: JobConfig, mesh=None,
+                           process_local: bool = False):
     """The resident tier's epoch: (state, blocks, order) -> (state, loss
     sum on the card).  `blocks` holds the training partition on the card
     as (nb, B, ...) tensors; `order` is the epoch's block permutation.
     Each block is a view of the resident tensors (no copy)."""
-    train_step = _train_step_fn(job, mesh)
+    train_step = _train_step_fn(job, mesh, process_local)
 
     def epoch_step(state: TrainState, blocks: Batch, order):
         acc = None
@@ -373,13 +394,14 @@ def make_device_epoch_step(job: JobConfig, mesh=None):
     return instrument(epoch_step, "device_epoch_step")
 
 
-def make_epoch_scan_step(job: JobConfig, mesh=None):
+def make_epoch_scan_step(job: JobConfig, mesh=None,
+                         process_local: bool = False):
     """The staged tier's step (JAX `make_epoch_scan_step`): (state, block)
     -> (state, the loss summed over the block on the card).  `block`
     holds nb host-fed batches on the card as (nb, B, ...) tensors; the
     batches train in their order in the block, each a view (no copy), and
     nothing is read back to the host inside the block."""
-    train_step = _train_step_fn(job, mesh)
+    train_step = _train_step_fn(job, mesh, process_local)
 
     def scan_step(state: TrainState, block: Batch):
         acc = None
@@ -392,7 +414,8 @@ def make_epoch_scan_step(job: JobConfig, mesh=None):
 
 
 def make_local_sgd_epoch_step(job: JobConfig, mesh=None,
-                              with_order: bool = False):
+                              with_order: bool = False,
+                              process_local: bool = False):
     """Local SGD over one call (JAX `make_local_sgd_epoch_step`): (state,
     blocks) -> (state, loss sum), or (state, blocks, order) on the
     resident tier (`with_order`).  Each data rank trains its rows of every
@@ -422,7 +445,7 @@ def make_local_sgd_epoch_step(job: JobConfig, mesh=None,
         acc = None
         for i, idx in enumerate(order if with_order else range(nb)):
             xs = {key: v[int(idx)] for key, v in blocks.items()}
-            if mesh is not None:
+            if mesh is not None and not process_local:
                 xs = shard_batch(xs, mesh)
             for p in params:
                 p.grad = None

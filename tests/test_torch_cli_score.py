@@ -13,7 +13,8 @@ the same artifact, on the CPU (`--device cpu`), in this process.
   ships the pack.
 - `serve --port 0` (a thread) answers the loadtest of both packages'
   `loadtest --connect` with no error; `loadtest --model` runs in process.
-- The JAX CLI's other commands raise, naming their ROADMAP.md items.
+- The JAX CLI's pod and provisioning commands (`provision`,
+  `pod-verify`, `data-dryrun`) answer as JAX's do.
 - The wdbc demo's sequence (examples/_run_demo.sh) through the port's
   CLI, cut to tests/test_demo.py's 1200 rows: train, score, score
   --native, agreeing within 1e-5.
@@ -234,14 +235,67 @@ def test_loadtest_in_process_and_its_text_report(job, capsys):
     assert cli.main(["loadtest", "--device", "cpu"]) == 1
 
 
+_POD_ROWS = [{"kind": "pod_epoch_close", "epoch": e, "rank": r, "hosts": 2,
+              "order_digest": f"o{e}", "shard_digest": f"s{e}",
+              "ingest_bytes": 100 + r, "ingest_s": 0.5}
+             for e in range(2) for r in range(2)]
+
+
 @pytest.mark.parametrize("command,item", [
     ("provision", "(f)"), ("pod-verify", "(f)"), ("data-dryrun", "(f)"),
 ])
-def test_the_other_jax_commands_raise_naming_their_item(command, item):
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet.*" + item.replace(
-                           "(", r"\(").replace(")", r"\)")):
-        cli.main([command, "x"])
+def test_the_other_jax_commands_raise_naming_their_item(command, item,
+                                                        tmp_path, capsys):
+    """The three commands that once raised naming (f) now run as JAX's
+    do: `provision` refuses an incomplete spec with JAX's message,
+    `pod-verify` prints JAX's report on the same journal, and a lone
+    `data-dryrun` rank journals JAX's digests on the same files."""
+    del item
+    if command == "provision":
+        argv = ["provision", "status", "--zone", "z"]
+        rc, out, err = cli.main(argv), *capsys.readouterr()
+        want = (jax_cli.main(argv), *capsys.readouterr())
+        assert (rc, out, err) == want and rc == 1
+        assert "shifu.provision.name/accelerator-type" in err
+    elif command == "pod-verify":
+        tele = tmp_path / "job" / "telemetry"
+        tele.mkdir(parents=True)
+        (tele / "journal.jsonl").write_text(
+            "".join(json.dumps(dict(r, ts=1.0 + i)) + "\n"
+                    for i, r in enumerate(_POD_ROWS)))
+        for extra in ([], ["--json"]):
+            argv = ["pod-verify", str(tmp_path / "job"), *extra]
+            rc, out = cli.main(argv), capsys.readouterr().out
+            assert (rc, out) == (jax_cli.main(argv),
+                                 capsys.readouterr().out)
+            assert rc == 0 and "PASS" in out
+    else:
+        from shifu_tpu_torch.data import synthetic
+        synthetic.write_files(synthetic.make_rows(
+            48, synthetic.make_schema(num_features=4), seed=2),
+            str(tmp_path / "d"), num_files=3)
+        argv = ["data-dryrun", "--data", str(tmp_path / "d"), "--features",
+                "4", "--epochs", "2", "--seed", "3"]
+        closes = []
+        for main, name, read in ((cli.main, "port", obs.read_journal),
+                                 (jax_cli.main, "jax",
+                                  jax_obs.read_journal)):
+            obs.reset_for_tests()  # the ingest counters start at 0
+            jax_obs.reset_for_tests()
+            try:
+                assert main(argv + ["--out", str(tmp_path / name)]) == 0
+            finally:
+                obs.reset_for_tests()
+                jax_obs.reset_for_tests()
+            closes.append([
+                {k: e[k] for k in ("epoch", "rank", "hosts", "rows", "files",
+                                   "order_digest", "shard_digest",
+                                   "ingest_bytes")}
+                for e in read(str(tmp_path / name / "telemetry" /
+                                  "journal.jsonl"))
+                if e["kind"] == "pod_epoch_close"])
+        assert closes[0] == closes[1] and len(closes[0]) == 2
+        assert capsys.readouterr().out.count("data-dryrun rank 0/1") == 4
 
 
 def _load_make_demo():

@@ -217,9 +217,39 @@ def test_kill_refuses_a_jax_dispatcher(tmp_path, monkeypatch, capsys):
     assert "refusing to signal it" in capsys.readouterr().out
 
 
-def test_kill_force_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"\(f\)"):
-        cli.main(["kill", str(tmp_path), "--force"])
+def test_kill_force_is_not_ported(tmp_path, monkeypatch, capsys):
+    """`kill --force`, which once raised naming (f), releases the slice a
+    job dir's provision marker records even when the marker was written on
+    another host (plain `kill` refuses that), through the `gcloud` delete
+    JAX's `kill --force` runs for the same marker."""
+    from test_torch_provision import _calls, fake_gcloud_env
+
+    log = fake_gcloud_env(tmp_path, monkeypatch)
+    marker = {"name": "pod-slice", "zone": "us-west4-a", "project": "p",
+              "keep": False, "pid": 1, "host": "another-host",
+              "created_at": 0.0}
+    runs = {}
+    for name, main in (("port", cli.main), ("jax", _jax_cli().main)):
+        job = tmp_path / name
+        job.mkdir()
+        (job / "provision.json").write_text(json.dumps(marker))
+        assert detach.job_state(str(job))["provisioned_slice"] == \
+            "pod-slice"
+        assert main(["kill", str(job)]) == 1  # no job; a foreign marker
+        assert (job / "provision.json").exists()
+        before = len(_calls(log))
+        assert main(["kill", str(job), "--force"]) == 1  # no job.json
+        assert not (job / "provision.json").exists()
+        runs[name] = _calls(log)[before:]
+        assert "released pod-slice" in capsys.readouterr().out
+    assert runs["port"] == runs["jax"] == [[
+        "compute", "tpus", "queued-resources", "delete", "pod-slice",
+        "--zone", "us-west4-a", "--project", "p", "--quiet", "--force"]]
+
+
+def _jax_cli():
+    from shifu_tpu.launcher import cli as jax_cli
+    return jax_cli
 
 
 def test_write_status_only_from_the_recorded_pid(tmp_path):

@@ -814,3 +814,74 @@ def test_member_dirs_feed_the_fleet_rollup(tmp_path):
         assert roll["fleet"] == jax_rollup(dirs)["fleet"]
     finally:
         mgr.stop()
+
+
+def test_the_monitor_judges_no_lease_across_its_own_stall(tmp_path,
+                                                         monkeypatch):
+    """A monitor tick that overslept by more than a heartbeat (the fleet's
+    process starved on a loaded host, its in-process heartbeats held up
+    alike) checks no lease; the next, on time, does."""
+    import shifu_tpu_torch.runtime.fleet as fleet_mod
+
+    mgr = FleetManager("stub://v0", fleet=FleetConfig(
+                           **fleet_kw(heartbeat_every_s=0.5)),
+                       serving=ServingConfig(engine="numpy",
+                                             report_every_s=0.0),
+                       root_dir=str(tmp_path / "fleet"), loader=tag_loader,
+                       device="cpu")
+    clock = [100.0]
+    naps = iter([0.2 + 0.5 + 0.1, 0.2, 0.2 + 0.5 + 0.1, 0.2])
+    checked = []
+
+    def sleep(_s):
+        try:
+            clock[0] += next(naps)
+        except StopIteration:
+            mgr._running = False
+
+    monkeypatch.setattr(fleet_mod.time, "sleep", sleep)
+    monkeypatch.setattr(fleet_mod.time, "monotonic", lambda: clock[0])
+    monkeypatch.setattr(mgr, "check_members",
+                        lambda: checked.append(clock[0]) or [])
+    monkeypatch.setattr(mgr, "_retry_stale", lambda: [])
+    mgr._running = True
+    mgr._monitor_loop()
+    assert checked == [pytest.approx(101.0), pytest.approx(102.0)]
+
+
+def test_a_monitor_starved_every_tick_still_fails_over_a_dead_member(
+        tmp_path, monkeypatch):
+    """Every tick oversleeps by more than a heartbeat: the monitor holds
+    back one tick at most in a row, so it judges every second tick and a
+    member whose lease stopped is failed over all the same."""
+    import shifu_tpu_torch.runtime.fleet as fleet_mod
+
+    obs.configure(str(tmp_path / "tele"))
+    mgr = make_manager(fleet, tmp_path / "fleet", n_daemons=2, standbys=1,
+                       heartbeat_every_s=30.0)
+    mgr.start()
+    try:
+        victim = sorted(mgr.members)[0]
+        age_lease(mgr.members[victim])
+        me, real_sleep, clock, judged = (threading.current_thread(),
+                                         time.sleep, [100.0], [])
+
+        def sleep(s):
+            if threading.current_thread() is not me:
+                return real_sleep(s)
+            clock[0] += s + 30.0 + 1.0   # late by more than a beat
+            mgr._running = clock[0] < 100.0 + 4 * (s + 31.0) + 1.0
+
+        judge = mgr.check_members
+        monkeypatch.setattr(fleet_mod.time, "sleep", sleep)
+        monkeypatch.setattr(fleet_mod.time, "monotonic", lambda: clock[0])
+        monkeypatch.setattr(mgr, "check_members",
+                            lambda: judged.append(judge()) or judged[-1])
+        monkeypatch.setattr(mgr, "_retry_stale", lambda: [])
+        fleet.FleetManager._monitor_loop(mgr)
+        monkeypatch.undo()
+        assert judged == [[victim], []]
+        summary = mgr.summary()
+        assert summary["failovers"] == 1 and victim not in summary["active"]
+    finally:
+        mgr.stop()

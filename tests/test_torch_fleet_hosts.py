@@ -117,11 +117,18 @@ def test_parse_hosts_and_member_command_like_jax(tmp_path, monkeypatch):
         with pytest.raises(ValueError) as got:
             pod.parse_hosts(value)
         assert str(got.value) == str(want.value)
-    # the fleet reads no rendezvous port, so the gang launch's environment
-    # knob cannot break a host list here (JAX's parse_hosts validates it)
+    # the rendezvous port is JAX's: a bad environment value fails an ssh
+    # host list with JAX's message and never a local:N one
     monkeypatch.setenv("SHIFU_TPU_COORDINATOR_PORT", "abc")
-    assert pod.parse_hosts("a,b").hosts == ("a", "b")
+    with pytest.raises(ValueError) as want:
+        jax_pod.parse_hosts("a,b")
+    with pytest.raises(ValueError) as got:
+        pod.parse_hosts("a,b")
+    assert str(got.value) == str(want.value)
+    assert pod.parse_hosts("local:2") == pod.PodSpec(("local",) * 2, "local")
     monkeypatch.delenv("SHIFU_TPU_COORDINATOR_PORT")
+    assert pod.parse_hosts("a,b", 9000).coordinator_port == \
+        jax_pod.parse_hosts("a,b", 9000).coordinator_port == 9000
     spec, jspec = pod.parse_hosts("a,b"), jax_pod.parse_hosts("a,b")
     for rank in (-1, 2):
         with pytest.raises(ValueError) as want:

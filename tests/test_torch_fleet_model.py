@@ -112,6 +112,9 @@ def drill(artifacts, tmp_path_factory):
             senders=2, seed=3)
         timer.join()
         assert wait_for(lambda: mgr.summary()["failovers"] == 1, 5.0)
+        # the pool's replacement standby is spawned after the failover is
+        # journaled and counted: a loaded CPU takes seconds to load it
+        wait_for(lambda: len(mgr.summary()["standbys"]) == 1, 120.0)
         out["after_kill"] = mgr.summary()
         out["member_dirs"] = mgr.member_dirs()
         probe = rows(64, seed=9)

@@ -215,10 +215,63 @@ def test_the_default_device_is_the_card(tmp_path):
     (["--detach", "--num-processes", "2"], r"\(f\)"),
     (["--detach", "--hosts", "local:2"], r"\(f\)"),
 ])
-def test_unported_flags_raise(tmp_path, flags, item):
-    argv = _shifu_files(tmp_path)
-    with pytest.raises(NotImplementedError, match="not ported yet.*" + item):
-        cli.main(argv + ["--device", "cpu"] + flags)
+def test_unported_flags_raise(tmp_path, flags, item, monkeypatch, capsys):
+    """The pod's flags, which once raised naming (f), now train a pod of
+    two simulated hosts on the CPU, in the foreground or as a detached
+    job whose `attach` exits with its code; each host's log is kept and
+    the chief's board holds both epochs, with no mention of (f)."""
+    import re
+    argv = _shifu_files(tmp_path, num_files=4)
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+         os.environ.get("PYTHONPATH", "")]))
+    out = tmp_path / "j"
+    # the job's own deadline bounds the gang (the supervisor's and each
+    # rank's)
+    assert cli.main(argv + ["--device", "cpu", "--output", str(out),
+                            "--timeout", "120"] + flags) == 0
+    if "--detach" in flags:
+        assert cli.main(["attach", str(out)]) == 0
+    capsys.readouterr()
+    for rank in range(2):
+        assert (out / "logs" / f"host-{rank}.attempt-1.log").exists()
+    board = (out / "console.board").read_text()
+    assert board.count("Epoch 1:") == 1 and "model exported to" in board
+    assert not re.search(item, board)
+    skews = [json.loads(ln) for ln in (out / "telemetry" / "journal.jsonl")
+             .read_text().splitlines() if '"host_skew"' in ln]
+    assert [len(e["hosts"]) for e in skews] == [2, 2]
+
+
+def test_every_jax_command_and_flag_is_in_the_port():
+    """The two parsers side by side: every command and flag of JAX's CLI
+    is in the port's, and the only flags the port adds are its deliberate
+    ones (`--device`, and the engine names of `--engine`)."""
+    import argparse
+
+    def commands(parser):
+        sub = [a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction)][0]
+        return {name: {opt for act in p._actions
+                       for opt in act.option_strings} | {
+                           act.dest for act in p._actions
+                           if not act.option_strings}
+                for name, p in sub.choices.items()}, sub
+
+    port, psub = commands(cli.build_parser())
+    jax, jsub = commands(jax_cli.build_parser())
+    assert set(jax) <= set(port)
+    for name, flags in jax.items():
+        assert flags <= port[name], (name, flags - port[name])
+        assert port[name] - flags <= {"--device"}, (name,
+                                                    port[name] - flags)
+    for name, p in jsub.choices.items():
+        for act in p._actions:
+            if act.choices and act.option_strings != ["--engine"]:
+                theirs = [a for a in psub.choices[name]._actions
+                          if a.dest == act.dest][0]
+                assert list(theirs.choices) == list(act.choices), (
+                    name, act.dest)
 
 
 @pytest.mark.parametrize("xml,item", [

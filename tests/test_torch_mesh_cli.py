@@ -174,11 +174,35 @@ def test_model_axis_and_sharding_rules_through_the_command(tmp_path,
 @pytest.mark.parametrize("flags", [["--num-processes", "2"],
                                    ["--hosts", "local:2"],
                                    ["--devices", "2", "--hosts", "h1,h2"]])
-def test_the_pod_flags_still_raise(tmp_path, flags):
+def test_the_pod_flags_still_raise(tmp_path, flags, monkeypatch, capsys):
+    """The pod's flags, which once raised naming (f): two simulated hosts
+    train the job, the chief's journal holding a `host_skew` row an epoch;
+    `--devices` beside an ssh host list reaches each host (a fake ssh that
+    runs the command here) and is refused there, as in JAX (device
+    counts are per process under multi-host)."""
     argv = _shifu_files(tmp_path)
-    with pytest.raises(NotImplementedError, match=r"not ported yet.*\(f\)"):
-        cli.main(argv + ["--device", "cpu", "--output",
-                         str(tmp_path / "j")] + flags)
+    out = tmp_path / "j"
+    if "h1,h2" in flags:
+        fake_bin = tmp_path / "bin"
+        fake_bin.mkdir()
+        (fake_bin / "ssh").write_text(
+            "#!/bin/sh\nshift 3\nshift\nexec sh -c \"$*\"\n")
+        (fake_bin / "ssh").chmod(0o755)
+        monkeypatch.setenv("PATH", f"{fake_bin}{os.pathsep}"
+                                   f"{os.environ['PATH']}")
+        assert cli.main(argv + ["--device", "cpu", "--output", str(out),
+                                "--max-restarts", "0", "--timeout", "120"]
+                        + flags) == 1
+        capsys.readouterr()
+        for rank in range(2):
+            log = (out / "logs" / f"host-{rank}.attempt-1.log").read_text()
+            assert "--devices is not supported under multi-host" in log
+        return
+    assert cli.main(argv + ["--device", "cpu", "--output", str(out),
+                            "--timeout", "120"] + flags) == 0
+    capsys.readouterr()
+    skews = [e for e in _journal(out) if e["kind"] == "host_skew"]
+    assert [len(e["hosts"]) for e in skews] == [2, 2]
 
 
 def test_supervise_restarts_the_gang_as_one_child(tmp_path, capsys):

@@ -154,6 +154,25 @@ def test_host_shard_info_is_one_host(eight_devices):
     assert topo["devices"] == 8 and topo["slices"] == 1
 
 
+@pytest.mark.parametrize("cards,want", [
+    (["h0|A", "h0|B", "h1|A"], ("nccl", 1)),
+    (["h0|A", "h0|B", "h0|A"], ("gloo", 2)),
+    (["h0|A", "h0|A", "h0|A"], ("gloo", 3))])
+def test_the_placement_takes_gloo_only_where_ranks_share_a_card(cards,
+                                                                 want):
+    """Each rank publishes (host, card) through the store; the group takes
+    gloo as soon as two ranks name the same card, else NCCL."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from shifu_tpu_torch.parallel import distributed
+
+    store = torch.distributed.HashStore()
+    with ThreadPoolExecutor(len(cards)) as pool:
+        got = list(pool.map(lambda r: distributed.placement_backend(
+            store, len(cards), r, cards[r]), range(len(cards))))
+    assert got == [want] * len(cards)
+
+
 def test_shard_batch_and_blocks_match_jax_shards(eight_devices):
     cfg = jax_schema.MeshConfig(data=4, model=2)
     jm = _jax_mesh(cfg)
@@ -174,8 +193,32 @@ def test_shard_batch_and_blocks_match_jax_shards(eight_devices):
             np.testing.assert_array_equal(gotb[k], np.asarray(wantb))
         kept = port_sharding.shard_batch(batch, m, keep=("target",))
         assert kept["target"] is batch["target"]
-    with pytest.raises(NotImplementedError, match=r"pod launcher.*\(f\)"):
-        port_sharding.shard_batch_process_local(batch, m)
+    # process-local: two hosts each holding their half of the global
+    # batch; each rank takes its rows out of its host's half, JAX's shard
+    # of the global array built from the process-local data
+    jpl = jax_sharding.shard_batch_process_local(batch, jm)
+    jplb = jax_sharding.shard_blocks_process_local(blocks, jm)
+    for pos, dev in np.ndenumerate(np.asarray(jm.devices)):
+        m = port_mesh.Mesh(MeshConfig(data=4, model=2), dev.id, {})
+        h = m.axis_index("data") // 2
+        mine = port_sharding.shard_batch_process_local(
+            {k: v[h * 32:(h + 1) * 32] for k, v in batch.items()}, m,
+            hosts=(h, 2))
+        mineb = port_sharding.shard_blocks_process_local(
+            {k: v[:, h * 32:(h + 1) * 32] for k, v in blocks.items()}, m,
+            hosts=(h, 2))
+        for k in batch:
+            want = [s.data for s in jpl[k].addressable_shards
+                    if s.device == dev][0]
+            np.testing.assert_array_equal(mine[k], np.asarray(want))
+            wantb = [s.data for s in jplb[k].addressable_shards
+                     if s.device == dev][0]
+            np.testing.assert_array_equal(mineb[k], np.asarray(wantb))
+    # a rank whose rows lie outside its host's slice is refused
+    with pytest.raises(ConfigError, match="outside host 0"):
+        port_sharding.shard_batch_process_local(
+            batch, port_mesh.Mesh(MeshConfig(data=4, model=2), 7, {}),
+            hosts=(0, 2))
 
 
 def test_param_rules_and_placement_match_jax(eight_devices):

@@ -367,3 +367,30 @@ def update_checks(rank, world, mesh_cfg, table, dense_g, ids, lr) -> dict:
         update(t, slots, g, torch.tensor(ids), lr, unique=True)
         out[rule] = (t.numpy(), [s.numpy() for s in slots])
     return out
+
+
+def pod_cases(rank, world, mesh_cfg, cases, n_hosts) -> list:
+    """`dp_cases` on a pod of `n_hosts` hosts, `world / n_hosts` ranks
+    each: every rank is fed only its rows of its host's slice of each
+    global batch (`shard_batch_process_local`) and steps with
+    `process_local=True`; the losses and this rank's state."""
+    from shifu_tpu_torch.parallel.sharding import shard_batch_process_local
+    from shifu_tpu_torch.train import loop, step
+
+    mesh = _mesh(mesh_cfg)
+    host = rank // (world // n_hosts)
+    out = []
+    for job, batches in cases:
+        state = loop.init_state(job, job.schema.feature_count, "cpu",
+                                mesh=mesh)
+        train_step = step.make_train_step(job, mesh, process_local=True)
+        losses = []
+        for b in batches:
+            rows = len(b["features"]) // n_hosts
+            mine = shard_batch_process_local(
+                {k: v[host * rows:(host + 1) * rows] for k, v in b.items()},
+                mesh, hosts=(host, n_hosts))
+            state, m = train_step(state, to_batch(mine, job))
+            losses.append(float(m["loss"]))
+        out.append({"losses": losses, "state": state_arrays(state)})
+    return out
