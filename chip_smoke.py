@@ -135,7 +135,8 @@ stderr, and no result line is printed):
                batches of the epochs each run trained.  Prints the save and
                restore seconds, the bytes of a step and epoch 1's goodput
                buckets.
-10b. sigterm — a spawned child of that job gets SIGTERM after epoch 0: it
+10b. sigterm — a spawned child of that job (started beside 10a, waiting
+               after epoch 0) gets SIGTERM after epoch 0: it
                must save at epoch 1's first chunk boundary, exit 75 and
                journal `preemption_grace` at that step; the resume here
                trains epochs 1 and 2.
@@ -187,7 +188,7 @@ stderr, and no result line is printed):
                sparse update on (#6 2 x steps) and off: samples/s of each
                and their ratio, and the host time to build the 1.5 GB table.
 19. train   — Wide&Deep on the 1000-column schema (bench.py:507: 50
-               categorical, vocab 1000), batch 8192, 16 steps, dense update:
+               categorical, vocab 1000), batch 8192, 8 steps, dense update:
                #5 launches steps + eval batches.
 20a. flight  — the headline MLP (full width, int8 wire, resident tier, 10
     recorder   batches an epoch, 2 epochs) with `obs.trace_epochs="first"`
@@ -260,7 +261,8 @@ stderr, and no result line is printed):
                torch), and each card tier's enqueue and synced ms of a
                call on features already on the card.
 22b. cold start — the fused pack's build seconds and bytes; fresh
-               processes to their first score of the fused artifact:
+               processes to their first score of the fused artifact
+               (torch and export started together, aot alone after them):
                torch and export on this checkout's built kernels, aot on
                a copy of the package with an empty _build/, no nvcc on
                PATH and CUDA_HOME empty: it loads #1's and #5's libraries
@@ -291,11 +293,12 @@ stderr, and no result line is printed):
 22e. detach — `train --detach` of 8a's job (2 epochs, the cache hot,
                both traced) on the card: `status` RUNNING, `attach`
                to exit 0, `status` FINISHED, #4's kernel in its journal's
-               device profile; a second detached run (2 epochs, epoch 0's
-               checkpoint save held 3 s by a chaos delay) `kill`ed after
-               epoch 0: every process of its tree gone within the 10 s
-               grace (exit 143 after the drain), and a plain `train` on
-               the same --output resumes from its save (`train_resume`).
+               device profile; a second detached run beside it (2
+               epochs, epoch 0's checkpoint save held 3 s by a chaos
+               delay) `kill`ed after epoch 0: every process of its tree
+               gone within the 10 s grace (exit 143 after the drain), and
+               a plain `train` on the same --output, while the first job
+               is attached, resumes from its save (`train_resume`).
                Prints the seconds from submit to exit and from kill to
                gone.
 22f. tiering — bench.py's 10M-vocab rung on this machine's host
@@ -2902,11 +2905,20 @@ def resume_phase(tmp: str, device, train_ds, valid_ds) -> None:
         f"goodput fraction {goodput['goodput_fraction']})")
 
 
-def sigterm_phase(tmp: str, device, train_ds, valid_ds) -> None:
-    """Phase 10b: a child training the staged headline job gets SIGTERM
-    after epoch 0; it saves at the first chunk boundary of epoch 1 and
-    exits 75; the journal holds `preemption_grace` at that step; the
-    resume here finishes the epochs."""
+def start_sigterm_child(tmp: str, device):
+    """10b's child, spawned before 10a so that its start-up and epoch 0
+    run beside 10a (10a and 10b ran one after the other before phase 26
+    needed the time); it waits after epoch 0 for 10b's SIGTERM."""
+    return spawn_child(tmp, staged_headline_job(f"{tmp}/term"), device,
+                       "term")
+
+
+def sigterm_phase(tmp: str, device, train_ds, valid_ds, proc) -> None:
+    """Phase 10b: a child training the staged headline job
+    (`start_sigterm_child`) gets SIGTERM after epoch 0; it saves at the
+    first chunk boundary of epoch 1 and exits 75; the journal holds
+    `preemption_grace` at that step; the resume here finishes the
+    epochs."""
     import math
     import signal
     from shifu_tpu_torch.train import checkpoint as ckpt_lib
@@ -2914,7 +2926,6 @@ def sigterm_phase(tmp: str, device, train_ds, valid_ds) -> None:
 
     d = f"{tmp}/term"
     job = staged_headline_job(d)
-    proc = spawn_child(tmp, job, device, "term")
     deadline = time.monotonic() + CHILD_TIMEOUT_S
     while not os.path.exists(f"{d}.ready"):
         if not proc.is_alive() or time.monotonic() > deadline:
@@ -3073,9 +3084,10 @@ def training_phases(device, tmp: str, kernels: list,
     tr8, va8 = int8_datasets(job, train_ds, valid_ds)
     del train_ds, valid_ds
     save_headline_datasets(tmp, tr8, va8)
+    term = start_sigterm_child(tmp, device)
     resume_phase(tmp, device, tr8, va8)
-    lap("resume")
-    sigterm_phase(tmp, device, tr8, va8)
+    lap("resume (10b's child beside it)")
+    sigterm_phase(tmp, device, tr8, va8, term)
     lap("sigterm")
     feeder_pair("MLP", tmp, staged_headline_job(), tr8, va8, device,
                 "staged", int8_launches(job))
@@ -3279,7 +3291,7 @@ BIG_VOCAB = 4_000_000
 BIG_VOCAB_BATCH = 4096
 BIG_VOCAB_STEPS = 8
 WD_BATCH = 8192
-WD_TRAIN_ROWS = 16 * WD_BATCH
+WD_TRAIN_ROWS = 8 * WD_BATCH   # cut from 16 batches for phase 26
 WD_VALID_ROWS = 8192
 # the DeepFM lockstep computes in f32, as the FT ones do: card and CPU then
 # differ in summation order only (the lookup gradient's index_add_ adds in
@@ -3631,11 +3643,12 @@ def state_and_data_bytes(state, n_rows: int, row_bytes: int) -> int:
 
 
 def flight_mlp(device, tmp: str) -> None:
-    """20a: the headline MLP, resident tier, 2 epochs, the first traced."""
+    """20a: the headline MLP, resident tier, 2 epochs, both traced (26b
+    diffs the two captures); epoch 0's window held to its launches."""
     import torch
     torch.cuda.reset_peak_memory_stats(device)
     job = headline_job(epochs=2)
-    job = job.replace(obs=dataclasses.replace(job.obs, trace_epochs="first",
+    job = job.replace(obs=dataclasses.replace(job.obs, trace_epochs="0,1",
                                               trace_top_k=64))
     tr, va = synthetic_datasets(job.schema, FR_TRAIN_ROWS, FR_VALID_ROWS,
                                 SEED + 20)
@@ -3876,7 +3889,7 @@ PROBE_ROWS = 4096
 # socket's senders run in a process of their own, off the server's GIL
 WIRE_INPROC_RATE = 20_000.0
 WIRE_SOCKET_RATE = 1_000.0
-WIRE_SECONDS = 10.0
+WIRE_SECONDS = 4.0    # cut from 10 s for phase 26
 WIRE_SENDERS = 8
 # 21d: the drift and SLO drills' windows, rows and shifted feature
 DRIFT_FAST_S = 1.0
@@ -4053,6 +4066,8 @@ def wire_phase(fused_dir: str, device, smi_line: str) -> dict:
     from shifu_tpu_torch.runtime.serve import ScoringDaemon
     layers = ft_serving_spec().num_layers
     cfg = ServingConfig(report_every_s=0.0)
+    # the in-process run's loadtest_report lands here (26b diffs it)
+    configure_obs(os.path.join(os.path.dirname(fused_dir), "wire_obs"))
     daemon = ScoringDaemon(fused_dir, config=cfg, device=device).start()
     try:
         reset_launches()
@@ -4540,7 +4555,8 @@ def nvcc_free_env(tmp: str) -> dict:
 
 def cold_start_phase(tmp: str, device, smi_line: str) -> None:
     """22b: fresh processes to a first score of phase 4's fused FT
-    artifact.  torch and export run on this checkout, whose kernels phase
+    artifact: torch, export and the bare artifact's child together, then
+    aot alone.  torch and export run on this checkout, whose kernels phase
     2 built.  aot runs on a copy of the package with an empty `_build/`
     and no nvcc (`nvcc_free_env`): it must load the pack's libraries and
     launch #1; there the bare artifact's export tier must raise
@@ -4568,15 +4584,18 @@ def cold_start_phase(tmp: str, device, smi_line: str) -> None:
     bare_env = nvcc_free_env(tmp)
     per_call = {"ft_block": ft_serving_spec().num_layers,
                 "embedding_lookup": 1}
-    # the tiers one after another, each alone on the host but for the
-    # bare artifact's child, which shares the first one's start-up
+    # torch, export and the bare artifact's child at once (they ran one
+    # after another before phase 26 needed the time: each start-up shares
+    # the host's cores with the other two); aot, the tier a cold start
+    # is served from, alone on the host after them
     bare = start_cold_child(copy, "export", fused, f"{tmp}/cold_bare.json",
                             bare_env, device)
-    recs = {"torch": join_cold_child(start_cold_child(
-        root, "torch", fused, f"{tmp}/cold_torch.json", env, device))}
+    started = {"torch": start_cold_child(
+        root, "torch", fused, f"{tmp}/cold_torch.json", env, device),
+               "export": start_cold_child(
+        root, "export", fused, f"{tmp}/cold_export.json", env, device)}
+    recs = {engine: join_cold_child(st) for engine, st in started.items()}
     bare = join_cold_child(bare)
-    recs["export"] = join_cold_child(start_cold_child(
-        root, "export", fused, f"{tmp}/cold_export.json", env, device))
     recs["aot"] = join_cold_child(start_cold_child(
         copy, "aot", fused, f"{tmp}/cold_aot.json", bare_env, device,
         corrupt_dir=corrupt))
@@ -4605,7 +4624,8 @@ def cold_start_phase(tmp: str, device, smi_line: str) -> None:
         fail(f"22b: the bare artifact without nvcc gave {bare}, expected "
              "KernelBuildError")
     say("22b cold start: seconds from a fresh process's spawn to its first "
-        f"{PROBE_ROWS}-row score of the fused FT artifact on the card: "
+        f"{PROBE_ROWS}-row score of the fused FT artifact on the card, "
+        "torch and export started together, aot alone: "
         + ", ".join(f"{e} {r['seconds']:.2f}" for e, r in recs.items())
         + " (torch and export on this checkout's built kernels; aot on a "
         "copy of the package with an empty _build/ and no nvcc, loading "
@@ -4745,50 +4765,52 @@ def cli_tier_phase(tmp: str, device, smi_line: str) -> None:
     ev = cli_cmd(["eval", "--model", final, "--columnconfig", cc,
                   "--modelconfig", mc, "--engine", "torch",
                   "--data", *parts[:CLI_EVAL_PARTS]], device)
-    default = default_score(tmp, device)
-    cli_wait("22c export", export)
-    export_s = time.perf_counter() - t0
-    for name, proc in procs.items():
-        cli_wait(f"22c score {name}", proc)
-    summary = json.loads(cli_wait("22c eval", ev).strip().splitlines()[-1])
-    cmds_s = time.perf_counter() - t0
-    with np.load(f"{final}/weights.npz") as a, \
-            np.load(f"{tmp}/cli_reexport/weights.npz") as b:
-        same = sorted(a.files) == sorted(b.files) and all(
-            np.array_equal(a[k], b[k]) for k in a.files)
-    probe = reader.read_file(parts[0])[:PROBE_ROWS, 1:]
-    got = ExportScorer(f"{tmp}/cli_reexport", device).compute_batch(probe)
-    want = ExportScorer(final, device).compute_batch(probe)
-    if not same or not np.array_equal(got, want):
-        fail(f"22c export: weights bitwise equal {same}; scoring.pt2 "
-             f"scores max |diff| {np.abs(got - want).max():.3e}")
-    scores = {n: read_scores(f"{tmp}/cli_scores_{n}.txt") for n in procs}
-    n_rows = reader.read_file(parts[0]).shape[0]
-    worst = max(float(np.abs(scores[a] - scores[b]).max())
-                for a in scores for b in scores)
-    if any(v.shape != (n_rows, 1) for v in scores.values()) \
-            or worst > SERVE_ATOL \
-            or not np.array_equal(scores["torch"], scores["export"]):
-        fail(f"22c score: shapes {[v.shape for v in scores.values()]} "
-             f"(want ({n_rows}, 1)), max pairwise {worst:.3e}; torch and "
-             "export must write the same scores")
-    job = job_config_from_shifu(mc, cc)
-    job = job.replace(data=dc.replace(job.data, wire_dtype="float32"))
-    cols = reader.project_columns(np.concatenate(
-        [reader.read_file(p) for p in parts[:CLI_EVAL_PARTS]]), job.schema)
-    held = pipe.TabularDataset(cols["features"], cols["target"],
-                               cols["weight"])
-    state = init_state(job, job.schema.feature_count, device)
-    state.model.load_state_dict(params_from_jax(
-        load_artifact(final).weights, state.model))
-    _, auc = evaluate(state, held, job, make_eval_step(job),
-                      torch.device(device))
-    if summary["rows"] != held.num_rows \
-            or abs(summary["auc"] - auc) > EVAL_AUC_ATOL:
-        fail(f"22c eval: {summary}, evaluate's AUC {auc:.6f} on "
-             f"{held.num_rows} rows (tol {EVAL_AUC_ATOL:g})")
+    # the daemon starts beside them (after them before phase 26 needed the
+    # time); the loadtest drives it once they have ended
     server = cli_cmd(["serve", final, "--port", "0"], device)
     try:
+        default = default_score(tmp, device)
+        cli_wait("22c export", export)
+        export_s = time.perf_counter() - t0
+        for name, proc in procs.items():
+            cli_wait(f"22c score {name}", proc)
+        summary = json.loads(cli_wait("22c eval", ev).strip().splitlines()[-1])
+        cmds_s = time.perf_counter() - t0
+        with np.load(f"{final}/weights.npz") as a, \
+                np.load(f"{tmp}/cli_reexport/weights.npz") as b:
+            same = sorted(a.files) == sorted(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in a.files)
+        probe = reader.read_file(parts[0])[:PROBE_ROWS, 1:]
+        got = ExportScorer(f"{tmp}/cli_reexport", device).compute_batch(probe)
+        want = ExportScorer(final, device).compute_batch(probe)
+        if not same or not np.array_equal(got, want):
+            fail(f"22c export: weights bitwise equal {same}; scoring.pt2 "
+                 f"scores max |diff| {np.abs(got - want).max():.3e}")
+        scores = {n: read_scores(f"{tmp}/cli_scores_{n}.txt") for n in procs}
+        n_rows = reader.read_file(parts[0]).shape[0]
+        worst = max(float(np.abs(scores[a] - scores[b]).max())
+                    for a in scores for b in scores)
+        if any(v.shape != (n_rows, 1) for v in scores.values()) \
+                or worst > SERVE_ATOL \
+                or not np.array_equal(scores["torch"], scores["export"]):
+            fail(f"22c score: shapes {[v.shape for v in scores.values()]} "
+                 f"(want ({n_rows}, 1)), max pairwise {worst:.3e}; torch and "
+                 "export must write the same scores")
+        job = job_config_from_shifu(mc, cc)
+        job = job.replace(data=dc.replace(job.data, wire_dtype="float32"))
+        cols = reader.project_columns(np.concatenate(
+            [reader.read_file(p) for p in parts[:CLI_EVAL_PARTS]]), job.schema)
+        held = pipe.TabularDataset(cols["features"], cols["target"],
+                                   cols["weight"])
+        state = init_state(job, job.schema.feature_count, device)
+        state.model.load_state_dict(params_from_jax(
+            load_artifact(final).weights, state.model))
+        _, auc = evaluate(state, held, job, make_eval_step(job),
+                          torch.device(device))
+        if summary["rows"] != held.num_rows \
+                or abs(summary["auc"] - auc) > EVAL_AUC_ATOL:
+            fail(f"22c eval: {summary}, evaluate's AUC {auc:.6f} on "
+                 f"{held.num_rows} rows (tol {EVAL_AUC_ATOL:g})")
         port = serve_port("22c serve", server)
         out = cli_wait("22c loadtest", cli_cmd(
             ["loadtest", "--connect", f"127.0.0.1:{port}", "--rate",
@@ -4956,10 +4978,14 @@ def job_status(label: str, out: str) -> dict:
 
 
 def detach_phase(tmp: str, device, smi_line: str) -> None:
-    """22e: `train --detach`, `status`, `attach`, `kill` on 8a's job."""
+    """22e: `train --detach`, `status`, `attach`, `kill` on 8a's job.  The
+    attached job and the kill drill's job run together (one after the
+    other before phase 26 needed the time), and the drill's resume runs
+    while the first job is attached."""
     from shifu_tpu_torch.launcher import detach
     from shifu_tpu_torch.obs import render
 
+    root = os.path.dirname(os.path.abspath(__file__))
     out = f"{tmp}/cli_detach"
     t0 = time.perf_counter()
     sub, submit_s = cli_child("22e submit",
@@ -4968,26 +4994,6 @@ def detach_phase(tmp: str, device, smi_line: str) -> None:
     st = job_status("22e", out)
     if st["state"] != "RUNNING":
         fail(f"22e: status after submit {st}")
-    _, attach_s = cli_child("22e attach", ["attach", out])
-    to_exit = time.perf_counter() - t0
-    st = job_status("22e", out)
-    if (st["state"], st.get("exit")) != ("FINISHED", 0):
-        fail(f"22e: status after attach {st}")
-    tr = render.trace_summary(out)
-    rows = [k for p in (tr or {}).get("profiles") or [] for k in int8_rows(p)]
-    if not rows or not sum(k["calls"] for k in rows):
-        fail(f"22e: no #4 launch in the detached job's device profile "
-             f"{(tr or {}).get('profiles', [])[:1]}")
-    with open(f"{out}/{detach.LOG_FILE}") as f:
-        log = f.read()
-    say(f"22e detach: submit returned in {submit_s:.3f} s "
-        f"({sub.splitlines()[0]}); status RUNNING; attach followed the "
-        f"board for {attach_s:.3f} s to exit 0; status FINISHED; "
-        f"{to_exit:.3f} s from submit to exit ({DETACH_EPOCHS} epochs of "
-        f"8a's job on the card, the supervised daemon's and its attempt's "
-        f"start-up included); #4 {sum(k['calls'] for k in rows)} calls, "
-        f"{sum(k['device_us'] for k in rows):.3f} us in the traced windows; "
-        f"supervisor.log {len(log)} bytes [{smi_line}]")
 
     kout = f"{tmp}/cli_detach_kill"
     plan = {"faults": [{"site": "checkpoint.save", "at_call": 1,
@@ -5006,20 +5012,49 @@ def detach_phase(tmp: str, device, smi_line: str) -> None:
                  f"s: {job_status('22e kill', kout)}")
         time.sleep(0.05)
     tree = process_tree(pid)
-    t0 = time.perf_counter()
+    t_kill = time.perf_counter()
     kill_out, kill_s = cli_child("22e kill", ["kill", kout])
     while any(detach._alive(p) for p in tree):
-        if time.perf_counter() - t0 > KILL_GRACE_S + 5:
+        if time.perf_counter() - t_kill > KILL_GRACE_S + 5:
             fail(f"22e kill: processes {[p for p in tree if detach._alive(p)]}"
                  f" of the tree alive {KILL_GRACE_S + 5} s after kill")
         time.sleep(0.02)
-    gone_s = time.perf_counter() - t0
+    gone_s = time.perf_counter() - t_kill
     st = job_status("22e kill", kout)
     if gone_s > KILL_GRACE_S or (st["state"], st.get("exit")) != (
             "FAILED", 143) or "terminated" not in kill_out:
         fail(f"22e kill: the tree gone after {gone_s:.3f} s (grace "
              f"{KILL_GRACE_S} s), status {st}, kill said {kill_out!r}")
-    _, resume_s = cli_child("22e resume", argv)
+    # the plain train on the same --output, while the first job is attached
+    t_resume = time.perf_counter()
+    resume = subprocess.Popen(
+        [sys.executable, "-m", "shifu_tpu_torch.launcher.cli", *argv],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    _, attach_s = cli_child("22e attach", ["attach", out])
+    to_exit = time.perf_counter() - t0
+    st = job_status("22e", out)
+    if (st["state"], st.get("exit")) != ("FINISHED", 0):
+        fail(f"22e: status after attach {st}")
+    tr = render.trace_summary(out)
+    rows = [k for p in (tr or {}).get("profiles") or [] for k in int8_rows(p)]
+    if not rows or not sum(k["calls"] for k in rows):
+        fail(f"22e: no #4 launch in the detached job's device profile "
+             f"{(tr or {}).get('profiles', [])[:1]}")
+    with open(f"{out}/{detach.LOG_FILE}") as f:
+        log = f.read()
+    say(f"22e detach: submit returned in {submit_s:.3f} s "
+        f"({sub.splitlines()[0]}); status RUNNING; attach followed the "
+        f"board for {attach_s:.3f} s to exit 0; status FINISHED; "
+        f"{to_exit:.3f} s from submit to exit ({DETACH_EPOCHS} epochs of "
+        f"8a's job on the card, the supervised daemon's and its attempt's "
+        f"start-up included, the kill drill's job beside it); #4 "
+        f"{sum(k['calls'] for k in rows)} calls, "
+        f"{sum(k['device_us'] for k in rows):.3f} us in the traced windows; "
+        f"supervisor.log {len(log)} bytes [{smi_line}]")
+
+    cli_wait("22e resume", resume)
+    resume_s = time.perf_counter() - t_resume
     recs = journal(f"{kout}/telemetry")
     resumes = [r["epoch"] for r in recs if r["kind"] == "train_resume"]
     graces = [r for r in recs if r["kind"] == "preemption_grace"]
@@ -6392,6 +6427,240 @@ def pod_phases(device, tmp: str, smi_line: str) -> None:
         f" s [{smi_line}]")
 
 
+# 26: the operator's tools on the card and the JVM binding on the port
+TOOLS_LOAD_RATE = 5_000.0     # 26b's standalone loadtest, offered rows/s
+TOOLS_LOAD_SECONDS = 1.0
+GOODPUT_SUM_RTOL = 0.01       # 26a: the buckets against the inline wall
+FFM_ROWS = 64                 # 26c: the harness's batch
+FFM_ATOL = 1e-6               # 26c: the harness against NativeScorer
+
+
+def tool_main(main, argv: list) -> tuple:
+    """(exit code, stdout) of a tool's `main(argv)` run in this process."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    return rc, buf.getvalue()
+
+
+def staged_profile_phase(device, tmp: str, smi_line: str) -> None:
+    """26a: `shifu_tpu_torch.tools.profile_staged` at full size on the card,
+    once per wire, into a journal: #4 launched on each int8 wire every
+    step of its 6 epochs and on the bf16 wire not at all; one goodput a
+    wire whose buckets sum to its inline wall within 1%; the probes and
+    the staged_roofline events."""
+    from shifu_tpu_torch.obs import render
+    from shifu_tpu_torch.tools import profile_staged as ps
+    out = f"{tmp}/profile_staged"
+    configure_obs(out)
+    rows = ps.dataset_rows()
+    ds = ps.make_dataset(rows, seed=SEED + 26)
+    nb = rows // ps.BATCH_SIZE
+    epochs = 2 + 1 + ps.PREFETCHED_EPOCHS  # warm, inline, prefetched
+    for name, wire, compact in ps.WIRES:
+        t0 = time.perf_counter()
+        reset_launches()
+        res = ps.profile(device, wires=((name, wire, compact),), ds=ds)
+        launches = read_launches()
+        want = {"int8_matmul": epochs * nb if wire == "int8" else 0}
+        if launches != {k: want.get(k, 0) for k in launches}:
+            fail(f"26a {name}: launches {launches}, expected {want} (#4 on "
+                 "every step of an int8 wire, none on bf16) and no other "
+                 "kernel")
+        r = res["results"][name]
+        say(f"26a {name}: {r['row_bytes']} B a row, {r['chunk_batches']} "
+            f"batches a chunk, {r['n_chunks']} chunks; inline epoch "
+            f"{r['wall_inline_s']} s: assemble {r['assemble_s']} s, put "
+            f"{r['put_s']} s ({r['put_mb_per_s']} MB/s), dispatch "
+            f"{r['dispatch_s']} s, sync {r['sync_s']} s; prefetched walls "
+            f"{r['wall_prefetch_s']} s, {r['rate_prefetch']} rows/s; probe "
+            f"{res['h2d_before'] / 1e6:.1f} MB/s before, "
+            f"{res['h2d_after'] / 1e6:.1f} after; #4 launches "
+            f"{launches['int8_matmul']}; {time.perf_counter() - t0:.1f} s "
+            f"[{smi_line}]")
+    events = journal(out)
+    kinds = [e["kind"] for e in events]
+    good = [e for e in events if e["kind"] == "goodput"]
+    roof = [e for e in events if e["kind"] == "staged_roofline"]
+    if (kinds.count("h2d_probe") != 2 * len(ps.WIRES) or len(good) != 3
+            or len(roof) != 3 or [g["wire"] for g in good] != [
+                w[0] for w in ps.WIRES]):
+        fail(f"26a: journal kinds {kinds}: expected two h2d_probe a wire, "
+             "three goodput and three staged_roofline")
+    for g in good:
+        total = sum(g["buckets"].values())
+        if g["source"] != "profile_staged" or not (
+                abs(total - g["wall_s"]) <= GOODPUT_SUM_RTOL * g["wall_s"]):
+            fail(f"26a {g['wire']}: goodput buckets {g['buckets']} sum to "
+                 f"{total} against the inline wall {g['wall_s']}")
+    for e in roof:
+        say(f"26a {e['wire']}: staged_roofline {e['fraction_at_before_probe']}"
+            f" / {e['fraction_at_after_probe']} of the probe "
+            f"({e['before_mb_per_sec']} / {e['after_mb_per_sec']} MB/s)")
+    # `profile` renders the session: one goodput row a wire
+    text = render.render_profile_text(render.profile_summary(out))
+    if any(f"{g['wall_s']:.3f}" not in text for g in good) \
+            or "goodput mean" not in text:
+        fail(f"26a: `profile` does not render the session: {text[:800]}")
+
+
+def tools_diff_phase(device, tmp: str, smi_line: str) -> None:
+    """26b: `trace_diff` on journals this script wrote (20a's two traced
+    epochs, --serving over 21c's loadtest_report against this phase's,
+    --pod over 25a against 25b) and the standalone `loadtest` for 1 s on
+    phase 4's fused FT artifact (#1 and #5 launched)."""
+    from shifu_tpu_torch.tools import loadtest as lt_tool
+    from shifu_tpu_torch.tools import trace_diff
+    t0 = time.perf_counter()
+    fr = traced_dir(tmp, "fr_mlp")
+    profiles = [e for e in journal(fr) if e["kind"] == "device_profile"]
+    if [p["epoch"] for p in profiles] != [0, 1]:
+        fail(f"26b: 20a's journal holds device_profile epochs "
+             f"{[p['epoch'] for p in profiles]}, expected [0, 1]")
+    sides = []
+    for p in profiles:
+        path = f"{tmp}/rollup_epoch{p['epoch']}.json"
+        with open(path, "w") as f:
+            json.dump(p, f)
+        sides.append(path)
+    rc, text = tool_main(trace_diff.main, sides + ["--json"])
+    rep = json.loads(text) if rc == 0 else {}
+    names = [r["name"] for r in rep.get("kernels", [])]
+    int8 = [n for n in names if any(sym in n for sym in
+                                    KERNEL_SYMBOLS["int8_matmul"])]
+    if rc != 0 or rep.get("verdict") != "PASS" or not int8:
+        fail(f"26b: trace_diff epoch 0 -> 1 exited {rc}: {text[:2000]} "
+             "(expected exit 0 and #4's kernel in the rows)")
+    row = next(r for r in rep["kernels"] if r["name"] == int8[0])
+    say(f"26b trace_diff: 20a epoch 0 -> 1: device total "
+        f"{rep['a_device_us_total']} -> {rep['b_device_us_total']} us, "
+        f"{len(names)} kernels; {int8[0][:60]}: {row['a_us']} -> "
+        f"{row['b_us']} us ({row['a_calls']} -> {row['b_calls']} calls)")
+    # the journal spelling, text: the last capture on each side
+    rc, text = tool_main(trace_diff.main, [fr, fr])
+    if rc != 0 or not text.startswith("trace-diff: PASS") \
+            or int8[0][:40] not in text:
+        fail(f"26b: trace_diff on 20a's journal exited {rc}: {text[:1500]}")
+
+    # the standalone loadtest on the fused FT artifact, its report
+    # journaled beside 21c's
+    configure_obs(f"{tmp}/tools_load")
+    layers = ft_serving_spec().num_layers
+    reset_launches()
+    rc, text = tool_main(lt_tool.main, [
+        "--model", f"{tmp}/fused", "--rate", str(TOOLS_LOAD_RATE),
+        "--duration", str(TOOLS_LOAD_SECONDS), "--json"])
+    launches = read_launches()
+    rep = json.loads(text) if rc == 0 else {}
+    lookups = launches["embedding_lookup"]
+    if rc != 0 or lookups <= 0 or launches != {
+            k: {"ft_block": layers * lookups,
+                "embedding_lookup": lookups}.get(k, 0) for k in launches}:
+        fail(f"26b loadtest: exit {rc}, launches {launches}: expected #1 "
+             f"{layers} x and #5 once a scored batch, no other kernel "
+             f"({text[:1000]})")
+    report_load("26b loadtest", rep, smi_line)
+    say(f"26b loadtest: launches {launches}")
+
+    rc, text = tool_main(trace_diff.main, [
+        f"{tmp}/wire_obs", f"{tmp}/tools_load", "--serving", "--json"])
+    rep = json.loads(text) if rc == 0 else {}
+    axes = {r["axis"]: r for r in rep.get("axes", [])}
+    if rc != 0 or "p99_ms" not in axes or axes["p99_ms"]["status"] != "OK":
+        fail(f"26b: trace_diff --serving 21c -> 26b exited {rc}: "
+             f"{text[:1500]}")
+    say("26b trace_diff --serving: 21c in process -> 26b loadtest: "
+        + ", ".join(f"{a} {r['a']} -> {r['b']}" for a, r in axes.items()
+                    if r["status"] == "OK"))
+    rc, text = tool_main(trace_diff.main, [
+        f"{tmp}/pod_a", f"{tmp}/pod_b", "--pod", "--json"])
+    rep = json.loads(text) if rc == 0 else {}
+    axes = {r["axis"]: r for r in rep.get("axes", [])}
+    if rc != 0 or (axes.get("hosts") or {}).get("b") != 2.0:
+        fail(f"26b: trace_diff --pod 25a -> 25b exited {rc}: {text[:1500]}")
+    say("26b trace_diff --pod: 25a -> 25b: "
+        + ", ".join(f"{a} {r['a']} -> {r['b']}" for a, r in axes.items())
+        + f"; phase {time.perf_counter() - t0:.1f} s")
+
+
+def ffm_rows(n: int, nf: int) -> tuple:
+    """bindings/ffm_harness.c's rows, in numpy: the single row and the
+    batch."""
+    def gen(k):
+        return ((k * 1103515245 + 12345) % 1000) / 1000.0 - 0.5
+    single = gen(np.arange(nf, dtype=np.int64)).astype(np.float64)
+    batch = gen(np.arange(n * nf, dtype=np.int64).reshape(n, nf))
+    return single, batch.astype(np.float32)
+
+
+def jvm_binding_phase(tmp: str, smi_line: str) -> None:
+    """26c: bindings/ffm_harness.c (the Java binding's FFM call sequence)
+    built with g++ and run against the port's scorer library and phase
+    9's trained artifact, its model.bin packed by the port: its scores
+    equal to the port's NativeScorer within FFM_ATOL; a missing model.bin
+    exits 3."""
+    import re
+
+    from shifu_tpu_torch.runtime import (NativeScorer, build_library,
+                                         pack_native)
+    t0 = time.perf_counter()
+    art = f"{tmp}/trained_mlp"
+    pack_native(art)
+    lib = build_library()
+    exe = f"{tmp}/ffm_harness"
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "bindings", "ffm_harness.c")
+    cc = subprocess.run(["g++", "-O2", "-o", exe, src, "-ldl"],
+                        capture_output=True, text=True, timeout=300)
+    if cc.returncode != 0:
+        fail(f"26c: g++ of {src} failed: {cc.stderr[-2000:]}")
+    r = subprocess.run([exe, lib, f"{art}/model.bin", str(FFM_ROWS)],
+                       capture_output=True, text=True, timeout=120)
+    m = re.search(r"num_features=(\d+) num_heads=(\d+)", r.stdout)
+    if r.returncode != 0 or not m:
+        fail(f"26c: the harness exited {r.returncode}: {r.stdout[-1000:]} "
+             f"{r.stderr[-1000:]}")
+    nf = int(m.group(1))
+    single = float(re.search(r"single=([\d.]+)", r.stdout).group(1))
+    rows = sorted(re.findall(r"row(\d+)=([\d.,]+)", r.stdout),
+                  key=lambda x: int(x[0]))
+    got = np.array([[float(v) for v in vals.split(",")] for _, vals in rows])
+    one, batch = ffm_rows(FFM_ROWS, nf)
+    ns = NativeScorer(art, lib_path=lib)
+    try:
+        want_one = float(ns.compute(one))
+        want = ns.compute_batch(batch)
+    finally:
+        ns.close()
+    err = max(abs(single - want_one),
+              float(np.abs(got - want).max()) if got.shape == want.shape
+              else float("inf"))
+    if err > FFM_ATOL:
+        fail(f"26c: the harness's scores against NativeScorer: shape "
+             f"{got.shape} vs {want.shape}, max |diff| {err:.3e} > "
+             f"{FFM_ATOL}")
+    r3 = subprocess.run([exe, lib, f"{art}/nope.bin", "1"],
+                        capture_output=True, text=True, timeout=120)
+    if r3.returncode != 3:
+        fail(f"26c: a missing model.bin exited {r3.returncode}, expected 3")
+    say(f"26c JVM binding: the FFM call sequence on {os.path.basename(lib)} "
+        f"and phase 9's model.bin ({nf} features): 1 + {FFM_ROWS} rows, max "
+        f"|diff| {err:.3e} against NativeScorer (tol {FFM_ATOL:g}); a "
+        f"missing model.bin exits 3; {time.perf_counter() - t0:.1f} s "
+        f"[{smi_line}]")
+
+
+def tools_phases(device, tmp: str, smi_line: str) -> None:
+    staged_profile_phase(device, tmp, smi_line)
+    lap("26a profile_staged")
+    tools_diff_phase(device, tmp, smi_line)
+    lap("26b trace_diff and loadtest")
+    jvm_binding_phase(tmp, smi_line)
+    lap("26c JVM binding")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6537,6 +6806,8 @@ def main() -> None:
         # pipeline-parallel training on torch.distributed
         mesh_phases(device, tmp, smi_line)
         # phase 25, the pod, ran beside 8d (cli_phases)
+        # phases 26a to 26c: the operator's tools and the JVM binding
+        tools_phases(device, tmp, smi_line)
 
     missing = [kr["name"] for kr in kernels if not kr.get("launches")]
     if missing:

@@ -1754,49 +1754,30 @@ def run_loadtest(args) -> int:
     """`loadtest`: the open-loop Poisson harness (runtime/loadtest.py)
     against an artifact in process (--model, on --device) or a running
     `serve` daemon (--connect)."""
-    from .. import obs
-    from ..config.schema import ServingConfig
     from ..runtime import loadtest as lt
 
     if bool(args.model) == bool(args.connect):
         print("loadtest: exactly one of --model / --connect",
               file=sys.stderr, flush=True)
         return EXIT_FAIL
-    obs.configure_from_env()
-    config = None
-    if args.budget_ms:
-        config = ServingConfig(engine=args.engine,
-                               latency_budget_ms=args.budget_ms,
-                               report_every_s=0.0)
-    try:
-        if args.capacity:
-            if not args.model:
-                print("loadtest: --capacity needs --model",
-                      file=sys.stderr, flush=True)
-                return EXIT_FAIL
-            report = lt.find_capacity(args.model, engine=args.engine,
-                                      device=args.device,
-                                      p99_target_ms=args.p99_target_ms,
-                                      senders=args.senders, config=config)
-        else:
-            feats = args.drift_features
-            if feats:
-                feats = [int(v) for v in str(feats).split(",") if v]
-            report = lt.run_loadtest(
-                args.model, connect=args.connect, engine=args.engine,
-                device=args.device, rate=args.rate,
-                duration=args.duration, senders=args.senders,
-                config=config, trace_sample=args.trace_sample,
-                trace_exemplars=args.trace_exemplars,
-                drift_after=args.drift_after, drift_shift=args.drift_shift,
-                drift_features=feats, feedback=args.feedback)
-    except (ValueError, OSError, KeyError, RuntimeError) as e:
-        print(f"loadtest: {e}", file=sys.stderr, flush=True)
+    if args.capacity and not args.model:
+        print("loadtest: --capacity needs --model",
+              file=sys.stderr, flush=True)
         return EXIT_FAIL
-    print(json.dumps(report) if args.json else lt.render_report(report))
-    obs.flush()
-    return EXIT_OK if report.get("completed") \
-        or report.get("capacity_scores_per_sec") else EXIT_FAIL
+    feats = args.drift_features
+    if feats:
+        feats = [int(v) for v in str(feats).split(",") if v]
+    run_kwargs = {} if args.capacity else dict(
+        trace_sample=args.trace_sample,
+        trace_exemplars=args.trace_exemplars,
+        drift_after=args.drift_after, drift_shift=args.drift_shift,
+        drift_features=feats, feedback=args.feedback)
+    return lt.run_command(
+        args.model, connect=args.connect, capacity=args.capacity,
+        engine=args.engine, device=args.device, rate=args.rate,
+        duration=args.duration, senders=args.senders,
+        budget_ms=args.budget_ms, p99_target_ms=args.p99_target_ms,
+        as_json=args.json, **run_kwargs)
 
 
 # -- the operator's views: journal and scrape reads, no torch import ---------

@@ -23,7 +23,7 @@ from . import (devprof, drift, flops, goodput, journal,  # noqa: F401
 from ._sinks import (ENV_METRICS_DIR, SCRAPE_FILE, configure,  # noqa: F401
                      configure_from_env, event, flush, get_journal,
                      metrics_dir, reset_for_tests, resolve_metrics_dir,
-                     shutdown)
+                     set_journal, shutdown)
 from .journal import RunJournal, read_journal, tail_journal  # noqa: F401
 from .metrics import (MetricsRegistry, counter, default_registry,  # noqa: F401
                       gauge, histogram)

@@ -50,6 +50,14 @@ def configure(metrics_dir: str, scrape: bool = True,
         return _journal
 
 
+def set_journal(journal: Optional[journal_mod.RunJournal]) -> None:
+    """Install a journal object directly (an in-memory journal for a tool
+    that prints its records at the end)."""
+    global _journal
+    with _lock:
+        _journal = journal
+
+
 def configure_from_env() -> bool:
     """Configure sinks from SHIFU_TPU_METRICS_DIR, if set and nothing is
     configured yet.  Returns True when a journal is active after the call

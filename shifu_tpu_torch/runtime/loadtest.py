@@ -654,3 +654,52 @@ def _journal(report: dict) -> None:
         obs.flush()
     except Exception:
         pass
+
+
+def run_command(export_dir: Optional[str] = None, *,
+                connect: Optional[str] = None,
+                capacity: bool = False,
+                engine: str = "auto",
+                device: DeviceLike = None,
+                rate: float = 50_000.0,
+                duration: float = 5.0,
+                senders: int = 2,
+                budget_ms: float = 0.0,
+                p99_target_ms: float = 10.0,
+                seed: int = 0,
+                as_json: bool = False,
+                **run_kwargs) -> int:
+    """The `loadtest` command's body, shared by `shifu-tpu-torch loadtest`
+    and `python -m shifu_tpu_torch.tools.loadtest` (each keeps its own
+    parser and usage checks): one fixed-rate run or a capacity ramp,
+    printed as JSON or as `render_report`'s text.  Exit 0 when anything
+    completed, 1 otherwise or on a refused run (a JAX engine name, a
+    missing artifact, no CUDA without `device="cpu"`), which is reported
+    on one stderr line."""
+    import json
+    import sys
+
+    from .. import obs
+
+    obs.configure_from_env()
+    config = None
+    if budget_ms:
+        config = ServingConfig(engine=engine, latency_budget_ms=budget_ms,
+                               report_every_s=0.0)
+    try:
+        if capacity:
+            report = find_capacity(export_dir, engine=engine, device=device,
+                                   p99_target_ms=p99_target_ms,
+                                   senders=senders, config=config, seed=seed)
+        else:
+            report = run_loadtest(export_dir, connect=connect, engine=engine,
+                                  device=device, rate=rate,
+                                  duration=duration, senders=senders,
+                                  config=config, seed=seed, **run_kwargs)
+    except (ValueError, OSError, KeyError, RuntimeError) as e:
+        print(f"loadtest: {e}", file=sys.stderr, flush=True)
+        return 1
+    print(json.dumps(report) if as_json else render_report(report))
+    obs.flush()
+    return 0 if (report.get("capacity_scores_per_sec")
+                 or report.get("completed")) else 1

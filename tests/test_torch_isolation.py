@@ -59,7 +59,7 @@ def test_scan_catches_a_forbidden_import():
 
 
 @pytest.mark.parametrize("sub", ["launcher", "chaos", "runtime", "utils",
-                                 "export", "obs", "models"])
+                                 "export", "obs", "models", "tools"])
 def test_the_launcher_slice_is_scanned_and_imports_alone(sub):
     """The operator's command and what it needs (the launcher, the chaos
     plane, the native parser's build, the XML overlay), and the serving
