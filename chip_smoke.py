@@ -22,11 +22,13 @@ stderr, and no result line is printed):
                attention's bf16 forward and backward at D <= 8, S <= 32;
                the int8 layer's bf16 panel kernel; the rows update's f32
                4-element Adadelta) no spills.
-               While they build, a second process runs the CPU halves of
-               the FT and DeepFM locksteps (phases 11-13, 15); it has
-               ended before the first profile sets CUPTI up, since on the
-               H100 machine profiles taken while such a process lived now
-               and then lost their first device events.
+               While they build, four more processes, one a lockstep,
+               run the CPU halves of the FT and DeepFM locksteps (phases
+               11-13, 15); they have ended before the first profile sets
+               CUPTI up, since on the H100 machine profiles taken while
+               such a process lived now and then lost their first device
+               events.  ft_block.cu builds in 4 parts at once
+               (`ops/_build.PARTS`), linked into its one library.
 3. kernels  — each kernel against its plain PyTorch version on the card, at
                the shapes its path gives it and at edge shapes, with the
                tolerance stated beside each check: the fused block (#1),
@@ -74,7 +76,7 @@ stderr, and no result line is printed):
                (gzip Chrome traces written to chiprun_out/).
 6. train    — the repo's headline MLP job at full width (bench.py: 30
                features, hidden (100, 100, 100) relu, bf16, weighted_mse,
-               Adadelta 0.003, batch 65536, 2,621,440 rows; int8 wire) on
+               Adadelta 0.003, batch 65536, 1,310,720 rows; int8 wire) on
                synthetic rows, 2 epochs through `train(job, ..., device=cuda)`
                on the resident tier: samples/s and metrics per epoch; the
                int8 kernel must have launched once per train step and eval
@@ -94,7 +96,7 @@ stderr, and no result line is printed):
                ["train", ...])` in this process, on the headline MLP at full
                width from ModelConfig.json, ColumnConfig.json and a
                --globalconfig XML (batch 65536, int8 wire, staged tier, 3
-               epochs, a checkpoint every epoch, a cache dir), on 1,048,576
+               epochs, a checkpoint every epoch, a cache dir), on 524,288
                synthetic rows in 16 gzip parts (data/synthetic.write_files
                in a pool of processes): the first epoch streams from the
                parse, every part through the native parser; 16 v2 cache
@@ -148,7 +150,7 @@ stderr, and no result line is printed):
                wire on the producing thread), then, with 10a and 10b, on
                int8 features as the loader stores them.
 11. train   — the FT-Transformer rung at full width (bench.py:524-527: 30
-    FT fused  numeric features, batch 8192, 131,072 rows, bf16 wire; the
+    FT fused  numeric features, batch 8192, 65,536 rows, bf16 wire; the
                model of phase 4, dropout 0), 2 epochs on the resident tier:
                kernel #1 launches 3 x (train steps + eval batches), no other
                kernel; the 8-step card-vs-CPU lockstep at batch 1024 (FT
@@ -167,7 +169,7 @@ stderr, and no result line is printed):
                (the CPU's plain attention at S = 1001 is the limit).
 14. train   — DeepFM at 100k vocab (bench.py:510: 30 features, 6
     DeepFM    categorical, embedding_dim 16, hidden 100-100 relu, bf16,
-               Adadelta 0.003, batch 32768; 1,048,576 rows, 65,536 valid, 1
+               Adadelta 0.003, batch 32768; 524,288 rows, 65,536 valid, 1
                epoch) on the per-batch tier through the feeder (dedup on
                its assembly thread, pinned copies on its own stream) and
                the sparse update: #5 launches steps + eval batches, #6 2 x steps (two
@@ -335,7 +337,9 @@ stderr, and no result line is printed):
                and failed over; SIGTERM: exit 0 and every process gone
                within 10 s; `fleet-verify` PASS.  Prints the seconds from
                spawn to the first routed answer and from the kill to
-               fleet_failover.
+               fleet_failover.  Since PR 20 it runs in a thread beside 22e
+               and 22f (after 22d, before 22g): its seconds and 22e's are
+               taken beside each other's children.
 23a. mesh, NCCL — a spawned child with the environment contract of one
                rank (`parallel/distributed.initialize`: NCCL on cuda:0) and
                a `data=1` mesh: the headline MLP (#4, 8 steps) and the
@@ -399,6 +403,25 @@ stderr, and no result line is printed):
                other kernel; `dcn_placement` says gloo; pod-verify passes
                each (25b's recovery with its one injection).  Prints each
                run's seconds and each epoch's samples/s.
+27. sanitizers — `python -m shifu_tpu_torch.ops.selftest` (every kernel
+               through its wrapper against its plain version, on small
+               cases that reach every branch its launcher picks, and with
+               `--full` one case a kernel at its path's full width) in five
+               children at once: under compute-sanitizer's memcheck (full,
+               4096 bytes of padding), initcheck (full), racecheck and
+               synccheck, each filtered to the port's kernels and with
+               PyTorch's caching allocator off; and under the guard-band
+               allocator with repeated launches (`--guard --repeat
+               --full`: every tensor between 0xFF guards, its own bytes
+               filled with 0xFF, a control write one element past a
+               tensor must trip its guard; each kernel launched 8 times,
+               bitwise equal).  A tool must exit 0 with 0 errors.  First a
+               probe, one cudaMalloc under memcheck: where the tool cannot
+               attach to the card ("Device not supported", as on a gVisor
+               sandbox) the four tools are NOT RUN, and the phase prints
+               the tool's words and the checks that were not made.  Every
+               child that runs must move all nine counters.  No child has
+               nvcc: nothing builds there.
 a JSON line {"kernels": [...]} with each kernel's launches on its
    training path (FT fused for #1, FT unfused for #2 and #3, the headline
    MLP for #4, DeepFM for #5 and #6, FT flash for #7 and #8), its error
@@ -417,6 +440,7 @@ import dataclasses
 import json
 import multiprocessing
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -466,7 +490,7 @@ LOCKSTEP_RTOL = 1e-2
 LOCKSTEP_MOVED_RTOL = 1e-2
 
 # the headline job (bench.py:626-641, :661, :664, :798)
-TRAIN_ROWS = 2_621_440
+TRAIN_ROWS = 1_310_720   # cut from 2,621,440 (40 batches) for phase 27
 VALID_ROWS = 262_144
 TRAIN_BATCH = 65536
 TRAIN_EPOCHS = 2
@@ -490,8 +514,10 @@ ROWS_SHAPE = (32768, 6, 100_000, 16)
 INT8_SHAPE = (65536, 30, 100)
 
 SERVE_THREADS = 8
-SERVE_ROWS_PER_THREAD = 512
-SERVE_FRAMES = 2
+# cut from 512 rows a thread and 2 frames for phase 27: the CPU reference
+# scores every served row, ~9 s for the FT's 12,416 at full width
+SERVE_ROWS_PER_THREAD = 256
+SERVE_FRAMES = 1
 SERVE_CLOSED_LOOP = 4 * 32   # 4 threads x 32 sequential score() calls
 
 
@@ -2233,9 +2259,10 @@ def profile_training(label: str, job, train_ds, valid_ds, device,
 
 # -- phases 8a to 8e: the operator's `train` command on the card --------------
 
-# the headline rows cut to 2^20 in 16 gzip parts (writing gzip text is the
-# limit of the script's time), 3 epochs with a checkpoint every epoch
-CLI_ROWS = 1_048_576
+# the headline rows cut to 2^19 in 16 gzip parts (writing gzip text is the
+# limit of the script's time; cut from 2^20 for phase 27), 3 epochs with a
+# checkpoint every epoch
+CLI_ROWS = 524_288
 CLI_FILES = 16
 CLI_EPOCHS = 3
 SUP_EPOCHS = 2   # 8d's supervised runs: depth cut from 3 for phase 23
@@ -3098,8 +3125,8 @@ def training_phases(device, tmp: str, kernels: list,
 
 # the FT-Transformer rung of bench.py (:524-527, :540-543): token_dim 64, 3
 # layers, 8 heads, mlp_ratio 4, bf16, weighted_mse, Adadelta 0.003, batch
-# 8192, 16 blocks; 30 numeric features on the bf16 wire
-FT_TRAIN_ROWS = 16 * 8192
+# 8192, 8 blocks; 30 numeric features on the bf16 wire
+FT_TRAIN_ROWS = 8 * 8192   # cut from 16 blocks for phase 27
 FT_VALID_ROWS = 16_384
 FT_BATCH = 8192
 FT_EPOCHS = 2
@@ -3194,16 +3221,31 @@ def ft_paths() -> dict:
     }
 
 
-def cpu_lockstep_refs(n_steps: int = 8) -> dict:
-    """The CPU halves of the three FT locksteps and of the DeepFM one,
-    label -> `lockstep_run` on the CPU.  `main` runs this in a process of
-    its own while the kernels build: on the 8-core host of the H100
-    machine the FT halves took 35-51 s in the script's main thread."""
+# the locksteps whose CPU halves `main` runs while the kernels build
+CPU_LOCKSTEP_LABELS = ("FT fused", "FT unfused", "FT flash", "DeepFM")
+
+
+def cpu_lockstep_ref(label: str, n_steps: int = 8):
+    """The CPU half of one lockstep (a label of CPU_LOCKSTEP_LABELS):
+    `lockstep_run` on the CPU.  `main` runs one spawned process a label,
+    all at once, while the kernels build, each on its share of the host's
+    cores: on the 8-core host of the H100 machine the FT halves took 35-51
+    s in the script's main thread, and the four in one process behind the
+    build became the first lap's long pole once the build took ~70 s."""
     import torch
-    paths = {**ft_paths(), "DeepFM": deepfm_lockstep_path()}
-    return {label: lockstep_run(job, lockstep_batches(job, tr, n_steps),
-                                torch.device("cpu"))
-            for label, (_, job, tr, _) in paths.items()}
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0))
+                              // len(CPU_LOCKSTEP_LABELS)))
+    _, job, tr, _ = (deepfm_lockstep_path() if label == "DeepFM"
+                     else ft_paths()[label])
+    return lockstep_run(job, lockstep_batches(job, tr, n_steps),
+                        torch.device("cpu"))
+
+
+def cpu_lockstep_refs(n_steps: int = 8) -> dict:
+    """Every CPU half, label -> `lockstep_run` on the CPU, in this
+    process (a rehearsal's)."""
+    return {label: cpu_lockstep_ref(label, n_steps)
+            for label in CPU_LOCKSTEP_LABELS}
 
 
 def ft_training_phases(device, tmp: str, kernels: list,
@@ -3279,13 +3321,13 @@ def ft_training_phases(device, tmp: str, kernels: list,
 
 # the embedding rungs of bench.py, none cut in width: DeepFM at 100k vocab
 # (:510: 30 features, 6 categorical, embedding_dim 16, hidden 100-100 relu,
-# bf16, weighted_mse, Adadelta 0.003, batch 32768, 32 batches), its 4M-vocab
+# bf16, weighted_mse, Adadelta 0.003, batch 32768, 16 batches), its 4M-vocab
 # sparse-against-dense pair (:366-398: batch 4096, 8 steps) and the
 # 1000-column Wide&Deep (:507: 1000 features, 50 categorical, vocab 1000,
 # batch 8192, 16 batches); 65,536 valid rows for the 100k DeepFM
 DEEPFM_VOCAB = 100_000
 DEEPFM_BATCH = 32768
-DEEPFM_TRAIN_ROWS = 32 * DEEPFM_BATCH
+DEEPFM_TRAIN_ROWS = 16 * DEEPFM_BATCH   # cut from 32 for phase 27
 DEEPFM_VALID_ROWS = 65_536
 BIG_VOCAB = 4_000_000
 BIG_VOCAB_BATCH = 4096
@@ -3889,7 +3931,7 @@ PROBE_ROWS = 4096
 # socket's senders run in a process of their own, off the server's GIL
 WIRE_INPROC_RATE = 20_000.0
 WIRE_SOCKET_RATE = 1_000.0
-WIRE_SECONDS = 4.0    # cut from 10 s for phase 26
+WIRE_SECONDS = 2.0    # cut from 10 s (phase 26), from 4 s (phase 27)
 WIRE_SENDERS = 8
 # 21d: the drift and SLO drills' windows, rows and shifted feature
 DRIFT_FAST_S = 1.0
@@ -5114,13 +5156,44 @@ def tiering_phase(tmp: str, smi_line: str) -> None:
         f"{len(os.sched_getaffinity(0))} CPUs) [{smi_line}]")
 
 
+def start_beside(fn, *args) -> tuple:
+    """Run the phase `fn(*args)` in a thread beside the caller's phases;
+    `join_beside` waits for it and fails the script if it failed (`fail`
+    in a thread ends only that thread)."""
+    box: dict = {}
+
+    def run() -> None:
+        try:
+            fn(*args)
+        except BaseException as e:  # noqa: BLE001 — re-raised by join_beside
+            box["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, box
+
+
+def join_beside(started: tuple) -> None:
+    thread, box = started
+    thread.join()
+    err = box.get("error")
+    if isinstance(err, SystemExit):
+        sys.exit(err.code)
+    if err is not None:
+        raise err
+
+
 def operator_phases(device, tmp: str, smi_line: str) -> None:
     views_phase(tmp, smi_line)
     lap("22d views")
+    # 22h, the fleet command (start-up-bound children), beside 22e and 22f
+    fleet_cmd = start_beside(fleet_command_phase, tmp, device, smi_line)
     detach_phase(tmp, device, smi_line)
-    lap("22e detach")
+    lap("22e detach (22h beside it)")
     tiering_phase(tmp, smi_line)
     lap("22f tiering")
+    join_beside(fleet_cmd)
+    lap("22h fleet command (beside 22e and 22f: the seconds past 22f's end)")
 
 
 # -- phases 22g and 22h: the serving fleet ------------------------------------
@@ -5545,8 +5618,6 @@ def fleet_command_phase(tmp: str, device, smi_line: str) -> None:
 def fleet_phases(device, tmp: str, smi_line: str) -> None:
     fleet_phase(tmp, device, smi_line)
     lap("22g fleet")
-    fleet_command_phase(tmp, device, smi_line)
-    lap("22h fleet command")
 
 
 # -- phase 23: data- and vocab-parallel training on torch.distributed --------
@@ -6661,6 +6732,166 @@ def tools_phases(device, tmp: str, smi_line: str) -> None:
     lap("26c JVM binding")
 
 
+# -- phase 27: the sanitizer tier ----------------------------------------------
+
+# the four compute-sanitizer tools, each over `python -m
+# shifu_tpu_torch.ops.selftest` (its small cases; memcheck and initcheck
+# also the full-width ones); beside them the selftest under the guard-band
+# allocator with each kernel launched `selftest.REPEAT` times (full)
+SANITIZER_TOOLS = ("memcheck", "initcheck", "racecheck", "synccheck")
+SANITIZER_FULL = ("memcheck", "initcheck")
+SANITIZER_EXITCODE = 86
+SANITIZER_PADDING = 4096       # memcheck: bytes between allocations
+SANITIZER_TIMEOUT_S = 600
+# the tool's words where it cannot attach to this machine's card
+SANITIZER_REFUSED = "Device not supported"
+
+
+def compute_sanitizer() -> str:
+    """compute-sanitizer on PATH, then under $CUDA_HOME/bin, as ops/_build
+    finds nvcc; fails the script where there is none."""
+    import shutil
+    path = shutil.which("compute-sanitizer")
+    if path is None:
+        cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "compute-sanitizer")
+        path = cand if os.path.exists(cand) else None
+    if path is None:
+        fail("27: compute-sanitizer not found (PATH or $CUDA_HOME/bin)")
+    return path
+
+
+def selftest_argv(*args: str) -> list:
+    return [sys.executable, "-m", "shifu_tpu_torch.ops.selftest",
+            "--device", "cuda:0", *args]
+
+
+def sanitizer_argv(cs: str, tool: str) -> list:
+    """The tool over the selftest, judging the port's kernels only (a
+    filter by their names: PyTorch's own kernels are not judged)."""
+    argv = [cs, "--tool", tool, "--error-exitcode", str(SANITIZER_EXITCODE),
+            "--print-limit", "100"]
+    for names in KERNEL_SYMBOLS.values():
+        for name in names:
+            argv += ["--kernel-name", f"kns={name}"]
+    if tool == "memcheck":
+        argv += ["--padding", str(SANITIZER_PADDING)]
+    return argv + selftest_argv(*(["--full"] if tool in SANITIZER_FULL
+                                  else []))
+
+
+def selftest_launches(out: str) -> dict:
+    """The selftest's `launches: NAME N` lines."""
+    got = {}
+    for ln in out.splitlines():
+        if ln.startswith("launches: "):
+            name, n = ln.split()[1:3]
+            got[name] = int(n)
+    return got
+
+
+def sanitizer_phase(tmp: str, smi_line: str) -> None:
+    """27: the selftest under memcheck, initcheck, racecheck and synccheck,
+    four children at once, beside one under the guard-band allocator with
+    repeated launches.  A tool must exit 0 with 0 errors and every counter
+    moved.  Where a probe (one cudaMalloc under memcheck, no kernel of the
+    port) shows that the tool cannot attach to the card, the four tools
+    are NOT RUN: the phase prints the tool's words and says which checks
+    were not made.  That is no pass of theirs.  The guard child must pass
+    in either case (every counter moved, no guard written, every repeat
+    bitwise the first)."""
+    from shifu_tpu_torch.ops import _build
+    cs = compute_sanitizer()
+    version = subprocess.run([cs, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+    say(f"27 sanitizers: {version.splitlines()[-1] if version else cs}")
+    guard_lib = _build.build_tool("guard_alloc")
+    # whether the tool can attach to this card at all: one cudaMalloc (the
+    # guard allocator's) under memcheck, in a process without torch
+    probe = subprocess.run(
+        [cs, "--tool", "memcheck", sys.executable, "-c",
+         "import ctypes, sys; f = ctypes.CDLL(sys.argv[1]).guard_malloc; "
+         "f.restype = ctypes.c_void_p; "
+         "f.argtypes = [ctypes.c_ssize_t, ctypes.c_int, ctypes.c_void_p]; "
+         "sys.exit(0 if f(16, 0, None) else 1)", guard_lib],
+        capture_output=True, text=True, timeout=SANITIZER_TIMEOUT_S)
+    refusal = [ln.strip("= ").strip()
+               for ln in (probe.stdout + probe.stderr).splitlines()
+               if SANITIZER_REFUSED in ln]
+    # nothing builds in a child: no nvcc there (the kernels' libraries are
+    # phase 2's, the guard allocator's built just now)
+    env = nvcc_free_env(tmp)
+    # under a tool, no caching allocator: its blocks would hide an overrun
+    tool_env = dict(env, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    runs = {} if refusal else {tool: sanitizer_argv(cs, tool)
+                               for tool in SANITIZER_TOOLS}
+    runs["guard"] = selftest_argv("--guard", "--repeat", "--full")
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    procs, logs = {}, {}
+    t0 = time.perf_counter()
+    for name, argv in runs.items():
+        logs[name] = os.path.join(root, "chiprun_out", f"sanitizer_{name}.log")
+        with open(logs[name], "w") as f:
+            procs[name] = subprocess.Popen(
+                argv, stdout=f, stderr=subprocess.STDOUT, cwd=root,
+                env=tool_env if name in SANITIZER_TOOLS else env)
+    secs = {}
+    while len(secs) < len(procs):  # each child's own seconds
+        for name, proc in procs.items():
+            if name not in secs and proc.poll() is not None:
+                secs[name] = time.perf_counter() - t0
+        if time.perf_counter() - t0 > SANITIZER_TIMEOUT_S:
+            for p in procs.values():
+                p.kill()
+                p.wait()
+            fail(f"27: children still running after {SANITIZER_TIMEOUT_S} "
+                 f"s: {sorted(set(procs) - set(secs))}")
+        time.sleep(0.2)
+    for name in runs:
+        with open(logs[name]) as f:
+            out = f.read()
+        rc = procs[name].returncode
+        launches = selftest_launches(out)
+        moved = ", ".join(f"{k} {v}" for k, v in launches.items())
+        if name in SANITIZER_TOOLS:
+            summary = [ln.strip("= ").strip() for ln in out.splitlines()
+                       if "SUMMARY:" in ln]
+            unchecked = [ln.strip("= ").strip() for ln in out.splitlines()
+                         if "Warning" in ln or "not supported" in ln]
+            say(f"27 {name}: exit {rc}, {secs[name]:.1f} s; "
+                f"{'; '.join(summary) or 'no summary'}; warnings: "
+                f"{'; '.join(unchecked) or 'none'}; launches: {moved}; "
+                f"{smi_line}")
+            # "ERROR SUMMARY: 0 errors"; racecheck's "RACECHECK SUMMARY: 0
+            # hazards displayed (0 errors, 0 warnings)"
+            errors = [re.search(r"(\d+) errors?\b", ln) for ln in summary]
+            if rc != 0 or not summary or any(
+                    m is None or int(m.group(1)) for m in errors):
+                fail(f"27: {name} reported errors or failed (exit {rc}): "
+                     f"see chiprun_out/sanitizer_{name}.log")
+        else:
+            tail = [ln for ln in out.splitlines() if " cases in " in ln]
+            say(f"27 {name}: exit {rc}, {secs[name]:.1f} s; "
+                f"{tail[-1] if tail else 'no summary'}; launches: {moved}; "
+                f"{smi_line}")
+            if rc != 0 or "FAIL" in out:
+                fails = [ln for ln in out.splitlines() if "FAIL" in ln]
+                fail(f"27: the {name} selftest failed (exit {rc}): "
+                     f"{fails[:1] or out[-2000:]}")
+        if (len(launches) != len(KERNEL_SYMBOLS)
+                or not all(launches.values())):
+            fail(f"27: {name}: a kernel did not launch: {launches}")
+    if refusal:
+        say(f"27 compute-sanitizer: NOT RUN: memcheck, initcheck, racecheck "
+            f"and synccheck did not start, since the tool cannot attach to "
+            f"this machine's card (its words on a probe of one cudaMalloc: "
+            f"\"{refusal[0]}\"; exit {probe.returncode}).  Not checked on "
+            f"this card: out-of-bounds and misaligned accesses beyond the "
+            f"guard bands, reads of memory nothing wrote outside the 0xFF "
+            f"fill, shared-memory races, barrier misuse.  {smi_line}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6689,13 +6920,15 @@ def main() -> None:
     say(read_sm_clock())
     device = torch.device("cuda:0")
 
-    # phase 2: build (one nvcc per source) while the CPU halves of the
-    # locksteps run in a process of their own; that process has ended
+    # phase 2: build (one nvcc per source or part) while the CPU halves of
+    # the locksteps run in processes of their own; they have ended
     # before the first profile: profiles taken while it lived, even idle,
     # now and then lost their first device events, in one run more than
     # half of a kernel's in every retake
-    pool = multiprocessing.get_context("spawn").Pool(1)
-    pending = pool.apply_async(cpu_lockstep_refs)
+    pool = multiprocessing.get_context("spawn").Pool(len(CPU_LOCKSTEP_LABELS))
+    pending = pool.map_async(cpu_lockstep_ref, CPU_LOCKSTEP_LABELS,
+                             chunksize=1)
+    t_build = time.perf_counter()
     try:
         build_s = _build.build_all()
     except Exception as e:  # noqa: BLE001 — reported as the phase's failure
@@ -6709,9 +6942,12 @@ def main() -> None:
     sass_jobs = {src: sass_pool.submit(build_report, src)
                  for src in sass_srcs}
     try:
-        cpu_refs = pending.get(timeout=900)
+        cpu_refs = dict(zip(CPU_LOCKSTEP_LABELS, pending.get(timeout=900)))
     except Exception as e:  # noqa: BLE001 — reported as the phase's failure
         fail(f"the CPU halves of the FT locksteps failed: {e!r}")
+    say(f"build: the CPU halves of the locksteps in hand "
+        f"{time.perf_counter() - t_build:.1f} s after the build started "
+        f"({build_s:.1f} s)")
     pool.close()
     pool.join()
     warm_profiler(device)
@@ -6798,9 +7034,10 @@ def main() -> None:
         serving_plane_phases(device, tmp, smi_line)
         # phases 22a to 22c: the scoring tiers, cold start, the commands
         artifact_tier_phases(device, tmp, smi_line)
-        # phases 22d to 22f: the views, detached jobs, tiering
+        # phases 22d to 22f: the views, detached jobs, tiering; 22h, the
+        # fleet command, beside 22e and 22f
         operator_phases(device, tmp, smi_line)
-        # phases 22g and 22h: the serving fleet
+        # phase 22g: the serving fleet in this process
         fleet_phases(device, tmp, smi_line)
         # phases 23 and 24: data-, vocab-, tensor-, sequence- and
         # pipeline-parallel training on torch.distributed
@@ -6808,6 +7045,10 @@ def main() -> None:
         # phase 25, the pod, ran beside 8d (cli_phases)
         # phases 26a to 26c: the operator's tools and the JVM binding
         tools_phases(device, tmp, smi_line)
+        # phase 27: the kernels' selftest under compute-sanitizer, and
+        # under the guard-band allocator with repeated launches
+        sanitizer_phase(tmp, smi_line)
+        lap("27 sanitizers")
 
     missing = [kr["name"] for kr in kernels if not kr.get("launches")]
     if missing:

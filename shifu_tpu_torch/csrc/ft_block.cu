@@ -75,6 +75,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <utility>
+
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -764,18 +766,43 @@ __global__ void __launch_bounds__(32 * kMTiles * NH, 1)
 using KernelFn = void (*)(const float*, float*, Params, int, int, int, int,
                           int, int, float, bool);
 
-// two warps an m-tile where their registers fit (KS <= 4: 128 a thread)
+// The build.  The 24 instantiations take most of the kernels' build time,
+// so ops/_build.py compiles this file in SHIFU_BUILD_PARTS units at once
+// (its PARTS), unit p with -DSHIFU_BUILD_PART=p: a unit instantiates the
+// kernels of the KS values of its part only, part p > 0 hands them to
+// part 0 through ft_block_pick_part<p>, and part 0 holds the entry points.
+// Without the macros one unit holds everything (kernel_ab.py builds a
+// version so).  Each instantiation compiles to the same code either way.
+#ifdef SHIFU_BUILD_PARTS
+constexpr int kParts = SHIFU_BUILD_PARTS;
+constexpr int kPart = SHIFU_BUILD_PART;
+#else
+constexpr int kParts = 1;
+constexpr int kPart = 0;
+#endif
+static_assert(kParts >= 1 && kParts <= 8 && kPart >= 0 && kPart < kParts,
+              "SHIFU_BUILD_PART in [0, SHIFU_BUILD_PARTS), at most 8 parts");
+constexpr int part_of(int ks) { return (ks - 1) * kParts / 8; }
+constexpr bool builds(int ks) { return part_of(ks) == kPart; }
+
+// two warps an m-tile where their registers fit (KS <= 4: 128 a thread);
+// null where another part of the build instantiates KS
 template <int KS>
 KernelFn pick_dh(int dh) {
-  constexpr int NH = KS <= 4 ? 2 : 1;
-  if (dh == 8) return ft_block_kernel<KS, 8, NH>;
-  if (dh == 16) return ft_block_kernel<KS, 16, NH>;
-  return ft_block_kernel<KS, 0, NH>;
+  if constexpr (!builds(KS)) {
+    return nullptr;
+  } else {
+    constexpr int NH = KS <= 4 ? 2 : 1;
+    if (dh == 8) return ft_block_kernel<KS, 8, NH>;
+    if (dh == 16) return ft_block_kernel<KS, 16, NH>;
+    return ft_block_kernel<KS, 0, NH>;
+  }
 }
 
 int warps_an_mtile(int D) { return round16(D) / 16 <= 4 ? 2 : 1; }
 
-KernelFn pick(int D, int dh) {
+// this unit's kernel for (D, dh)
+KernelFn pick_here(int D, int dh) {
   switch (round16(D) / 16) {
     case 1: return pick_dh<1>(dh);
     case 2: return pick_dh<2>(dh);
@@ -805,6 +832,41 @@ int sm_count() {
       n = 132;
   }
   return n;
+}
+
+}  // namespace
+
+// the kernel for (D, dh) of part P, defined in the unit that builds it
+template <int P>
+void* ft_block_pick_part(int D, int dh);
+
+#if defined(SHIFU_BUILD_PART) && SHIFU_BUILD_PART > 0
+
+// a part other than 0: its kernels, for part 0's entry point
+template <int P>
+void* ft_block_pick_part(int D, int dh) {
+  return reinterpret_cast<void*>(pick_here(D, dh));
+}
+template void* ft_block_pick_part<SHIFU_BUILD_PART>(int D, int dh);
+
+#else
+
+namespace {
+
+// parts 1 to kParts - 1: the one numbered p
+template <int... P>
+KernelFn pick_part(int p, int D, int dh, std::integer_sequence<int, P...>) {
+  void* fn = nullptr;
+  ((p == P + 1 ? (fn = ft_block_pick_part<P + 1>(D, dh)) : nullptr), ...);
+  return reinterpret_cast<KernelFn>(fn);
+}
+
+// the kernel for (D, dh), from the part of the build that holds it
+KernelFn pick(int D, int dh) {
+  const int p = part_of(round16(D) / 16);
+  return p == kPart ? pick_here(D, dh)
+                    : pick_part(p, D, dh,
+                                std::make_integer_sequence<int, kParts - 1>{});
 }
 
 }  // namespace
@@ -861,3 +923,5 @@ const char* ft_block_error_string(int err) {
 }
 
 }  // extern "C"
+
+#endif  // SHIFU_BUILD_PART > 0

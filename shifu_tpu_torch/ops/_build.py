@@ -10,6 +10,13 @@ source that includes them).  A failed build raises with nvcc's stderr.
 Nothing is built when this module is imported; `load(name)` builds on the
 first call and `build_all()` starts one nvcc per source, all at once.
 `adopt(name, path)` loads a library an AOT pack carries instead.
+`build_tool(name)` builds `csrc/tools/<name>.cu`, host code of the
+kernels' selftest (ops/selftest.py), which is no kernel and not among
+`sources()`.
+
+Every source is compiled with -lineinfo, which maps each SASS instruction
+to its source line for a report (compute-sanitizer's, a profiler's) and
+changes no generated code.
 """
 
 from __future__ import annotations
@@ -25,9 +32,17 @@ from typing import Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
+TOOLS = os.path.join(CSRC, "tools")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+# sources compiled in parts, one `nvcc -c -DSHIFU_BUILD_PARTS=n
+# -DSHIFU_BUILD_PART=p` a part, started with the other sources, then linked
+# into the one library (each part instantiates some of the source's
+# kernels; csrc/ft_block.cu says how)
+PARTS = {"ft_block": 4}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -76,29 +91,55 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{source_hash(name)}.so")
 
 
-def _start(name: str) -> Optional[tuple[subprocess.Popen, str, str]]:
-    """Start nvcc for `name` unless its library is current; returns the
-    process, the temporary output and the final path."""
-    target = library_path(name)
+def _start(name: str, src: Optional[str] = None, target: Optional[str] = None
+           ) -> Optional[tuple[list, str, str]]:
+    """Start nvcc for `name` (`src` into `target`, by default the kernel's
+    source and library; one process a part for the sources in PARTS)
+    unless its output is current; returns the processes, the temporary
+    output and the final path."""
+    target = target or library_path(name)
     if os.path.exists(target):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    return proc, tmp, target
+    parts = PARTS.get(name, 0) if src is None else 0
+    src = src or os.path.join(CSRC, f"{name}.cu")
+    if parts:
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        cmds = [[_nvcc(), *flags, f"-DSHIFU_BUILD_PARTS={parts}",
+                 f"-DSHIFU_BUILD_PART={p}", "-c", "-o", f"{tmp}.{p}.o", src]
+                for p in range(parts)]
+    else:
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-o", tmp, src]]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    return procs, tmp, target
 
 
 def _finish(name: str, started) -> None:
-    proc, tmp, target = started
-    out, err = proc.communicate()
-    build_logs[name] = (out or "") + (err or "")
-    if proc.returncode != 0:
+    procs, tmp, target = started
+    outs = [p.communicate() for p in procs]
+    build_logs[name] = "".join((o or "") + (e or "") for o, e in outs)
+    errors = [f"nvcc failed on {os.path.relpath(p.args[-1], _PKG)} (exit "
+              f"{p.returncode}):\n{e}" for p, (_o, e) in zip(procs, outs)
+              if p.returncode != 0]
+    objs = [p.args[p.args.index("-o") + 1] for p in procs]
+    if len(procs) > 1:
+        if not errors:  # the parts into the library
+            link = subprocess.run([_nvcc(), "-shared", "-Xcompiler", "-fPIC",
+                                   "-o", tmp, *objs], capture_output=True,
+                                  text=True)
+            if link.returncode != 0:
+                errors.append(f"nvcc failed to link {name}'s parts (exit "
+                              f"{link.returncode}):\n{link.stderr}")
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    if errors:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise KernelBuildError(
-            f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{err}")
+        raise KernelBuildError("\n".join(errors))
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or none
 
 
@@ -118,6 +159,22 @@ def build_all(names: Optional[list[str]] = None) -> float:
         if errors:
             raise KernelBuildError("\n".join(errors))
     return time.perf_counter() - t0
+
+
+def build_tool(name: str) -> str:
+    """Build `csrc/tools/<name>.cu` into `_build/lib<name>-<hash>.so`
+    unless it is current (the hash over its source and the flags); returns
+    its path."""
+    src = os.path.join(TOOLS, f"{name}.cu")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    with open(src, "rb") as f:
+        h.update(f.read())
+    target = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    with _lock:
+        started = _start(name, src, target)
+        if started is not None:
+            _finish(name, started)
+    return target
 
 
 def adopt(name: str, path: str) -> ctypes.CDLL:

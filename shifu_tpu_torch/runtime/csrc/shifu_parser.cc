@@ -681,7 +681,8 @@ int64_t shifu_count_rows(const char* path) {
 
 #ifdef SHIFU_SELFTEST_MAIN
 // Sanitizer self-test entry: built as an executable with
-// -fsanitize=address,undefined by tests/test_sanitizers.py and run directly
+// -fsanitize=address,undefined by tests/test_torch_sanitizers.py (through
+// runtime/nativelib.build_selftest) and run directly
 // — memory/UB coverage the reference never had (SURVEY.md §5.2: none).
 // Exercises the multithreaded chunked parse, the ragged fallback, blank
 // lines, bad cells, and the free path.
