@@ -6260,6 +6260,17 @@ def pipe_phase(device, tmp: str, out_p: str, smi_line: str) -> None:
 
 POD_EPOCHS = 2
 POD_TIMEOUT_S = 300
+# 25d, the unbalanced one-epoch pod: host 1's one part holds 3/4 of a part
+# of phase 8's, written for the phase; the global batch is cut so that a
+# streamed round (32 batches a host) fits in it
+POD_SMALL_ROWS = 24_576
+POD_UNBALANCED_BATCH = 1024
+UNTRAINED = re.compile(r"streamed epoch left (\d+) of this host's rows "
+                       r"untrained \(the gang stops when the smallest "
+                       r"shard runs dry\) and no later epoch will train "
+                       r"them — rebalance file shards or run more epochs")
+STREAM_CHUNK = re.compile(r"Streaming first epoch: .*\(batch (\d+), "
+                          r"(\d+) batches/chunk\)")
 # the children's sitecustomize: before every chaos probe (the loop's epoch
 # starts, a chaos exit among them) and at exit, each process that trains
 # writes its kernel counts to <CHIP_SMOKE_POD_COUNTS>/<pid>.json
@@ -6352,12 +6363,71 @@ def check_pod_launches(label: str, counts: list, want: int,
              "batches) and no other kernel")
 
 
+def unbalanced_pod_data(tmp: str, data_dir: str) -> str:
+    """25d's data: phase 8's parts 0 and 1 as parts 0 and 2, and a part 1
+    of POD_SMALL_ROWS rows of the same schema written here, so that the
+    round-robin by index gives host 0 two parts and host 1 the small
+    one."""
+    import shutil
+
+    from shifu_tpu_torch.data import synthetic
+    schema = synthetic.make_schema(num_features=30)
+    out = f"{tmp}/pod_d_data"
+    os.makedirs(out)
+    shutil.copy(f"{data_dir}/part-00000.gz", f"{out}/part-00000.gz")
+    shutil.copy(f"{data_dir}/part-00001.gz", f"{out}/part-00002.gz")
+    (path,) = synthetic.write_files(
+        synthetic.make_rows(POD_SMALL_ROWS, schema, seed=SEED + 25),
+        f"{out}.w", num_files=1)
+    os.replace(path, f"{out}/part-00001.gz")
+    os.rmdir(f"{out}.w")
+    return out
+
+
+def unbalanced_pod_check(run: dict, rows: list, tmp: str) -> tuple:
+    """25d: the streamed epoch ran the rounds the small host could fill
+    (its batches per round read off the chief's "Streaming first epoch"
+    line), and each host with rows left over said how many, in JAX's
+    sentence: host 0 on the launcher's console, host 1 in the launcher's
+    log of that host.  `rows` holds each host's (train, valid) rows, from
+    the port's StreamingLoader on that host's files.  Returns (rounds,
+    batches a round, local batch, the untrained rows of each host)."""
+    chunk = STREAM_CHUNK.search(run["stdout"])
+    if chunk is None:
+        fail(f"25d: no streamed first epoch in {run['stdout'][-2000:]}")
+    global_bs, per_round = int(chunk.group(1)), int(chunk.group(2))
+    local_bs = global_bs // 2
+    rounds = min(tr // (per_round * local_bs) for tr, _ in rows)
+    if rounds < 1:
+        fail(f"25d: hosts' train rows {rows} fill no round of {per_round} "
+             f"batches of {local_bs}: the unbalanced case needs one")
+    skipped = [tr - rounds * per_round * local_bs for tr, _ in rows]
+    logs = sorted(os.listdir(f"{tmp}/pod_d/logs"))
+    if logs != ["host-0.attempt-1.log", "host-1.attempt-1.log"]:
+        fail(f"25d: host logs {logs}: expected one attempt of two hosts")
+    with open(f"{tmp}/pod_d/logs/host-1.attempt-1.log") as f:
+        host1 = f.read()
+    for host, text in ((0, run["stdout"]), (1, host1)):
+        said = [int(m) for m in UNTRAINED.findall(text)]
+        if said != ([skipped[host]] if skipped[host] > 0 else []):
+            fail(f"25d: host {host} said {said} rows untrained; expected "
+                 f"{skipped[host]} (its train rows {rows[host][0]} less "
+                 f"{rounds} rounds of {per_round} x {local_bs})")
+    if "re-running epoch" in run["stdout"]:
+        fail("25d: the streamed epoch trained no round and re-ran")
+    return rounds, per_round, local_bs, skipped
+
+
 def pod_phases(device, tmp: str, smi_line: str) -> None:
-    """25: the pod on the card, three runs at once on phase 8's 16 gzip
-    parts of the headline MLP (the int8 wire, the staged tier, the cache
-    hot, global batch 65536): 25a `train --hosts local:2`, 25b the same
-    with rank 1 killed at `data.host_shard` in epoch 1, 25c `train
-    --provision` over a fake gcloud and ssh for 1 epoch."""
+    """25: the pod on the card, four runs at once.  25a-25c on phase 8's
+    16 gzip parts of the headline MLP (the int8 wire, the staged tier, the
+    cache hot, global batch 65536): 25a `train --hosts local:2`, 25b the
+    same with rank 1 killed at `data.host_shard` in epoch 1, 25c `train
+    --provision` over a fake gcloud and ssh for 1 epoch.  25d `train
+    --hosts local:2 --epochs 1`, cold (no cache: the first epoch streams)
+    on unbalanced shards (`unbalanced_pod_data`) at global batch
+    POD_UNBALANCED_BATCH: the gang stops when host 1 runs dry, and the
+    hosts say what stays untrained (`unbalanced_pod_check`)."""
     import dataclasses as dc
 
     from shifu_tpu_torch.data import pipeline as pipe
@@ -6388,13 +6458,18 @@ def pod_phases(device, tmp: str, smi_line: str) -> None:
                              "at_epoch": 1, "action": "exit",
                              "exit_code": 23, "scope": "job",
                              "max_times": 1}]}
+    d_data = unbalanced_pod_data(tmp, data_dir)
     runs = {"25a": argv("pod_a", POD_EPOCHS) + ["--hosts", "local:2"],
             "25b": argv("pod_b", POD_EPOCHS) + [
                 "--hosts", "local:2", "--chaos-plan", json.dumps(kill_plan)],
             "25c": argv("pod_c", 1) + [
                 "--provision", "--provision-name", "chip-smoke-pod",
                 "--accelerator-type", "v5litepod-8", "--zone", "us-west4-a",
-                "--coordinator-port", str(free_port())]}
+                "--coordinator-port", str(free_port())],
+            "25d": cli_argv(tmp, d_data, cli_xml(tmp, "pod_d", {}),
+                            f"{tmp}/pod_d", device) + [
+                "--epochs", "1", "--batch-size", str(POD_UNBALANCED_BATCH),
+                "--hosts", "local:2"]}
     procs = {}
     for label, args in runs.items():
         procs[label] = (subprocess.Popen(
@@ -6415,6 +6490,16 @@ def pod_phases(device, tmp: str, smi_line: str) -> None:
     steps = min(tr.num_rows for tr, _ in shards) // local_bs
     evals = max(-(-va.num_rows // local_bs) for _, va in shards)
     del shards
+    # 25d's hosts' rows, counted as the streamed epoch counts them
+    job_d = cli._assemble_job(cli.build_parser().parse_args(
+        runs["25d"]), write_files=False)[0]
+    d_rows = []
+    for h in range(2):
+        loader = pipe.StreamingLoader(job_d.schema, job_d.data,
+                                      feature_dtype=fd, host_index=h,
+                                      num_hosts=2)
+        d_rows.append((loader.train_rows_total(),
+                       loader.valid_dataset().num_rows))
     outs = {}
     for label, (proc, t0) in procs.items():
         try:
@@ -6440,6 +6525,14 @@ def pod_phases(device, tmp: str, smi_line: str) -> None:
                        2)
     check_pod_launches("25b", outs["25b"]["counts"], per_epoch, 4)
     check_pod_launches("25c", outs["25c"]["counts"], per_epoch, 2)
+    rounds, per_round, d_bs, skipped = unbalanced_pod_check(
+        outs["25d"], d_rows, tmp)
+    # a pod's eval batch: max(global batch, 4096), split over the hosts
+    # (train/loop.evaluate)
+    d_eval_bs = max(POD_UNBALANCED_BATCH, 4096) // 2
+    d_evals = max(-(-va // d_eval_bs) for _, va in d_rows)
+    check_pod_launches("25d", outs["25d"]["counts"],
+                       rounds * per_round + d_evals, 2)
     reports = {}
     for label, run in outs.items():
         dcn = [e for e in run["journal"] if e["kind"] == "dcn_placement"]
@@ -6494,6 +6587,13 @@ def pod_phases(device, tmp: str, smi_line: str) -> None:
         f"gcloud's {len(calls)} calls from create to delete, the marker "
         f"there during the run and gone after) "
         f"{outs['25c']['wall_s']:.1f} s, samples/s {samples(outs['25c'])}; "
+        f"25d (one epoch, cold, host 0 two parts, host 1 "
+        f"{POD_SMALL_ROWS} rows; train/valid rows {d_rows}) streamed "
+        f"{rounds} round(s) of {per_round} batches of {d_bs} rows a rank "
+        f"and stopped when host 1 ran dry; untrained rows said: host 0 "
+        f"{skipped[0]} on the console, host 1 {skipped[1]} in its log; #4 "
+        f"{rounds * per_round} steps + {d_evals} evals a rank, "
+        f"{outs['25d']['wall_s']:.1f} s; "
         f"pod-verify PASS on each; phase {time.perf_counter() - t_phase:.1f}"
         f" s [{smi_line}]")
 
@@ -6892,6 +6992,86 @@ def sanitizer_phase(tmp: str, smi_line: str) -> None:
             f"fill, shared-memory races, barrier misuse.  {smi_line}")
 
 
+# -- phase 28: the JAX package's public surface on the card -------------------
+
+SURFACE_TYPE = "chip_smoke_ft"   # 28's user model type, registered for it
+
+
+def public_surface_phase(device, tmp: str, smi_line: str) -> None:
+    """28: the port's package-level names (`models.register`,
+    `models.build_model`, `export.build_program`, `export.save_artifact`,
+    `runtime.load_engine`).  A user model type registered for the phase
+    builds the serving FT rung with `fused_block="on"`; `build_model`
+    builds it on the card and on the CPU from one seed.  One forward on the
+    card launches #1 once a block and #5 once, and no other kernel; its
+    scores are within SERVE_ATOL of the CPU build's, saved as an
+    ft_transformer artifact (whose program is `build_program`'s) and
+    scored by `load_engine(..., "torch", device="cpu")`.  The registration
+    is removed after, and the type is then unknown."""
+    import torch
+
+    from shifu_tpu_torch.export import build_program, save_artifact
+    from shifu_tpu_torch.models import (FTTransformer, build_model,
+                                        field_layout, register, registry)
+    from shifu_tpu_torch.runtime import load_engine
+
+    t0 = time.perf_counter()
+    schema = serving_schema()
+    spec = ft_serving_spec("on")
+
+    @register(SURFACE_TYPE)
+    def _user_ft(user_spec, user_schema, generator, mesh=None):
+        return FTTransformer(
+            dataclasses.replace(user_spec, model_type="ft_transformer"),
+            field_layout(user_schema), generator)
+
+    user = dataclasses.replace(spec, model_type=SURFACE_TYPE)
+    try:
+        model, cpu_model = (build_model(
+            user, schema, device=d,
+            generator=torch.Generator().manual_seed(SEED + 28))
+            for d in (device, "cpu"))
+    finally:
+        del registry._BUILDERS[SURFACE_TYPE]
+    try:
+        build_model(user, schema, device="cpu")
+        fail(f"28: {SURFACE_TYPE!r} still builds after its registration "
+             "was removed")
+    except KeyError as e:
+        if f"unknown model_type {SURFACE_TYPE!r}; available:" not in str(e):
+            fail(f"28: the unknown type raised {e!r}")
+    x = make_rows(PROBE_ROWS, schema, np.random.default_rng(SEED + 28))
+    reset_launches()
+    with torch.inference_mode():
+        got = torch.sigmoid(model(torch.from_numpy(x).to(device)).float())
+        got = got.cpu().numpy()
+    launches = read_launches()
+    want = {"ft_block": spec.num_layers, "embedding_lookup": 1}
+    if launches != {k: want.get(k, 0) for k in launches}:
+        fail(f"28: one forward of the registered model launched {launches}; "
+             f"expected {want} and no other kernel")
+    art = save_artifact(cpu_model, spec, schema, f"{tmp}/surface_ft")
+    with open(f"{art}/topology.json") as f:
+        written = json.load(f)["program"]
+    if json.loads(json.dumps(build_program(spec, schema))) != written:
+        fail("28: export.build_program differs from the artifact's program")
+    ref = load_engine(art, "torch", device="cpu").compute_batch(x)
+    err = float(np.max(np.abs(got - ref)))
+    if not (got.shape == ref.shape == (PROBE_ROWS, 1)
+            and np.isfinite(got).all() and err <= SERVE_ATOL):
+        fail(f"28: the card's scores {got.shape} are {err:.3e} from the CPU "
+             f"build's {ref.shape} (SERVE_ATOL {SERVE_ATOL})")
+    say(f"28 public surface: {SURFACE_TYPE!r} registered through "
+        f"shifu_tpu_torch.models.register (the FT rung, fused_block='on'), "
+        f"built by models.build_model on {device}; one forward of "
+        f"{PROBE_ROWS} rows launched {launches['ft_block']} x #1 and "
+        f"{launches['embedding_lookup']} x #5; scores {err:.3e} from the "
+        f"CPU build's through runtime.load_engine (SERVE_ATOL {SERVE_ATOL}); "
+        f"export.build_program equals the artifact's program; the type is "
+        f"unknown again once removed; {time.perf_counter() - t0:.1f} s "
+        f"[{smi_line}]")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -7049,6 +7229,9 @@ def main() -> None:
         # under the guard-band allocator with repeated launches
         sanitizer_phase(tmp, smi_line)
         lap("27 sanitizers")
+        # phase 28: the public surface, a user model type on the card
+        public_surface_phase(device, tmp, smi_line)
+        lap("28 public surface")
 
     missing = [kr["name"] for kr in kernels if not kr.get("launches")]
     if missing:

@@ -848,6 +848,16 @@ class StreamingLoader:
         thread: the generator exits at its next poll."""
         self._abort = True
 
+    def train_rows_total(self) -> int:
+        """The train rows this host parsed: drains the background parse
+        and counts the split masks, assembling no arrays (what a streamed
+        epoch that ended early left untrained is this less the rows it
+        trained)."""
+        if self._datasets is not None:
+            return self._datasets[0].num_rows
+        self._drain()
+        return int(sum(int((~m).sum()) for _, m in self._results))
+
     def valid_dataset(self) -> TabularDataset:
         """The valid partition only (a few % of the rows), for the
         streamed epoch's eval, without the full train assembly."""

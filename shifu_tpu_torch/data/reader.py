@@ -24,7 +24,7 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Sequence
+from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -287,6 +287,25 @@ def list_data_files(root: str) -> list[str]:
     lists itself."""
     from . import fsio
     return fsio.list_files(root)
+
+
+def shard_paths(paths: Sequence[str], shard_index: int,
+                num_shards: int) -> list[str]:
+    """Round-robin file paths across hosts: path i goes to shard
+    i % num_shards (the reference's per-worker file split, without its
+    "#files must be >= #workers" failure: a shard with no files is
+    empty)."""
+    return [p for i, p in enumerate(paths) if i % num_shards == shard_index]
+
+
+def iter_file_rows(paths: Iterable[str], delimiter: str = "|",
+                   chunk_rows: int = 262144) -> Iterator[np.ndarray]:
+    """(chunk_rows, C) arrays of each file in turn, one file parsed at a
+    time, so the whole dataset is never held at once."""
+    for path in paths:
+        arr = read_file(path, delimiter)
+        for start in range(0, arr.shape[0], chunk_rows):
+            yield arr[start:start + chunk_rows]
 
 
 def project_columns(rows: np.ndarray, schema: DataSchema,

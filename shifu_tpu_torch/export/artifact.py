@@ -195,6 +195,16 @@ def write_export_program(export_dir: str) -> str:
     return path
 
 
+def build_program(spec: ModelSpec, schema: Optional[DataSchema] = None
+                  ) -> Optional[list[dict[str, Any]]]:
+    """The artifact's op-list program (format v2, export/program.py) for
+    every ladder model type, ending in the scoring sigmoid; None for a
+    type the lowering does not know, and for a layout-dependent model
+    without its schema."""
+    from .program import build_program_v2
+    return build_program_v2(spec, schema)
+
+
 def save_artifact(model: nn.Module, spec: ModelSpec, schema: DataSchema,
                   export_dir: str, algorithm: str = "tensorflow",
                   baseline_profile: Optional[dict] = None,
@@ -215,7 +225,7 @@ def save_artifact(model: nn.Module, spec: ModelSpec, schema: DataSchema,
     per-block artifact, as in JAX: the same weights, program and
     `scoring.pt2` as a one-device model."""
     from ..runtime.fleet import write_sync_manifest
-    from .program import PROGRAM_VERSION, build_program_v2, weight_keys
+    from .program import PROGRAM_VERSION, weight_keys
 
     os.makedirs(export_dir, exist_ok=True)
     flat = flat_params(model)
@@ -226,7 +236,7 @@ def save_artifact(model: nn.Module, spec: ModelSpec, schema: DataSchema,
             spec).items()}
         spec = dataclasses.replace(spec, pipeline_stages=1,
                                    pipeline_microbatches=0)
-    program = build_program_v2(spec, schema)
+    program = build_program(spec, schema)
     if program is not None:
         missing = [k for k in weight_keys(program) if k not in flat]
         if missing:

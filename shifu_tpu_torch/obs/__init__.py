@@ -12,14 +12,16 @@ is a no-op, so instrumented call sites never need to know whether
 telemetry is on.  The operator's views read what these write: `render`
 (`metrics`, `profile`, `trace`, `top`, `drift`), `timeline` and
 `aggregate` (with the pod's per-epoch cross-host gather, which finds
-torch where a process group is up); they are imported by the commands
-that use them, and import no torch.
+torch where a process group is up); they import no torch.  The JAX
+package's `introspect` has no counterpart: its FLOP counts are `flops`
+here, and nothing compiles in an epoch.
 """
 
 from __future__ import annotations
 
-from . import (devprof, drift, flops, goodput, journal,  # noqa: F401
-               metrics, sketch, slo, spans, tracefmt, tracing)
+from . import (aggregate, devprof, drift, flops, goodput,  # noqa: F401
+               journal, metrics, render, sketch, slo, spans, timeline,
+               tracefmt, tracing)
 from ._sinks import (ENV_METRICS_DIR, SCRAPE_FILE, configure,  # noqa: F401
                      configure_from_env, event, flush, get_journal,
                      metrics_dir, reset_for_tests, resolve_metrics_dir,

@@ -3,10 +3,10 @@ per-host skew table of a pod, the digest agreement rule, the pod's ingest
 ledger, and the multi-daemon serving rollup behind `top` over N dirs.
 
 Each host of a pod encodes a small summary of its telemetry, ONE
-all-gather moves them all (`gather_host_summaries`: torch.distributed's
-`all_gather_object` over the mesh's gloo control group, so an NCCL world
-moves no pickle through the card), and the chief prints the slowest-first
-line and journals `host_skew` (`epoch_skew`, once per epoch).  A host is a
+all-gather moves them all (`gather_host_summaries`: one fixed-size byte
+row a host, through torch.distributed's `all_gather` over the mesh's gloo
+control group), and the chief prints the slowest-first line and journals
+`host_skew` (`epoch_skew`, once per epoch).  A host is a
 JAX process: with several ranks on a host, the chief keeps one row per
 host, its first rank's, with `rank` the host's index.
 
@@ -19,6 +19,10 @@ from __future__ import annotations
 import os
 import sys
 from typing import Optional
+
+# one fixed-size row per host: the summary's JSON padded with NULs, so the
+# gathered rows are rectangular; 4 KiB holds a generous summary
+DEFAULT_MAX_BYTES = 4096
 
 
 def _dist():
@@ -84,17 +88,41 @@ def skew_line(epoch: int, rows: list[dict],
             + " | ".join(_one(r) for r in ordered))
 
 
-def gather_host_summaries(summary: dict, group=None) -> list[dict]:
+def gather_host_summaries(summary: dict,
+                          max_bytes: int = DEFAULT_MAX_BYTES,
+                          group=None) -> list[dict]:
     """Every rank's summary, in rank order, on every rank: one
-    `all_gather_object` over `group` (the mesh's gloo control group).
-    Alone: [summary], no collective."""
+    `all_gather` over `group` (a gloo group: the mesh's control group) of
+    a `max_bytes` uint8 row per rank, the summary's JSON padded with NULs.
+    A summary whose JSON outgrows the row is sent as `{host, rank,
+    "_truncated": true}` (itself cut to `max_bytes`), and a row that does
+    not decode comes back as `{"rank": r, "_undecodable": true}`, so that
+    one host's oversized summary never desyncs the gather.  Alone:
+    [summary], no collective."""
     dist = _dist()
     if dist is None or dist.get_world_size(group) <= 1:
         return [dict(summary)]
-    rows: list = [None] * dist.get_world_size(group)
-    dist.all_gather_object(rows, dict(summary), group=group)
+    import json
+
+    import torch
+    payload = json.dumps(summary).encode()
+    if len(payload) > max_bytes:
+        payload = json.dumps({"host": summary.get("host", "?"),
+                              "rank": summary.get("rank", -1),
+                              "_truncated": True}).encode()[:max_bytes]
+    row = torch.zeros(max_bytes, dtype=torch.uint8)
+    row[:len(payload)] = torch.frombuffer(bytearray(payload),
+                                          dtype=torch.uint8)
+    rows = [torch.empty_like(row)
+            for _ in range(dist.get_world_size(group))]
+    dist.all_gather(rows, row, group=group)
     out = []
-    for r, rec in enumerate(rows):
+    for r, got in enumerate(rows):
+        raw = got.numpy().tobytes().rstrip(b"\0")
+        try:
+            rec = json.loads(raw)
+        except ValueError:
+            rec = {"rank": r, "_undecodable": True}
         if isinstance(rec, dict):
             rec.setdefault("rank", r)
             out.append(rec)
@@ -136,7 +164,8 @@ def epoch_skew(epoch: int, input_seconds: float, epoch_seconds: float,
     except Exception:
         pass
     rows = _one_per_host(gather_host_summaries(host_summary(
-        input_seconds, epoch_seconds, valid_seconds, **fields), group))
+        input_seconds, epoch_seconds, valid_seconds, **fields),
+        group=group))
     if dist.get_rank() != 0:
         return None
     if console is not None:

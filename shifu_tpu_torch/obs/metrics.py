@@ -6,8 +6,8 @@ Prometheus text-format scrape file (`metrics.prom`, written atomically
 beside the journal).  The serving plane bins its per-request latencies in
 bulk (`Histogram.merge_counts`), windows the cumulative histograms by
 differencing `counts()` snapshots and reads quantiles off them
-(`quantile_from_counts`).  The JAX module's structured snapshots serve its
-cross-host aggregation, which the port has not ported yet.
+(`quantile_from_counts`).  `MetricsRegistry.snapshot` gives the
+registry as one JSON-safe dict.
 
 Dependency-free by design: stdlib + nothing.  Instruments are cheap enough
 for per-batch call sites (one dict update under a lock); per-row call sites
@@ -84,99 +84,10 @@ class Counter:
             out.append(f"{self.name}{_fmt_labels(key)} "
                        f"{_fmt_value(self._values[key])}")
 
-
-class Gauge(Counter):
-    """Last-write-wins value; `inc` may go either direction."""
-
-    kind = "gauge"
-
-    def set(self, value: float, **labels) -> None:
-        with self._lock:
-            self._values[_label_key(labels)] = float(value)
-
-    def inc(self, amount: float = 1.0, **labels) -> None:
-        key = _label_key(labels)
-        with self._lock:
-            self._values[key] = self._values.get(key, 0.0) + amount
-
-
-class Histogram:
-    """Cumulative-bucket histogram (Prometheus semantics) per label set."""
-
-    kind = "histogram"
-
-    def __init__(self, name: str, help: str, lock: threading.RLock,
-                 buckets: Iterable[float] = DEFAULT_BUCKETS):
-        self.name = name
-        self.help = help
-        self.buckets = tuple(sorted(buckets))
-        self._lock = lock
-        # key -> [counts per bucket + inf, sum, count]
-        self._series: dict[tuple, list] = {}
-
-    def observe(self, value: float, **labels) -> None:
-        key = _label_key(labels)
-        with self._lock:
-            s = self._series.get(key)
-            if s is None:
-                s = self._series[key] = [[0] * (len(self.buckets) + 1),
-                                         0.0, 0]
-            counts, _sum, _n = s
-            for i, bound in enumerate(self.buckets):
-                if value <= bound:
-                    counts[i] += 1
-                    break
-            else:
-                counts[-1] += 1
-            s[1] = _sum + float(value)
-            s[2] = _n + 1
-
-    def count(self, **labels) -> int:
-        with self._lock:
-            s = self._series.get(_label_key(labels))
-            return 0 if s is None else int(s[2])
-
-    def sum(self, **labels) -> float:
-        with self._lock:
-            s = self._series.get(_label_key(labels))
-            return 0.0 if s is None else float(s[1])
-
-    def merge_counts(self, counts, total: float, n: int, **labels) -> None:
-        """Merge a pre-bucketed batch (len(buckets)+1 counts in bound
-        order, +Inf last) in one lock acquisition: the bulk path for the
-        serving daemon's per-request latencies, binned with numpy by the
-        caller."""
-        counts = list(counts)
-        if len(counts) != len(self.buckets) + 1:
-            raise ValueError(
-                f"merge_counts: got {len(counts)} buckets, histogram "
-                f"{self.name} has {len(self.buckets) + 1}")
-        key = _label_key(labels)
-        with self._lock:
-            s = self._series.get(key)
-            if s is None:
-                s = self._series[key] = [[0] * (len(self.buckets) + 1),
-                                         0.0, 0]
-            for i, c in enumerate(counts):
-                if c:
-                    s[0][i] += int(c)
-            s[1] += float(total)
-            s[2] += int(n)
-
-    def counts(self, **labels) -> Optional[tuple[list, float, int]]:
-        """Snapshot of one series: (per-bucket counts incl. +Inf, sum,
-        n), or None when empty; two snapshots difference into a window."""
-        key = _label_key(labels)
-        with self._lock:
-            s = self._series.get(key)
-            if s is None:
-                return None
-            return list(s[0]), float(s[1]), int(s[2])
-
-    def _render(self, out: list[str]) -> None:
-        for key in sorted(self._values):
-            out.append(f"{self.name}{_fmt_labels(key)} "
-                       f"{_fmt_value(self._values[key])}")
+    def _snapshot(self) -> dict:
+        return {"type": self.kind,
+                "values": {";".join("=".join(kv) for kv in k): v
+                           for k, v in self._values.items()}}
 
 
 class Gauge(Counter):
@@ -224,6 +135,24 @@ class Histogram:
                 counts[-1] += 1
             s[1] = _sum + float(value)
             s[2] = _n + 1
+
+    def observe_many(self, values, **labels) -> None:
+        """Observe every value of `values` in one lock acquisition: each
+        binned by bisect into the bucket `observe` would pick, then
+        merged.  Callers holding numpy arrays bin with searchsorted and
+        call merge_counts instead."""
+        import bisect
+
+        counts = [0] * (len(self.buckets) + 1)
+        total = 0.0
+        n = 0
+        for v in values:
+            v = float(v)
+            # the first bound >= v; len(buckets) is +Inf
+            counts[bisect.bisect_left(self.buckets, v)] += 1
+            total += v
+            n += 1
+        self.merge_counts(counts, total, n, **labels)
 
     def count(self, **labels) -> int:
         with self._lock:
@@ -291,6 +220,12 @@ class Histogram:
             out.append(f"{self.name}_sum{_fmt_labels(key)} "
                        f"{_fmt_value(total)}")
             out.append(f"{self.name}_count{_fmt_labels(key)} {n}")
+
+    def _snapshot(self) -> dict:
+        return {"type": self.kind,
+                "values": {";".join("=".join(kv) for kv in k):
+                           {"sum": s[1], "count": s[2]}
+                           for k, s in self._series.items()}}
 
 
 def quantile_from_counts(buckets, counts, n: int, q: float
@@ -363,6 +298,13 @@ class MetricsRegistry:
                 out.append(f"# TYPE {name} {m.kind}")
                 m._render(out)
         return "\n".join(out) + ("\n" if out else "")
+
+    def snapshot(self) -> dict:
+        """{name: {"type", "values"}}, JSON-safe: a counter's or gauge's
+        value per label set ("k=v;k=v"), a histogram's sum and count."""
+        with self._lock:
+            return {name: m._snapshot()
+                    for name, m in sorted(self._metrics.items())}
 
     def clear(self) -> None:
         with self._lock:

@@ -1,5 +1,21 @@
 """The port's ops: the hand-written kernels' wrappers with their plain
-twins, and the model-level math around them."""
+twins, and the model-level math around them.  The JAX package's exports
+load on first use.  One name differs: `ops.flash_attention` is the module
+of kernels #7 and #8 (the JAX package's `pallas_attention`), and the
+function is `ops.flash_attention.flash_attention`."""
+
+from .._lazy import exports
+
+__getattr__, _lazy_all = exports(__name__, {
+    "activations": ("get_activation", "leaky_relu"),
+    "initializers": ("bias_init", "xavier_bias", "xavier_uniform"),
+    "losses": ("bce", "get_loss", "l2_penalty", "multitask_loss",
+               "weighted_bce", "weighted_mse"),
+    "metrics": ("auc", "weighted_error"),
+    "ft_block": ("fused_block_engaged", "fused_transformer_block"),
+    "int8_matmul": ("int8_matmul_dequant",),
+})
+__all__ = [*_lazy_all, "launch_counters", "register_operators"]
 
 
 def register_operators() -> None:

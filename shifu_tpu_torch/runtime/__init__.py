@@ -1,4 +1,5 @@
-"""The port's runtime: the scoring daemon and its engines (`serve`), the
+"""The port's runtime: the scoring daemon and its engines (`serve`:
+`ScoringDaemon`, `ModelRegistry`, `load_engine`, `serve_forever`), the
 wire server (`serve_wire`), the loadtest, the fleet and its router, and
 the native C++ scorer (`native_scorer`), whose entry points the JVM
 binding's build uses are re-exported here as the JAX package's
@@ -10,13 +11,11 @@ ctypes.  They load on first use, so importing a submodule stays cheap.
 
 from __future__ import annotations
 
-_NATIVE = ("MODEL_BIN", "NativeScorer", "build_library", "pack_native")
+from .._lazy import exports
 
-__all__ = list(_NATIVE)
-
-
-def __getattr__(name: str):
-    if name in _NATIVE:
-        from . import native_scorer
-        return getattr(native_scorer, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__getattr__, __all__ = exports(__name__, {
+    "native_scorer": ("MODEL_BIN", "NativeScorer", "build_library",
+                      "pack_native"),
+    "serve": ("ModelRegistry", "ScoringDaemon", "ServeOverload",
+              "load_engine", "serve_forever"),
+})

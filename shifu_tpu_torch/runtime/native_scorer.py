@@ -211,12 +211,12 @@ def pack_native(export_dir: str) -> str:
     return out_path
 
 
-def build_library(out_dir: Optional[str] = None) -> str:
-    """Compile the C++ engine into a shared library (cached by content);
-    returns its path."""
+def build_library(out_dir: Optional[str] = None, force: bool = False) -> str:
+    """Compile the C++ engine into a shared library (cached by content;
+    `force` rebuilds a current one); returns its path."""
     from .nativelib import build_library as _build
     return _build("shifu_scorer.cc", extra_flags=["-pthread"],
-                  out_dir=out_dir)
+                  out_dir=out_dir, force=force)
 
 
 from ..export.scorer import BatchScorer

@@ -102,15 +102,17 @@ def _compile(source_name: str, target: str,
 
 
 def build_library(source_name: str, extra_flags: Sequence[str] = (),
-                  out_dir: Optional[str] = None) -> str:
+                  out_dir: Optional[str] = None,
+                  force: bool = False) -> str:
     """Compile `runtime/csrc/<source_name>` into a cached shared library
-    unless it is current; returns its path.  `extra_flags` follow the
-    source on the command line (link libraries)."""
+    unless it is current (or `force`); returns its path.  `extra_flags`
+    follow the source on the command line (link libraries)."""
     stem = os.path.splitext(source_name)[0]
     target = _target(source_name, (*FLAG_VARIANTS, tuple(extra_flags)),
                      os.path.abspath(out_dir or BUILD_DIR),
                      f"lib{stem}-{_machine_tag()}")
-    return _compile(source_name, target + ".so", FLAG_VARIANTS, extra_flags)
+    return _compile(source_name, target + ".so", FLAG_VARIANTS, extra_flags,
+                    force=force)
 
 
 def build_selftest(source_name: str, sanitize: str = "address,undefined",

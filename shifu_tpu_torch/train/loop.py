@@ -1062,6 +1062,21 @@ def train(job: JobConfig,
     def block_batches(xs) -> int:
         return xs["features"].shape[0]
 
+    def _warn_untrained(skipped: int) -> None:
+        """The last epoch was the streamed one, a round trained (else the
+        epoch re-runs on all rows), and this host's stream outlasted the
+        gang's rounds: say how many of its rows no epoch trains.  A fact
+        about this host, so the first rank of every host says it, the
+        chief on its console, another on its own output (the launcher's
+        log of that host); every other line stays the chief's."""
+        if skipped <= 0 or mesh.rank % max(mesh.size // nhosts, 1):
+            return
+        say = console if chief else (lambda s: print(s, flush=True))
+        say(f"streamed epoch left {skipped} of this host's rows untrained "
+            "(the gang stops when the smallest shard runs dry) and no "
+            "later epoch will train them — rebalance file shards or run "
+            "more epochs")
+
     history: list[EpochMetrics] = []
     # the drift baseline: the feature sketch is built once, the score
     # sketch at every evaluated epoch
@@ -1135,6 +1150,9 @@ def train(job: JobConfig,
                     if multihost:
                         loss_acc, loss_n = _stream_pod_rounds(
                             stream_loader, stream_bs // nhosts)
+                        if loss_n > 0 and epoch + 1 >= job.train.epochs:
+                            _warn_untrained(stream_loader.train_rows_total()
+                                            - loss_n * (stream_bs // nhosts))
                     else:
                         # zero-weight tail padding is exact only for the
                         # weight-gated losses without an L2 term
